@@ -1,0 +1,138 @@
+"""The β-VAE training objective — one function returning the 16-key dict.
+
+Counterpart of ``betavae_tpu/models/losses.py``: per-sample summed
+mse/bce/l1 reconstruction averaged over the batch ``mask``, the optional
+FFL extra, elementwise KL with ``kl_per_dim`` and ``kl_mean``, β mode with
+per-dim free bits, capacity mode ``rec + γ·|kl_mean − C|``, the optional
+``λ·mean(mu²)`` latent regulariser, and the deterministic mode that zeroes
+the KL path.  Every reduction is fp32.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ..config import get, get_config
+from ..ops.ffl import focal_frequency_loss
+
+
+@dataclass(frozen=True)
+class LossSpec:
+    """Static loss configuration."""
+
+    recon_loss_type: str = "mse"          # mse | bce | l1
+    deterministic: bool = False
+    latent_reg_lambda: float = 0.0
+    use_ffl: bool = False
+    ffl_weight: float = 0.0
+    ffl_alpha: float = 1.0
+    use_lpips: bool = False
+    lpips_weight: float = 0.0
+    free_bits_enabled: bool = False
+
+
+def loss_spec_from_config(cfg=None) -> LossSpec:
+    cfg = cfg or get_config()
+    lcfg = get(cfg, "loss", None)
+    mcfg = cfg.model
+    free_bits = float(get(lcfg, "free_bits", 0.0) or 0.0)
+    return LossSpec(
+        recon_loss_type=str(mcfg.reconstruction_loss),
+        deterministic=bool(get(mcfg, "deterministic_overfit", False)),
+        latent_reg_lambda=float(get(mcfg, "latent_reg_lambda", 0.0) or 0.0),
+        use_ffl=bool(get(lcfg, "use_ffl", False)),
+        ffl_weight=float(get(lcfg, "ffl_weight", 0.0) or 0.0),
+        ffl_alpha=float(get(lcfg, "ffl_alpha", 1.0)),
+        use_lpips=bool(get(lcfg, "use_lpips", False)),
+        lpips_weight=float(get(lcfg, "lpips_weight", 0.0) or 0.0),
+        free_bits_enabled=free_bits > 0.0,
+    )
+
+
+def _per_sample_recon(recon, x, kind: str) -> torch.Tensor:
+    """Sum over pixels per sample (fp32)."""
+    r = recon.float()
+    t = x.float()
+    dims = tuple(range(1, x.ndim))
+    if kind == "mse":
+        return ((r - t) ** 2).sum(dim=dims)
+    if kind == "bce":
+        r = r.clamp(1e-12, 1.0 - 1e-12)
+        return (-(t * torch.log(r) + (1.0 - t) * torch.log(1.0 - r))).sum(dim=dims)
+    if kind == "l1":
+        return (r - t).abs().sum(dim=dims)
+    raise ValueError("invalid reconstruction_loss")
+
+
+def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
+                 capacity=None, capacity_weight=None, free_bits=0.0,
+                 mask: Optional[torch.Tensor] = None) -> dict:
+    """``outputs`` is ``(recon, mu, logvar, z, kl_elem)``; ``capacity`` and
+    ``capacity_weight`` both set select capacity mode."""
+    if spec.use_lpips and spec.lpips_weight > 0:
+        raise NotImplementedError("the LPIPS loss is not ported yet")
+    recon, mu, logvar, z, kl_elem = outputs
+    dev = x.device
+    if mask is None:
+        mask = torch.ones(x.shape[0], device=dev)
+    mask = mask.float()
+    msum = torch.clamp_min(mask.sum(), 1.0)
+    zero = torch.zeros((), device=dev)
+
+    base_recon = (_per_sample_recon(recon, x, spec.recon_loss_type)
+                  * mask).sum() / msum
+    ff = zero
+    if spec.use_ffl and spec.ffl_weight > 0:
+        ff = focal_frequency_loss(recon, x, alpha=spec.ffl_alpha) * spec.ffl_weight
+    rec_loss = base_recon + ff
+
+    use_capacity = capacity is not None and capacity_weight is not None
+    if spec.deterministic:
+        kl_per_dim = torch.zeros(mu.shape[1], device=dev)
+        kl_mean = zero
+        kl_effective = zero
+    else:
+        kl32 = kl_elem.float()
+        kl_per_dim = (kl32 * mask[:, None]).sum(dim=0) / msum
+        kl_mean = (kl32.sum(dim=1) * mask).sum() / msum
+        if spec.free_bits_enabled and not use_capacity:
+            kl_effective = torch.clamp(kl_per_dim, min=free_bits).sum()
+        else:
+            kl_effective = kl_per_dim.sum()
+
+    latent_reg = zero
+    if spec.latent_reg_lambda > 0:
+        mu_sq_mean = ((mu.float() ** 2).mean(dim=1) * mask).sum() / msum
+        latent_reg = spec.latent_reg_lambda * mu_sq_mean
+
+    if spec.deterministic:
+        total = rec_loss + latent_reg
+    elif use_capacity:
+        total = rec_loss + capacity_weight * (kl_mean - capacity).abs() + latent_reg
+    else:
+        total = rec_loss + beta * kl_effective + latent_reg
+
+    return {
+        "total": total,
+        "recon": rec_loss,
+        "recon_base": base_recon,
+        "recon_lpips": zero,
+        "recon_ffl": ff,
+        "kl_mean": kl_mean,
+        "kl_per_dim": kl_per_dim,
+        "beta": torch.full((), float(beta), device=dev),
+        "capacity": torch.full(
+            (), float(capacity) if capacity is not None else math.nan,
+            device=dev),
+        "latent_reg": latent_reg,
+        "recon_img": recon,
+        "z": z,
+        "mu": mu,
+        "logvar": logvar,
+        "kl_effective": kl_effective,
+        "mode": "capacity" if use_capacity else "beta",
+    }

@@ -1,0 +1,26 @@
+"""Focal Frequency Loss, fp32, over NCHW.
+
+Counterpart of ``betavae_tpu/ops/ffl.py::focal_frequency_loss``, whose
+matmul DFT is a TPU lowering of ``fft2``: the ortho 2-D FFT of
+``pred − target`` (the DFT is linear, so one transform of the difference),
+squared spectral distance, focal weight ``(dist / mean)^alpha`` with the
+per-channel mean over batch and space, clamped at ``eps``, then the mean.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def focal_frequency_loss(pred: torch.Tensor, target: torch.Tensor,
+                         alpha: float = 1.0, eps: float = 1e-8) -> torch.Tensor:
+    if pred.shape != target.shape:
+        raise ValueError(f"Shape mismatch: pred {tuple(pred.shape)} vs "
+                         f"target {tuple(target.shape)}")
+    with torch.autocast(pred.device.type, enabled=False):
+        diff = pred.float() - target.float()
+        spec = torch.fft.fft2(diff, norm="ortho")
+        dist = spec.real ** 2 + spec.imag ** 2
+        denom = dist.mean(dim=(0, 2, 3), keepdim=True) + eps
+        weight = torch.clamp(dist / denom, min=eps) ** alpha
+        return (weight * dist).mean()

@@ -41,6 +41,10 @@ _FAST_MODULES = {
     "test_pallas_gn", "test_pallas_head", "test_probe_alignment",
     "test_profiling_utils", "test_reference_artifacts", "test_schedules",
     "test_trace", "test_upsample", "test_utils_misc",
+    "test_torch_port_model", "test_torch_port_elbo", "test_torch_port_loss",
+    "test_torch_port_step", "test_torch_port_trainer",
+    "test_torch_port_isolation", "test_torch_port_cuda",
+    "test_torch_port_data",
 }
 
 

@@ -1,0 +1,132 @@
+"""The fused reparam+KL kernel's plain version against the JAX package.
+
+On the CPU the JAX ``fused_reparam_kl`` runs in the TPU interpreter, as
+``tests/test_pallas_elbo.py`` runs it; its PRNG returns zero bits there, so
+its ε is recovered as ``(z − μ)/std`` and handed to the port's plain
+version.  Values hold to 1e-5 relative (atol 1e-6): the same fp32 formula,
+rounded in the same order.  The port's own noise (Philox4x32-10 +
+Box–Muller) is checked against Random123's known-answer vectors.  The
+kernel itself is held against the plain version on the card by
+``tests/test_torch_port_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from betavae_tpu.ops.pallas_elbo import fused_reparam_kl as jax_fused
+
+from betavae_tpu_torch.ops.elbo import (fused_reparam_kl, philox4x32_10,
+                                        philox_normal, reparam_kl_reference)
+
+
+def _inputs(seed, shape=(8, 64)):
+    rng = np.random.default_rng(seed)
+    mu = rng.normal(size=shape).astype(np.float32)
+    logvar = np.clip(rng.normal(size=shape), -10, 5).astype(np.float32)
+    return mu, logvar
+
+
+def _jax_interpret(mu, logvar, seed=11):
+    z, kl = jax_fused(jnp.int32(seed), jnp.asarray(mu), jnp.asarray(logvar),
+                      True)
+    z = np.asarray(z)
+    eps = (z - mu) / np.exp(0.5 * logvar)
+    return z, np.asarray(kl), eps.astype(np.float32)
+
+
+def test_plain_version_matches_jax_kernel():
+    mu, logvar = _inputs(0)
+    z, kl, eps = _jax_interpret(mu, logvar)
+    t_z, t_kl = reparam_kl_reference(torch.from_numpy(mu),
+                                     torch.from_numpy(logvar),
+                                     torch.from_numpy(eps))
+    np.testing.assert_allclose(t_z.numpy(), z, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(t_kl.numpy(), kl, rtol=1e-5, atol=1e-6)
+
+
+def test_plain_autograd_matches_jax_vjp():
+    """Gradients of Σ(a·z + b·kl) through the plain version (autograd) and
+    through the JAX custom VJP, with the same ε; 1e-4 relative (atol 1e-5)
+    as ``tests/test_pallas_elbo.py`` holds its VJP."""
+    mu, logvar = _inputs(1)
+    rng = np.random.default_rng(2)
+    a = rng.normal(size=mu.shape).astype(np.float32)
+    b = rng.normal(size=mu.shape).astype(np.float32)
+    _, _, eps = _jax_interpret(mu, logvar, seed=5)
+
+    def loss(m, lv):
+        z, kl = jax_fused(jnp.int32(5), m, lv, True)
+        return jnp.sum(z * a) + jnp.sum(kl * b)
+
+    d_mu, d_logvar = jax.grad(loss, argnums=(0, 1))(jnp.asarray(mu),
+                                                     jnp.asarray(logvar))
+    t_mu = torch.from_numpy(mu).requires_grad_()
+    t_lv = torch.from_numpy(logvar).requires_grad_()
+    t_z, t_kl = reparam_kl_reference(t_mu, t_lv, torch.from_numpy(eps))
+    ((t_z * torch.from_numpy(a)).sum() + (t_kl * torch.from_numpy(b)).sum()
+     ).backward()
+    np.testing.assert_allclose(t_mu.grad.numpy(), np.asarray(d_mu),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(t_lv.grad.numpy(), np.asarray(d_logvar),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_cpu_wrapper_is_the_plain_version_and_never_launches():
+    """On CPU tensors the wrapper computes the plain version with its own
+    Philox ε, its closed-form backward equals autograd through the plain
+    version, and the launch count stays 0."""
+    fused_reparam_kl.launches = 0
+    mu, logvar = _inputs(3)
+    t_mu = torch.from_numpy(mu).requires_grad_()
+    t_lv = torch.from_numpy(logvar).requires_grad_()
+    z, kl = fused_reparam_kl(t_mu, t_lv, seed=115, offset=4)
+    eps = philox_normal(mu.shape, 115, 4)
+    z_ref, kl_ref = reparam_kl_reference(torch.from_numpy(mu),
+                                         torch.from_numpy(logvar), eps)
+    torch.testing.assert_close(z.detach(), z_ref, rtol=0, atol=0)
+    torch.testing.assert_close(kl.detach(), kl_ref, rtol=0, atol=0)
+
+    g = torch.from_numpy(np.random.default_rng(4).normal(
+        size=mu.shape).astype(np.float32))
+    ((z * g).sum() + (kl * 2.0).sum()).backward()
+    p_mu = torch.from_numpy(mu).requires_grad_()
+    p_lv = torch.from_numpy(logvar).requires_grad_()
+    pz, pkl = reparam_kl_reference(p_mu, p_lv, eps)
+    ((pz * g).sum() + (pkl * 2.0).sum()).backward()
+    torch.testing.assert_close(t_mu.grad, p_mu.grad, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(t_lv.grad, p_lv.grad, rtol=1e-5, atol=1e-5)
+    assert fused_reparam_kl.launches == 0
+
+
+@pytest.mark.parametrize("counter,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_philox_known_answers(counter, key, want):
+    """Random123's published Philox4x32-10 known-answer vectors."""
+    words = [torch.tensor([c], dtype=torch.int64) for c in counter]
+    got = philox4x32_10(*words, *key)
+    assert tuple(int(w) for w in got) == want
+
+
+def test_noise_statistics_and_seeding():
+    """N(0,1) moments on 32768 draws (the bounds of the JAX package's
+    hardware noise test), replay for a (seed, offset), change otherwise."""
+    eps = philox_normal((256, 128), seed=3, offset=0)
+    assert abs(float(eps.mean())) < 0.02
+    assert abs(float(eps.std()) - 1.0) < 0.02
+    assert 0.28 < float((eps.abs() > 1.0).float().mean()) < 0.36
+    assert torch.equal(eps, philox_normal((256, 128), seed=3, offset=0))
+    assert not torch.equal(eps, philox_normal((256, 128), seed=4, offset=0))
+    assert not torch.equal(eps, philox_normal((256, 128), seed=3, offset=1))
+    # element i depends on i alone, not on the shape of the call
+    assert torch.equal(eps.reshape(-1)[:100],
+                       philox_normal((100,), seed=3, offset=0))
