@@ -5,7 +5,8 @@ The port's own copy of ``betavae_tpu/data/dataset.py``: scans
 ``seed`` (train) or ``seed + 1`` (test) then truncates to the limit;
 multiclass labels are the sorted-class index, binary labels are
 ``0 if class == 'notumor' else 1``.  Images are decoded once with PIL
-into a packed ``(N, H, W, C)`` uint8 array.
+into a packed ``(N, H, W, C)`` uint8 array; :func:`load_image` decodes one
+file as ``betavae_tpu/data/preprocess.py::_load_image`` does.
 """
 
 from __future__ import annotations
@@ -97,3 +98,15 @@ def load_split(split: str, sample_limit=None) -> ArrayDataset:
         class_names=[cls for _, cls in samples], original_classes=classes,
         class_to_idx=class_to_idx, class_mode=class_mode)
 
+
+def load_image(path: str, grayscale: bool, size: int | None = None) -> np.ndarray:
+    """One image file as float32 ``(H, W, C)`` in [0, 1], resized to
+    ``size`` × ``size`` when given."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im = im.convert("L" if grayscale else "RGB")
+        if size is not None:
+            im = im.resize((size, size))
+        arr = np.asarray(im, dtype=np.float32) / 255.0
+    return arr[..., None] if arr.ndim == 2 else arr

@@ -1,15 +1,27 @@
-"""The JAX package's flat flax params → the port's ``state_dict``.
+"""Weights and optimizer state across the two packages.
 
-The port's own copy of the mapping in ``betavae_tpu/io/torch_compat.py``
-(``export_model_state``): conv kernels HWIO → OIHW, dense kernels
-transposed, SE ``fc1``/``fc2`` → ``se.block.fc.0``/``.2``, GroupNorm and
-BatchNorm params (running statistics from ``batch_stats/``), and the
-bottleneck-flatten permutation on ``fc_mu``, ``fc_logvar`` and ``fc_dec``:
-flax flattens the (S, S, C) bottleneck H-major, torch flattens (C, S, S)
-C-major.  A key the mapping does not consume raises.
+:func:`params_from_jax` is the port's own copy of the mapping in
+``betavae_tpu/io/torch_compat.py`` (``export_model_state``): conv kernels
+HWIO → OIHW, dense kernels transposed, SE ``fc1``/``fc2`` →
+``se.block.fc.0``/``.2``, GroupNorm and BatchNorm params (running statistics
+from ``batch_stats/``), and the bottleneck-flatten permutation on
+``fc_mu``, ``fc_logvar`` and ``fc_dec``: flax flattens the (S, S, C)
+bottleneck H-major, torch flattens (C, S, S) C-major.  A key the mapping
+does not consume raises.
+
+Optimizer state: the port's checkpoints hold its ``torch.optim`` state
+flat, ``<param index>/<field>`` (``exp_avg``, ``exp_avg_sq``, ``step`` for
+Adam), indexed in ``model.parameters()`` order, which is the reference
+torch model's registration order; the JAX loader converts exactly that
+layout (``torch_compat.convert_adam_moments``).  The other way,
+:func:`adam_state_from_optax` maps an optax Adam state's ``mu`` / ``nu`` /
+``count`` through the same parameter mapping (moments are elementwise
+companions of their parameter).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -118,3 +130,69 @@ def params_from_jax(flat: dict) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(
                 v if v.dtype == np.int64 else v.astype(np.float32)))
             for k, v in out.items()}
+
+
+def optim_state_to_flat(optimizer: torch.optim.Optimizer) -> dict:
+    """``{"<param index>/<field>": ndarray}`` of the optimizer's state."""
+    return {f"{idx}/{field}": torch.as_tensor(val).detach().cpu().numpy()
+            for idx, fields in optimizer.state_dict()["state"].items()
+            for field, val in fields.items()}
+
+
+def optim_state_from_flat(flat: dict, optimizer: torch.optim.Optimizer) -> None:
+    """Load :func:`optim_state_to_flat` output into ``optimizer`` (its own
+    hyperparameters kept)."""
+    state: dict = {}
+    for key, arr in flat.items():
+        idx, _, field = key.partition("/")
+        state.setdefault(int(idx), {})[field] = torch.from_numpy(
+            np.array(arr))
+    sd = optimizer.state_dict()
+    sd["state"] = state
+    optimizer.load_state_dict(sd)
+
+
+def _optax_adam(optim_flat: dict):
+    """``(mu, nu, count)`` of the ScaleByAdamState in a flat optax state: the
+    prefix whose ``mu/``, ``nu/`` and ``count`` entries sit side by side
+    (``mu`` a whole path segment, as ``fc_mu`` also holds the letters)."""
+    prefixes = set()
+    for key in optim_flat:
+        segs = key.split("/")
+        prefixes.update("/".join(segs[:i]) for i, seg in enumerate(segs[:-1])
+                        if seg == "mu")
+    for prefix in sorted(prefixes):
+        pre = f"{prefix}/" if prefix else ""
+        mu = {k[len(pre) + 3:]: np.asarray(v) for k, v in optim_flat.items()
+              if k.startswith(f"{pre}mu/")}
+        nu = {k[len(pre) + 3:]: np.asarray(v) for k, v in optim_flat.items()
+              if k.startswith(f"{pre}nu/")}
+        if mu and set(mu) == set(nu) and f"{pre}count" in optim_flat:
+            return mu, nu, int(np.asarray(optim_flat[f"{pre}count"]).reshape(()))
+    return None
+
+
+def adam_state_from_optax(optim_flat: dict, model_flat: dict,
+                          param_names: list):
+    """A JAX checkpoint's optax Adam state → torch Adam ``state``
+    (``{index: {"step", "exp_avg", "exp_avg_sq"}}``, indexed like
+    ``param_names``), or ``None`` with a warning when it holds no Adam
+    moments for exactly these parameters (e.g. sgd): the run then resumes
+    with a fresh optimizer, as the JAX package does."""
+    found = _optax_adam(optim_flat)
+    params = {k[len("params/"):] for k in model_flat if k.startswith("params/")}
+    if found is None or set(found[0]) != params:
+        warnings.warn("optimizer-state import skipped: the checkpoint's optax "
+                      "state has no Adam moments for these parameters; "
+                      "resuming with a FRESH optimizer")
+        return None
+    mu, nu, count = found
+    moments = {}
+    for field, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+        swapped = dict(model_flat)   # batch_stats keep their real values
+        swapped.update({f"params/{path}": m for path, m in tree.items()})
+        moments[field] = params_from_jax(swapped)
+    return {i: {"step": torch.tensor(float(count)),
+                "exp_avg": moments["exp_avg"][name],
+                "exp_avg_sq": moments["exp_avg_sq"][name]}
+            for i, name in enumerate(param_names)}

@@ -9,6 +9,10 @@ Counterpart of ``betavae_tpu/models/beta_vae.py`` (``BetaVAEModule``,
 - decoder: ``fc_dec`` (broadcast over the bottleneck grid under ``gap``),
   then mirrored [bilinear ×2 → 3×3 conv → norm → act → optional SE] blocks,
   a final 3×3 conv and a fp32 sigmoid; optional latent clamp before decode,
+- ``fused_head``: the last decoder block's SE gate folded into the final
+  C→1 conv through the hand-written head kernels (``ops/head.py``), as the
+  JAX ``FinalConvHead`` does with its Pallas kernel; ``final_conv`` keeps
+  its parameters and names either way,
 - norms: ``layer`` → GroupNorm(1) with flax's eps 1e-6, ``batch`` →
   BatchNorm with flax's update rule (momentum 0.99 is torch 0.01, running
   variance from the biased batch variance), ``none``,
@@ -32,6 +36,7 @@ from torch import nn
 
 from ..config import get, get_config
 from ..device import resolve_device
+from ..ops.head import fused_se_conv_head
 from ..ops.reparam import reparameterize_and_kl
 from ..ops.upsample import Upsample2x
 from .se import SEBlock
@@ -114,8 +119,15 @@ class DeconvBlock(nn.Module):
         self.act = _activation(activation)
         self.se = SEBlock(out_ch, se_reduction) if use_se else nn.Identity()
 
-    def forward(self, x):
-        return self.se(self.act(_normed(self.norm, self.up(x))))
+    def forward(self, x, return_gate: bool = False):
+        """With ``return_gate``: ``(ungated activations, SE gates)``, the
+        gates ``None`` when the block has no SE."""
+        h = self.act(_normed(self.norm, self.up(x)))
+        if not return_gate:
+            return self.se(h)
+        if isinstance(self.se, SEBlock):
+            return self.se(h, return_gate=True)
+        return h, None
 
 
 class BetaVAEModule(nn.Module):
@@ -127,7 +139,7 @@ class BetaVAEModule(nn.Module):
                  use_decoder_se: bool = True, encoder_pooling: str = "flatten",
                  logvar_clamp: Optional[Sequence[float]] = None,
                  latent_clamp: Optional[float] = None,
-                 mixed_precision: bool = False):
+                 mixed_precision: bool = False, fused_head: bool = False):
         super().__init__()
         if encoder_pooling not in ("flatten", "gap"):
             raise ValueError("encoder_pooling must be flatten or gap")
@@ -141,6 +153,7 @@ class BetaVAEModule(nn.Module):
                              if logvar_clamp else (-10.0, 10.0))
         self.latent_clamp = latent_clamp
         self.mixed_precision = mixed_precision
+        self.fused_head = fused_head
 
         chs = self.channel_widths
         self.encoder = nn.ModuleList(
@@ -202,9 +215,18 @@ class BetaVAEModule(nn.Module):
                 h = h[:, :, None, None].expand(h.shape[0], c, s, s)
             else:
                 h = h.reshape(h.shape[0], c, s, s)
-            for blk in self.decoder_blocks:
+            for blk in self.decoder_blocks[:-1]:
                 h = blk(h)
-            x = self.final_conv(h)
+            last = self.decoder_blocks[-1]
+            if self.fused_head and self.in_channels == 1:
+                h, gate = last(h, return_gate=True)
+                if gate is None:
+                    gate = torch.ones(h.shape[:2], dtype=h.dtype,
+                                      device=h.device)
+                x = fused_se_conv_head(h, gate, self.final_conv.weight[0])
+                x = x[:, None] + self.final_conv.bias
+            else:
+                x = self.final_conv(last(h))
         return torch.sigmoid(x.float())
 
     def forward(self, x: torch.Tensor, deterministic: bool = False,
@@ -233,14 +255,18 @@ def _check_unported_options(tcfg) -> None:
     if remat not in (False, None, "none", "false"):
         raise NotImplementedError(
             f"training.remat={remat!r} is not ported yet")
-    head = get(tcfg, "fused_head", "auto")
-    if head in (True, "true"):
-        raise NotImplementedError(
-            "training.fused_head: the fused SE-gate/conv head kernel is not "
-            "ported yet")
-    if head not in (False, "false", None, "none", "auto"):
-        raise ValueError(f"training.fused_head must be auto/true/false, "
-                         f"got {head!r}")
+
+
+def resolve_fused_head(value) -> bool:
+    """``training.fused_head``: true/false/None as in the JAX package's
+    ``_resolve_fused_head``; ``auto`` (the default) is off, since the port
+    has no environment switch for it."""
+    if value in (True, "true"):
+        return True
+    if value in (False, "false", None, "none", "auto"):
+        return False
+    raise ValueError(f"training.fused_head must be auto/true/false, "
+                     f"got {value!r}")
 
 
 def model_from_config(cfg=None, mixed_precision: bool | None = None,
@@ -269,6 +295,7 @@ def model_from_config(cfg=None, mixed_precision: bool | None = None,
         logvar_clamp=tuple(logvar_clamp) if logvar_clamp else None,
         latent_clamp=get(mcfg, "latent_clamp", None),
         mixed_precision=mixed_precision,
+        fused_head=resolve_fused_head(get(cfg.training, "fused_head", "auto")),
     )
     init_weights(model, torch.Generator().manual_seed(int(dcfg.seed)))
     return model.to(dev)

@@ -3,7 +3,10 @@
 Counterpart of ``betavae_tpu/models/se.py``: mean over H and W →
 Linear(C → max(1, C//r)) → ReLU → Linear(→ C) → sigmoid → channelwise
 scale.  Parameters sit at ``block.fc.0`` and ``block.fc.2``, the reference
-torch model's names, so its state dicts load unchanged.
+torch model's names, so its state dicts load unchanged.  With
+``return_gate`` the block returns the ungated activations and the gates
+``[B, C]``, for a caller that folds the gate into its next op
+(``ops/head.py``).
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ class _Excite(nn.Module):
         self.fc = nn.Sequential(nn.Linear(channels, r), nn.ReLU(),
                                 nn.Linear(r, channels), nn.Sigmoid())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_gate: bool = False):
         gate = self.fc(x.mean(dim=(2, 3)))
+        if return_gate:
+            return x, gate
         return x * gate[:, :, None, None]
 
 
@@ -29,5 +34,5 @@ class SEBlock(nn.Module):
         super().__init__()
         self.block = _Excite(channels, reduction)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.block(x)
+    def forward(self, x: torch.Tensor, return_gate: bool = False):
+        return self.block(x, return_gate)

@@ -1,11 +1,18 @@
 """One training step: gather → augment → encode → fused reparam+KL → decode
-→ loss → backward → clip → update.
+→ loss → backward → clip → update; and one validation batch.
 
 Counterpart of the step body in ``betavae_tpu/train/loop.py``
-(``_build_step_fn``, ``_forward_with_loss``, ``_scalar_metrics``).  Where
-the JAX step is one jitted program over immutable state, this one updates
-the model and optimizer in place and returns the step's scalar metrics as
-device tensors, so nothing waits for the card until a caller reads them.
+(``_build_step_fn``, ``_forward_with_loss``, ``_scalar_metrics``,
+``make_eval_multi_step``).  Where the JAX step is one jitted program over
+immutable state, this one updates the model and optimizer in place and
+returns the step's scalar metrics as device tensors, so nothing waits for
+the card until a caller reads them.
+
+Every random draw of step ``n`` is a function of ``(seed, n)``, as the
+JAX step's key ``fold_in(root_key, n)`` is: the noise is the kernel's
+Philox stream at ``(seed, n)`` and the augmentation's generator is seeded
+from ``(seed, n)`` at the start of the step, so a resumed run replays the
+uninterrupted one.
 """
 
 from __future__ import annotations
@@ -50,6 +57,27 @@ def scalar_metrics(losses: dict, mask: torch.Tensor) -> dict:
     }
 
 
+def augment_seed(seed: int, step_index: int) -> int:
+    """The augmentation generator's seed for step ``step_index``: a
+    63-bit mix of the pair, as ``BatchPlan`` mixes (seed, epoch)."""
+    return (int(seed) * 1_000_003 + int(step_index)) & (2**63 - 1)
+
+
+def _forward_losses(model, x, mask, sched: dict, *, spec: LossSpec,
+                    use_capacity: bool, seed: int, offset: int) -> dict:
+    mu, logvar = model.encode(x)
+    if spec.deterministic:
+        z, kl_elem = reparameterize_and_kl(mu, logvar, deterministic=True)
+    else:
+        z, kl_elem = fused_reparam_kl(mu, logvar, seed, offset)
+    recon = model.decode(z)
+    return compute_loss(
+        (recon, mu, logvar, z, kl_elem), x, spec=spec, beta=sched["beta"],
+        capacity=sched["capacity"] if use_capacity else None,
+        capacity_weight=sched["capacity_weight"] if use_capacity else None,
+        free_bits=sched["free_bits"], mask=mask)
+
+
 def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
                     spec: LossSpec, *, aug_kwargs: dict, use_capacity: bool,
                     seed: int):
@@ -59,29 +87,38 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
     ``mask`` (B,) float tensors on the same device, ``sched`` the floats
     ``{beta, capacity, capacity_weight, free_bits, lr}``.  The noise of step
     ``step_index`` is the kernel's Philox stream at ``(seed, step_index)``;
-    augmentation draws from a generator seeded with ``seed``.
+    its augmentation draws from a generator seeded from the same pair.
     """
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
-    generator.manual_seed(int(seed))
 
     def step(images, idx, mask, sched: dict, step_index: int) -> dict:
         model.train()
+        generator.manual_seed(augment_seed(seed, step_index))
         x = augment_batch(gather_batch(images, idx), generator, **aug_kwargs)
         optimizer.zero_grad()
-        mu, logvar = model.encode(x)
-        if spec.deterministic:
-            z, kl_elem = reparameterize_and_kl(mu, logvar, deterministic=True)
-        else:
-            z, kl_elem = fused_reparam_kl(mu, logvar, seed, step_index)
-        recon = model.decode(z)
-        losses = compute_loss(
-            (recon, mu, logvar, z, kl_elem), x, spec=spec, beta=sched["beta"],
-            capacity=sched["capacity"] if use_capacity else None,
-            capacity_weight=sched["capacity_weight"] if use_capacity else None,
-            free_bits=sched["free_bits"], mask=mask)
+        losses = _forward_losses(model, x, mask, sched, spec=spec,
+                                 use_capacity=use_capacity, seed=seed,
+                                 offset=step_index)
         losses["total"].backward()
         optimizer.step(sched["lr"])
         return scalar_metrics(losses, mask)
 
     return step
+
+
+def make_eval_step(model: BetaVAEModule, spec: LossSpec, *,
+                   use_capacity: bool, seed: int):
+    """Build ``eval_step(images, idx, mask, sched, offset) -> (metrics,
+    mu)``: one stochastic validation batch in eval mode without autograd,
+    its noise the kernel's Philox stream at ``(seed, offset)``."""
+
+    @torch.no_grad()
+    def eval_step(images, idx, mask, sched: dict, offset: int):
+        model.eval()
+        losses = _forward_losses(model, gather_batch(images, idx), mask,
+                                 sched, spec=spec, use_capacity=use_capacity,
+                                 seed=seed, offset=offset)
+        return scalar_metrics(losses, mask), losses["mu"]
+
+    return eval_step

@@ -45,6 +45,8 @@ _FAST_MODULES = {
     "test_torch_port_step", "test_torch_port_trainer",
     "test_torch_port_isolation", "test_torch_port_cuda",
     "test_torch_port_data",
+    "test_torch_port_head", "test_torch_port_checkpoint",
+    "test_torch_port_train",
 }
 
 

@@ -58,7 +58,7 @@ def test_default_device_raises_without_a_gpu(demo_config_factory):
         pytest.skip("a GPU is present: the default device is usable")
     from betavae_tpu_torch.config import get_config, reset_config_cache
     from betavae_tpu_torch.models.beta_vae import model_from_config
-    from betavae_tpu_torch.train.loop import train_steps
+    from betavae_tpu_torch.train.loop import train, train_steps
 
     path = demo_config_factory()
     reset_config_cache()
@@ -67,5 +67,7 @@ def test_default_device_raises_without_a_gpu(demo_config_factory):
             model_from_config(get_config(path))
         with pytest.raises(RuntimeError, match="cuda"):
             train_steps(path, max_steps=1)
+        with pytest.raises(RuntimeError, match="cuda"):
+            train(path)
     finally:
         reset_config_cache()

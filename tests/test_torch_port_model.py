@@ -222,19 +222,38 @@ def test_flagship_geometry_loads_jax_shapes(tmp_path):
     assert port.mixed_precision
 
 
-def test_fused_head_is_refused(tmp_path):
+@pytest.mark.parametrize("value,fused", [(True, True), ("true", True),
+                                         ("auto", False), (False, False)])
+def test_fused_head_builds_and_runs_and_auto_is_off(tmp_path, value, fused):
+    """``training.fused_head: true`` builds the fused head and runs it;
+    ``auto`` resolves to off (the port has no environment switch); the
+    parameters keep ``final_conv``'s names either way."""
     import yaml
 
     from betavae_tpu_torch.config import get_config, reset_config_cache
     from betavae_tpu_torch.models.beta_vae import model_from_config
 
     cfg = yaml.safe_load(open("configs/beta_vae_se_debug.yaml"))
-    cfg["training"]["fused_head"] = True
+    cfg["data"]["image_size"] = 16
+    cfg["model"].update(base_channels=4, num_blocks=2, latent_dim=4)
+    cfg["training"]["fused_head"] = value
     path = tmp_path / "c.yaml"
     path.write_text(yaml.safe_dump(cfg))
     reset_config_cache()
     try:
-        with pytest.raises(NotImplementedError, match="fused_head"):
-            model_from_config(get_config(str(path)), device="cpu")
+        model = model_from_config(get_config(str(path)), device="cpu")
     finally:
         reset_config_cache()
+    assert model.fused_head is fused
+    assert {"final_conv.weight", "final_conv.bias"} <= set(model.state_dict())
+    x = torch.rand(2, 1, 16, 16, generator=torch.Generator().manual_seed(0))
+    recon, *_ = model(x, deterministic=True)
+    assert recon.shape == x.shape and bool(torch.isfinite(recon).all())
+
+
+def test_fused_head_rejects_unknown_values():
+    from betavae_tpu_torch.models.beta_vae import resolve_fused_head
+
+    assert resolve_fused_head(None) is False
+    with pytest.raises(ValueError, match="fused_head"):
+        resolve_fused_head("sometimes")
