@@ -132,16 +132,17 @@ def params_from_jax(flat: dict) -> dict:
             for k, v in out.items()}
 
 
-def optim_state_to_flat(optimizer: torch.optim.Optimizer) -> dict:
-    """``{"<param index>/<field>": ndarray}`` of the optimizer's state."""
-    return {f"{idx}/{field}": torch.as_tensor(val).detach().cpu().numpy()
+def optim_state_tensors(optimizer: torch.optim.Optimizer) -> dict:
+    """``{"<param index>/<field>": tensor}`` of the optimizer's state: the
+    live tensors, on their devices, not copies."""
+    return {f"{idx}/{field}": torch.as_tensor(val).detach()
             for idx, fields in optimizer.state_dict()["state"].items()
             for field, val in fields.items()}
 
 
 def optim_state_from_flat(flat: dict, optimizer: torch.optim.Optimizer) -> None:
-    """Load :func:`optim_state_to_flat` output into ``optimizer`` (its own
-    hyperparameters kept)."""
+    """Load :func:`optim_state_tensors` output, as host arrays, into
+    ``optimizer`` (its own hyperparameters kept)."""
     state: dict = {}
     for key, arr in flat.items():
         idx, _, field = key.partition("/")

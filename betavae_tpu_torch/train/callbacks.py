@@ -11,18 +11,19 @@ The port's own copy of ``betavae_tpu/train/callbacks.py``:
   NUM_SHARDS-way sharded checkpoints ``<run_id>_{latest,best}.pt`` in the JAX package's
   format, payload ``{epoch, total_steps, model_state, optim_state,
   val_total}``; ``restore_best_history`` re-arms ``save_best`` after a
-  resume from the best checkpoint's recorded ``val_total``.
+  resume from the best checkpoint's recorded ``val_total``; with
+  ``async_io`` the writes run on a background thread, as the JAX
+  package's ``CheckpointManager(async_io=True)`` does (the same files).
 
-Writes are synchronous: the JAX package's background writer is not ported
-(its files are the same bytes either way).  :func:`restore_training_state`
-loads a payload written by either package into the port's model and
-optimizer.
+:func:`restore_training_state` loads a payload written by either package
+into the port's model and optimizer.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import threading
 
 import numpy as np
 import torch
@@ -30,7 +31,7 @@ import torch
 from ..io.artifacts import model_checkpoint_path
 from ..io.checkpoint import read_checkpoint_meta, save_sharded_checkpoint
 from ..io.weights import (adam_state_from_optax, optim_state_from_flat,
-                          optim_state_to_flat, params_from_jax)
+                          optim_state_tensors, params_from_jax)
 from .optim import OptimizerChain
 
 NUM_SHARDS = 2
@@ -97,27 +98,142 @@ def restore_training_state(payload: dict, model: torch.nn.Module,
         optim_state_from_flat(optim, optimizer.optimizer)
 
 
-class CheckpointManager:
-    """``<models_dir>/<run_id>_{latest,best}.pt`` as NUM_SHARDS shards."""
+def _snapshot(tensors: dict) -> dict:
+    """Fresh copies of every tensor, made by one multi-tensor copy queued
+    on the current stream: a later in-place update of the originals
+    (the next step's) is queued after it and cannot reach the copies."""
+    keys = list(tensors)
+    src = [tensors[k] for k in keys]
+    dst = [torch.empty_like(t) for t in src]
+    torch._foreach_copy_(dst, src)
+    return dict(zip(keys, dst))
 
-    def __init__(self):
+
+def _to_host(tensors: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in tensors.items()}
+
+
+def _pull(snap: dict, ready) -> dict:
+    """The snapshot's sections as numpy arrays.  Device tensors are copied
+    on a side stream that waits for ``ready`` only, into pinned buffers,
+    with one sync at the end: the copies neither queue behind the steps
+    launched since the save nor hold up the steps launched after it."""
+    if ready is None:
+        return {sec: _to_host(t) for sec, t in snap.items()}
+    device = next(v.device for t in snap.values() for v in t.values()
+                  if v.is_cuda)
+    stream = torch.cuda.Stream(device=device)
+    host = {}
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        for sec, t in snap.items():
+            host[sec] = {}
+            for k, v in t.items():
+                if v.is_cuda:
+                    buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    v = buf.copy_(v, non_blocking=True)
+                host[sec][k] = v
+    stream.synchronize()
+    return {sec: {k: v.numpy() for k, v in t.items()}
+            for sec, t in host.items()}
+
+
+class CheckpointManager:
+    """``<models_dir>/<run_id>_{latest,best}.pt`` as NUM_SHARDS shards.
+
+    ``async_io=True`` (``training.async_checkpoint``) takes the writes off
+    the training thread, as the JAX package's writer does: at save time
+    every tensor of the model's state and the optimizer's state is copied
+    on the device, and the copies are queued per tag, depth 1, latest wins
+    (a queued snapshot is replaced, and counted in ``coalesced``).  A daemon
+    thread writes ``best`` before ``latest``: it waits for the copies, pulls
+    them to the host and calls ``save_sharded_checkpoint``, so the files are
+    those of a synchronous save.  A failed write is raised at the next save
+    and at :meth:`drain`, which the trainer calls when it ends, however it
+    ends.  ``writes`` counts the checkpoints written.
+    """
+
+    def __init__(self, async_io: bool = False):
         self.best_value = None
+        self.async_io = async_io
+        self.writes = 0
+        self.coalesced = 0
+        self._lock = threading.Lock()
+        self._queue = {}          # tag -> (path, scalars, tensors, ready)
+        self._worker = None
+        self._pending_error = None
 
     def _save(self, tag: str, model, optimizer, epoch: int, total_steps: int,
-              extra: dict) -> list:
-        payload = {
-            "epoch": int(epoch),
-            "total_steps": int(total_steps),
-            "model_state": {k: v.detach().cpu().numpy()
+              extra: dict):
+        path = model_checkpoint_path(tag)
+        scalars = {"epoch": int(epoch), "total_steps": int(total_steps),
+                   **{k: float(v) for k, v in extra.items()}}
+        tensors = {
+            "model_state": {k: v.detach()
                             for k, v in model.state_dict().items()},
-            "optim_state": optim_state_to_flat(optimizer.optimizer),
-            **{k: float(v) for k, v in extra.items()},
-        }
-        return save_sharded_checkpoint(model_checkpoint_path(tag), payload,
-                                       num_shards=NUM_SHARDS)
+            "optim_state": optim_state_tensors(optimizer.optimizer)}
+        if not self.async_io:
+            paths = save_sharded_checkpoint(
+                path, {**scalars, **{sec: _to_host(t)
+                                     for sec, t in tensors.items()}},
+                num_shards=NUM_SHARDS)
+            self.writes += 1
+            return paths
+        self._raise_pending()
+        snap = {sec: _snapshot(t) for sec, t in tensors.items()}
+        ready = None
+        if torch.cuda.is_available() and any(
+                v.is_cuda for t in snap.values() for v in t.values()):
+            ready = torch.cuda.Event()
+            ready.record()
+        with self._lock:
+            if tag in self._queue:
+                self.coalesced += 1
+            self._queue[tag] = (path, scalars, snap, ready)
+            if self._worker is None:
+                self._worker = threading.Thread(
+                    target=self._run_worker, daemon=True,
+                    name="betavae-ckpt-writer")
+                self._worker.start()
+        return path
+
+    def _raise_pending(self) -> None:
+        with self._lock:
+            err, self._pending_error = self._pending_error, None
+        if err is not None:
+            raise err
+
+    def _run_worker(self) -> None:
+        while True:
+            with self._lock:
+                if not self._queue:
+                    self._worker = None
+                    return
+                # best before latest: the rarer and more valuable file
+                tag = "best" if "best" in self._queue else next(iter(self._queue))
+                path, scalars, snap, ready = self._queue.pop(tag)
+            try:
+                save_sharded_checkpoint(path, {**scalars, **_pull(snap, ready)},
+                                        num_shards=NUM_SHARDS)
+                self.writes += 1
+            except Exception as err:  # raised at the next save or drain()
+                with self._lock:
+                    if self._pending_error is None:
+                        self._pending_error = err
+
+    def drain(self) -> None:
+        """Wait until every queued snapshot is written; raise the first
+        failed write, if any."""
+        while True:
+            with self._lock:
+                worker = self._worker
+            if worker is None:
+                break
+            worker.join()
+        self._raise_pending()
 
     def save_latest(self, model, optimizer, epoch: int, total_steps: int,
-                    extra: dict) -> list:
+                    extra: dict):
         return self._save("latest", model, optimizer, epoch, total_steps,
                           extra)
 
@@ -141,6 +257,7 @@ class CheckpointManager:
             return None
         if self.best_value is None or monitor_value < self.best_value:
             self.best_value = monitor_value
+            # a queued best is only ever replaced by a strictly better one
             return self._save("best", model, optimizer, epoch, total_steps,
                               extra)
         return None

@@ -6,10 +6,12 @@ capacity at ``epoch``, free bits only when capacity is off), running-average
 train ``METRICS`` every ``log_every_n_steps``, per-epoch stochastic
 validation with latent collection and probe metrics, ``latest`` / ``best``
 sharded checkpoints, a deterministic reconstruction panel, early stopping
-and ``resume="best"|"latest"``.  It carries the JAX loop's semantics, not
+and ``resume="best"|"latest"``, with ``training.async_checkpoint`` writing
+the checkpoints on a background thread and SIGTERM draining it
+(``training.graceful_shutdown``).  It carries the JAX loop's semantics, not
 its XLA mechanism: steps run one by one, with no scan chunks, no epoch
-rotation and no background writers, and the host reads the card once per
-log step and once per validation pass.
+rotation and no background panel writer, and the host reads the card once
+per log step and once per validation pass.
 
 :func:`train_steps` is the few-step trainer: the same set-up and train
 lines for at most ``max_steps`` steps, with the wall time of the steps
@@ -20,6 +22,8 @@ from __future__ import annotations
 
 import json
 import os
+import signal
+import threading
 import time
 
 import numpy as np
@@ -279,6 +283,43 @@ def _panel_images(cfg, run: _Run, vbatches: list):
 # the epoch loop
 # ---------------------------------------------------------------------------
 
+def _install_sigterm(cfg):
+    """With ``training.graceful_shutdown`` (default true) and on the main
+    thread, make SIGTERM raise ``KeyboardInterrupt``, so a preempted run
+    unwinds through the trainer's ``finally`` and drains the checkpoint
+    writer.  The handler restores the default at once: a second SIGTERM
+    kills the process, for an unwind that is itself stuck.  Returns the
+    handler to put back, or ``None`` when none was installed."""
+    if not (bool(get(cfg.training, "graceful_shutdown", True))
+            and threading.current_thread() is threading.main_thread()):
+        return None
+
+    def on_sigterm(signum, frame):
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        raise KeyboardInterrupt("SIGTERM")
+
+    return signal.signal(signal.SIGTERM, on_sigterm)
+
+
+def _finish(ckpt: CheckpointManager, run_error, old_sigterm) -> None:
+    """The trainer's exit, however it ends: every queued checkpoint lands
+    (a failed write is raised, unless the loop already raised), and the
+    SIGTERM handler is put back."""
+    try:
+        try:
+            ckpt.drain()
+        except Exception as drain_err:
+            if run_error is None:
+                raise
+            print(f"[CKPT] background writer also failed: {drain_err!r}")
+    finally:
+        if old_sigterm is not None:
+            signal.signal(signal.SIGTERM, old_sigterm)
+        if isinstance(run_error, KeyboardInterrupt):
+            print("[SHUTDOWN] interrupted — in-flight checkpoint drained; "
+                  "resume with --resume latest", flush=True)
+
+
 def train(config_path: str | None = None, resume: str = "none",
           device: str | torch.device = "cuda") -> dict:
     """Full training run from the config at ``config_path``.
@@ -299,11 +340,7 @@ def train(config_path: str | None = None, resume: str = "none",
     dev = resolve_device(device)
     cfg = get_config(config_path)
     ensure_dirs()
-    extras = {}
-    if get(cfg.training, "async_checkpoint", False):
-        extras["async_checkpoint"] = "not ported: checkpoints are written " \
-                                     "synchronously (the same files)"
-    log_config(extras or None)
+    log_config()
     run = _Run(cfg, dev, with_test=True)
     model, optimizer = run.model, run.optimizer
     eval_step = make_eval_step(model, run.spec, use_capacity=run.use_capacity,
@@ -312,7 +349,8 @@ def train(config_path: str | None = None, resume: str = "none",
                           seed=run.seed)
     early = EarlyStopping(
         patience=int(get(cfg.training, "early_stopping_patience", 20)))
-    ckpt = CheckpointManager()
+    ckpt = CheckpointManager(
+        async_io=bool(get(cfg.training, "async_checkpoint", False)))
     ckpt_every = max(1, int(get(cfg.training, "checkpoint_every_epochs", 1)))
     figures_dir = cfg.paths.figures_dir
     os.makedirs(figures_dir, exist_ok=True)
@@ -338,164 +376,179 @@ def train(config_path: str | None = None, resume: str = "none",
 
     no_val_warned = False
     epoch = start_epoch - 1
-    for epoch in range(start_epoch, run.epochs + 1):
-        beta, capacity, free_bits = run.epoch_schedule(epoch)
-        running = {k: torch.zeros((), device=dev) for k in RUNNING_KEYS}
-        totals = []
-        last = {}
-        denom = 0
-        lr = run.lr(epoch, total_steps)
-        epoch_t0 = time.perf_counter()
-        for idx_np, mask_np in run.train_batches(epoch):
+    old_sigterm = _install_sigterm(cfg)
+    run_error = None
+    try:
+        for epoch in range(start_epoch, run.epochs + 1):
+            beta, capacity, free_bits = run.epoch_schedule(epoch)
+            running = {k: torch.zeros((), device=dev) for k in RUNNING_KEYS}
+            totals = []
+            last = {}
+            denom = 0
             lr = run.lr(epoch, total_steps)
-            last = run.step(run.train_dev.images,
-                            *run.to_device(idx_np, mask_np),
-                            run.sched(beta, capacity, free_bits, lr),
-                            total_steps + 1)
-            for k in RUNNING_KEYS:
-                running[k] += last[k]
-            totals.append(last["total"])
-            denom += 1
-            total_steps += 1
-            if total_steps % run.log_every == 0:
-                run.train_line(epoch=epoch, beta=beta, capacity=capacity,
-                               running=running, denom=denom, last=last,
-                               lr=lr, step=total_steps)
-        if totals and run.detect_anomalies:
-            finite = torch.isfinite(torch.stack(totals)).cpu().numpy()
-            if not finite.all():
-                j = int(np.argmin(finite))
-                run.check_finite(float(totals[j]), total_steps - denom + j + 1,
-                                 epoch)
-        _sync(dev)
-        epoch_seconds = time.perf_counter() - epoch_t0
-        train_drain_mono = epoch_t0 + epoch_seconds
-        final_train_kl_mean = float(running["kl_mean"]) / max(1, denom)
-        final_train_kl_effective = float(last.get("kl_effective", 0.0))
-
-        # ---- validation: enqueue every batch, then read once ------------
-        tail_t0 = time.perf_counter()
-        sched_v = run.sched(beta, capacity, free_bits, lr)
-        vbatches = list(test_plan.batches(epoch))[:run.max_val_batches]
-        val_out = []
-        for j, (idx_np, mask_np) in enumerate(vbatches):
-            val_out.append(eval_step(
-                run.test_dev.images, *run.to_device(idx_np, mask_np),
-                sched_v, VAL_OFFSET + epoch * 100_000 + j))
-        panel = _panel_images(cfg, run, vbatches)
-        recon_dev = None
-        if panel is not None:
-            model.eval()
-            with torch.no_grad():
-                x_panel = torch.from_numpy(np.ascontiguousarray(
-                    panel[0].transpose(0, 3, 1, 2))).to(dev)
-                recon_dev = model(x_panel, deterministic=True)[0]
-        val_dispatch_seconds = time.perf_counter() - tail_t0
-
-        val_batches = len(vbatches)
-        val_sums = {k: 0.0 for k in RUNNING_KEYS}
-        val_kl_per_dim_mean = 0.0
-        val_latents, val_labels = [], []
-        if val_out:
-            names = sorted(val_out[0][0])
-            stacked = torch.stack([torch.stack([m[k].float() for k in names])
-                                   for m, _ in val_out]).cpu().numpy()
-            mk = {k: stacked[:, i] for i, k in enumerate(names)}
-            mu_all = torch.stack([mu for _, mu in val_out]).cpu().numpy()
-            if run.detect_anomalies:
+            epoch_t0 = time.perf_counter()
+            for idx_np, mask_np in run.train_batches(epoch):
+                lr = run.lr(epoch, total_steps)
+                last = run.step(run.train_dev.images,
+                                *run.to_device(idx_np, mask_np),
+                                run.sched(beta, capacity, free_bits, lr),
+                                total_steps + 1)
                 for k in RUNNING_KEYS:
-                    finite = np.isfinite(mk[k])
-                    if not finite.all():
-                        j = int(np.argmin(finite))
-                        raise FloatingPointError(
-                            f"non-finite validation loss at epoch {epoch}, "
-                            f"val batch {j}: {k}={float(mk[k][j])} — check "
-                            "LR/grad_clip; resume from the last checkpoint "
-                            "with --resume latest")
-            for k in RUNNING_KEYS:
-                val_sums[k] = float(mk[k].sum())
-            val_kl_per_dim_mean = float(mk["kl_per_dim_mean"][-1])
+                    running[k] += last[k]
+                totals.append(last["total"])
+                denom += 1
+                total_steps += 1
+                if total_steps % run.log_every == 0:
+                    run.train_line(epoch=epoch, beta=beta, capacity=capacity,
+                                   running=running, denom=denom, last=last,
+                                   lr=lr, step=total_steps)
+            if totals and run.detect_anomalies:
+                finite = torch.isfinite(torch.stack(totals)).cpu().numpy()
+                if not finite.all():
+                    j = int(np.argmin(finite))
+                    run.check_finite(float(totals[j]),
+                                     total_steps - denom + j + 1, epoch)
+            _sync(dev)
+            epoch_seconds = time.perf_counter() - epoch_t0
+            train_drain_mono = epoch_t0 + epoch_seconds
+            final_train_kl_mean = float(running["kl_mean"]) / max(1, denom)
+            final_train_kl_effective = float(last.get("kl_effective", 0.0))
+
+            # ---- validation: enqueue every batch, then read once ------------
+            tail_t0 = time.perf_counter()
+            sched_v = run.sched(beta, capacity, free_bits, lr)
+            vbatches = list(test_plan.batches(epoch))[:run.max_val_batches]
+            val_out = []
             for j, (idx_np, mask_np) in enumerate(vbatches):
-                real = int(mask_np.sum())
-                val_latents.append(mu_all[j][:real])
-                val_labels.extend(run.test_ds.labels[idx_np[:real]].tolist())
-        val_seconds = time.perf_counter() - tail_t0
+                val_out.append(eval_step(
+                    run.test_dev.images, *run.to_device(idx_np, mask_np),
+                    sched_v, VAL_OFFSET + epoch * 100_000 + j))
+            panel = _panel_images(cfg, run, vbatches)
+            recon_dev = None
+            if panel is not None:
+                model.eval()
+                with torch.no_grad():
+                    x_panel = torch.from_numpy(np.ascontiguousarray(
+                        panel[0].transpose(0, 3, 1, 2))).to(dev)
+                    recon_dev = model(x_panel, deterministic=True)[0]
+            val_dispatch_seconds = time.perf_counter() - tail_t0
 
-        vb = max(1, val_batches)
-        val_total = val_sums["total"] / vb
-        probe_metrics = {name: float("nan") for name in NAN_METRICS}
-        if val_latents and len(val_labels) >= 2:
-            probe_metrics = compute_probe_metrics(
-                np.concatenate(val_latents, axis=0), val_labels)
-        probe_seconds = time.perf_counter() - tail_t0 - val_seconds
-        log_metrics({
-            "epoch": epoch,
-            "beta": float(beta),
-            "capacity": float(capacity) if capacity is not None else 0.0,
-            "val_total_loss": val_total,
-            "val_recon_loss": val_sums["recon"] / vb,
-            "val_recon_base": val_sums["recon_base"] / vb,
-            "val_recon_lpips": val_sums["recon_lpips"] / vb,
-            "val_recon_ffl": val_sums["recon_ffl"] / vb,
-            "val_kl": val_sums["kl_mean"] / vb,
-            "val_kl_per_dim_mean": val_kl_per_dim_mean,
-            "loss_mode": "capacity" if run.use_capacity else "beta",
-            "train_kl_mean": final_train_kl_mean,
-            "train_kl_effective_last": final_train_kl_effective,
-            **probe_metrics,
-            "epoch_seconds": round(epoch_seconds, 3),
-            "train_steps_per_sec": round(denom / max(epoch_seconds, 1e-9), 3),
-            "train_images_per_sec": round(
-                denom * run.batch_size / max(epoch_seconds, 1e-9), 1),
-        }, step=total_steps, phase="val")
+            val_batches = len(vbatches)
+            val_sums = {k: 0.0 for k in RUNNING_KEYS}
+            val_kl_per_dim_mean = 0.0
+            val_latents, val_labels = [], []
+            if val_out:
+                names = sorted(val_out[0][0])
+                stacked = torch.stack([
+                    torch.stack([m[k].float() for k in names])
+                    for m, _ in val_out]).cpu().numpy()
+                mk = {k: stacked[:, i] for i, k in enumerate(names)}
+                mu_all = torch.stack([mu for _, mu in val_out]).cpu().numpy()
+                if run.detect_anomalies:
+                    for k in RUNNING_KEYS:
+                        finite = np.isfinite(mk[k])
+                        if not finite.all():
+                            j = int(np.argmin(finite))
+                            raise FloatingPointError(
+                                f"non-finite validation loss at epoch "
+                                f"{epoch}, val batch {j}: "
+                                f"{k}={float(mk[k][j])} — check LR/grad_clip; "
+                                "resume from the last checkpoint with "
+                                "--resume latest")
+                for k in RUNNING_KEYS:
+                    val_sums[k] = float(mk[k].sum())
+                val_kl_per_dim_mean = float(mk["kl_per_dim_mean"][-1])
+                for j, (idx_np, mask_np) in enumerate(vbatches):
+                    real = int(mask_np.sum())
+                    val_latents.append(mu_all[j][:real])
+                    val_labels.extend(
+                        run.test_ds.labels[idx_np[:real]].tolist())
+            val_seconds = time.perf_counter() - tail_t0
 
-        t_ckpt = time.perf_counter()
-        extra = {"val_total": val_total}
-        saved_latest = epoch % ckpt_every == 0 or epoch == run.epochs
-        if saved_latest:
-            ckpt.save_latest(model, optimizer, epoch, total_steps, extra)
-        # without validation batches val_total is a meaningless 0.0: it
-        # must not become the best checkpoint or feed early stopping
-        have_val = val_batches > 0
-        if have_val:
-            ckpt.save_best(model, optimizer, epoch, total_steps, extra,
-                           monitor_value=val_total)
-        elif not no_val_warned:
-            no_val_warned = True
-            print("[VAL] no validation batches this run — best-checkpoint "
-                  "tracking and early stopping are disabled")
-        ckpt_seconds = time.perf_counter() - t_ckpt
+            vb = max(1, val_batches)
+            val_total = val_sums["total"] / vb
+            probe_metrics = {name: float("nan") for name in NAN_METRICS}
+            if val_latents and len(val_labels) >= 2:
+                probe_metrics = compute_probe_metrics(
+                    np.concatenate(val_latents, axis=0), val_labels)
+            probe_seconds = time.perf_counter() - tail_t0 - val_seconds
+            log_metrics({
+                "epoch": epoch,
+                "beta": float(beta),
+                "capacity": float(capacity) if capacity is not None else 0.0,
+                "val_total_loss": val_total,
+                "val_recon_loss": val_sums["recon"] / vb,
+                "val_recon_base": val_sums["recon_base"] / vb,
+                "val_recon_lpips": val_sums["recon_lpips"] / vb,
+                "val_recon_ffl": val_sums["recon_ffl"] / vb,
+                "val_kl": val_sums["kl_mean"] / vb,
+                "val_kl_per_dim_mean": val_kl_per_dim_mean,
+                "loss_mode": "capacity" if run.use_capacity else "beta",
+                "train_kl_mean": final_train_kl_mean,
+                "train_kl_effective_last": final_train_kl_effective,
+                **probe_metrics,
+                "epoch_seconds": round(epoch_seconds, 3),
+                "train_steps_per_sec": round(
+                    denom / max(epoch_seconds, 1e-9), 3),
+                "train_images_per_sec": round(
+                    denom * run.batch_size / max(epoch_seconds, 1e-9), 1),
+            }, step=total_steps, phase="val")
 
-        t_panel = time.perf_counter()
-        if panel is not None:
-            sample_reconstructions(
-                panel[0], recon_dev.float().cpu().numpy().transpose(0, 2, 3, 1),
-                figures_dir, epoch, filenames=panel[1])
-        panel_seconds = time.perf_counter() - t_panel
-
-        tail_seconds = time.perf_counter() - tail_t0
-        log_metrics({
-            "epoch": epoch,
-            "val_seconds": round(val_seconds, 3),
-            "val_dispatch_seconds": round(val_dispatch_seconds, 3),
-            "rotate_dispatch_seconds": 0.0,
-            "rotated": False,
-            "probe_seconds": round(probe_seconds, 3),
-            "ckpt_seconds": round(ckpt_seconds, 3),
-            "panel_seconds": round(panel_seconds, 3),
-            "tail_seconds": round(tail_seconds, 3),
-            "epoch_wall_seconds": round(epoch_seconds + tail_seconds, 3),
-            "t_mono": round(time.perf_counter(), 6),
-            "t_drain_mono": round(train_drain_mono, 6),
-        }, step=total_steps, phase="epoch_end")
-
-        if have_val:
-            early.update(val_total)
-        if early.should_stop:
-            if not saved_latest:
-                # the run ends here: without this save '--resume latest'
-                # would replay up to checkpoint_every_epochs − 1 epochs
+            t_ckpt = time.perf_counter()
+            extra = {"val_total": val_total}
+            saved_latest = epoch % ckpt_every == 0 or epoch == run.epochs
+            if saved_latest:
                 ckpt.save_latest(model, optimizer, epoch, total_steps, extra)
-            break
+            # without validation batches val_total is a meaningless 0.0: it
+            # must not become the best checkpoint or feed early stopping
+            have_val = val_batches > 0
+            if have_val:
+                ckpt.save_best(model, optimizer, epoch, total_steps, extra,
+                               monitor_value=val_total)
+            elif not no_val_warned:
+                no_val_warned = True
+                print("[VAL] no validation batches this run — "
+                      "best-checkpoint tracking and early stopping are "
+                      "disabled")
+            ckpt_seconds = time.perf_counter() - t_ckpt
+
+            t_panel = time.perf_counter()
+            if panel is not None:
+                sample_reconstructions(
+                    panel[0],
+                    recon_dev.float().cpu().numpy().transpose(0, 2, 3, 1),
+                    figures_dir, epoch, filenames=panel[1])
+            panel_seconds = time.perf_counter() - t_panel
+
+            tail_seconds = time.perf_counter() - tail_t0
+            log_metrics({
+                "epoch": epoch,
+                "val_seconds": round(val_seconds, 3),
+                "val_dispatch_seconds": round(val_dispatch_seconds, 3),
+                "rotate_dispatch_seconds": 0.0,
+                "rotated": False,
+                "probe_seconds": round(probe_seconds, 3),
+                "ckpt_seconds": round(ckpt_seconds, 3),
+                "panel_seconds": round(panel_seconds, 3),
+                "tail_seconds": round(tail_seconds, 3),
+                "epoch_wall_seconds": round(epoch_seconds + tail_seconds, 3),
+                "t_mono": round(time.perf_counter(), 6),
+                "t_drain_mono": round(train_drain_mono, 6),
+            }, step=total_steps, phase="epoch_end")
+
+            if have_val:
+                early.update(val_total)
+            if early.should_stop:
+                if not saved_latest:
+                    # the run ends here: without this save '--resume latest'
+                    # would replay up to checkpoint_every_epochs − 1 epochs
+                    ckpt.save_latest(model, optimizer, epoch, total_steps,
+                                     extra)
+                break
+    except BaseException as err:
+        run_error = err
+        raise
+    finally:
+        _finish(ckpt, run_error, old_sigterm)
     return {"model": model, "optimizer": optimizer, "epoch": epoch,
             "total_steps": total_steps}

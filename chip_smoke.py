@@ -16,16 +16,26 @@ Phases, each printing one line (any failure exits non-zero at once):
    one PyTorch call computes the same function) that call's: reparam+KL at
    the training path's shape and a large one (noise moments, seed
    behaviour), the SE-gate∘head-conv forward and M kernels at the
-   flagship's y in bf16 and fp32 and at a ragged shape,
+   flagship's y in bf16 and fp32 and at a ragged shape, the GroupNorm(1)
+   +ReLU+pool forward and backward kernels at the flagship's eight block
+   shapes in bf16, its largest in fp32, a ragged shape and the bench
+   canary's, each beside ``F.group_norm`` and the unfused sequence the
+   port's blocks run,
 4. slice: 3 fp32 steps of a small config on the card against the same steps
    on the CPU (the kernels' plain versions), with the default head and with
    ``training.fused_head: true``; 20 training steps of the flagship config
    (``configs/beta_vae_se.yaml`` at full width, demo data), with the
    default head and with the fused head; the epoch trainer ``train()`` on
    the flagship with the fused head for 2 epochs and then ``resume
-   latest`` for a third; every kernel's launch count is set to 0 just
-   before each of these runs and read just after; then a ``torch.profiler``
-   breakdown of the device time per step by kernel, default and fused head,
+   latest`` for a third, its checkpoints written by the background writer
+   (``training.async_checkpoint`` of the flagship config); the port's bench
+   (``python -m betavae_tpu_torch.bench`` in-process at ``--steps 96
+   --warmup 32 --e2e-epochs 3``: steady state, e2e epochs at the reference
+   dataset's scale, encode latencies, PRNG check and the kernel canary,
+   which is the GN kernels' path); every kernel's launch count is set to 0
+   just before each of these runs and read just after; then a
+   ``torch.profiler`` breakdown of the device time per step by kernel,
+   default and fused head,
 5. kernels: one JSON line listing each kernel with its checks and numbers,
 6. the last line: ``{"ok": true, "device": {...}}``.
 """
@@ -54,8 +64,22 @@ ELBO_SHAPES = ((32, 64), (65536, 64))   # the flagship's [batch, latent]; large
 # autocast, fp32 without), and a ragged shape for the tiles' edges
 HEAD_CASES = (((32, 64, 128, 128), "bfloat16"), ((32, 64, 128, 128), "float32"),
               ((3, 64, 37, 53), "float32"))
+# the GN kernels' inputs: the flagship's eight block activations (encoder
+# then decoder, bf16 under autocast), the largest in fp32, a ragged shape,
+# and the bench canary's fp32 [2, 64, 32, 32], the shape of the GN kernels'
+# main path
+GN_BLOCKS = (("enc0", (32, 64, 64, 64)), ("enc1", (32, 128, 32, 32)),
+             ("enc2", (32, 256, 16, 16)), ("enc3", (32, 512, 8, 8)),
+             ("dec0", (32, 256, 16, 16)), ("dec1", (32, 128, 32, 32)),
+             ("dec2", (32, 64, 64, 64)), ("dec3", (32, 64, 128, 128)))
+GN_EXTRA_CASES = (((32, 64, 128, 128), "float32"), ((3, 5, 37, 53), "float32"))
+GN_CANARY_CASE = ((2, 64, 32, 32), "float32")
+# fp32 operations per value, counted from the kernels' arithmetic: forward
+# 3 (x, x² sums) + 6 (x̂, z, ReLU, pool sum); backward 7 + 9
+GN_FWD_OPS, GN_BWD_OPS = 9, 16
 FLAGSHIP_STEPS = 20
 EPOCHS_FIRST, EPOCHS_TOTAL = 2, 3
+BENCH_ARGS = ["--steps", "96", "--warmup", "32", "--e2e-epochs", "3"]
 
 
 def fail(msg: str) -> None:
@@ -82,6 +106,25 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_per_call(fn, calls: int = 5) -> float:
+    """The device time of the kernels ``fn`` launches, per call
+    (``torch.profiler``): the kernels alone, without the host's share of a
+    call, which ``cuda_ms`` includes once calls are too short to queue up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3 / calls
 
 
 def check_elbo(shape, check_moments: bool) -> dict:
@@ -282,6 +325,132 @@ def check_head(shape, dtype_name: str) -> dict:
             "forward": fwd, "m": mk}
 
 
+def gn_inputs(shape, dtype_name: str, seed: int = 0):
+    import torch
+
+    b, c, _, _ = shape
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (2.0 * torch.randn(shape, generator=g, device="cuda") + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=g, device="cuda")
+    beta = 0.1 * torch.randn(c, generator=g, device="cuda")
+    gy = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    gp = torch.randn(b, c, generator=g, device="cuda")
+    return x, gamma, beta, gy, gp
+
+
+def check_gn(shape, dtype_name: str) -> dict:
+    """The GN forward and backward kernels on the card against their plain
+    versions, two launches against each other, and times beside the bound,
+    the plain version, one ``F.group_norm`` call and the unfused sequence
+    of the port's blocks."""
+    import torch
+    import torch.nn.functional as F
+
+    from betavae_tpu_torch.ops.gn import (gn_backward, gn_backward_reference,
+                                          gn_forward, gn_forward_reference)
+
+    x, gamma, beta, gy, gp = gn_inputs(shape, dtype_name)
+    b, c, h, w = shape
+    y, pooled, m, rstd = gn_forward(x, gamma, beta)
+    dx, dgamma, dbeta = gn_backward(x, gamma, beta, m, rstd, gy, gp)
+    torch.cuda.synchronize()
+    # fp32 results: sums of the same values in another order, 1e-5
+    # relative plus 1e-5 of the largest |value|; y and dx in bf16 also
+    # carry one bf16 rounding: 2^-8.  The backward's plain version is given
+    # the kernel's m and rstd, so both see the same ReLU mask.
+    io_tol = 1e-5 if dtype_name == "float32" else 2**-8
+    y_ref, pooled_ref, m_ref, rstd_ref = gn_forward_reference(x, gamma, beta)
+    dx_ref, dgamma_ref, dbeta_ref = gn_backward_reference(
+        x, gamma, beta, m, rstd, gy, gp)
+    checks = {}
+    for name, got, want, tol in (
+            ("y", y, y_ref, io_tol), ("pooled", pooled, pooled_ref, 1e-5),
+            ("m", m, m_ref, 1e-5), ("rstd", rstd, rstd_ref, 1e-5),
+            ("dx", dx, dx_ref, io_tol), ("dgamma", dgamma, dgamma_ref, 1e-5),
+            ("dbeta", dbeta, dbeta_ref, 1e-5)):
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol * scale)
+        checks[name] = {"max_abs_err": float((got.float()
+                                              - want.float()).abs().max()),
+                        "max_abs_ref": scale}
+    again = gn_forward(x, gamma, beta) + gn_backward(x, gamma, beta, m, rstd,
+                                                     gy, gp)
+    for first, second in zip((y, pooled, m, rstd, dx, dgamma, dbeta), again):
+        if not torch.equal(first, second):
+            fail(f"gn {shape} {dtype_name}: two launches differ")
+    del y_ref, pooled_ref, dx_ref, again
+
+    big = x.numel() >= 1 << 24
+    iters, plain_iters = (50, 10) if big else (200, 20)
+    fwd = {"ms": cuda_ms(lambda: gn_forward(x, gamma, beta), iters),
+           "device_ms": device_ms_per_call(lambda: gn_forward(x, gamma,
+                                                              beta)),
+           "plain_ms": cuda_ms(lambda: gn_forward_reference(x, gamma, beta),
+                               plain_iters)}
+    bwd = {"ms": cuda_ms(lambda: gn_backward(x, gamma, beta, m, rstd, gy, gp),
+                         iters),
+           "device_ms": device_ms_per_call(lambda: gn_backward(
+               x, gamma, beta, m, rstd, gy, gp)),
+           "plain_ms": cuda_ms(lambda: gn_backward_reference(
+               x, gamma, beta, m, rstd, gy, gp), plain_iters)}
+    # the library yardstick: one F.group_norm call (norm and affine only:
+    # no ReLU, no pool), in x's dtype, and its backward through autograd
+    # (one native_group_norm_backward)
+    gw, bw = gamma.to(x.dtype), beta.to(x.dtype)
+    fwd["library_ms"] = cuda_ms(lambda: F.group_norm(x, 1, gw, bw, 1e-6),
+                                iters)
+    xl, gl, bl = (t.clone().requires_grad_() for t in (x, gw, bw))
+    yl = F.group_norm(xl, 1, gl, bl, 1e-6)
+    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        yl, (xl, gl, bl), gy, retain_graph=True), iters)
+    # what the port's blocks run today under bf16 autocast: nn.GroupNorm
+    # (fp32 inside) → cast back → ReLU → the SE squeeze's mean, and its
+    # whole backward through autograd
+    xu, gu, bu = (t.clone().requires_grad_() for t in (x, gamma, beta))
+
+    def unfused():
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=x.dtype == torch.bfloat16):
+            hu = torch.relu(F.group_norm(xu, 1, gu, bu, 1e-6).to(x.dtype))
+            return hu, hu.mean(dim=(2, 3))
+
+    fwd["unfused_ms"] = cuda_ms(unfused, plain_iters)
+    hu, pu = unfused()
+    bwd["unfused_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        (hu, pu), (xu, gu, bu), (gy, gp.to(pu.dtype)), retain_graph=True),
+        plain_iters)
+    del xl, yl, xu, hu, pu
+
+    x_bytes = x.numel() * x.element_size()
+    for row, nbytes, ops in (
+            (fwd, 2 * x_bytes + 8 * c + 4 * b * c + 8 * b, GN_FWD_OPS),
+            (bwd, 3 * x_bytes + 8 * c + 8 * b + 12 * b * c, GN_BWD_OPS)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops * x.numel() / FP32_OPS_PER_S * 1e3
+        row["bound_ms"] = max(bytes_ms, ops_ms)
+        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return {"shape": list(shape), "dtype": dtype_name, "checks": checks,
+            "forward": fwd, "backward": bwd}
+
+
+def check_gn_cases() -> dict:
+    """``check_gn`` once per distinct (shape, dtype) of the flagship's
+    blocks, the extra cases and the canary's; returns them by case and the
+    blocks' map onto them."""
+    cases = {}
+    wanted = ([(shape, "bfloat16") for _, shape in GN_BLOCKS]
+              + list(GN_EXTRA_CASES) + [GN_CANARY_CASE])
+    for shape, dtype in wanted:
+        key = f"{'x'.join(map(str, shape))}_{dtype}"
+        if key not in cases:
+            cases[key] = check_gn(shape, dtype)
+    blocks = {name: f"{'x'.join(map(str, shape))}_bfloat16"
+              for name, shape in GN_BLOCKS}
+    return {"cases": cases, "blocks": blocks}
+
+
 def write_config(src: str, root: str, name: str, **overrides) -> str:
     """A copy of ``src`` with every path under ``root``; ``overrides`` are
     ``section.key`` → value."""
@@ -313,6 +482,15 @@ def zero_counts(kernels: dict) -> None:
 
 def read_counts(kernels: dict) -> dict:
     return {name: wrapper.launches for name, wrapper in kernels.items()}
+
+
+def launches_per_step(kernels: dict, fused_head: bool, steps: int) -> dict:
+    """Launches of ``steps`` train steps: reparam+KL every step, the head
+    kernels with the fused head, the GN kernels never (the model keeps
+    ``nn.GroupNorm``)."""
+    per_step = {"fused_reparam_kl": 1, "head_forward": int(fused_head),
+                "head_m": int(fused_head)}
+    return {name: steps * per_step.get(name, 0) for name in kernels}
 
 
 def check_small_slice(tmp: str, kernels: dict, fused_head: bool) -> dict:
@@ -351,8 +529,7 @@ def check_small_slice(tmp: str, kernels: dict, fused_head: bool) -> dict:
         reset_logger()
     finally:
         torch.backends.cudnn.allow_tf32 = True
-    want = {name: 3 if fused_head or name == "fused_reparam_kl" else 0
-            for name in kernels}
+    want = launches_per_step(kernels, fused_head, 3)
     # fp32 on both sides, summed in other orders; Adam carries the
     # difference into the next step: 1e-3 relative over three steps
     rel = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(gpu, cpu))
@@ -396,8 +573,7 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool) -> dict:
     totals = out["totals"]
     if len(totals) != FLAGSHIP_STEPS or not all(map(math.isfinite, totals)):
         fail(f"flagship: expected {FLAGSHIP_STEPS} finite losses, got {totals}")
-    want = {name: (FLAGSHIP_STEPS if fused_head or name == "fused_reparam_kl"
-                   else 0) for name in kernels}
+    want = launches_per_step(kernels, fused_head, FLAGSHIP_STEPS)
     if launches != want:
         fail(f"flagship (fused_head {fused_head}): kernel launches "
              f"{launches} in {FLAGSHIP_STEPS} steps, want {want}")
@@ -459,14 +635,16 @@ def metrics_lines(log_path: str) -> list:
 
 
 def run_epochs(tmp: str, kernels: dict) -> dict:
-    """The epoch trainer on the flagship at full width with the fused head:
-    EPOCHS_FIRST epochs, then ``resume="latest"`` with ``training.epochs``
-    raised to EPOCHS_TOTAL.  Every epoch must log finite train, val and
-    epoch_end lines; latest and best must stand as 2 shards each; the
-    resumed run must start at epoch EPOCHS_FIRST + 1 with the step count
-    carried over; and each kernel must launch once per forward that runs
-    it: head forward per train step, val batch and panel, M per train
-    step, reparam+KL per train step and val batch."""
+    """The epoch trainer on the flagship at full width with the fused head
+    and the background checkpoint writer (the config's
+    ``training.async_checkpoint: true``): EPOCHS_FIRST epochs, then
+    ``resume="latest"`` with ``training.epochs`` raised to EPOCHS_TOTAL.
+    Every epoch must log finite train, val and epoch_end lines; latest and
+    best must stand as 2 shards each; the resumed run must start at epoch
+    EPOCHS_FIRST + 1 with the step count carried over; and each kernel
+    must launch once per forward that runs it: head forward per train
+    step, val batch and panel, M per train step, reparam+KL per train step
+    and val batch, the GN kernels never."""
     import torch
 
     from betavae_tpu_torch.data.demo import generate_demo_data
@@ -524,7 +702,8 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
     train_steps = out2["total_steps"]
     want = {"head_forward": train_steps + EPOCHS_TOTAL * (val_batches + 1),
             "head_m": train_steps,
-            "fused_reparam_kl": train_steps + EPOCHS_TOTAL * val_batches}
+            "fused_reparam_kl": train_steps + EPOCHS_TOTAL * val_batches,
+            "gn_forward": 0, "gn_backward": 0}
     if launches != want:
         fail(f"epochs: kernel launches {launches}, want {want}")
     return {"phase": "epochs", "epochs": EPOCHS_TOTAL,
@@ -539,7 +718,55 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
             "latent_probe_auc": [m["latent_probe_auc"] for m in val_lines],
             "epoch_wall_seconds": [m["epoch_wall_seconds"] for m in lines
                                    if m["phase"] == "epoch_end"],
+            # the training thread's share of each epoch's checkpoint saves:
+            # the device snapshot and the queueing, the background writer's
+            # pull and file writes excluded
+            "ckpt_seconds": [m["ckpt_seconds"] for m in lines
+                             if m["phase"] == "epoch_end"],
             "peak_mem_gib": peak}
+
+
+def all_finite(value) -> bool:
+    """Every number in a nested line is finite, and none is a string such
+    as "FAIL: ..." or "skipped" where a number belongs."""
+    if isinstance(value, dict):
+        return all(map(all_finite, value.values()))
+    if isinstance(value, list):
+        return all(map(all_finite, value))
+    if isinstance(value, bool):
+        return True
+    if isinstance(value, (int, float)):
+        return math.isfinite(value)
+    return False
+
+
+def run_bench(tmp: str, kernels: dict) -> dict:
+    """The port's bench in-process, its e2e work under ``tmp``: the kernel
+    canary and PRNG check must read "ok", every number must be finite, and
+    the GN kernels (the canary), the head forward (the canary) and
+    reparam+KL (every step) must each have launched."""
+    from betavae_tpu_torch import bench
+
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    line = bench.main(BENCH_ARGS + ["--work-dir",
+                                    os.path.join(tmp, "bench_e2e")])
+    seconds = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    if line["kernel_canary"] != "ok" or line["prng_check"] != "ok":
+        fail(f"bench: kernel_canary {line['kernel_canary']!r}, prng_check "
+             f"{line['prng_check']!r}")
+    numbers = {k: v for k, v in line.items()
+               if k not in ("metric", "unit", "prng_check", "kernel_canary",
+                            "device")}
+    if not all_finite(numbers):
+        fail(f"bench: a number is missing or not finite: {line}")
+    missing = [name for name in ("gn_forward", "gn_backward", "head_forward",
+                                 "fused_reparam_kl") if launches[name] < 1]
+    if missing:
+        fail(f"bench: kernels {missing} never launched ({launches})")
+    return {"phase": "bench", "args": BENCH_ARGS, "seconds": seconds,
+            "launches": launches, "line": line}
 
 
 def main() -> None:
@@ -550,6 +777,7 @@ def main() -> None:
     # the port itself: absent when this script stands alone
     from betavae_tpu_torch import _build
     from betavae_tpu_torch.ops.elbo import fused_reparam_kl
+    from betavae_tpu_torch.ops.gn import gn_backward, gn_forward
     from betavae_tpu_torch.ops.head import head_forward, head_m
 
     smi = subprocess.run(
@@ -579,9 +807,13 @@ def main() -> None:
     heads = [check_head(shape, dtype) for shape, dtype in HEAD_CASES]
     emit({"phase": "kernel", "name": "fused_se_conv_head", "card": card,
           "cases": heads})
+    gn = check_gn_cases()
+    emit({"phase": "kernel", "name": "fused_gn_relu_pool", "card": card,
+          **gn})
 
     kernels = {"fused_reparam_kl": fused_reparam_kl,
-               "head_forward": head_forward, "head_m": head_m}
+               "head_forward": head_forward, "head_m": head_m,
+               "gn_forward": gn_forward, "gn_backward": gn_backward}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         emit(check_small_slice(tmp, kernels, fused_head=False))
         emit(check_small_slice(tmp, kernels, fused_head=True))
@@ -594,6 +826,9 @@ def main() -> None:
         epochs = run_epochs(tmp, kernels)
         epochs["card"] = card
         emit(epochs)
+        bench_run = run_bench(tmp, kernels)
+        bench_run["card"] = card
+        emit(bench_run)
         profiled = profile_flagship(tmp, flagship["step_ms"], fused_head=False)
         emit(profiled)
         profiled_fused = profile_flagship(tmp, flagship_fused["step_ms"],
@@ -606,11 +841,13 @@ def main() -> None:
     main_shape = f"{ELBO_SHAPES[0][0]}x{ELBO_SHAPES[0][1]}"
     row = elbo[main_shape]
     head_main = heads[0]
+    gn_main = gn["cases"]["2x64x32x32_float32"]
 
     def by_path(name):
         return {"epochs": epochs["launches"][name],
                 "flagship": flagship["launches"][name],
-                "flagship_fused_head": flagship_fused["launches"][name]}
+                "flagship_fused_head": flagship_fused["launches"][name],
+                "bench": bench_run["launches"][name]}
 
     emit({"kernels": [{
         "name": "fused_reparam_kl",
@@ -653,7 +890,35 @@ def main() -> None:
         ("head_forward", "forward", "betavae_tpu/ops/pallas_head.py:127",
          "head_fwd_kernel"),
         ("head_m", "m", "betavae_tpu/ops/pallas_head.py:152",
-         "head_m_kernel"))]})
+         "head_m_kernel"))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "betavae_tpu_torch/csrc/gn.cu",
+        "replaces": replaces,
+        # the GN kernels' main path is the bench's kernel canary
+        "launches": bench_run["launches"][name],
+        "launches_by_path": by_path(name),
+        "max_abs_err": max(c["checks"][k]["max_abs_err"]
+                           for c in gn["cases"].values() for k in keys),
+        # at the main path's shape, the canary's fp32 [2, 64, 32, 32]
+        "ms": gn_main[part]["ms"],
+        "plain_ms": gn_main[part]["plain_ms"],
+        "bound_ms": gn_main[part]["bound_ms"],
+        "bound_by": gn_main[part]["bound_by"],
+        # F.group_norm: the norm and affine only, no ReLU or pool
+        "library_ms": gn_main[part]["library_ms"],
+        "unfused_ms": gn_main[part]["unfused_ms"],
+        "device_ms": gn_main[part]["device_ms"],
+        "check": "ok",
+        "card": card,
+        "blocks": gn["blocks"],
+        "shapes": [{"shape": c["shape"], "dtype": c["dtype"], **c[part]}
+                   for c in gn["cases"].values()],
+    } for name, part, replaces, keys in (
+        ("gn_forward", "forward", "betavae_tpu/ops/pallas_gn.py:113",
+         ("y", "pooled", "m", "rstd")),
+        ("gn_backward", "backward", "betavae_tpu/ops/pallas_gn.py:139",
+         ("dx", "dgamma", "dbeta")))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -47,6 +47,8 @@ _FAST_MODULES = {
     "test_torch_port_data",
     "test_torch_port_head", "test_torch_port_checkpoint",
     "test_torch_port_train",
+    "test_torch_port_gn", "test_torch_port_bench",
+    "test_torch_port_async_checkpoint",
 }
 
 

@@ -12,6 +12,10 @@ import torch
 from betavae_tpu_torch.ops.elbo import (fused_reparam_kl, philox_normal,
                                         reparam_kl_forward,
                                         reparam_kl_reference)
+from betavae_tpu_torch.ops.gn import (fused_gn_relu_pool, gn_backward,
+                                      gn_backward_reference, gn_forward,
+                                      gn_forward_reference,
+                                      gn_relu_pool_reference)
 from betavae_tpu_torch.ops.head import (fused_se_conv_head, head_conv_reference,
                                         head_forward, head_m, head_m_reference)
 
@@ -142,3 +146,113 @@ def test_head_gradients_match_plain_autograd(cuda_device, no_tf32, dtype):
         scale = float(want.abs().max())
         torch.testing.assert_close(got.float(), want, rtol=tol,
                                    atol=tol * scale)
+
+
+def _gn_inputs(shape, dtype, device, seed=0):
+    b, c, _, _ = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (2.0 * torch.randn(shape, generator=g, device=device) + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=g, device=device)
+    beta = 0.1 * torch.randn(c, generator=g, device=device)
+    gy = torch.randn(shape, generator=g, device=device).to(dtype)
+    gp = torch.randn(b, c, generator=g, device=device)
+    return x, gamma, beta, gy, gp
+
+
+def _close_in(got, want, dtype):
+    """fp32: 1e-5 relative plus 1e-5 of the largest |value| (fp32 sums in
+    another order); a bf16 result also carries one bf16 rounding, 2⁻⁸."""
+    tol = 1e-5 if dtype == torch.float32 else 2**-8
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,misaligned", [
+    ((32, 64, 64, 64), torch.bfloat16, False),
+    ((32, 512, 8, 8), torch.bfloat16, False),
+    ((4, 64, 128, 128), torch.float32, False),
+    ((3, 5, 37, 53), torch.float32, False),
+    ((2, 6, 9, 130), torch.bfloat16, False),
+    ((2, 8, 64, 66), torch.bfloat16, False),
+    ((2, 8, 64, 66), torch.bfloat16, True)])
+def test_gn_kernels_match_plain_versions(cuda_device, shape, dtype,
+                                         misaligned):
+    """Forward (y, pooled, m, rstd) and backward (dx, per-sample dγ and
+    dβ, from the kernel's own m and rstd) against the plain versions:
+    flagship block shapes, a ragged one, planes that take a warp or a whole
+    block, with and without 16-byte access, and a contiguous x that does
+    not start on a 16-byte boundary.  Two launches give the same bits."""
+    x, gamma, beta, gy, gp = _gn_inputs(shape, dtype, cuda_device)
+    if misaligned:
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
+        x = flat[1:].view(shape).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    fwd, bwd = gn_forward.launches, gn_backward.launches
+    y, pooled, m, rstd = gn_forward(x, gamma, beta)
+    dx, dgamma, dbeta = gn_backward(x, gamma, beta, m, rstd, gy, gp)
+    torch.cuda.synchronize()
+    assert (gn_forward.launches, gn_backward.launches) == (fwd + 1, bwd + 1)
+    assert (y.dtype, dx.dtype, pooled.dtype) == (dtype, dtype, torch.float32)
+    y_ref, pooled_ref, m_ref, rstd_ref = gn_forward_reference(x, gamma, beta)
+    _close_in(y, y_ref, dtype)
+    for got, want in ((pooled, pooled_ref), (m, m_ref), (rstd, rstd_ref)):
+        _close_in(got, want, torch.float32)
+    dx_ref, dgamma_ref, dbeta_ref = gn_backward_reference(
+        x, gamma, beta, m, rstd, gy, gp)
+    _close_in(dx, dx_ref, dtype)
+    _close_in(dgamma, dgamma_ref, torch.float32)
+    _close_in(dbeta, dbeta_ref, torch.float32)
+    again = gn_forward(x, gamma, beta) + gn_backward(x, gamma, beta, m, rstd,
+                                                     gy, gp)
+    for first, second in zip((y, pooled, m, rstd, dx, dgamma, dbeta), again):
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_gradients_match_plain_autograd(cuda_device, dtype):
+    """Gradients of x, γ and β through both outputs of the autograd
+    Function (the backward kernels) against autograd through the plain
+    version; dx is rounded once to x's dtype."""
+    x, gamma, beta, gy, gp = _gn_inputs((4, 16, 33, 47), dtype, cuda_device,
+                                        seed=3)
+
+    def grads(fn):
+        xg, gg, bg = (t.clone().requires_grad_() for t in (x, gamma, beta))
+        y, pooled = fn(xg, gg, bg)
+        ((y.float() * gy.float()).sum() + (pooled * gp).sum()).backward()
+        return xg.grad, gg.grad, bg.grad
+
+    before = gn_backward.launches
+    got = grads(fused_gn_relu_pool)
+    assert gn_backward.launches == before + 1
+    want = grads(gn_relu_pool_reference)
+    assert got[0].dtype == dtype
+    _close_in(got[0], want[0], dtype)
+    _close_in(got[1], want[1], torch.float32)
+    _close_in(got[2], want[2], torch.float32)
+
+
+@pytest.mark.cuda
+def test_checkpoint_pull_holds_the_state_at_save_time(cuda_device):
+    """The background writer's pull of a device snapshot (a side stream
+    into pinned buffers) gives the values at save time, though the
+    training stream changes the originals in place right after the save."""
+    from betavae_tpu_torch.train.callbacks import _pull, _snapshot
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    state = {"w": torch.randn(4096, 1024, generator=g, device=cuda_device),
+             "b": torch.randn(7, generator=g, device=cuda_device)}
+    want = {k: v.cpu() for k, v in state.items()}
+    snap = {"model_state": _snapshot(state)}
+    ready = torch.cuda.Event()
+    ready.record()
+    for _ in range(20):                   # queued after the snapshot
+        for v in state.values():
+            v.mul_(-3.0).add_(1.0)
+    got = _pull(snap, ready)["model_state"]
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(torch.from_numpy(got[k]), v), k

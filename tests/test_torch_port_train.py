@@ -238,10 +238,19 @@ def test_probe_metrics_match_jax(n, d, k):
 
 
 def test_config_line_notes_synchronous_checkpoints(tmp_path):
+    """``training.async_checkpoint: true`` runs the background writer: the
+    CONFIG line carries the config's own value and no "not ported" note,
+    and ``train()`` returns only after the writer has landed whole
+    ``latest`` and ``best`` checkpoints of the last epoch."""
     path = _config(tmp_path, **{"training.async_checkpoint": True,
                                 "debug.epochs": 1})
     _port_train(path)
     line = next(ln for ln in open(tmp_path / "outputs" / "logs" / "run.log")
                 if "| CONFIG " in ln)
     cfg = json.loads(line.split("| CONFIG ", 1)[1])
-    assert "synchronous" in cfg["async_checkpoint"]
+    assert cfg["training"]["async_checkpoint"] is True
+    assert "async_checkpoint" not in cfg
+    models = tmp_path / "outputs" / "models"
+    for tag in ("latest", "best"):
+        assert len(discover_shards(str(models / f"run_{tag}.pt"))) == 2
+        assert read_checkpoint_meta(str(models / f"run_{tag}.pt"))["epoch"] == 1
