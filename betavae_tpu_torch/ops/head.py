@@ -21,7 +21,10 @@ to XLA (``pallas_head.py:170-210``): ``dk = Σ_b s·M``, ``ds = Σ_tap k·M``
 and ``dy_y = s ⊙ Σ_tap shift(dy)·k`` (a [C, 9] × [9, H·W] product per
 sample, with ``s`` folded into the weights).  Each wrapper launches its
 kernel for CUDA tensors and takes the plain version only for CPU tensors;
-``head_forward.launches`` and ``head_m.launches`` count kernel launches.
+``head_forward.launches`` and ``head_m.launches`` count kernel launches,
+and ``.launches_by_path`` counts them by the kernel's path: ``"tma"`` where
+TMA can describe the rows (:func:`tma_path`: the flagship's shapes),
+``"generic"`` for the rest.
 """
 
 from __future__ import annotations
@@ -87,7 +90,24 @@ def _library():
     lib.betavae_head_m.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
     lib.betavae_head_m.restype = ctypes.c_int
+    lib.betavae_head_tma_path.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 2
+    lib.betavae_head_tma_path.restype = ctypes.c_int
     return lib
+
+
+def tma_path(y: torch.Tensor, dy: torch.Tensor | None = None) -> bool:
+    """Whether ``csrc/head.cu`` takes its TMA path for this contiguous
+    ``y`` (and ``dy``, for M): both 16-byte aligned and a row of ``y`` a
+    multiple of 16 bytes, the tensor map's rule (``tma_rows`` there)."""
+    return (y.data_ptr() % 16 == 0
+            and (dy is None or dy.data_ptr() % 16 == 0)
+            and y.shape[-1] * y.element_size() % 16 == 0)
+
+
+def _count(wrapper, tma: bool) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_path["tma" if tma else "generic"] += 1
 
 
 def _dtype_code(name: str, t: torch.Tensor) -> int:
@@ -128,11 +148,12 @@ def head_forward(y: torch.Tensor, s: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"head forward kernel launch failed with CUDA "
                            f"error {rc}")
-    head_forward.launches += 1
+    _count(head_forward, tma_path(y))
     return out
 
 
 head_forward.launches = 0
+head_forward.launches_by_path = {"tma": 0, "generic": 0}
 
 
 def head_m(y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -155,11 +176,12 @@ def head_m(y: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         stream, y.device.index)
     if rc != 0:
         raise RuntimeError(f"head M kernel launch failed with CUDA error {rc}")
-    head_m.launches += 1
+    _count(head_m, tma_path(y, dy))
     return m
 
 
 head_m.launches = 0
+head_m.launches_by_path = {"tma": 0, "generic": 0}
 
 
 class _FusedSEConvHead(torch.autograd.Function):

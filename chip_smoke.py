@@ -16,7 +16,9 @@ Phases, each printing one line (any failure exits non-zero at once):
    one PyTorch call computes the same function) that call's: reparam+KL at
    the training path's shape and a large one (noise moments, seed
    behaviour), the SE-gate∘head-conv forward and M kernels at the
-   flagship's y in bf16 and fp32 and at a ragged shape, the GroupNorm(1)
+   flagship's y in bf16 and fp32 and at a ragged shape (each with the path
+   it took, TMA or generic, its profiler device time, and two launches
+   held bitwise equal), the GroupNorm(1)
    +ReLU+pool forward and backward kernels at the flagship's eight block
    shapes in bf16, its largest in fp32, a ragged shape and the bench
    canary's, each beside ``F.group_norm`` and the unfused sequence the
@@ -33,7 +35,8 @@ Phases, each printing one line (any failure exits non-zero at once):
    --warmup 32 --e2e-epochs 3``: steady state, e2e epochs at the reference
    dataset's scale, encode latencies, PRNG check and the kernel canary,
    which is the GN kernels' path); every kernel's launch count is set to 0
-   just before each of these runs and read just after; then a
+   just before each of these runs and read just after, and every head
+   kernel launch there must have taken the TMA path; then a
    ``torch.profiler`` breakdown of the device time per step by kernel,
    default and fused head,
 5. kernels: one JSON line listing each kernel with its checks and numbers,
@@ -108,10 +111,13 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_per_call(fn, calls: int = 5) -> float:
+def device_ms_per_call(fn, calls: int = 5, before=None,
+                       only: str = "") -> float:
     """The device time of the kernels ``fn`` launches, per call
     (``torch.profiler``): the kernels alone, without the host's share of a
-    call, which ``cuda_ms`` includes once calls are too short to queue up."""
+    call, which ``cuda_ms`` includes once calls are too short to queue up.
+    ``before`` runs ahead of each call, and only kernels whose name holds
+    ``only`` are counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,11 +126,13 @@ def device_ms_per_call(fn, calls: int = 5) -> float:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation) / 1e3 / calls
+               and not e.is_user_annotation and only in e.name) / 1e3 / calls
 
 
 def check_elbo(shape, check_moments: bool) -> dict:
@@ -228,16 +236,28 @@ def check_head(shape, dtype_name: str) -> dict:
     import torch.nn.functional as F
 
     from betavae_tpu_torch.ops.head import (fused_se_conv_head,
-                                            head_conv_reference, head_forward,
-                                            head_m, head_m_reference)
+                                            head_conv_reference, head_dx,
+                                            head_forward, head_m,
+                                            head_m_reference)
 
     y, s, k, dy = head_inputs(shape, dtype_name)
     b, c, h, w = shape
     # the plain forward is an fp32 cuDNN conv: no TF32 in the reference
     torch.backends.cudnn.allow_tf32 = False
+    before = {f: dict(f.launches_by_path) for f in (head_forward, head_m)}
     out = head_forward(y, s, k)
     m = head_m(y, dy)
     torch.cuda.synchronize()
+    # the path each kernel took: the one whose count went up
+    paths = {name: [p for p, n in f.launches_by_path.items()
+                    if n != before[f][p]]
+             for name, f in (("forward", head_forward), ("m", head_m))}
+    if any(len(p) != 1 for p in paths.values()):
+        fail(f"head {shape} {dtype_name}: launches by path {paths}")
+    # two launches give the same bits (fixed order, no atomics)
+    if not (torch.equal(out, head_forward(y, s, k))
+            and torch.equal(m, head_m(y, dy))):
+        fail(f"head {shape} {dtype_name}: two launches differ")
     checks = {}
     for name, got, want in (("forward", out, head_conv_reference(y, s, k)),
                             ("m", m, head_m_reference(y, dy))):
@@ -271,11 +291,30 @@ def check_head(shape, dtype_name: str) -> dict:
     big = b * c * h * w >= 1 << 24
     iters = 50 if big else 500
     plain_iters = 10 if big else 100
-    fwd = {"ms": cuda_ms(lambda: head_forward(y, s, k), iters),
+    # each kernel with L2 emptied before every call, by reading 256 MB
+    # (clean lines) or by writing them (50 MB of dirty lines that the
+    # kernel's loads must first write back, as after the ops of a step)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    l2 = {}
+    for kind, fn in (("head_fwd_", lambda: head_forward(y, s, k)),
+                     ("head_m_", lambda: head_m(y, dy))):
+        l2[kind] = {
+            "device_ms_after_l2_read": device_ms_per_call(
+                fn, before=flush.max, only=kind),
+            "device_ms_after_l2_write": device_ms_per_call(
+                fn, before=flush.zero_, only=kind)}
+    del flush
+    fwd = {"path": paths["forward"][0],
+           "ms": cuda_ms(lambda: head_forward(y, s, k), iters),
+           "device_ms": device_ms_per_call(lambda: head_forward(y, s, k)),
            "plain_ms": cuda_ms(lambda: head_conv_reference(y, s, k),
                                plain_iters)}
-    mk = {"ms": cuda_ms(lambda: head_m(y, dy), iters),
+    mk = {"path": paths["m"][0],
+          "ms": cuda_ms(lambda: head_m(y, dy), iters),
+          "device_ms": device_ms_per_call(lambda: head_m(y, dy)),
           "plain_ms": cuda_ms(lambda: head_m_reference(y, dy), plain_iters)}
+    fwd.update(l2["head_fwd_"])
+    mk.update(l2["head_m_"])
     # M's library call: one grouped cuDNN conv with each sample's dy as its
     # H×W filter, conv2d(y^T [C, B, H, W], dy [B, 1, H, W], padding=1,
     # groups=B)[c, b, dh, dw] = M[b, 3·dh+dw, c]; TF32 off, so exact in
@@ -302,14 +341,27 @@ def check_head(shape, dtype_name: str) -> dict:
     g_out = dy[:, None].to(y.dtype)
     yr, sr, wr = (t.clone().requires_grad_() for t in (y, s, w4))
     unfused = F.conv2d(yr * sr[:, :, None, None], wr, padding=1)
-    mk["unfused_head_backward_ms"] = cuda_ms(
-        lambda: torch.autograd.grad(unfused, (yr, sr, wr), g_out,
-                                    retain_graph=True), plain_iters)
+
+    def unfused_backward():
+        return torch.autograd.grad(unfused, (yr, sr, wr), g_out,
+                                   retain_graph=True)
+
+    mk["unfused_head_backward_ms"] = cuda_ms(unfused_backward, plain_iters)
+    mk["unfused_head_backward_device_ms"] = device_ms_per_call(
+        unfused_backward)
     kr = k.clone().requires_grad_()
     fused = fused_se_conv_head(yr, sr, kr)
-    mk["fused_head_backward_ms"] = cuda_ms(
-        lambda: torch.autograd.grad(fused, (yr, sr, kr), dy,
-                                    retain_graph=True), plain_iters)
+
+    def fused_backward():
+        return torch.autograd.grad(fused, (yr, sr, kr), dy, retain_graph=True)
+
+    mk["fused_head_backward_ms"] = cuda_ms(fused_backward, plain_iters)
+    mk["fused_head_backward_device_ms"] = device_ms_per_call(fused_backward)
+    # of which dy_y: the torch ops of head_dx (pad, 9 shifts, bmm, cast)
+    mk["head_dx_ms"] = cuda_ms(lambda: head_dx(dy, s, k, y.dtype),
+                               plain_iters)
+    mk["head_dx_device_ms"] = device_ms_per_call(
+        lambda: head_dx(dy, s, k, y.dtype))
 
     y_bytes = y.numel() * y.element_size()
     ops = 18 * b * c * h * w            # 9 taps × (multiply + add) per y·k
@@ -321,6 +373,7 @@ def check_head(shape, dtype_name: str) -> dict:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         row["bound_ms"] = max(bytes_ms, ops_ms)
         row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["bound_fraction"] = row["bound_ms"] / row["device_ms"]
     return {"shape": list(shape), "dtype": dtype_name, "checks": checks,
             "forward": fwd, "m": mk}
 
@@ -478,6 +531,18 @@ def write_config(src: str, root: str, name: str, **overrides) -> str:
 def zero_counts(kernels: dict) -> None:
     for wrapper in kernels.values():
         wrapper.launches = 0
+        for path in getattr(wrapper, "launches_by_path", {}):
+            wrapper.launches_by_path[path] = 0
+
+
+def head_paths(kernels: dict) -> dict:
+    """The head kernels' launches by path since ``zero_counts``; every one
+    on the main path must take the TMA path (the flagship's y allows it)."""
+    paths = {name: dict(kernels[name].launches_by_path)
+             for name in ("head_forward", "head_m")}
+    if any(p["generic"] for p in paths.values()):
+        fail(f"head kernels took the generic path on the main path: {paths}")
+    return paths
 
 
 def read_counts(kernels: dict) -> dict:
@@ -569,6 +634,7 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool) -> dict:
     zero_counts(kernels)
     out = train_steps(cfg, FLAGSHIP_STEPS)
     launches = read_counts(kernels)
+    paths = head_paths(kernels)
     reset_logger()
     totals = out["totals"]
     if len(totals) != FLAGSHIP_STEPS or not all(map(math.isfinite, totals)):
@@ -580,6 +646,7 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool) -> dict:
     step_ms = out["timed_seconds"] / out["timed_steps"] * 1e3
     return {"phase": "flagship", "fused_head": fused_head,
             "steps": out["steps"], "launches": launches,
+            "head_launches_by_path": paths,
             "first_total": totals[0], "last_total": totals[-1],
             "timed_steps": out["timed_steps"], "step_ms": step_ms,
             "img_per_s": out["batch_size"] * 1e3 / step_ms,
@@ -619,10 +686,10 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool) -> dict:
                 if "reparam_kl_kernel" in name),
             "head_fwd_kernel_device_ms_per_step": sum(
                 ms for name, ms in per_kernel.items()
-                if "head_fwd_kernel" in name),
+                if "head_fwd_" in name),     # either path's kernel
             "head_m_kernel_device_ms_per_step": sum(
                 ms for name, ms in per_kernel.items()
-                if "head_m_kernel" in name),
+                if "head_m_" in name),
             "device_busy_share": device_ms / step_ms,
             "kernels_per_step": len(work) / steps,
             "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in top]}
@@ -669,6 +736,7 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
     reset_logger()
     seconds = time.perf_counter() - t0
     launches = read_counts(kernels)
+    paths = head_paths(kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     lines = metrics_lines(os.path.join(root, "outputs", "logs",
@@ -709,7 +777,8 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
     return {"phase": "epochs", "epochs": EPOCHS_TOTAL,
             "resumed_at_epoch": resumed_first["epoch"],
             "train_steps": train_steps, "val_batches_per_epoch": val_batches,
-            "launches": launches, "seconds": seconds,
+            "launches": launches, "head_launches_by_path": paths,
+            "seconds": seconds,
             "train_images_per_sec": [m["train_images_per_sec"]
                                      for m in val_lines],
             "steady_train_images_per_sec": [m["train_images_per_sec"]
@@ -881,7 +950,14 @@ def main() -> None:
         "bound_ms": head_main[part]["bound_ms"],
         "bound_by": head_main[part]["bound_by"],
         "library_ms": head_main[part]["library_ms"],
-        "device_ms": profiled_fused[f"{profile_key}_device_ms_per_step"],
+        # the kernel alone (profiler) in the kernel phase, at the flagship's
+        # bf16 y, its bound over that time, and the fused flagship steps'
+        # device time of the kernel per step
+        "device_ms": head_main[part]["device_ms"],
+        "bound_fraction": head_main[part]["bound_fraction"],
+        "path": head_main[part]["path"],
+        "device_ms_per_fused_step": profiled_fused[
+            f"{profile_key}_device_ms_per_step"],
         "check": "ok",
         "card": card,
         "shapes": [{"shape": c["shape"], "dtype": c["dtype"], **c[part],

@@ -16,8 +16,10 @@ from betavae_tpu_torch.ops.gn import (fused_gn_relu_pool, gn_backward,
                                       gn_backward_reference, gn_forward,
                                       gn_forward_reference,
                                       gn_relu_pool_reference)
+from betavae_tpu_torch.ops.head import _library as _head_library
 from betavae_tpu_torch.ops.head import (fused_se_conv_head, head_conv_reference,
-                                        head_forward, head_m, head_m_reference)
+                                        head_forward, head_m, head_m_reference,
+                                        tma_path)
 
 
 @pytest.fixture
@@ -104,13 +106,33 @@ def no_tf32():
     ((2, 5, 9, 130), torch.bfloat16, False),
     ((2, 6, 13, 136), torch.bfloat16, False),
     ((3, 5, 11, 132), torch.float32, False),
-    ((2, 6, 13, 136), torch.bfloat16, True)])
+    ((2, 6, 13, 136), torch.bfloat16, True),
+    # the TMA path's edges: H at a 32-row band and one either side
+    ((2, 8, 31, 128), torch.bfloat16, False),
+    ((2, 8, 32, 128), torch.float32, False),
+    ((2, 8, 33, 128), torch.bfloat16, False),
+    # one work item (fewer than the SMs), and more than one sweep of the
+    # persistent grid (320 forward and 640 M items)
+    ((1, 3, 16, 128), torch.bfloat16, False),
+    ((40, 64, 256, 128), torch.bfloat16, False),
+    # a row of exactly 16 bytes, rows either side of the 16-byte rule
+    # (bf16 136 and 128 values: TMA; 132 and 130: generic; fp32 260: TMA
+    # over three column tiles; 6: generic), and C not a multiple of a
+    # stage's channel group (4 bf16, 2 fp32)
+    ((2, 5, 9, 8), torch.bfloat16, False),
+    ((2, 3, 9, 4), torch.float32, False),
+    ((2, 5, 20, 136), torch.bfloat16, False),
+    ((2, 5, 20, 132), torch.bfloat16, False),
+    ((2, 3, 20, 260), torch.float32, False),
+    ((2, 3, 20, 6), torch.float32, False),
+    ((3, 7, 33, 64), torch.float32, False)])
 def test_head_kernels_match_plain_versions(cuda_device, no_tf32, shape,
                                            dtype, misaligned):
     """Forward and M kernels against the plain versions computed in fp32
     from the same (bf16) values: the flagship shape, ragged ones, widths
-    past one 128-column tile that do and do not allow 16-byte loads, and a
-    contiguous y that does not start on a 16-byte boundary."""
+    past one 128-column tile that do and do not allow 16-byte loads, a
+    contiguous y that does not start on a 16-byte boundary, and the TMA
+    path's edges (band height, item count, row bytes, channel group)."""
     y, s, k, dy = _head_inputs(shape, dtype, cuda_device)
     if misaligned:
         flat = torch.empty(y.numel() + 1, dtype=dtype, device=cuda_device)
@@ -123,6 +145,53 @@ def test_head_kernels_match_plain_versions(cuda_device, no_tf32, shape,
     assert (head_forward.launches, head_m.launches) == (fwd + 1, m + 1)
     _close(out, head_conv_reference(y, s, k))
     _close(mm, head_m_reference(y, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,misaligned,tma", [
+    ((32, 64, 128, 128), torch.bfloat16, False, True),
+    ((32, 64, 128, 128), torch.float32, False, True),
+    ((3, 64, 37, 53), torch.float32, False, False),
+    ((2, 6, 13, 136), torch.bfloat16, True, False),
+    ((2, 5, 20, 130), torch.bfloat16, False, False)])
+def test_head_kernels_take_the_path_their_rows_allow(cuda_device, shape,
+                                                     dtype, misaligned, tma):
+    """The flagship's y takes the TMA path in both dtypes, misaligned and
+    ragged rows the generic one: the wrapper's per-path launch counts say
+    so, and its rule is the library's."""
+    y, s, k, dy = _head_inputs(shape, dtype, cuda_device)
+    if misaligned:
+        flat = torch.empty(y.numel() + 1, dtype=dtype, device=cuda_device)
+        y = flat[1:].view(shape).copy_(y)
+    path = "tma" if tma else "generic"
+    fwd, m = (dict(f.launches_by_path) for f in (head_forward, head_m))
+    head_forward(y, s, k)
+    head_m(y, dy)
+    torch.cuda.synchronize()
+    for wrapper, before in ((head_forward, fwd), (head_m, m)):
+        after = dict(before, **{path: before[path] + 1})
+        assert wrapper.launches_by_path == after
+    lib = _head_library()
+    code = 1 if dtype == torch.bfloat16 else 0
+    assert tma_path(y) == tma_path(y, dy) == tma
+    assert lib.betavae_head_tma_path(y.data_ptr(), None, shape[3], code) == tma
+    assert lib.betavae_head_tma_path(y.data_ptr(), dy.data_ptr(), shape[3],
+                                     code) == tma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((32, 64, 128, 128), torch.bfloat16), ((32, 64, 128, 128), torch.float32),
+    ((3, 64, 37, 53), torch.float32), ((40, 64, 256, 128), torch.bfloat16)])
+def test_head_kernels_give_the_same_bits_twice(cuda_device, shape, dtype):
+    """Two launches of each kernel give equal bits: fixed summation order,
+    no atomics, on both paths and over more than one sweep of the grid."""
+    y, s, k, dy = _head_inputs(shape, dtype, cuda_device, seed=5)
+    first = (head_forward(y, s, k), head_m(y, dy))
+    second = (head_forward(y, s, k), head_m(y, dy))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

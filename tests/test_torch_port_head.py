@@ -116,6 +116,34 @@ def test_gradients_come_back_in_the_input_dtypes():
         torch.bfloat16, torch.bfloat16, torch.float32)
 
 
+@pytest.mark.parametrize("w,dtype,offset,want", [
+    (128, torch.bfloat16, 0, True), (128, torch.float32, 0, True),
+    (8, torch.bfloat16, 0, True), (4, torch.float32, 0, True),
+    (136, torch.bfloat16, 0, True), (132, torch.bfloat16, 0, False),
+    (130, torch.bfloat16, 0, False), (53, torch.float32, 0, False),
+    (6, torch.float32, 0, False), (128, torch.bfloat16, 1, False)])
+def test_tma_path_rule(w, dtype, offset, want):
+    """The kernels' path: TMA where y (and dy) start on 16 bytes and a row
+    of y is a multiple of 16 bytes, as the tensor map needs."""
+    flat = torch.zeros(2 * 3 * 5 * w + 16, dtype=dtype)
+    size = flat.element_size()
+    start = (-flat.data_ptr() // size) % (16 // size)   # to a 16-byte start
+    y = flat[start + offset:start + offset + 2 * 3 * 5 * w].view(2, 3, 5, w)
+    dy = torch.zeros(2, 5, w)
+    assert head.tma_path(y) is want
+    assert head.tma_path(y, dy) is (want and dy.data_ptr() % 16 == 0)
+
+
+def test_cpu_calls_count_no_launch_on_either_path():
+    before = (dict(head.head_forward.launches_by_path),
+              dict(head.head_m.launches_by_path))
+    y, s, k = _to_port(*_inputs(2, 6, 8, 3))
+    head.head_forward(y, s, k)
+    head.head_m(y, torch.zeros(2, 6, 8))
+    assert (head.head_forward.launches_by_path,
+            head.head_m.launches_by_path) == before
+
+
 def test_wrappers_refuse_other_devices():
     y = torch.zeros(1, 2, 3, 3, device="meta")
     with pytest.raises(ValueError, match="device"):
