@@ -23,13 +23,18 @@ H, W]`` in bf16 or fp32, ``γ``/``β`` fp32 ``[C]``; ``y`` comes back in x's
 dtype, ``pooled`` fp32 ``[B, C]``.
 
 Two kernel launchers (``csrc/gn.cu``, whose header gives their bound on an
-H100): :func:`gn_forward` (a stats pass and an apply pass) and
-:func:`gn_backward` (a per-channel sums pass and a dx pass).  Each launches
-its kernels for CUDA tensors and takes the plain version only for CPU
-tensors; ``gn_forward.launches`` and ``gn_backward.launches`` count kernel
-launches.  The plain versions form ``z`` with the same separately rounded
-operations as the kernels, so that given the same ``m`` and ``rstd`` the
-two agree on every ReLU mask bit.
+H100 and their design): :func:`gn_forward` and :func:`gn_backward`.  Each
+takes one of two paths, by :func:`gn_path` (shape and dtype alone):
+``"cluster"``, one launch per direction with one thread-block cluster of
+``k`` CTAs per sample holding the sample in shared memory (every sample
+within the budget: the flagship's block shapes but its largest, and the
+bench canary's), or ``"generic"``, two launches per direction (a stats
+pass and an apply pass; a sums pass and a dx pass).  Each launches its
+kernels for CUDA tensors and takes the plain version only for CPU tensors;
+``gn_forward.launches`` and ``gn_backward.launches`` count kernel launches
+and ``.launches_by_path`` counts them by path.  The plain versions form
+``z`` with the same separately rounded operations as the kernels, so that
+given the same ``m`` and ``rstd`` the two agree on every ReLU mask bit.
 
 Not wired into the model: the JAX model runs flax GroupNorm and keeps this
 kernel for its bench canary (``bench.py:229``); the port's blocks keep
@@ -48,8 +53,16 @@ import torch
 from .. import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# values summed by one block of the stats pass
+# values summed by one block of the generic path's stats pass
 _STATS_CHUNK = 8192
+# the cluster path's rule, as csrc/gn.cu states it (cl::cluster_k): two
+# CTAs on each SM of the H100 SXM's 132, portable clusters of at most 8
+# CTAs, and a CTA's channels within 72 KiB of shared memory (three CTAs to
+# an SM) at 24 bytes a channel besides its values
+_CLUSTER_CTAS = 2 * 132
+_CLUSTER_MAX = 8
+_SLICE_BUDGET = 72 * 1024
+_PER_CHANNEL = 24
 
 
 # ---------------------------------------------------------------------------
@@ -124,13 +137,17 @@ def gn_backward_reference(x, gamma, beta, m, rstd, gy, gp):
 def _library():
     lib = _build.load("gn")
     # without argtypes ctypes would pass each pointer as a 32-bit int
-    lib.betavae_gn_fwd.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                             ctypes.c_int]
+    lib.betavae_gn_fwd.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_int]
     lib.betavae_gn_fwd.restype = ctypes.c_int
-    lib.betavae_gn_bwd.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int]
+    lib.betavae_gn_bwd.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int]
     lib.betavae_gn_bwd.restype = ctypes.c_int
+    lib.betavae_gn_path.argtypes = [ctypes.c_int] * 5
+    lib.betavae_gn_path.restype = ctypes.c_int
+    lib.betavae_gn_active_clusters.argtypes = [ctypes.c_int] * 8
+    lib.betavae_gn_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -160,8 +177,89 @@ def _check(x, gamma, beta) -> int:
 
 
 def stats_splits(sample_values: int) -> int:
-    """Blocks per sample of the forward's stats pass."""
+    """Blocks per sample of the generic path's stats pass."""
     return max(1, min(65535, math.ceil(sample_values / _STATS_CHUNK)))
+
+
+def gn_path(shape, dtype: torch.dtype) -> tuple[str, int]:
+    """The path the kernels take for x of ``shape`` ``[B, C, H, W]`` and
+    ``dtype``: ``("cluster", k)``, one launch per direction with clusters of
+    ``k`` CTAs, or ``("generic", splits)``, two launches per direction with
+    ``splits`` stats blocks a sample.  ``k`` starts at ``min(8, 264 // B,
+    C)``, so that B·k CTAs put two on each of the card's SMs where B
+    allows, and is the least from there to ``min(8, C)`` whose largest
+    slice, ``ceil(C/k)`` channels, fits the shared-memory budget.
+    ``betavae_gn_path`` in ``csrc/gn.cu`` states the same rule."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"GN kernel takes float32 or bfloat16, got {dtype}")
+    b, c, h, w = shape
+    plane_bytes = h * w * (2 if dtype == torch.bfloat16 else 4)
+    k_max = min(_CLUSTER_MAX, c)
+    for k in range(min(k_max, max(1, _CLUSTER_CTAS // b)), k_max + 1):
+        if -(-c // k) * (plane_bytes + _PER_CHANNEL) <= _SLICE_BUDGET:
+            return ("cluster", k)
+    return ("generic", stats_splits(c * h * w))
+
+
+# one dictionary lookup per call; shapes are few
+_path_of = functools.lru_cache(maxsize=1024)(gn_path)
+
+
+def _partial_offset(b: int, c: int) -> int:
+    """Where the generic path's stats scratch starts in the forward's fp32
+    buffer, after pooled, m and rstd (``partial_offset`` in ``gn.cu``)."""
+    return (b * c + 2 * b + 3) // 4 * 4
+
+
+def _stats_views(buf: torch.Tensor, b: int, c: int):
+    """``(pooled [B, C], m [B], rstd [B])``: views of the forward's fp32
+    buffer, in the order ``betavae_gn_fwd`` writes them (the generic
+    path's stats scratch, if any, after them)."""
+    pooled, m, rstd, _ = buf.split_with_sizes(
+        (b * c, b, b, buf.numel() - b * c - 2 * b))
+    return pooled.view(b, c), m, rstd
+
+
+def _param_views(buf: torch.Tensor):
+    """``(dγ [B, C], dβ [B, C])``: views of the backward's fp32 ``[2, B,
+    C]`` buffer, in the order ``betavae_gn_bwd`` writes them."""
+    dgamma, dbeta = buf.unbind(0)
+    return dgamma, dbeta
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream's handle.  ``torch._C._cuda_getCurrentRawStream``
+    is private, and used because it returns the handle without building a
+    ``torch.cuda.Stream`` (``torch.cuda.current_stream(device).cuda_stream``
+    took 5–8 µs of host time a call on the H100's host, 12–15 % of a GN
+    call; ``chip_smoke.py::gn_host_split`` times both)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _count(wrapper, kind: str) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_path[kind] += 1
+
+
+def _forward_launch(x, gamma, beta, eps: float, code: int, path):
+    """The forward kernels on ``path`` (:func:`gn_path`'s form; a cluster
+    size above 8 is a non-portable one), for checked CUDA inputs."""
+    kind, n = path
+    k, splits = (n, 0) if kind == "cluster" else (0, n)
+    b, c, h, w = x.shape
+    x, gamma, beta = x.contiguous(), gamma.contiguous(), beta.contiguous()
+    y = torch.empty_like(x)
+    size = b * c + 2 * b if k else _partial_offset(b, c) + 2 * b * splits
+    stats = torch.empty(size, dtype=torch.float32, device=x.device)
+    rc = _library().betavae_gn_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        stats.data_ptr(), b, c, h, w, eps, code, k, splits,
+        _stream(x.device), x.device.index)
+    if rc != 0:
+        raise RuntimeError(f"GN forward kernel launch ({kind}, {n}) failed "
+                           f"with CUDA error {rc}")
+    _count(gn_forward, kind)
+    return (y, *_stats_views(stats, b, c))
 
 
 def gn_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -172,28 +270,34 @@ def gn_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         y, pooled, m, rstd = gn_forward_reference(x, gamma, beta, eps)
         return y.to(x.dtype), pooled, m, rstd
     code = _check(x, gamma, beta)
-    b, c, h, w = x.shape
-    x, gamma, beta = x.contiguous(), gamma.contiguous(), beta.contiguous()
-    y = torch.empty_like(x)
-    pooled = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    m = torch.empty((b,), dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(m)
-    splits = stats_splits(c * h * w)
-    partial = torch.empty((b, splits, 2), dtype=torch.float32,
-                          device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _library().betavae_gn_fwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-        pooled.data_ptr(), m.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
-        splits, b, c, h, w, float(eps), code, stream, x.device.index)
-    if rc != 0:
-        raise RuntimeError(f"GN forward kernel launch failed with CUDA "
-                           f"error {rc}")
-    gn_forward.launches += 1
-    return y, pooled, m, rstd
+    return _forward_launch(x, gamma, beta, float(eps), code,
+                           _path_of(x.shape, x.dtype))
 
 
 gn_forward.launches = 0
+gn_forward.launches_by_path = {"cluster": 0, "generic": 0}
+
+
+def _backward_launch(x, gamma, beta, m, rstd, gy, gp, code: int, path):
+    """The backward kernels on ``path``, for checked CUDA inputs."""
+    kind, n = path
+    k = n if kind == "cluster" else 0
+    b, c, h, w = x.shape
+    x, gy, gp = x.contiguous(), gy.contiguous(), gp.contiguous()
+    gamma, beta = gamma.contiguous(), beta.contiguous()
+    m, rstd = m.contiguous(), rstd.contiguous()
+    dx = torch.empty_like(x)
+    dparams = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    rc = _library().betavae_gn_bwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), m.data_ptr(),
+        rstd.data_ptr(), gy.data_ptr(), gp.data_ptr(), dx.data_ptr(),
+        dparams.data_ptr(), b, c, h, w, code, k, _stream(x.device),
+        x.device.index)
+    if rc != 0:
+        raise RuntimeError(f"GN backward kernel launch ({kind}, {n}) failed "
+                           f"with CUDA error {rc}")
+    _count(gn_backward, kind)
+    return (dx, *_param_views(dparams))
 
 
 def gn_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -211,26 +315,26 @@ def gn_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if gp.shape != (b, c) or m.shape != (b,) or rstd.shape != (b,) or any(
             t.dtype != torch.float32 for t in (gp, m, rstd)):
         raise ValueError("GN backward takes float32 gp [B, C], m and rstd [B]")
-    x, gy, gp = x.contiguous(), gy.contiguous(), gp.contiguous()
-    gamma, beta = gamma.contiguous(), beta.contiguous()
-    m, rstd = m.contiguous(), rstd.contiguous()
-    dx = torch.empty_like(x)
-    dgamma = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    dbeta = torch.empty_like(dgamma)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _library().betavae_gn_bwd(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), m.data_ptr(),
-        rstd.data_ptr(), gy.data_ptr(), gp.data_ptr(), dx.data_ptr(),
-        dgamma.data_ptr(), dbeta.data_ptr(), b, c, h, w, code, stream,
-        x.device.index)
-    if rc != 0:
-        raise RuntimeError(f"GN backward kernel launch failed with CUDA "
-                           f"error {rc}")
-    gn_backward.launches += 1
-    return dx, dgamma, dbeta
+    return _backward_launch(x, gamma, beta, m, rstd, gy, gp, code,
+                            _path_of(x.shape, x.dtype))
 
 
 gn_backward.launches = 0
+gn_backward.launches_by_path = {"cluster": 0, "generic": 0}
+
+
+def _active_clusters(shape, dtype: torch.dtype, k: int, backward: bool,
+                     device: torch.device) -> int:
+    """Clusters of ``k`` CTAs of the forward or backward cluster kernel the
+    card holds at once for ``shape`` (``cudaOccupancyMaxActiveClusters``);
+    raises where the query fails."""
+    b, c, h, w = shape
+    n = _library().betavae_gn_active_clusters(
+        b, c, h, w, _DTYPE_CODES[dtype], k, int(backward), device.index or 0)
+    if n < 0:
+        raise RuntimeError(f"GN cluster occupancy query failed with CUDA "
+                           f"error {-n}")
+    return n
 
 
 class _FusedGNReLUPool(torch.autograd.Function):

@@ -21,8 +21,13 @@ Phases, each printing one line (any failure exits non-zero at once):
    held bitwise equal), the GroupNorm(1)
    +ReLU+pool forward and backward kernels at the flagship's eight block
    shapes in bf16, its largest in fp32, a ragged shape and the bench
-   canary's, each beside ``F.group_norm`` and the unfused sequence the
-   port's blocks run,
+   canary's (each with its path, cluster or generic, one launch a call,
+   its profiler device time back to back and after clean and dirty L2
+   flushes, the host's microseconds a call, and two launches held bitwise
+   equal; every block but dec3, and the canary, must take the cluster
+   path), each beside ``F.group_norm`` and the unfused sequence the port's
+   blocks run; where a GN call's host time goes at the canary; and dec3's
+   bf16 sample on a non-portable cluster of 16 against the generic path,
 4. slice: 3 fp32 steps of a small config on the card against the same steps
    on the CPU (the kernels' plain versions), with the default head and with
    ``training.fused_head: true``; 20 training steps of the flagship config
@@ -35,8 +40,9 @@ Phases, each printing one line (any failure exits non-zero at once):
    --warmup 32 --e2e-epochs 3``: steady state, e2e epochs at the reference
    dataset's scale, encode latencies, PRNG check and the kernel canary,
    which is the GN kernels' path); every kernel's launch count is set to 0
-   just before each of these runs and read just after, and every head
-   kernel launch there must have taken the TMA path; then a
+   just before each of these runs and read just after, every head kernel
+   launch there must have taken the TMA path, and every GN launch of the
+   canary the cluster path; then a
    ``torch.profiler`` breakdown of the device time per step by kernel,
    default and fused head,
 5. kernels: one JSON line listing each kernel with its checks and numbers,
@@ -77,6 +83,9 @@ GN_BLOCKS = (("enc0", (32, 64, 64, 64)), ("enc1", (32, 128, 32, 32)),
              ("dec2", (32, 64, 64, 64)), ("dec3", (32, 64, 128, 128)))
 GN_EXTRA_CASES = (((32, 64, 128, 128), "float32"), ((3, 5, 37, 53), "float32"))
 GN_CANARY_CASE = ((2, 64, 32, 32), "float32")
+# blocks whose sample is over a portable cluster's shared memory (2 MiB in
+# bf16): the only ones that may take the generic path
+GN_GENERIC_BLOCKS = ("dec3",)
 # fp32 operations per value, counted from the kernels' arithmetic: forward
 # 3 (x, x² sums) + 6 (x̂, z, ReLU, pool sum); backward 7 + 9
 GN_FWD_OPS, GN_BWD_OPS = 9, 16
@@ -111,28 +120,65 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_per_call(fn, calls: int = 5, before=None,
+def device_ms_per_call(fn, case: str, calls: int = 5, before=None,
                        only: str = "") -> float:
     """The device time of the kernels ``fn`` launches, per call
     (``torch.profiler``): the kernels alone, without the host's share of a
     call, which ``cuda_ms`` includes once calls are too short to queue up.
     ``before`` runs ahead of each call, and only kernels whose name holds
-    ``only`` are counted."""
+    ``only`` are counted.  A window that records no such kernel is taken
+    once more with four times the calls; if that too records none, the
+    run fails, naming ``case``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            if before is not None:
-                before()
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation and only in e.name) / 1e3 / calls
+    for n in (calls, 4 * calls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation and only in e.name]
+        if events:
+            return sum(e.device_time_total for e in events) / 1e3 / n
+    fail(f"{case}: the profiler recorded no device event"
+         f"{f' of a kernel named *{only}*' if only else ''} in "
+         f"{calls} and {4 * calls} calls")
+
+
+def host_us_per_call(fn, calls: int) -> float:
+    """Host microseconds a call of ``fn``: a host clock over ``calls``
+    calls with no synchronise between them (what the host spends to issue
+    one; the device runs behind)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """``ptxas -v``'s register, shared-memory and stack lines of each kernel
+    in an ``nvcc`` log, by the kernel's (mangled) name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = []
+        elif name is not None and ("registers" in line or "stack" in line):
+            out[name].append(line.split("info    :")[-1].strip())
+    return out
 
 
 def check_elbo(shape, check_moments: bool) -> dict:
@@ -296,22 +342,27 @@ def check_head(shape, dtype_name: str) -> dict:
     # kernel's loads must first write back, as after the ops of a step)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     l2 = {}
+    case = f"head {shape} {dtype_name}"
     for kind, fn in (("head_fwd_", lambda: head_forward(y, s, k)),
                      ("head_m_", lambda: head_m(y, dy))):
         l2[kind] = {
             "device_ms_after_l2_read": device_ms_per_call(
-                fn, before=flush.max, only=kind),
+                fn, f"{case} {kind} after an L2 read", before=flush.max,
+                only=kind),
             "device_ms_after_l2_write": device_ms_per_call(
-                fn, before=flush.zero_, only=kind)}
+                fn, f"{case} {kind} after an L2 write", before=flush.zero_,
+                only=kind)}
     del flush
     fwd = {"path": paths["forward"][0],
            "ms": cuda_ms(lambda: head_forward(y, s, k), iters),
-           "device_ms": device_ms_per_call(lambda: head_forward(y, s, k)),
+           "device_ms": device_ms_per_call(lambda: head_forward(y, s, k),
+                                           f"{case} forward"),
            "plain_ms": cuda_ms(lambda: head_conv_reference(y, s, k),
                                plain_iters)}
     mk = {"path": paths["m"][0],
           "ms": cuda_ms(lambda: head_m(y, dy), iters),
-          "device_ms": device_ms_per_call(lambda: head_m(y, dy)),
+          "device_ms": device_ms_per_call(lambda: head_m(y, dy),
+                                          f"{case} M"),
           "plain_ms": cuda_ms(lambda: head_m_reference(y, dy), plain_iters)}
     fwd.update(l2["head_fwd_"])
     mk.update(l2["head_m_"])
@@ -348,7 +399,7 @@ def check_head(shape, dtype_name: str) -> dict:
 
     mk["unfused_head_backward_ms"] = cuda_ms(unfused_backward, plain_iters)
     mk["unfused_head_backward_device_ms"] = device_ms_per_call(
-        unfused_backward)
+        unfused_backward, f"{case} unfused backward")
     kr = k.clone().requires_grad_()
     fused = fused_se_conv_head(yr, sr, kr)
 
@@ -356,12 +407,13 @@ def check_head(shape, dtype_name: str) -> dict:
         return torch.autograd.grad(fused, (yr, sr, kr), dy, retain_graph=True)
 
     mk["fused_head_backward_ms"] = cuda_ms(fused_backward, plain_iters)
-    mk["fused_head_backward_device_ms"] = device_ms_per_call(fused_backward)
+    mk["fused_head_backward_device_ms"] = device_ms_per_call(
+        fused_backward, f"{case} fused backward")
     # of which dy_y: the torch ops of head_dx (pad, 9 shifts, bmm, cast)
     mk["head_dx_ms"] = cuda_ms(lambda: head_dx(dy, s, k, y.dtype),
                                plain_iters)
     mk["head_dx_device_ms"] = device_ms_per_call(
-        lambda: head_dx(dy, s, k, y.dtype))
+        lambda: head_dx(dy, s, k, y.dtype), f"{case} head_dx")
 
     y_bytes = y.numel() * y.element_size()
     ops = 18 * b * c * h * w            # 9 taps × (multiply + add) per y·k
@@ -394,20 +446,34 @@ def gn_inputs(shape, dtype_name: str, seed: int = 0):
 
 def check_gn(shape, dtype_name: str) -> dict:
     """The GN forward and backward kernels on the card against their plain
-    versions, two launches against each other, and times beside the bound,
-    the plain version, one ``F.group_norm`` call and the unfused sequence
-    of the port's blocks."""
+    versions, two launches against each other, the path each took (and,
+    on the cluster path, how many clusters the card holds at once), and
+    times: a call (host included), the device time back to back and after
+    a clean and a dirty L2 flush, the host's microseconds a call, beside
+    the bound, the plain version, one ``F.group_norm`` call and the unfused
+    sequence of the port's blocks."""
     import torch
     import torch.nn.functional as F
 
-    from betavae_tpu_torch.ops.gn import (gn_backward, gn_backward_reference,
-                                          gn_forward, gn_forward_reference)
+    from betavae_tpu_torch.ops.gn import (_active_clusters, gn_backward,
+                                          gn_backward_reference, gn_forward,
+                                          gn_forward_reference, gn_path)
 
     x, gamma, beta, gy, gp = gn_inputs(shape, dtype_name)
     b, c, h, w = shape
+    case = f"gn {shape} {dtype_name}"
+    kind, n = gn_path(shape, x.dtype)
+    before = {f: dict(f.launches_by_path) for f in (gn_forward, gn_backward)}
     y, pooled, m, rstd = gn_forward(x, gamma, beta)
     dx, dgamma, dbeta = gn_backward(x, gamma, beta, m, rstd, gy, gp)
     torch.cuda.synchronize()
+    launches_by_path = {
+        name: {p: f.launches_by_path[p] - before[f][p] for p in before[f]}
+        for name, f in (("forward", gn_forward), ("backward", gn_backward))}
+    want = {p: int(p == kind) for p in before[gn_forward]}
+    if any(got != want for got in launches_by_path.values()):
+        fail(f"{case}: launches by path {launches_by_path}, want {want} "
+             f"(gn_path {kind, n})")
     # fp32 results: sums of the same values in another order, 1e-5
     # relative plus 1e-5 of the largest |value|; y and dx in bf16 also
     # carry one bf16 rounding: 2^-8.  The backward's plain version is given
@@ -417,37 +483,57 @@ def check_gn(shape, dtype_name: str) -> dict:
     dx_ref, dgamma_ref, dbeta_ref = gn_backward_reference(
         x, gamma, beta, m, rstd, gy, gp)
     checks = {}
-    for name, got, want, tol in (
+    for name, got, want_, tol in (
             ("y", y, y_ref, io_tol), ("pooled", pooled, pooled_ref, 1e-5),
             ("m", m, m_ref, 1e-5), ("rstd", rstd, rstd_ref, 1e-5),
             ("dx", dx, dx_ref, io_tol), ("dgamma", dgamma, dgamma_ref, 1e-5),
             ("dbeta", dbeta, dbeta_ref, 1e-5)):
-        scale = float(want.float().abs().max())
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+        scale = float(want_.float().abs().max())
+        torch.testing.assert_close(got.float(), want_.float(), rtol=tol,
                                    atol=tol * scale)
         checks[name] = {"max_abs_err": float((got.float()
-                                              - want.float()).abs().max()),
+                                              - want_.float()).abs().max()),
                         "max_abs_ref": scale}
     again = gn_forward(x, gamma, beta) + gn_backward(x, gamma, beta, m, rstd,
                                                      gy, gp)
     for first, second in zip((y, pooled, m, rstd, dx, dgamma, dbeta), again):
         if not torch.equal(first, second):
-            fail(f"gn {shape} {dtype_name}: two launches differ")
+            fail(f"{case}: two launches differ")
     del y_ref, pooled_ref, dx_ref, again
+
+    def call_fwd():
+        return gn_forward(x, gamma, beta)
+
+    def call_bwd():
+        return gn_backward(x, gamma, beta, m, rstd, gy, gp)
 
     big = x.numel() >= 1 << 24
     iters, plain_iters = (50, 10) if big else (200, 20)
-    fwd = {"ms": cuda_ms(lambda: gn_forward(x, gamma, beta), iters),
-           "device_ms": device_ms_per_call(lambda: gn_forward(x, gamma,
-                                                              beta)),
+    fwd = {"ms": cuda_ms(call_fwd, iters),
+           "device_ms": device_ms_per_call(call_fwd, f"{case} forward",
+                                           only="gn_"),
            "plain_ms": cuda_ms(lambda: gn_forward_reference(x, gamma, beta),
                                plain_iters)}
-    bwd = {"ms": cuda_ms(lambda: gn_backward(x, gamma, beta, m, rstd, gy, gp),
-                         iters),
-           "device_ms": device_ms_per_call(lambda: gn_backward(
-               x, gamma, beta, m, rstd, gy, gp)),
+    bwd = {"ms": cuda_ms(call_bwd, iters),
+           "device_ms": device_ms_per_call(call_bwd, f"{case} backward",
+                                           only="gn_"),
            "plain_ms": cuda_ms(lambda: gn_backward_reference(
                x, gamma, beta, m, rstd, gy, gp), plain_iters)}
+    # each direction with L2 emptied before every call, by reading 256 MB
+    # (clean lines) or by writing them (dirty lines the kernel's loads must
+    # first write back, as after the ops of a step)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    for row, fn, part in ((fwd, call_fwd, "forward"),
+                          (bwd, call_bwd, "backward")):
+        row["device_ms_after_l2_read"] = device_ms_per_call(
+            fn, f"{case} {part} after an L2 read", before=flush.max,
+            only="gn_")
+        row["device_ms_after_l2_write"] = device_ms_per_call(
+            fn, f"{case} {part} after an L2 write", before=flush.zero_,
+            only="gn_")
+        # calls queued with no synchronise: the host's share of a call
+        row["host_us"] = host_us_per_call(fn, 200 if big else 2000)
+    del flush
     # the library yardstick: one F.group_norm call (norm and affine only:
     # no ReLU, no pool), in x's dtype, and its backward through autograd
     # (one native_group_norm_backward)
@@ -484,14 +570,25 @@ def check_gn(shape, dtype_name: str) -> dict:
         ops_ms = ops * x.numel() / FP32_OPS_PER_S * 1e3
         row["bound_ms"] = max(bytes_ms, ops_ms)
         row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-    return {"shape": list(shape), "dtype": dtype_name, "checks": checks,
-            "forward": fwd, "backward": bwd}
+        row["bound_fraction"] = row["bound_ms"] / row["device_ms"]
+        row["path"] = kind
+    out = {"shape": list(shape), "dtype": dtype_name, "path": kind,
+           "k" if kind == "cluster" else "splits": n,
+           "launches_by_path": launches_by_path, "checks": checks,
+           "forward": fwd, "backward": bwd}
+    if kind == "cluster":
+        out["active_clusters"] = {
+            part: _active_clusters(shape, x.dtype, n, part == "backward",
+                                   x.device)
+            for part in ("forward", "backward")}
+    return out
 
 
 def check_gn_cases() -> dict:
     """``check_gn`` once per distinct (shape, dtype) of the flagship's
     blocks, the extra cases and the canary's; returns them by case and the
-    blocks' map onto them."""
+    blocks' map onto them.  Every flagship block but dec3 (2 MiB a sample
+    in bf16) and the canary must take the cluster path."""
     cases = {}
     wanted = ([(shape, "bfloat16") for _, shape in GN_BLOCKS]
               + list(GN_EXTRA_CASES) + [GN_CANARY_CASE])
@@ -501,7 +598,131 @@ def check_gn_cases() -> dict:
             cases[key] = check_gn(shape, dtype)
     blocks = {name: f"{'x'.join(map(str, shape))}_bfloat16"
               for name, shape in GN_BLOCKS}
+    must = [key for name, key in blocks.items()
+            if name not in GN_GENERIC_BLOCKS]
+    must.append(f"{'x'.join(map(str, GN_CANARY_CASE[0]))}_{GN_CANARY_CASE[1]}")
+    generic = [key for key in must if cases[key]["path"] != "cluster"]
+    if generic:
+        fail(f"gn: {generic} took the generic path")
     return {"cases": cases, "blocks": blocks}
+
+
+def gn_host_split() -> dict:
+    """Where a GN call's host time goes, at the canary's fp32 [2, 64, 32,
+    32] (cluster path): host microseconds a call of each piece of the
+    wrapper, alone, over calls with no synchronise, beside the whole call
+    and one ``F.group_norm`` call."""
+    import torch
+    import torch.nn.functional as F
+
+    from betavae_tpu_torch.ops import gn
+
+    shape, dtype_name = GN_CANARY_CASE
+    x, gamma, beta, gy, gp = gn_inputs(shape, dtype_name)
+    b, c, h, w = shape
+    k = gn.gn_path(shape, x.dtype)[1]
+    lib = gn._library()
+    y, pooled, m, rstd = gn.gn_forward(x, gamma, beta)
+    stats = torch.empty(b * c + 2 * b, dtype=torch.float32, device="cuda")
+    dx = torch.empty_like(x)
+    dparams = torch.empty((2, b, c), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd_args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                y.data_ptr(), stats.data_ptr(), b, c, h, w, 1e-6, 0, k, 0,
+                stream, 0)
+    bwd_args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                m.data_ptr(), rstd.data_ptr(), gy.data_ptr(), gp.data_ptr(),
+                dx.data_ptr(), dparams.data_ptr(), b, c, h, w, 0, k, stream,
+                0)
+    pieces = {
+        "forward_call": lambda: gn.gn_forward(x, gamma, beta),
+        "backward_call": lambda: gn.gn_backward(x, gamma, beta, m, rstd, gy,
+                                                gp),
+        "group_norm_call": lambda: F.group_norm(x, 1, gamma, beta, 1e-6),
+        "checks": lambda: (gn._device_of(x, gamma, beta),
+                           gn._check(x, gamma, beta),
+                           gn._path_of(x.shape, x.dtype)),
+        "contiguous_x3": lambda: (x.contiguous(), gamma.contiguous(),
+                                  beta.contiguous()),
+        "allocations_forward": lambda: (
+            torch.empty_like(x),
+            torch.empty(b * c + 2 * b, dtype=torch.float32,
+                        device=x.device)),
+        "current_stream": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "raw_stream": lambda: gn._stream(x.device),
+        "data_ptr_x5": lambda: (x.data_ptr(), gamma.data_ptr(),
+                                beta.data_ptr(), y.data_ptr(),
+                                stats.data_ptr()),
+        "ctypes_forward_launch": lambda: lib.betavae_gn_fwd(*fwd_args),
+        "ctypes_backward_launch": lambda: lib.betavae_gn_bwd(*bwd_args),
+        "stats_views": lambda: gn._stats_views(stats, b, c),
+        "param_views": lambda: gn._param_views(dparams),
+    }
+    return {name: host_us_per_call(fn, 2000) for name, fn in pieces.items()}
+
+
+def gn_cluster16_trial() -> dict:
+    """dec3's bf16 sample (2 MiB) on a non-portable cluster of 16 CTAs (128
+    KB each), which the path rule does not take: whether the card schedules
+    it (``cudaOccupancyMaxActiveClusters``), whether it matches the plain
+    versions, and its device time against the generic path's, in turns
+    (generic, cluster, cluster, generic) in this call."""
+    import torch
+
+    from betavae_tpu_torch.ops import gn
+
+    shape = dict(GN_BLOCKS)["dec3"]
+    x, gamma, beta, gy, gp = gn_inputs(shape, "bfloat16")
+    active = {part: gn._active_clusters(shape, x.dtype, 16,
+                                        part == "backward", x.device)
+              for part in ("forward", "backward")}
+    out = {"shape": list(shape), "dtype": "bfloat16", "k": 16,
+           "active_clusters": active}
+    if min(active.values()) < 1:
+        return out
+    code = gn._DTYPE_CODES[x.dtype]
+    paths = {"generic": gn.gn_path(shape, x.dtype),
+             "cluster16": ("cluster", 16)}
+
+    def fwd(path):
+        return gn._forward_launch(x, gamma, beta, 1e-6, code, path)
+
+    def bwd(path, m, rstd):
+        return gn._backward_launch(x, gamma, beta, m, rstd, gy, gp, code, path)
+
+    y, pooled, m, rstd = fwd(paths["cluster16"])
+    dx, dgamma, dbeta = bwd(paths["cluster16"], m, rstd)
+    y_ref, pooled_ref, m_ref, rstd_ref = gn.gn_forward_reference(x, gamma,
+                                                                 beta)
+    dx_ref, dgamma_ref, dbeta_ref = gn.gn_backward_reference(
+        x, gamma, beta, m, rstd, gy, gp)
+    err = {}
+    for name, got, want, tol in (
+            ("y", y, y_ref, 2**-8), ("pooled", pooled, pooled_ref, 1e-5),
+            ("m", m, m_ref, 1e-5), ("rstd", rstd, rstd_ref, 1e-5),
+            ("dx", dx, dx_ref, 2**-8), ("dgamma", dgamma, dgamma_ref, 1e-5),
+            ("dbeta", dbeta, dbeta_ref, 1e-5)):
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol * scale)
+        err[name] = float((got.float() - want.float()).abs().max())
+    del y_ref, dx_ref, y, dx
+    times = {f"{part}_{name}": [] for part in ("forward", "backward")
+             for name in paths}
+    for name in ("generic", "cluster16", "cluster16", "generic"):
+        path = paths[name]
+        times[f"forward_{name}"].append(device_ms_per_call(
+            lambda: fwd(path), f"dec3 cluster trial forward {name}",
+            only="gn_"))
+        times[f"backward_{name}"].append(device_ms_per_call(
+            lambda: bwd(path, m, rstd), f"dec3 cluster trial backward {name}",
+            only="gn_"))
+    out.update(max_abs_err=err, device_ms=times,
+               faster={part: max(times[f"{part}_cluster16"])
+                       < min(times[f"{part}_generic"])
+                       for part in ("forward", "backward")})
+    return out
 
 
 def write_config(src: str, root: str, name: str, **overrides) -> str:
@@ -834,8 +1055,15 @@ def run_bench(tmp: str, kernels: dict) -> dict:
                                  "fused_reparam_kl") if launches[name] < 1]
     if missing:
         fail(f"bench: kernels {missing} never launched ({launches})")
+    # the canary's GN launches: every one on the cluster path
+    gn_paths = {name: dict(kernels[name].launches_by_path)
+                for name in ("gn_forward", "gn_backward")}
+    if any(p["generic"] or not p["cluster"] for p in gn_paths.values()):
+        fail(f"bench: the canary's GN launches by path {gn_paths}, want all "
+             f"on the cluster path")
     return {"phase": "bench", "args": BENCH_ARGS, "seconds": seconds,
-            "launches": launches, "line": line}
+            "launches": launches, "gn_launches_by_path": gn_paths,
+            "line": line}
 
 
 def main() -> None:
@@ -867,7 +1095,9 @@ def main() -> None:
           "per_kernel_seconds": per_kernel,
           "ptxas": {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                            if "registers" in ln or "bytes stack" in ln]
-                    for name in per_kernel}})
+                    for name in per_kernel},
+          "ptxas_by_kernel": {name: ptxas_by_kernel(_build.build_log(name))
+                              for name in per_kernel}})
 
     elbo = {f"{s[0]}x{s[1]}": check_elbo(s, check_moments=s[0] >= 65536)
             for s in ELBO_SHAPES}
@@ -879,6 +1109,11 @@ def main() -> None:
     gn = check_gn_cases()
     emit({"phase": "kernel", "name": "fused_gn_relu_pool", "card": card,
           **gn})
+    emit({"phase": "kernel", "name": "gn_host_split", "card": card,
+          "shape": list(GN_CANARY_CASE[0]), "dtype": GN_CANARY_CASE[1],
+          "host_us": gn_host_split()})
+    emit({"phase": "kernel", "name": "gn_cluster16_trial", "card": card,
+          **gn_cluster16_trial()})
 
     kernels = {"fused_reparam_kl": fused_reparam_kl,
                "head_forward": head_forward, "head_m": head_m,
@@ -985,10 +1220,15 @@ def main() -> None:
         "library_ms": gn_main[part]["library_ms"],
         "unfused_ms": gn_main[part]["unfused_ms"],
         "device_ms": gn_main[part]["device_ms"],
+        # the canary's path and its bound over that device time
+        "path": gn_main[part]["path"],
+        "bound_fraction": gn_main[part]["bound_fraction"],
         "check": "ok",
         "card": card,
         "blocks": gn["blocks"],
-        "shapes": [{"shape": c["shape"], "dtype": c["dtype"], **c[part]}
+        "shapes": [{"shape": c["shape"], "dtype": c["dtype"],
+                    "k" if c["path"] == "cluster" else "splits":
+                    c.get("k", c.get("splits")), **c[part]}
                    for c in gn["cases"].values()],
     } for name, part, replaces, keys in (
         ("gn_forward", "forward", "betavae_tpu/ops/pallas_gn.py:113",

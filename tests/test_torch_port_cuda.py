@@ -12,9 +12,12 @@ import torch
 from betavae_tpu_torch.ops.elbo import (fused_reparam_kl, philox_normal,
                                         reparam_kl_forward,
                                         reparam_kl_reference)
+from betavae_tpu_torch.ops.gn import _DTYPE_CODES as _GN_CODES
+from betavae_tpu_torch.ops.gn import _forward_launch as _gn_forward_launch
+from betavae_tpu_torch.ops.gn import _library as _gn_library
 from betavae_tpu_torch.ops.gn import (fused_gn_relu_pool, gn_backward,
                                       gn_backward_reference, gn_forward,
-                                      gn_forward_reference,
+                                      gn_forward_reference, gn_path,
                                       gn_relu_pool_reference)
 from betavae_tpu_torch.ops.head import _library as _head_library
 from betavae_tpu_torch.ops.head import (fused_se_conv_head, head_conv_reference,
@@ -238,31 +241,54 @@ def _close_in(got, want, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,misaligned", [
-    ((32, 64, 64, 64), torch.bfloat16, False),
-    ((32, 512, 8, 8), torch.bfloat16, False),
-    ((4, 64, 128, 128), torch.float32, False),
-    ((3, 5, 37, 53), torch.float32, False),
-    ((2, 6, 9, 130), torch.bfloat16, False),
-    ((2, 8, 64, 66), torch.bfloat16, False),
-    ((2, 8, 64, 66), torch.bfloat16, True)])
+@pytest.mark.parametrize("shape,dtype,misaligned,path", [
+    # flagship blocks: enc0/dec2, enc1/dec1, enc2/dec0, enc3 (cluster of
+    # 4), dec3 (generic), the largest in fp32 (generic)
+    ((32, 64, 64, 64), torch.bfloat16, False, "cluster"),
+    ((32, 128, 32, 32), torch.bfloat16, False, "cluster"),
+    ((32, 256, 16, 16), torch.bfloat16, False, "cluster"),
+    ((32, 512, 8, 8), torch.bfloat16, False, "cluster"),
+    ((32, 64, 128, 128), torch.bfloat16, False, "generic"),
+    ((4, 64, 128, 128), torch.float32, False, "generic"),
+    # the bench canary's fp32 sample, a cluster of 8
+    ((2, 64, 32, 32), torch.float32, False, "cluster"),
+    # ragged planes (one value a unit), with and without 16-byte rows
+    ((3, 5, 37, 53), torch.float32, False, "cluster"),
+    ((2, 6, 9, 130), torch.bfloat16, False, "cluster"),
+    ((2, 8, 64, 66), torch.bfloat16, False, "cluster"),
+    # a contiguous x that does not start on a 16-byte boundary, both paths
+    ((2, 8, 64, 66), torch.bfloat16, True, "cluster"),
+    ((2, 6, 16, 16), torch.float32, True, "cluster"),
+    ((3, 64, 128, 128), torch.bfloat16, True, "generic"),
+    # C not a multiple of k (13 channels over 8 CTAs), B = 1, B = 33
+    ((2, 13, 16, 16), torch.bfloat16, False, "cluster"),
+    ((1, 64, 32, 32), torch.float32, False, "cluster"),
+    ((33, 128, 32, 32), torch.bfloat16, False, "cluster")])
 def test_gn_kernels_match_plain_versions(cuda_device, shape, dtype,
-                                         misaligned):
+                                         misaligned, path):
     """Forward (y, pooled, m, rstd) and backward (dx, per-sample dγ and
-    dβ, from the kernel's own m and rstd) against the plain versions:
-    flagship block shapes, a ragged one, planes that take a warp or a whole
-    block, with and without 16-byte access, and a contiguous x that does
-    not start on a 16-byte boundary.  Two launches give the same bits."""
+    dβ, from the kernel's own m and rstd) against the plain versions on
+    both paths: flagship block shapes, the canary's, ragged planes, a
+    contiguous x that does not start on a 16-byte boundary, channels split
+    unevenly over a cluster, B = 1 and B = 33.  Each call launches once,
+    on the path :func:`gn_path` names, and two launches give the same
+    bits."""
     x, gamma, beta, gy, gp = _gn_inputs(shape, dtype, cuda_device)
     if misaligned:
         flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
         x = flat[1:].view(shape).copy_(x)
         assert x.is_contiguous() and x.data_ptr() % 16 != 0
-    fwd, bwd = gn_forward.launches, gn_backward.launches
+    assert gn_path(shape, dtype)[0] == path
+    fwd, bwd = (dict(f.launches_by_path) for f in (gn_forward, gn_backward))
+    n_fwd, n_bwd = gn_forward.launches, gn_backward.launches
     y, pooled, m, rstd = gn_forward(x, gamma, beta)
     dx, dgamma, dbeta = gn_backward(x, gamma, beta, m, rstd, gy, gp)
     torch.cuda.synchronize()
-    assert (gn_forward.launches, gn_backward.launches) == (fwd + 1, bwd + 1)
+    assert (gn_forward.launches, gn_backward.launches) == (n_fwd + 1,
+                                                           n_bwd + 1)
+    for wrapper, before in ((gn_forward, fwd), (gn_backward, bwd)):
+        assert wrapper.launches_by_path == dict(
+            before, **{path: before[path] + 1})
     assert (y.dtype, dx.dtype, pooled.dtype) == (dtype, dtype, torch.float32)
     y_ref, pooled_ref, m_ref, rstd_ref = gn_forward_reference(x, gamma, beta)
     _close_in(y, y_ref, dtype)
@@ -277,6 +303,39 @@ def test_gn_kernels_match_plain_versions(cuda_device, shape, dtype,
                                                      gy, gp)
     for first, second in zip((y, pooled, m, rstd, dx, dgamma, dbeta), again):
         assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((32, 64, 64, 64), torch.bfloat16), ((32, 128, 32, 32), torch.bfloat16),
+    ((32, 256, 16, 16), torch.bfloat16), ((32, 512, 8, 8), torch.bfloat16),
+    ((32, 64, 128, 128), torch.bfloat16), ((32, 64, 128, 128), torch.float32),
+    ((3, 5, 37, 53), torch.float32), ((2, 64, 32, 32), torch.float32),
+    ((2, 8, 64, 66), torch.bfloat16),
+    ((1, 8, 1, 36852), torch.bfloat16), ((1, 8, 1, 36853), torch.bfloat16),
+    ((64, 64, 32, 32), torch.bfloat16), ((64, 64, 64, 64), torch.bfloat16),
+    ((33, 128, 32, 32), torch.bfloat16), ((2, 13, 16, 16), torch.bfloat16)])
+def test_gn_path_rule_is_the_librarys(cuda_device, shape, dtype):
+    """``gn_path`` and ``betavae_gn_path`` state one rule: k for a cluster
+    path, minus the stats splits for the generic one."""
+    kind, n = gn_path(shape, dtype)
+    want = n if kind == "cluster" else -n
+    assert _gn_library().betavae_gn_path(*shape, _GN_CODES[dtype]) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 17, 65])
+def test_gn_refused_cluster_launch_raises(cuda_device, k):
+    """A cluster launch the library does not take raises and never falls
+    back to the generic path: at [2, 64, 32, 32] fp32, one CTA would hold
+    the whole 256 KiB sample (over budget), 17 CTAs pass the launch's 16,
+    65 pass the 64 channels."""
+    x, gamma, beta, _, _ = _gn_inputs((2, 64, 32, 32), torch.float32,
+                                      cuda_device)
+    before = dict(gn_forward.launches_by_path)
+    with pytest.raises(RuntimeError, match="GN forward kernel launch"):
+        _gn_forward_launch(x, gamma, beta, 1e-6, 0, ("cluster", k))
+    assert gn_forward.launches_by_path == before
 
 
 @pytest.mark.cuda

@@ -16,9 +16,11 @@ import torch
 
 from betavae_tpu.ops.pallas_gn import fused_gn_relu_pool as jax_gn
 
-from betavae_tpu_torch.ops.gn import (fused_gn_relu_pool, fused_groupnorm_relu,
-                                      gn_backward, gn_backward_reference,
-                                      gn_forward, gn_forward_reference,
+from betavae_tpu_torch.ops.gn import (_param_views, _partial_offset,
+                                      _stats_views, fused_gn_relu_pool,
+                                      fused_groupnorm_relu, gn_backward,
+                                      gn_backward_reference, gn_forward,
+                                      gn_forward_reference, gn_path,
                                       gn_relu_pool_reference,
                                       groupnorm_relu_reference, stats_splits)
 
@@ -202,11 +204,15 @@ def test_pooled_averages_the_fp32_y_not_the_rounded_y():
 def test_cpu_tensors_take_the_plain_version_without_launching():
     x, gamma, beta = _data((2, 5, 9, 13), seed=8)
     xt, gt, bt = _nchw(x), torch.from_numpy(gamma), torch.from_numpy(beta)
-    before = (gn_forward.launches, gn_backward.launches)
+    before = (gn_forward.launches, gn_backward.launches,
+              dict(gn_forward.launches_by_path),
+              dict(gn_backward.launches_by_path))
     y, pooled, m, rstd = gn_forward(xt, gt, bt)
     dx, dg, db = gn_backward(xt, gt, bt, m, rstd, torch.ones_like(xt),
                              torch.ones(2, 5))
-    assert (gn_forward.launches, gn_backward.launches) == before
+    assert (gn_forward.launches, gn_backward.launches,
+            gn_forward.launches_by_path,
+            gn_backward.launches_by_path) == before
     assert dx.shape == xt.shape and dg.shape == db.shape == (2, 5)
     y_ref, pooled_ref, m_ref, r_ref = gn_forward_reference(xt, gt, bt)
     assert torch.equal(y, y_ref) and torch.equal(pooled, pooled_ref)
@@ -219,3 +225,89 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 def test_stats_splits(values, splits):
     """Blocks per sample of the stats pass: one per 8192 values."""
     assert stats_splits(values) == splits
+
+
+BF16, FP32 = torch.bfloat16, torch.float32
+
+
+def _misaligned_view():
+    """A contiguous bf16 [2, 8, 64, 66] that starts 2 bytes past a 16-byte
+    boundary: the path rule reads shape and dtype only, so it takes the
+    cluster path (the kernel walks it one value at a time)."""
+    flat = torch.zeros(2 * 8 * 64 * 66 + 1, dtype=BF16)
+    return flat[1:].view(2, 8, 64, 66)
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    # the flagship's eight blocks in bf16: clusters of 8 (B = 32, 264 / 32)
+    # but dec3, whose 2 MiB sample is over 8 CTAs of 72 KiB
+    pytest.param((32, 64, 64, 64), BF16, ("cluster", 8), id="enc0"),
+    pytest.param((32, 128, 32, 32), BF16, ("cluster", 8), id="enc1"),
+    pytest.param((32, 256, 16, 16), BF16, ("cluster", 8), id="enc2"),
+    pytest.param((32, 512, 8, 8), BF16, ("cluster", 8), id="enc3"),
+    pytest.param((32, 256, 16, 16), BF16, ("cluster", 8), id="dec0"),
+    pytest.param((32, 128, 32, 32), BF16, ("cluster", 8), id="dec1"),
+    pytest.param((32, 64, 64, 64), BF16, ("cluster", 8), id="dec2"),
+    pytest.param((32, 64, 128, 128), BF16, ("generic", 128), id="dec3"),
+    pytest.param((32, 64, 128, 128), FP32, ("generic", 128),
+                 id="largest-fp32"),
+    # ragged: k0 = min(8, 264 // 3, C = 5), one channel a CTA
+    pytest.param((3, 5, 37, 53), FP32, ("cluster", 5), id="ragged"),
+    pytest.param((2, 64, 32, 32), FP32, ("cluster", 8), id="canary"),
+    pytest.param(tuple(_misaligned_view().shape), BF16, ("cluster", 8),
+                 id="misaligned-view"),
+    # one channel a CTA of 36852 bf16 values fills the 72 KiB budget with
+    # its 24 bytes; one value more is over it
+    pytest.param((1, 8, 1, 36852), BF16, ("cluster", 8), id="at-budget"),
+    pytest.param((1, 8, 1, 36853), BF16, ("generic", 36),
+                 id="one-value-over-budget"),
+    # at B = 64, k0 = 264 // 64 = 4: 16 channels of 2 KiB fit a CTA, but
+    # 8 KiB channels fit only 8 to a CTA, so k grows to 8
+    pytest.param((64, 64, 32, 32), BF16, ("cluster", 4), id="B64"),
+    pytest.param((64, 64, 64, 64), BF16, ("cluster", 8), id="B64-grows"),
+])
+def test_gn_path(shape, dtype, want):
+    """``gn_path``'s rule (``betavae_gn_path`` states the same in C; a
+    card test holds the two equal): the flagship's blocks but dec3 and the
+    canary take clusters, a misaligned view too, and a sample one value
+    over the shared-memory budget the generic path."""
+    assert gn_path(shape, dtype) == want
+    if want[0] == "generic":
+        b, c, h, w = shape
+        assert want[1] == stats_splits(c * h * w)
+
+
+def test_gn_path_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        gn_path((2, 8, 4, 4), torch.float16)
+
+
+@pytest.mark.parametrize("b,c,splits", [(3, 5, 0), (32, 64, 0), (2, 7, 3)])
+def test_output_views_have_the_callers_shapes_and_strides(b, c, splits):
+    """pooled [B, C], m [B] and rstd [B] are views of the forward's one
+    fp32 buffer at the offsets ``betavae_gn_fwd`` writes (pooled, then m,
+    then rstd, then the generic path's stats scratch), and dγ, dβ [B, C]
+    views of the backward's [2, B, C] buffer: contiguous, row-major, and
+    apart."""
+    size = (b * c + 2 * b if not splits
+            else _partial_offset(b, c) + 2 * b * splits)
+    buf = torch.arange(size, dtype=torch.float32)
+    pooled, m, rstd = _stats_views(buf, b, c)
+    assert (pooled.shape, pooled.stride()) == ((b, c), (c, 1))
+    assert (m.shape, m.stride(), rstd.shape, rstd.stride()) == (
+        (b,), (1,), (b,), (1,))
+    assert [t.storage_offset() for t in (pooled, m, rstd)] == [
+        0, b * c, b * c + b]
+    assert all(t.dtype == torch.float32 and t.is_contiguous()
+               and t.untyped_storage().data_ptr()
+               == buf.untyped_storage().data_ptr() for t in (pooled, m, rstd))
+    assert float(pooled[b - 1, c - 1]) == b * c - 1
+    assert _partial_offset(b, c) >= b * c + 2 * b
+    assert _partial_offset(b, c) % 4 == 0      # 16-byte aligned float2s
+
+    params = torch.arange(2 * b * c, dtype=torch.float32).view(2, b, c)
+    dgamma, dbeta = _param_views(params)
+    for t, offset in ((dgamma, 0), (dbeta, b * c)):
+        assert (t.shape, t.stride(), t.storage_offset()) == (
+            (b, c), (c, 1), offset)
+        assert t.is_contiguous() and float(t[0, 0]) == offset
