@@ -1,12 +1,21 @@
-// Fused reparameterisation sample + elementwise KL for the β-VAE latent.
+// Fused reparameterisation sample + elementwise KL for the β-VAE latent, and
+// its backward.
 //
-// Replaces the Pallas TPU kernel betavae_tpu/ops/pallas_elbo.py::_kernel
-// (launched by _run_kernel, pallas_call at pallas_elbo.py:79).  One pass over
-// fp32 mu and logvar of n elements writes
+// Forward: replaces the Pallas TPU kernel betavae_tpu/ops/pallas_elbo.py::
+// _kernel (launched by _run_kernel, pallas_call at pallas_elbo.py:79).  One
+// pass over fp32 mu and logvar of n elements writes one [3, n] buffer:
 //
-//     eps ~ N(0, 1)                         (generated here, never read)
-//     z   = mu + eps * exp(logvar / 2)
-//     kl  = -(1 + logvar - mu^2 - exp(logvar)) / 2
+//     z   = mu + eps * exp(logvar / 2)                      (row 0)
+//     kl  = -(1 + logvar - mu^2 - exp(logvar)) / 2          (row 1)
+//     eps ~ N(0, 1), generated here, never read             (row 2)
+//
+// Backward: the counterpart of the JAX custom VJP pallas_elbo.py:118-125,
+// which XLA fuses into one pass on the TPU.  One pass over mu, logvar, eps
+// and the two incoming gradients (read through their strides, so that a
+// broadcast gradient needs no copy) writes one [2, n] buffer:
+//
+//     dmu     = g_z + g_kl * mu                                       (row 0)
+//     dlogvar = eps/2 * exp(logvar/2) * g_z + (exp(logvar) - 1)/2 * g_kl (row 1)
 //
 // Noise: Philox4x32-10 keyed by the 64-bit seed, with the 128-bit counter
 // (element index, offset), so each element's draw is independent of the
@@ -15,19 +24,41 @@
 // transform of pallas_elbo.py:49-60.  The TPU kernel uses the TPU's own
 // PRNG, so the streams differ by design; the distribution is the same.
 //
-// Bound on an H100: 5 arrays x 4 B per element (2 read, 3 written), 40 KB at
-// the flagship's [32, 64], i.e. ~12 ns of HBM time at 3.35 TB/s; the
-// arithmetic (10 Philox rounds, log, sqrt, cos, two exp) is a few hundred
-// integer and fp32 operations per element.  At that size the launch itself
-// (microseconds) is the whole cost, so the design is the simplest one: one
-// thread per element in a grid-stride loop, no shared memory.  z and kl use
-// explicitly rounded operations (__fmul_rn etc.) so that no multiply-add is
-// fused: they round exactly like the plain PyTorch version given the same
-// eps, which lets the check against it be tight.
+// What bounds it on an H100.  At the flagship's [32, 64] (2048 elements, 8
+// CTAs) the forward moves 40 KB (2 arrays read, 3 written) and the backward
+// 56 KB (5 read, 2 written): 12 and 17 ns of HBM time at 3.35 TB/s.  The
+// arithmetic (10 Philox rounds, log, sqrt, cos, two exp a value) is a few
+// hundred operations an element, nanoseconds at that size.  What a call
+// costs is the launch: microseconds of the host issuing it and of the card
+// starting a grid after the previous one drains.  No layout or tiling
+// reaches half the byte bound at 2048 elements, so the design works on the
+// launch, not on the bytes:
 //
-// C interface, for ctypes: betavae_reparam_kl returns the cudaError_t of the
-// launch (0 on success).  The caller allocates every buffer and passes its
-// current stream; nothing here allocates or synchronises.
+// - Programmatic dependent launch.  Both kernels are launched with
+//   cudaLaunchAttributeProgrammaticStreamSerialization, so the card may
+//   start them while the kernel before them (the logvar clamp, in the
+//   forward) still runs.  The forward draws its Philox words and eps, which
+//   depend on neither input, before griddepcontrol.wait; it reads mu and
+//   logvar, and writes anything, only after the wait, which returns once
+//   the previous grid has finished and its writes are visible.  Once its
+//   loads are issued it lets a dependent launch start
+//   (griddepcontrol.launch_dependents); a dependent launched the same way
+//   waits in turn for this grid to finish before it reads.
+// - The fused backward replaces the dozen elementwise PyTorch launches of
+//   the closed form with one.
+// - The host side of a call: one output buffer per direction, the caller's
+//   stream passed in, no per-call cudaSetDevice (the stream names the
+//   device).
+//
+// z, kl and both gradients use explicitly rounded operations (__fmul_rn
+// etc.) in the order of the plain PyTorch versions, so that no multiply-add
+// is fused: they round exactly like them given the same eps, which lets the
+// checks against them be tight.
+//
+// C interface, for ctypes: each entry returns the cudaError_t of the launch
+// (0 on success).  The caller allocates every buffer and passes its current
+// stream; nothing here allocates or synchronises.  `pdl` 0 launches without
+// the attribute, for measuring what it buys; the wrapper always passes 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,6 +69,7 @@ constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
 constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
 constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -55,55 +87,143 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-__global__ void reparam_kl_kernel(const float* __restrict__ mu,
-                                  const float* __restrict__ logvar,
-                                  float* __restrict__ z,
-                                  float* __restrict__ kl,
-                                  float* __restrict__ eps, int64_t n,
-                                  uint64_t seed, uint64_t offset) {
+// eps of element i: Box-Muller (cosine branch) on words 0 and 1
+__device__ __forceinline__ float normal_at(int64_t i, uint2 key,
+                                           uint64_t offset) {
+  const uint4 ctr = make_uint4(static_cast<uint32_t>(i),
+                               static_cast<uint32_t>(i >> 32),
+                               static_cast<uint32_t>(offset),
+                               static_cast<uint32_t>(offset >> 32));
+  const uint4 bits = philox4x32_10(ctr, key);
+  float u1 = static_cast<float>(bits.x >> 8) * (1.0f / 16777216.0f);
+  const float u2 = static_cast<float>(bits.y >> 8) * (1.0f / 16777216.0f);
+  u1 = fmaxf(u1, 1e-7f);
+  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+  return __fmul_rn(r, cosf(__fmul_rn(6.283185307179586f, u2)));
+}
+
+// Programmatic dependent launch (sm_90): wait for the previous grid in the
+// stream to finish and flush; let the next grid in the stream start.  Both
+// are no-ops in a grid launched without the attribute.
+__device__ __forceinline__ void wait_for_previous_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+__device__ __forceinline__ void allow_next_grid() {
+  asm volatile("griddepcontrol.launch_dependents;");
+}
+
+__global__ void __launch_bounds__(kThreads)
+    reparam_kl_kernel(const float* __restrict__ mu,
+                      const float* __restrict__ logvar,
+                      float* __restrict__ out, int64_t n, uint64_t seed,
+                      uint64_t offset) {
   const uint2 key = make_uint2(static_cast<uint32_t>(seed),
                                static_cast<uint32_t>(seed >> 32));
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const uint4 ctr = make_uint4(static_cast<uint32_t>(i),
-                                 static_cast<uint32_t>(i >> 32),
-                                 static_cast<uint32_t>(offset),
-                                 static_cast<uint32_t>(offset >> 32));
-    const uint4 bits = philox4x32_10(ctr, key);
-    float u1 = static_cast<float>(bits.x >> 8) * (1.0f / 16777216.0f);
-    const float u2 = static_cast<float>(bits.y >> 8) * (1.0f / 16777216.0f);
-    u1 = fmaxf(u1, 1e-7f);
-    const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-    const float e = __fmul_rn(r, cosf(__fmul_rn(6.283185307179586f, u2)));
-
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the first element's noise needs neither input: draw it while the
+  // previous grid drains
+  float e = i < n ? normal_at(i, key, offset) : 0.0f;
+  wait_for_previous_grid();
+  for (bool first = true; i < n; i += stride, first = false) {
+    if (!first) e = normal_at(i, key, offset);
     const float m = mu[i];
     const float lv = logvar[i];
+    if (first) allow_next_grid();
     const float std = expf(__fmul_rn(0.5f, lv));
     const float elv = expf(lv);
-    z[i] = __fadd_rn(m, __fmul_rn(e, std));
-    kl[i] = __fmul_rn(
+    out[i] = __fadd_rn(m, __fmul_rn(e, std));
+    out[n + i] = __fmul_rn(
         -0.5f, __fsub_rn(__fsub_rn(__fadd_rn(1.0f, lv), __fmul_rn(m, m)), elv));
-    eps[i] = e;
+    out[2 * n + i] = e;
   }
+}
+
+// The incoming gradients are read through the (row, column) strides of
+// their [n / cols, cols] view: autograd hands the flagship's g_kl over as a
+// broadcast (strides (1, 0), capacity mode's per-sample sum), which a copy
+// to contiguous memory would cost a launch of its own.
+struct Strided {
+  const float* p;
+  int64_t row, col;
+};
+
+__device__ __forceinline__ float load_at(Strided g, int64_t r, int64_t c) {
+  return g.p[r * g.row + c * g.col];
+}
+
+__global__ void __launch_bounds__(kThreads)
+    reparam_kl_backward_kernel(const float* __restrict__ mu,
+                               const float* __restrict__ logvar,
+                               const float* __restrict__ eps, Strided g_z,
+                               Strided g_kl, float* __restrict__ out,
+                               int64_t n, int64_t cols) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  wait_for_previous_grid();
+  for (bool first = true; i < n; i += stride, first = false) {
+    const int64_t r = i / cols;
+    const int64_t c = i - r * cols;
+    const float m = mu[i];
+    const float lv = logvar[i];
+    const float e = eps[i];
+    const float gz = load_at(g_z, r, c);
+    const float gk = load_at(g_kl, r, c);
+    if (first) allow_next_grid();
+    const float std = expf(__fmul_rn(0.5f, lv));
+    const float elv = expf(lv);
+    out[i] = __fadd_rn(gz, __fmul_rn(gk, m));
+    out[n + i] = __fadd_rn(
+        __fmul_rn(__fmul_rn(__fmul_rn(0.5f, e), std), gz),
+        __fmul_rn(__fmul_rn(0.5f, __fsub_rn(elv, 1.0f)), gk));
+  }
+}
+
+// enough CTAs to cover n once, capped at 32 per SM of an H100's 132: the
+// grid-stride loop covers the rest
+int blocks_for(int64_t n) {
+  const int64_t want = (n + kThreads - 1) / kThreads;
+  return static_cast<int>(want < 132 * 32 ? want : 132 * 32);
+}
+
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int64_t n, void* stream, int pdl, Args... args) {
+  if (n <= 0) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks_for(n));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// out: [3, n] fp32, rows z, kl, eps
 extern "C" int betavae_reparam_kl(const float* mu, const float* logvar,
-                                  float* z, float* kl, float* eps, int64_t n,
-                                  uint64_t seed, uint64_t offset,
-                                  void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0) return 0;
-  constexpr int kThreads = 256;
-  // enough blocks to cover n once, capped at 32 per SM of an H100's 132:
-  // the grid-stride loop covers the rest
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
-  reparam_kl_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      mu, logvar, z, kl, eps, n, seed, offset);
-  return static_cast<int>(cudaGetLastError());
+                                  float* out, int64_t n, uint64_t seed,
+                                  uint64_t offset, void* stream, int pdl) {
+  return launch(reparam_kl_kernel, n, stream, pdl, mu, logvar, out, n, seed,
+                offset);
+}
+
+// out: [2, n] fp32, rows dmu, dlogvar; mu, logvar and eps contiguous, g_z
+// and g_kl at (row, column) strides over [n / cols, cols]
+extern "C" int betavae_reparam_kl_backward(
+    const float* mu, const float* logvar, const float* eps, const float* g_z,
+    int64_t g_z_row, int64_t g_z_col, const float* g_kl, int64_t g_kl_row,
+    int64_t g_kl_col, float* out, int64_t n, int64_t cols, void* stream,
+    int pdl) {
+  if (n > 0 && cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(reparam_kl_backward_kernel, n, stream, pdl, mu, logvar, eps,
+                Strided{g_z, g_z_row, g_z_col},
+                Strided{g_kl, g_kl_row, g_kl_col}, out, n, cols);
 }

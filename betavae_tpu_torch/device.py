@@ -16,3 +16,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+def raw_stream(device: torch.device) -> int:
+    """The current stream's handle on ``device``, for a kernel's C entry.
+    ``torch._C._cuda_getCurrentRawStream`` is private, and used because it
+    returns the handle without building a ``torch.cuda.Stream``
+    (``torch.cuda.current_stream(device).cuda_stream`` took 5–8 µs of host
+    time a call on the H100's host, 12–15 % of a GN call;
+    ``chip_smoke.py::gn_host_split`` times both)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -59,9 +59,14 @@ def reset_logger() -> None:
     _logger = None
 
 
-def log_config() -> None:
-    """``CONFIG {json}`` line: the active config."""
-    init_logger().info("CONFIG " + json.dumps(get_config().to_dict()))
+def log_config(extras: dict | None = None) -> None:
+    """``CONFIG {json}`` line: the active config, plus ``extras`` (facts the
+    YAML alone does not show, such as the LPIPS weight source) as added
+    top-level keys."""
+    cfg = get_config().to_dict()
+    if extras:
+        cfg.update(extras)
+    init_logger().info("CONFIG " + json.dumps(cfg))
 
 
 def log_metrics(metrics: dict, step=None, phase: str = "train") -> None:

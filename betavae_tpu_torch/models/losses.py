@@ -4,15 +4,16 @@ Counterpart of ``betavae_tpu/models/losses.py``: per-sample summed
 mse/bce/l1 reconstruction averaged over the batch ``mask``, the optional
 FFL extra, elementwise KL with ``kl_per_dim`` and ``kl_mean``, β mode with
 per-dim free bits, capacity mode ``rec + γ·|kl_mean − C|``, the optional
-``λ·mean(mu²)`` latent regulariser, and the deterministic mode that zeroes
-the KL path.  Every reduction is fp32.
+``λ·mean(mu²)`` latent regulariser, the optional LPIPS extra (through the
+``lpips_fn`` the trainer builds, :func:`..ops.lpips.build_lpips_fn`), and
+the deterministic mode that zeroes the KL path.  Every reduction is fp32.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -70,11 +71,13 @@ def _per_sample_recon(recon, x, kind: str) -> torch.Tensor:
 
 def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
                  capacity=None, capacity_weight=None, free_bits=0.0,
-                 mask: Optional[torch.Tensor] = None) -> dict:
+                 mask: Optional[torch.Tensor] = None,
+                 lpips_fn: Optional[Callable] = None) -> dict:
     """``outputs`` is ``(recon, mu, logvar, z, kl_elem)``; ``capacity`` and
-    ``capacity_weight`` both set select capacity mode."""
-    if spec.use_lpips and spec.lpips_weight > 0:
-        raise NotImplementedError("the LPIPS loss is not ported yet")
+    ``capacity_weight`` both set select capacity mode.  ``lpips_fn(recon,
+    x)`` adds ``lpips_weight`` times the perceptual distance to the
+    reconstruction term when ``use_lpips`` is on and weighted, as in the JAX
+    package."""
     recon, mu, logvar, z, kl_elem = outputs
     dev = x.device
     if mask is None:
@@ -85,10 +88,13 @@ def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
 
     base_recon = (_per_sample_recon(recon, x, spec.recon_loss_type)
                   * mask).sum() / msum
+    lp = zero
     ff = zero
+    if spec.use_lpips and spec.lpips_weight > 0 and lpips_fn is not None:
+        lp = lpips_fn(recon, x) * spec.lpips_weight
     if spec.use_ffl and spec.ffl_weight > 0:
         ff = focal_frequency_loss(recon, x, alpha=spec.ffl_alpha) * spec.ffl_weight
-    rec_loss = base_recon + ff
+    rec_loss = base_recon + lp + ff
 
     use_capacity = capacity is not None and capacity_weight is not None
     if spec.deterministic:
@@ -120,7 +126,7 @@ def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
         "total": total,
         "recon": rec_loss,
         "recon_base": base_recon,
-        "recon_lpips": zero,
+        "recon_lpips": lp,
         "recon_ffl": ff,
         "kl_mean": kl_mean,
         "kl_per_dim": kl_per_dim,

@@ -1,20 +1,22 @@
-"""Fused reparameterisation sample + elementwise KL: the CUDA kernel and its
-plain PyTorch version.
+"""Fused reparameterisation sample + elementwise KL and its backward: the
+CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``betavae_tpu/ops/pallas_elbo.py::fused_reparam_kl``.  The
-kernel (``csrc/elbo.cu``, whose header gives its bound on an H100) draws ε
-in-kernel with Philox4x32-10 and Box–Muller and writes ``z``, the
-elementwise KL and ε in one pass.  Its backward is the closed form of
-``pallas_elbo.py:118-125`` in plain torch ops, as the JAX package has no
-backward kernel either:
+forward kernel (``csrc/elbo.cu``, whose header gives its bound on an H100
+and its design) draws ε in-kernel with Philox4x32-10 and Box–Muller and
+writes ``z``, the elementwise KL and ε in one pass.  The backward kernel
+computes the closed form of ``pallas_elbo.py:118-125``, which XLA runs as
+one fusion on the TPU, in one pass:
 
     dμ     = g_z + g_kl · μ
     dlogσ² = ½ · ε · std · g_z + ½ · (e^{logσ²} − 1) · g_kl
 
-:func:`fused_reparam_kl` launches the kernel for CUDA tensors and takes the
-plain version (:func:`philox_normal` then :func:`reparam_kl_reference`)
+:func:`reparam_kl_forward` and :func:`reparam_kl_backward` launch the
+kernels for CUDA tensors and take the plain versions (:func:`philox_normal`
+then :func:`reparam_kl_reference`; :func:`reparam_kl_backward_reference`)
 only for CPU tensors: there is no fallback from the GPU.
-``fused_reparam_kl.launches`` counts kernel launches.
+``fused_reparam_kl.launches`` and ``reparam_kl_backward.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import math
 import torch
 
 from .. import _build
+from ..device import raw_stream
 from .reparam import reparameterize_and_kl
 
 _MASK32 = 0xFFFFFFFF
@@ -88,70 +91,151 @@ def reparam_kl_reference(mu: torch.Tensor, logvar: torch.Tensor,
     return reparameterize_and_kl(mu, logvar, eps=eps)
 
 
+def reparam_kl_backward_reference(mu: torch.Tensor, logvar: torch.Tensor,
+                                  eps: torch.Tensor, g_z: torch.Tensor,
+                                  g_kl: torch.Tensor):
+    """``(dμ, dlogσ²)``: the closed form of ``pallas_elbo.py:118-125`` in
+    plain torch ops, in the backward kernel's order of operations."""
+    std = torch.exp(0.5 * logvar)
+    d_mu = g_z + g_kl * mu
+    d_logvar = 0.5 * eps * std * g_z + 0.5 * (torch.exp(logvar) - 1.0) * g_kl
+    return d_mu, d_logvar
+
+
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
 
 @functools.cache
 def _library():
-    fn = _build.load("elbo").betavae_reparam_kl
+    """``(forward, backward)`` C entries of ``csrc/elbo.cu``."""
+    lib = _build.load("elbo")
+    forward, backward = lib.betavae_reparam_kl, lib.betavae_reparam_kl_backward
     # without argtypes ctypes would pass each pointer as a 32-bit int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64,
-        ctypes.c_void_p, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn
+    forward.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p,
+        ctypes.c_int]
+    strided = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
+    backward.argtypes = [ctypes.c_void_p] * 3 + strided * 2 + [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int]
+    forward.restype = backward.restype = ctypes.c_int
+    return forward, backward
 
 
-def _launch(mu: torch.Tensor, logvar: torch.Tensor, seed: int, offset: int):
-    if mu.dtype != torch.float32 or logvar.dtype != torch.float32:
-        raise TypeError("fused_reparam_kl kernel takes float32 mu and logvar")
-    if mu.shape != logvar.shape or mu.device != logvar.device:
-        raise ValueError("mu and logvar must share shape and device")
-    mu = mu.contiguous()
-    logvar = logvar.contiguous()
-    z = torch.empty_like(mu)
-    kl = torch.empty_like(mu)
-    eps = torch.empty_like(mu)
-    stream = torch.cuda.current_stream(mu.device).cuda_stream
-    rc = _library()(mu.data_ptr(), logvar.data_ptr(), z.data_ptr(),
-                    kl.data_ptr(), eps.data_ptr(), mu.numel(),
-                    seed & _MASK64, offset & _MASK64, stream,
-                    mu.device.index)
+def _fp32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous fp32, copied only where it is not already (the
+    main path's μ and logσ² are: the model computes both heads in fp32)."""
+    if t.dtype is torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
+def _check_like(mu: torch.Tensor, *others: torch.Tensor) -> None:
+    for t in others:
+        if t.shape != mu.shape or t.device != mu.device:
+            raise ValueError(f"reparam+KL takes tensors of one shape and "
+                             f"device: {tuple(mu.shape)} on {mu.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _launch(mu: torch.Tensor, logvar: torch.Tensor, seed: int, offset: int,
+            pdl: bool = True):
+    """``(z, kl, eps)``, rows of one fp32 ``[3, *shape]`` buffer, for
+    contiguous fp32 CUDA ``mu`` and ``logvar``.  ``pdl=False`` launches
+    without programmatic dependent launch, for measuring what it buys."""
+    _check_like(mu, logvar)
+    if mu.device.index != torch.cuda.current_device():
+        with torch.cuda.device(mu.device):
+            return _launch(mu, logvar, seed, offset, pdl)
+    out = mu.new_empty((3, *mu.shape))
+    rc = _library()[0](mu.data_ptr(), logvar.data_ptr(), out.data_ptr(),
+                       mu.numel(), seed & _MASK64, offset & _MASK64,
+                       raw_stream(mu.device), int(pdl))
     if rc != 0:
         raise RuntimeError(f"elbo kernel launch failed with CUDA error {rc}")
     fused_reparam_kl.launches += 1
-    return z, kl, eps
+    return out.unbind(0)
 
 
 def reparam_kl_forward(mu: torch.Tensor, logvar: torch.Tensor, seed: int,
                        offset: int = 0):
     """``(z, kl_elem, eps)``, all fp32, without autograd: the kernel for
     CUDA tensors, the plain version for CPU tensors."""
-    mu32 = mu.float()
-    logvar32 = logvar.float()
-    if mu32.device.type == "cuda":
-        return _launch(mu32, logvar32, int(seed), int(offset))
-    if mu32.device.type != "cpu":
-        raise ValueError(f"unsupported device {mu32.device}")
-    eps = philox_normal(mu32.shape, int(seed), int(offset), mu32.device)
-    z, kl = reparam_kl_reference(mu32, logvar32, eps)
+    mu, logvar = _fp32(mu), _fp32(logvar)
+    if mu.device.type == "cuda":
+        return _launch(mu, logvar, int(seed), int(offset))
+    if mu.device.type != "cpu":
+        raise ValueError(f"unsupported device {mu.device}")
+    eps = philox_normal(mu.shape, int(seed), int(offset), mu.device)
+    z, kl = reparam_kl_reference(mu, logvar, eps)
     return z, kl, eps
+
+
+def _rows(g: torch.Tensor):
+    """``(g as fp32, (row, column) strides)`` of its ``[numel / C, C]`` view,
+    C its last dim.  A 2-D gradient goes as it comes: the flagship's g_kl
+    arrives as a broadcast (capacity mode's per-sample sum, strides (1, 0)),
+    which a copy to contiguous memory would cost a launch of its own."""
+    if g.dtype is not torch.float32:
+        g = g.float()
+    if g.dim() == 2:
+        return g, g.stride()
+    g = g.contiguous()
+    return g, (g.shape[-1] if g.dim() else 1, 1)
+
+
+def _launch_backward(mu, logvar, eps, g_z, g_kl, pdl: bool = True):
+    """``(dμ, dlogσ²)``, rows of one fp32 ``[2, *shape]`` buffer, for CUDA
+    tensors of one shape: μ, logσ² and ε contiguous fp32, the gradients
+    any layout."""
+    _check_like(mu, logvar, eps, g_z, g_kl)
+    if mu.device.index != torch.cuda.current_device():
+        with torch.cuda.device(mu.device):
+            return _launch_backward(mu, logvar, eps, g_z, g_kl, pdl)
+    (g_z, (z_row, z_col)), (g_kl, (kl_row, kl_col)) = _rows(g_z), _rows(g_kl)
+    out = mu.new_empty((2, *mu.shape))
+    rc = _library()[1](mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(),
+                       g_z.data_ptr(), z_row, z_col, g_kl.data_ptr(), kl_row,
+                       kl_col, out.data_ptr(), mu.numel(),
+                       mu.shape[-1] if mu.dim() else 1,
+                       raw_stream(mu.device), int(pdl))
+    if rc != 0:
+        raise RuntimeError(f"elbo backward kernel launch failed with CUDA "
+                           f"error {rc}")
+    reparam_kl_backward.launches += 1
+    return out.unbind(0)
+
+
+def reparam_kl_backward(mu: torch.Tensor, logvar: torch.Tensor,
+                        eps: torch.Tensor, g_z: torch.Tensor,
+                        g_kl: torch.Tensor):
+    """``(dμ, dlogσ²)``, fp32: the backward kernel for CUDA tensors, the
+    plain closed form for CPU tensors."""
+    if mu.device.type == "cuda":
+        return _launch_backward(_fp32(mu), _fp32(logvar), _fp32(eps), g_z,
+                                g_kl)
+    if mu.device.type != "cpu":
+        raise ValueError(f"unsupported device {mu.device}")
+    return reparam_kl_backward_reference(mu.float(), logvar.float(),
+                                         eps.float(), g_z.float(),
+                                         g_kl.float())
+
+
+reparam_kl_backward.launches = 0
 
 
 class _FusedReparamKL(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mu, logvar, seed, offset):
+        mu, logvar = _fp32(mu), _fp32(logvar)
         z, kl, eps = reparam_kl_forward(mu, logvar, seed, offset)
-        ctx.save_for_backward(mu.float(), logvar.float(), eps)
+        ctx.save_for_backward(mu, logvar, eps)
         return z, kl
 
     @staticmethod
     def backward(ctx, g_z, g_kl):
-        mu, logvar, eps = ctx.saved_tensors
-        std = torch.exp(0.5 * logvar)
-        d_mu = g_z + g_kl * mu
-        d_logvar = 0.5 * eps * std * g_z + 0.5 * (torch.exp(logvar) - 1.0) * g_kl
+        d_mu, d_logvar = reparam_kl_backward(*ctx.saved_tensors, g_z, g_kl)
         return d_mu, d_logvar, None, None
 
 

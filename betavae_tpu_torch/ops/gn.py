@@ -51,6 +51,7 @@ import math
 import torch
 
 from .. import _build
+from ..device import raw_stream
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # values summed by one block of the generic path's stats pass
@@ -227,15 +228,6 @@ def _param_views(buf: torch.Tensor):
     return dgamma, dbeta
 
 
-def _stream(device: torch.device) -> int:
-    """The current stream's handle.  ``torch._C._cuda_getCurrentRawStream``
-    is private, and used because it returns the handle without building a
-    ``torch.cuda.Stream`` (``torch.cuda.current_stream(device).cuda_stream``
-    took 5–8 µs of host time a call on the H100's host, 12–15 % of a GN
-    call; ``chip_smoke.py::gn_host_split`` times both)."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
 def _count(wrapper, kind: str) -> None:
     wrapper.launches += 1
     wrapper.launches_by_path[kind] += 1
@@ -254,7 +246,7 @@ def _forward_launch(x, gamma, beta, eps: float, code: int, path):
     rc = _library().betavae_gn_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
         stats.data_ptr(), b, c, h, w, eps, code, k, splits,
-        _stream(x.device), x.device.index)
+        raw_stream(x.device), x.device.index)
     if rc != 0:
         raise RuntimeError(f"GN forward kernel launch ({kind}, {n}) failed "
                            f"with CUDA error {rc}")
@@ -291,7 +283,7 @@ def _backward_launch(x, gamma, beta, m, rstd, gy, gp, code: int, path):
     rc = _library().betavae_gn_bwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), m.data_ptr(),
         rstd.data_ptr(), gy.data_ptr(), gp.data_ptr(), dx.data_ptr(),
-        dparams.data_ptr(), b, c, h, w, code, k, _stream(x.device),
+        dparams.data_ptr(), b, c, h, w, code, k, raw_stream(x.device),
         x.device.index)
     if rc != 0:
         raise RuntimeError(f"GN backward kernel launch ({kind}, {n}) failed "

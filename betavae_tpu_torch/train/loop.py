@@ -10,8 +10,14 @@ and ``resume="best"|"latest"``, with ``training.async_checkpoint`` writing
 the checkpoints on a background thread and SIGTERM draining it
 (``training.graceful_shutdown``).  It carries the JAX loop's semantics, not
 its XLA mechanism: steps run one by one, with no scan chunks, no epoch
-rotation and no background panel writer, and the host reads the card once
-per log step and once per validation pass.
+rotation and no background panel writer (``training.scan_chunk_steps`` and
+``epoch_rotation`` name that mechanism and are ignored), and the host reads
+the card once per log step and once per validation pass.  The LPIPS term
+(``loss.use_lpips``) runs under the JAX loop's gate: random-init features
+only with ``loss.lpips_allow_random: true``, and the CONFIG line names the
+weight source.  Keys whose JAX mechanism is not ported yet are refused by
+name: a split over ``training.max_device_dataset_mb`` (the JAX loop's host
+feed, with ``host_feed_chunk_mb``) and ``logging.profile_steps`` > 0.
 
 :func:`train_steps` is the few-step trainer: the same set-up and train
 lines for at most ``max_steps`` steps, with the wall time of the steps
@@ -37,9 +43,10 @@ from ..device import resolve_device
 from ..eval.probes import NAN_METRICS, compute_probe_metrics
 from ..io.artifacts import ensure_dirs, model_checkpoint_path, save_image_grid
 from ..io.checkpoint import load_sharded_checkpoint
-from ..logging_utils import log_config, log_metrics
+from ..logging_utils import init_logger, log_config, log_metrics
 from ..models.beta_vae import model_from_config
 from ..models.losses import loss_spec_from_config
+from ..ops.lpips import build_lpips_fn, resolve_weight_source
 from .callbacks import CheckpointManager, EarlyStopping, restore_training_state
 from .optim import build_optimizer
 from .schedules import lr_at, resolve_total_epochs, schedules_from_config
@@ -55,6 +62,9 @@ WARMUP_STEPS = 5
 # (fold_in(root, 2³¹ + e·100 000 + j)): far above any train step's offset
 VAL_OFFSET = 2**31
 PANEL_IMAGES = 8
+# the JAX loop's default device budget for a split (training.
+# max_device_dataset_mb); a split above it streams from the host there
+MAX_DEVICE_DATASET_MB = 4096
 
 
 def _sync(device: torch.device) -> None:
@@ -62,11 +72,75 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _lpips_on(cfg) -> bool:
+    loss_cfg = get(cfg, "loss", None)
+    return (bool(get(loss_cfg, "use_lpips", False))
+            and float(get(loss_cfg, "lpips_weight", 0.0) or 0.0) > 0)
+
+
+def _lpips_config_extras(cfg) -> dict:
+    """The JAX loop's LPIPS gate (``train/loop.py:405-441`` of the JAX
+    package), run before the CONFIG line: with LPIPS on and weighted,
+    ``{"lpips_weights": "pretrained:<path>" | "random-init"}``; random-init
+    raises unless ``loss.lpips_allow_random`` is true, and is logged as a
+    warning when it is.  ``{}`` with LPIPS off."""
+    if not _lpips_on(cfg):
+        return {}
+    loss_cfg = get(cfg, "loss", None)
+    source = resolve_weight_source(get(loss_cfg, "lpips_weights_path", None))
+    if source == "random-init":
+        # random-init LPIPS trains, but is a different perceptual loss than
+        # the reference's pretrained AlexNet: only as an explicit choice
+        if not bool(get(loss_cfg, "lpips_allow_random", False)):
+            raise RuntimeError(
+                "use_lpips is ON but no pretrained weights were found. "
+                "Refusing to train against deterministic RANDOM frozen "
+                "features (a different perceptual loss than the "
+                "reference's pretrained AlexNet). Either convert real "
+                "weights: `python scripts/convert_lpips_weights.py` "
+                "then set loss.lpips_weights_path (or $LPIPS_WEIGHTS), "
+                "or opt in explicitly with loss.lpips_allow_random: "
+                "true.")
+        init_logger().warning(
+            "use_lpips is ON with loss.lpips_allow_random: true — "
+            "training against deterministic RANDOM frozen features "
+            "(lpips_weights=random-init in the CONFIG line). Set "
+            "loss.lpips_weights_path or $LPIPS_WEIGHTS for the "
+            "reference's pretrained-AlexNet loss.")
+    return {"lpips_weights": source}
+
+
+def _refuse_profile_steps(cfg) -> None:
+    """Raise ``NotImplementedError`` on ``logging.profile_steps`` > 0: the
+    JAX loop's ``StepProfiler`` is not ported yet."""
+    profile_steps = int(get(cfg.logging, "profile_steps", 0) or 0)
+    if profile_steps > 0:
+        raise NotImplementedError(
+            f"logging.profile_steps={profile_steps} is not ported yet (the "
+            "JAX package's StepProfiler); set it to 0")
+
+
+def _refuse_host_feed(cfg, ds, split: str) -> None:
+    """Raise ``NotImplementedError`` when ``split``'s uint8 images exceed
+    ``training.max_device_dataset_mb``: the JAX loop streams such a split
+    from the host (with ``training.host_feed_chunk_mb`` per dispatch), and
+    that host-feed mode is not ported yet."""
+    budget_mb = int(get(cfg.training, "max_device_dataset_mb",
+                        MAX_DEVICE_DATASET_MB))
+    if ds.images.nbytes > budget_mb * 1024 * 1024:
+        raise NotImplementedError(
+            f"the {split} split ({ds.images.nbytes} bytes) exceeds "
+            f"training.max_device_dataset_mb={budget_mb}: host feed (with "
+            "training.host_feed_chunk_mb) is not ported yet; raise the "
+            "budget to keep the split on the device")
+
+
 class _Run:
     """What both trainers build from the config: data on the device, the
     seeded model, the optimizer, the loss, the schedules and the step."""
 
     def __init__(self, cfg, dev: torch.device, *, with_test: bool):
+        _refuse_profile_steps(cfg)
         self.dev = dev
         self.seed = int(cfg.data.seed)
         debug_cfg = get(cfg, "debug", None)
@@ -74,12 +148,14 @@ class _Run:
         self.epochs = resolve_total_epochs(cfg)
         self.train_ds = load_split("train", sample_limit=(
             get(debug_cfg, "train_samples", None) if self.debug else None))
+        _refuse_host_feed(cfg, self.train_ds, "train")
         self.train_dev = DeviceData.from_dataset(self.train_ds, dev)
         if with_test:
             self.test_ds = load_split("test", sample_limit=(
                 get(debug_cfg, "test_samples", None) if self.debug else None))
             if self.debug and get(cfg.model, "deterministic_overfit", False):
                 self.test_ds = self.train_ds
+            _refuse_host_feed(cfg, self.test_ds, "test")
             self.test_dev = DeviceData.from_dataset(self.test_ds, dev)
         self.max_train_batches = (int(debug_cfg.max_train_batches)
                                   if self.debug else None)
@@ -88,6 +164,9 @@ class _Run:
 
         self.model = model_from_config(cfg, device=dev)
         self.spec = loss_spec_from_config(cfg)
+        self.lpips_fn = (build_lpips_fn(
+            get(get(cfg, "loss", None), "lpips_weights_path", None), dev)
+            if _lpips_on(cfg) else None)
         self.optimizer = build_optimizer(self.model.parameters(), cfg)
         self.beta_sched, self.cap_sched = schedules_from_config(
             cfg, total_epochs=self.epochs)
@@ -99,7 +178,8 @@ class _Run:
         self.step = make_train_step(
             self.model, self.optimizer, self.spec,
             aug_kwargs=augment_config_kwargs(cfg),
-            use_capacity=self.use_capacity, seed=self.seed)
+            use_capacity=self.use_capacity, seed=self.seed,
+            lpips_fn=self.lpips_fn)
         self.batch_size = int(cfg.training.batch_size)
         self.train_plan = BatchPlan(len(self.train_ds), self.batch_size,
                                     shuffle=True, seed=self.seed)
@@ -174,7 +254,7 @@ def train_steps(config_path: str, max_steps: int,
     time of the steps after the warm-up, ended by a device sync."""
     dev = resolve_device(device)
     cfg = get_config(config_path)
-    log_config()
+    log_config(_lpips_config_extras(cfg) or None)
     run = _Run(cfg, dev, with_test=False)
     warmup = min(WARMUP_STEPS, max_steps // 2)
 
@@ -340,11 +420,11 @@ def train(config_path: str | None = None, resume: str = "none",
     dev = resolve_device(device)
     cfg = get_config(config_path)
     ensure_dirs()
-    log_config()
+    log_config(_lpips_config_extras(cfg) or None)
     run = _Run(cfg, dev, with_test=True)
     model, optimizer = run.model, run.optimizer
     eval_step = make_eval_step(model, run.spec, use_capacity=run.use_capacity,
-                               seed=run.seed)
+                               seed=run.seed, lpips_fn=run.lpips_fn)
     test_plan = BatchPlan(len(run.test_ds), run.batch_size, shuffle=False,
                           seed=run.seed)
     early = EarlyStopping(

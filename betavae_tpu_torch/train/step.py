@@ -64,7 +64,8 @@ def augment_seed(seed: int, step_index: int) -> int:
 
 
 def _forward_losses(model, x, mask, sched: dict, *, spec: LossSpec,
-                    use_capacity: bool, seed: int, offset: int) -> dict:
+                    use_capacity: bool, seed: int, offset: int,
+                    lpips_fn=None) -> dict:
     mu, logvar = model.encode(x)
     if spec.deterministic:
         z, kl_elem = reparameterize_and_kl(mu, logvar, deterministic=True)
@@ -75,12 +76,12 @@ def _forward_losses(model, x, mask, sched: dict, *, spec: LossSpec,
         (recon, mu, logvar, z, kl_elem), x, spec=spec, beta=sched["beta"],
         capacity=sched["capacity"] if use_capacity else None,
         capacity_weight=sched["capacity_weight"] if use_capacity else None,
-        free_bits=sched["free_bits"], mask=mask)
+        free_bits=sched["free_bits"], mask=mask, lpips_fn=lpips_fn)
 
 
 def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
                     spec: LossSpec, *, aug_kwargs: dict, use_capacity: bool,
-                    seed: int):
+                    seed: int, lpips_fn=None):
     """Build ``step(images, idx, mask, sched, step_index) -> metrics``.
 
     ``images`` is the device-resident uint8 split, ``idx`` (B,) int64 and
@@ -88,6 +89,8 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
     ``{beta, capacity, capacity_weight, free_bits, lr}``.  The noise of step
     ``step_index`` is the kernel's Philox stream at ``(seed, step_index)``;
     its augmentation draws from a generator seeded from the same pair.
+    ``lpips_fn`` is the perceptual distance the loss adds when the spec
+    turns LPIPS on (:func:`..ops.lpips.build_lpips_fn`).
     """
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
@@ -99,7 +102,7 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
         optimizer.zero_grad()
         losses = _forward_losses(model, x, mask, sched, spec=spec,
                                  use_capacity=use_capacity, seed=seed,
-                                 offset=step_index)
+                                 offset=step_index, lpips_fn=lpips_fn)
         losses["total"].backward()
         optimizer.step(sched["lr"])
         return scalar_metrics(losses, mask)
@@ -108,7 +111,7 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
 
 
 def make_eval_step(model: BetaVAEModule, spec: LossSpec, *,
-                   use_capacity: bool, seed: int):
+                   use_capacity: bool, seed: int, lpips_fn=None):
     """Build ``eval_step(images, idx, mask, sched, offset) -> (metrics,
     mu)``: one stochastic validation batch in eval mode without autograd,
     its noise the kernel's Philox stream at ``(seed, offset)``."""
@@ -118,7 +121,7 @@ def make_eval_step(model: BetaVAEModule, spec: LossSpec, *,
         model.eval()
         losses = _forward_losses(model, gather_batch(images, idx), mask,
                                  sched, spec=spec, use_capacity=use_capacity,
-                                 seed=seed, offset=offset)
+                                 seed=seed, offset=offset, lpips_fn=lpips_fn)
         return scalar_metrics(losses, mask), losses["mu"]
 
     return eval_step

@@ -13,13 +13,21 @@ Phases, each printing one line (any failure exits non-zero at once):
    all at once) into ``build/kernels/``,
 3. kernel: each kernel against its plain PyTorch version on the card, with
    gradients, and its time beside its bound, its plain version's and (where
-   one PyTorch call computes the same function) that call's: reparam+KL at
-   the training path's shape and a large one (noise moments, seed
-   behaviour), the SE-gate∘head-conv forward and M kernels at the
-   flagship's y in bf16 and fp32 and at a ragged shape (each with the path
-   it took, TMA or generic, its profiler device time, and two launches
-   held bitwise equal), the GroupNorm(1)
-   +ReLU+pool forward and backward kernels at the flagship's eight block
+   one PyTorch call computes the same function) that call's: the reparam+KL
+   forward and backward kernels at the training path's shape and a large
+   one (ε bitwise the plain Philox stream, noise moments, seed behaviour;
+   the backward also with capacity mode's broadcast g_kl; the forward with
+   programmatic dependent launch off and on in turns, alone and chained
+   behind the logvar clamp, eager and replayed from a CUDA graph; the
+   backward beside the plain closed form's time and kernel count), a race
+   check of the forward behind a kernel writing its inputs (1000 times),
+   where a reparam+KL call's host time goes, the graph-replayed chain for
+   two variants of the forward's source (noise drawn after the wait; no
+   ``launch_dependents``), the SE-gate∘head-conv forward
+   and M kernels at the flagship's y in bf16 and fp32 and at a ragged shape
+   (each with the path it took, TMA or generic, its profiler device time,
+   and two launches held bitwise equal), the GroupNorm(1)+ReLU+pool
+   forward and backward kernels at the flagship's eight block
    shapes in bf16, its largest in fp32, a ragged shape and the bench
    canary's (each with its path, cluster or generic, one launch a call,
    its profiler device time back to back and after clean and dirty L2
@@ -35,7 +43,10 @@ Phases, each printing one line (any failure exits non-zero at once):
    default head and with the fused head; the epoch trainer ``train()`` on
    the flagship with the fused head for 2 epochs and then ``resume
    latest`` for a third, its checkpoints written by the background writer
-   (``training.async_checkpoint`` of the flagship config); the port's bench
+   (``training.async_checkpoint`` of the flagship config); ``train()`` on
+   ``configs/beta_vae_se_debug.yaml`` as it is (its ``debug:`` limits, 2
+   epochs, LPIPS with random-init features allowed), whose LPIPS term must
+   be finite and above 0 in every line; the port's bench
    (``python -m betavae_tpu_torch.bench`` in-process at ``--steps 96
    --warmup 32 --e2e-epochs 3``: steady state, e2e epochs at the reference
    dataset's scale, encode latencies, PRNG check and the kernel canary,
@@ -120,6 +131,36 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(fn, calls: int, before=None) -> list:
+    """The device events (kernels, copies, fills) of ``calls`` calls of
+    ``fn`` (``torch.profiler``), ``before`` running ahead of each.  The
+    calls run twice, as the profiler's warm-up step and then as its active
+    step, and only the active step's events count: device tracing is
+    running when they start, where a window of a fraction of a millisecond
+    straight after the profiler starts can record no device event at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def run():
+        for _ in range(calls):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+
+    recorded = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.extend(p.events())) as prof:
+        run()
+        prof.step()
+        run()
+        prof.step()
+    return [e for e in recorded
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def device_ms_per_call(fn, case: str, calls: int = 5, before=None,
                        only: str = "") -> float:
     """The device time of the kernels ``fn`` launches, per call
@@ -129,22 +170,8 @@ def device_ms_per_call(fn, case: str, calls: int = 5, before=None,
     ``only`` are counted.  A window that records no such kernel is taken
     once more with four times the calls; if that too records none, the
     run fails, naming ``case``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
     for n in (calls, 4 * calls):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                if before is not None:
-                    before()
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.is_user_annotation and only in e.name]
+        events = [e for e in device_events(fn, n, before) if only in e.name]
         if events:
             return sum(e.device_time_total for e in events) / 1e3 / n
     fail(f"{case}: the profiler recorded no device event"
@@ -181,11 +208,99 @@ def ptxas_by_kernel(log: str) -> dict:
     return out
 
 
-def check_elbo(shape, check_moments: bool) -> dict:
-    """fused_reparam_kl on the card against its plain version."""
+def profiled_kernels(fn, case: str, only: str, calls: int = 20) -> dict:
+    """Device ms and device kernels per call of ``fn`` (``torch.profiler``),
+    counting only kernels whose name holds ``only`` for the time and every
+    device kernel for the count; one retry as in ``device_ms_per_call``."""
+    for n in (calls, 4 * calls):
+        events = device_events(fn, n)
+        mine = [e for e in events if only in e.name]
+        if mine:
+            return {"device_ms": sum(e.device_time_total
+                                     for e in mine) / 1e3 / n,
+                    "kernels_per_call": len(events) / n}
+    fail(f"{case}: the profiler recorded no device event of a kernel "
+         f"named *{only}* in {calls} and {4 * calls} calls")
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Milliseconds per repetition of ``fn`` captured ``reps`` times into one
+    CUDA graph and replayed (CUDA events): the device's time for the chain,
+    the gaps between its kernels included and the host's launches not."""
     import torch
 
-    from betavae_tpu_torch.ops.elbo import (fused_reparam_kl, philox_normal,
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def elbo_race_check(iters: int = 1000) -> dict:
+    """Programmatic dependent launch must not let the forward read before
+    the kernel that writes its inputs has finished: ``iters`` times, μ and
+    logσ² are written in place (logσ² by a reduction, the forward's
+    immediate predecessor, as the logvar clamp is in the model), the
+    forward follows, and copies of μ and logσ² taken after it must give
+    the kernel's z and kl through the plain version."""
+    import torch
+
+    from betavae_tpu_torch.ops.elbo import (reparam_kl_forward,
+                                            reparam_kl_reference)
+
+    shape = ELBO_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    mu_src = torch.randn((iters, *shape), generator=g, device="cuda")
+    lv_src = 0.1 * torch.randn((iters, 16, *shape), generator=g, device="cuda")
+    mu = torch.empty(shape, device="cuda")
+    logvar = torch.empty(shape, device="cuda")
+    outs, seen = [], []
+    for i in range(iters):
+        torch.neg(mu_src[i], out=mu)
+        torch.sum(lv_src[i], dim=0, out=logvar)
+        outs.append(reparam_kl_forward(mu, logvar, 5, i))
+        seen.append((mu.clone(), logvar.clone()))
+    torch.cuda.synchronize()
+    z, kl, eps = (torch.stack([o[k] for o in outs]) for k in range(3))
+    mus = torch.stack([m for m, _ in seen])
+    lvs = torch.stack([lv for _, lv in seen])
+    if not torch.equal(mus, -mu_src):
+        fail("elbo race check: the copies of mu are not the written values")
+    z_ref, kl_ref = reparam_kl_reference(mus, lvs, eps)
+    torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(kl, kl_ref, rtol=1e-5, atol=1e-6)
+    return {"iters": iters, "shape": list(shape),
+            "max_abs_err": max(float((z - z_ref).abs().max()),
+                               float((kl - kl_ref).abs().max()))}
+
+
+def check_elbo(shape, check_moments: bool) -> dict:
+    """fused_reparam_kl's forward and backward kernels on the card against
+    their plain versions, and times: the forward with programmatic
+    dependent launch on and off in turns (off, on, on, off), alone and
+    chained behind the logvar clamp it follows in the model; the backward
+    beside the plain closed form it replaces."""
+    import torch
+
+    from betavae_tpu_torch.ops.elbo import (_launch, _launch_backward,
+                                            fused_reparam_kl, philox_normal,
+                                            reparam_kl_backward,
+                                            reparam_kl_backward_reference,
                                             reparam_kl_forward,
                                             reparam_kl_reference)
 
@@ -201,19 +316,36 @@ def check_elbo(shape, check_moments: bool) -> dict:
     # at most an ulp or so between the kernel and torch: 1e-5 relative
     torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(kl, kl_ref, rtol=1e-5, atol=1e-6)
-    # the kernel's noise against the plain Philox/Box-Muller in torch: log,
-    # sqrt and cos may differ by an ulp or two, |eps| < 5.7
+    # the kernel's noise is the plain Philox/Box-Muller stream in torch,
+    # bit for bit, as every earlier build of the kernel drew it
     eps_plain = philox_normal(shape, seed, offset, device="cuda")
-    torch.testing.assert_close(eps, eps_plain, rtol=1e-5, atol=1e-5)
+    if not torch.equal(eps, eps_plain):
+        fail(f"elbo {shape}: eps differs from philox_normal's stream by up "
+             f"to {float((eps - eps_plain).abs().max())}")
     max_abs_err = max(float((z - z_ref).abs().max()),
                       float((kl - kl_ref).abs().max()))
-    eps_err = float((eps - eps_plain).abs().max())
 
-    # gradients through the autograd Function against autograd through the
-    # plain version with the kernel's eps; the closed form and autograd
-    # round in another order, so 1e-5 relative of the gradient's scale
+    # the backward kernel against the closed form: contiguous gradients, and
+    # g_kl broadcast along the latent dim (strides (1, 0)) as capacity
+    # mode's per-sample sum hands it over; 1e-5 relative plus 1e-5 of the
+    # largest |value| (one exp each side, rounded alike)
     g_z = torch.randn(shape, generator=g, device="cuda")
     g_kl = torch.randn(shape, generator=g, device="cuda")
+    g_kl_row = torch.randn(shape[0], 1, generator=g, device="cuda").expand(shape)
+    backward_err = {}
+    for name, gk in (("contiguous", g_kl), ("broadcast_g_kl", g_kl_row)):
+        got = reparam_kl_backward(mu, logvar, eps, g_z, gk)
+        want = reparam_kl_backward_reference(mu, logvar, eps, g_z, gk)
+        for a, b in zip(got, want):
+            scale = float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * scale)
+        backward_err[name] = max(float((a - b).abs().max())
+                                 for a, b in zip(got, want))
+
+    # gradients through the autograd Function (both kernels) against
+    # autograd through the plain version with the kernel's eps; the closed
+    # form and autograd round in another order, so 1e-5 relative of the
+    # gradient's scale
     mu_k, lv_k = mu.clone().requires_grad_(), logvar.clone().requires_grad_()
     zk, klk = fused_reparam_kl(mu_k, lv_k, seed, offset)
     ((zk * g_z).sum() + (klk * g_kl).sum()).backward()
@@ -233,7 +365,8 @@ def check_elbo(shape, check_moments: bool) -> dict:
         fail(f"elbo {shape}: another seed or offset gave the same eps")
 
     out = {"shape": list(shape), "max_abs_err": max_abs_err,
-           "eps_max_abs_err_vs_plain": eps_err}
+           "eps_bitwise_vs_plain": True,
+           "backward_max_abs_err": backward_err}
     if check_moments:
         mean = float(eps.mean())
         std = float(eps.std())
@@ -245,9 +378,12 @@ def check_elbo(shape, check_moments: bool) -> dict:
                  f"std {std}, P(|eps|>1) {tail}")
 
     n = mu.numel()
-    iters = 2000 if n < 100_000 else 200
+    small = n < 100_000
+    iters = 2000 if small else 200
     out["ms"] = cuda_ms(lambda: reparam_kl_forward(mu, logvar, seed, offset),
                         iters)
+    out["host_us"] = host_us_per_call(
+        lambda: reparam_kl_forward(mu, logvar, seed, offset), iters)
 
     def plain():
         e = philox_normal(shape, seed, offset, device="cuda")
@@ -258,7 +394,189 @@ def check_elbo(shape, check_moments: bool) -> dict:
     ops_ms = ELBO_OPS_PER_ELEMENT * n / FP32_OPS_PER_S * 1e3
     out["bound_ms"] = max(bytes_ms, ops_ms)
     out["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+
+    # programmatic dependent launch off and on, in turns: the forward alone
+    # (a call with many queued; the host's µs a call; the kernel's device
+    # time), and chained behind the clamp that writes logvar in the model,
+    # eager (host included) and replayed from a CUDA graph (the device's
+    # time for clamp + forward, gaps included), and the forward's own
+    # device time there, which may grow as it starts early and waits
+    pre = 4.0 * torch.randn(shape, generator=g, device="cuda")
+
+    def alone(pdl):
+        return lambda: _launch(mu, logvar, seed, offset, pdl)
+
+    def chained(pdl):
+        return lambda: _launch(mu, pre.clamp(-10.0, 5.0), seed, offset, pdl)
+
+    pdl = {f"{k}_{side}": [] for k in ("ms", "host_us", "device_ms",
+                                       "chained_ms", "chained_graph_ms",
+                                       "chained_device_ms")
+           for side in ("off", "on")}
+    for on in (False, True, True, False):
+        side = "on" if on else "off"
+        pdl[f"ms_{side}"].append(cuda_ms(alone(on), iters))
+        pdl[f"host_us_{side}"].append(host_us_per_call(alone(on), iters))
+        pdl[f"device_ms_{side}"].append(device_ms_per_call(
+            alone(on), f"elbo {shape} pdl {side}", calls=20,
+            only="reparam_kl_kernel"))
+        pdl[f"chained_ms_{side}"].append(cuda_ms(chained(on), iters))
+        pdl[f"chained_graph_ms_{side}"].append(graph_ms(
+            chained(on), 2000 if small else 100))
+        pdl[f"chained_device_ms_{side}"].append(device_ms_per_call(
+            chained(on), f"elbo {shape} chained pdl {side}", calls=20,
+            only="reparam_kl_kernel"))
+    out["pdl"] = pdl
+
+    # the backward: the kernel a call, its device time and the plain closed
+    # form's (time and kernels a call) on the same contiguous inputs; bound
+    # 7 arrays of n fp32 values (5 read, 2 written)
+    def kernel_bwd():
+        return reparam_kl_backward(mu, logvar, eps, g_z, g_kl)
+
+    def plain_bwd():
+        return reparam_kl_backward_reference(mu, logvar, eps, g_z, g_kl)
+
+    kern = profiled_kernels(kernel_bwd, f"elbo {shape} backward",
+                            "reparam_kl_backward")
+    plain_prof = profiled_kernels(plain_bwd, f"elbo {shape} plain backward",
+                                  "")
+    bwd = {"ms": cuda_ms(kernel_bwd, iters),
+           "host_us": host_us_per_call(kernel_bwd, iters),
+           "device_ms": kern["device_ms"],
+           "kernels_per_call": kern["kernels_per_call"],
+           "ms_pdl_off": cuda_ms(lambda: _launch_backward(
+               mu, logvar, eps, g_z, g_kl, False), iters),
+           "plain_ms": cuda_ms(plain_bwd, iters),
+           "plain_device_ms": plain_prof["device_ms"],
+           "plain_kernels_per_call": plain_prof["kernels_per_call"],
+           "bound_ms": 7 * n * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    bwd["bound_fraction"] = bwd["bound_ms"] / bwd["device_ms"]
+    out["backward"] = bwd
     return out
+
+
+def elbo_pdl_trial() -> dict:
+    """Where the cost of programmatic dependent launch in a CUDA graph comes
+    from: the clamp → forward chain at [32, 64] replayed from a graph (2000
+    repetitions), in turns, for the forward as built with the attribute off
+    and on, two variants of its source built here with the attribute on
+    (``wait_first``: the noise drawn after the wait, nothing started early;
+    ``no_trigger``: no ``launch_dependents``), and the clamp alone."""
+    import ctypes
+
+    import torch
+
+    from betavae_tpu_torch import _build
+    from betavae_tpu_torch.device import raw_stream
+    from betavae_tpu_torch.ops.elbo import _launch
+
+    src = (_build.SRC_DIR / "elbo.cu").read_text()
+    early = ("  float e = i < n ? normal_at(i, key, offset) : 0.0f;\n"
+             "  wait_for_previous_grid();\n")
+    trigger = "    if (first) allow_next_grid();\n"
+    if early not in src or trigger not in src:
+        fail("elbo pdl trial: the source no longer has the lines it varies")
+    texts = {"wait_first": src.replace(early, (
+                 "  wait_for_previous_grid();\n"
+                 "  float e = i < n ? normal_at(i, key, offset) : 0.0f;\n")),
+             "no_trigger": src.replace(trigger, "", 1)}
+    procs = {}
+    for name, text in texts.items():
+        cu = _build.BUILD_DIR / f"elbo_trial_{name}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"elbo pdl trial: the {name} variant did not build:\n{log}")
+        fn = ctypes.CDLL(str(so)).betavae_reparam_kl
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p,
+            ctypes.c_int]
+        fn.restype = ctypes.c_int
+        entries[name] = fn
+
+    shape = ELBO_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    mu = torch.randn(shape, generator=g, device="cuda")
+    pre = 4.0 * torch.randn(shape, generator=g, device="cuda")
+
+    def variant(name):
+        def chain():
+            lv = pre.clamp(-10.0, 5.0)
+            out = mu.new_empty((3, *shape))
+            if entries[name](mu.data_ptr(), lv.data_ptr(), out.data_ptr(),
+                             mu.numel(), 1, 2, raw_stream(mu.device), 1):
+                fail(f"elbo pdl trial: the {name} variant did not launch")
+            return out
+        return chain
+
+    cases = {"pdl_off": lambda: _launch(mu, pre.clamp(-10.0, 5.0), 1, 2, False),
+             "pdl_on": lambda: _launch(mu, pre.clamp(-10.0, 5.0), 1, 2, True),
+             "wait_first_pdl_on": variant("wait_first"),
+             "no_trigger_pdl_on": variant("no_trigger"),
+             "clamp_alone": lambda: pre.clamp(-10.0, 5.0)}
+    times = {name: [] for name in cases}
+    for name in list(cases) + list(reversed(cases)):
+        times[name].append(graph_ms(cases[name], 2000))
+    return {"shape": list(shape), "chained_graph_ms": times}
+
+
+def elbo_host_split() -> dict:
+    """Where a reparam+KL call's host time goes at the flagship's [32, 64]:
+    host microseconds a call of each piece of the wrappers, alone, over
+    calls with no synchronise, beside the whole calls; the earlier wrapper's
+    pieces (three ``empty_like``, ``current_stream().cuda_stream``) for
+    comparison."""
+    import torch
+
+    from betavae_tpu_torch.device import raw_stream
+    from betavae_tpu_torch.ops import elbo
+
+    shape = ELBO_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mu, logvar, eps, g_z, g_kl = (torch.randn(shape, generator=g,
+                                              device="cuda")
+                                  for _ in range(5))
+    mu_g, lv_g = mu.clone().requires_grad_(), logvar.clone().requires_grad_()
+    forward, backward = elbo._library()
+    out3 = mu.new_empty((3, *shape))
+    out2 = mu.new_empty((2, *shape))
+    n = mu.numel()
+    stream = raw_stream(mu.device)
+    pieces = {
+        "forward_call": lambda: elbo.reparam_kl_forward(mu, logvar, 115, 7),
+        "function_call_with_grad": lambda: elbo.fused_reparam_kl(
+            mu_g, lv_g, 115, 7),
+        "backward_call": lambda: elbo.reparam_kl_backward(mu, logvar, eps,
+                                                          g_z, g_kl),
+        "checks_forward": lambda: (elbo._fp32(mu), elbo._fp32(logvar),
+                                   elbo._check_like(mu, logvar)),
+        "current_device": torch.cuda.current_device,
+        "allocation_forward": lambda: mu.new_empty((3, *shape)),
+        "raw_stream": lambda: raw_stream(mu.device),
+        "data_ptr_x3": lambda: (mu.data_ptr(), logvar.data_ptr(),
+                                out3.data_ptr()),
+        "ctypes_forward_launch": lambda: forward(
+            mu.data_ptr(), logvar.data_ptr(), out3.data_ptr(), n, 115, 7,
+            stream, 1),
+        "ctypes_backward_launch": lambda: backward(
+            mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), g_z.data_ptr(),
+            64, 1, g_kl.data_ptr(), 64, 1, out2.data_ptr(), n, 64, stream, 1),
+        "unbind_3": lambda: out3.unbind(0),
+        "earlier_empty_like_x3": lambda: (torch.empty_like(mu),
+                                      torch.empty_like(mu),
+                                      torch.empty_like(mu)),
+        "earlier_current_stream": lambda: torch.cuda.current_stream(
+            mu.device).cuda_stream,
+    }
+    return {name: host_us_per_call(fn, 2000) for name, fn in pieces.items()}
 
 
 def head_inputs(shape, dtype_name: str, seed: int = 0):
@@ -615,6 +933,7 @@ def gn_host_split() -> dict:
     import torch
     import torch.nn.functional as F
 
+    from betavae_tpu_torch.device import raw_stream
     from betavae_tpu_torch.ops import gn
 
     shape, dtype_name = GN_CANARY_CASE
@@ -650,7 +969,7 @@ def gn_host_split() -> dict:
                         device=x.device)),
         "current_stream": lambda: torch.cuda.current_stream(
             x.device).cuda_stream,
-        "raw_stream": lambda: gn._stream(x.device),
+        "raw_stream": lambda: raw_stream(x.device),
         "data_ptr_x5": lambda: (x.data_ptr(), gamma.data_ptr(),
                                 beta.data_ptr(), y.data_ptr(),
                                 stats.data_ptr()),
@@ -771,11 +1090,11 @@ def read_counts(kernels: dict) -> dict:
 
 
 def launches_per_step(kernels: dict, fused_head: bool, steps: int) -> dict:
-    """Launches of ``steps`` train steps: reparam+KL every step, the head
-    kernels with the fused head, the GN kernels never (the model keeps
-    ``nn.GroupNorm``)."""
-    per_step = {"fused_reparam_kl": 1, "head_forward": int(fused_head),
-                "head_m": int(fused_head)}
+    """Launches of ``steps`` train steps: the reparam+KL forward and
+    backward every step, the head kernels with the fused head, the GN
+    kernels never (the model keeps ``nn.GroupNorm``)."""
+    per_step = {"fused_reparam_kl": 1, "reparam_kl_backward": 1,
+                "head_forward": int(fused_head), "head_m": int(fused_head)}
     return {name: steps * per_step.get(name, 0) for name in kernels}
 
 
@@ -905,6 +1224,9 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool) -> dict:
             "elbo_kernel_device_ms_per_step": sum(
                 ms for name, ms in per_kernel.items()
                 if "reparam_kl_kernel" in name),
+            "elbo_backward_kernel_device_ms_per_step": sum(
+                ms for name, ms in per_kernel.items()
+                if "reparam_kl_backward_kernel" in name),
             "head_fwd_kernel_device_ms_per_step": sum(
                 ms for name, ms in per_kernel.items()
                 if "head_fwd_" in name),     # either path's kernel
@@ -931,8 +1253,9 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
     best must stand as 2 shards each; the resumed run must start at epoch
     EPOCHS_FIRST + 1 with the step count carried over; and each kernel
     must launch once per forward that runs it: head forward per train
-    step, val batch and panel, M per train step, reparam+KL per train step
-    and val batch, the GN kernels never."""
+    step, val batch and panel, M per train step, the reparam+KL forward per
+    train step and val batch and its backward per train step only, the GN
+    kernels never."""
     import torch
 
     from betavae_tpu_torch.data.demo import generate_demo_data
@@ -992,6 +1315,7 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
     want = {"head_forward": train_steps + EPOCHS_TOTAL * (val_batches + 1),
             "head_m": train_steps,
             "fused_reparam_kl": train_steps + EPOCHS_TOTAL * val_batches,
+            "reparam_kl_backward": train_steps,
             "gn_forward": 0, "gn_backward": 0}
     if launches != want:
         fail(f"epochs: kernel launches {launches}, want {want}")
@@ -1016,6 +1340,68 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
             "peak_mem_gib": peak}
 
 
+def run_debug_config(tmp: str, kernels: dict) -> dict:
+    """``train()`` on ``configs/beta_vae_se_debug.yaml`` as it is (its own
+    ``debug:`` limits and 2 epochs, LPIPS on with random-init features
+    allowed, FFL, l1, fp32), over seeded demo data, with the log written
+    to a file to read back: the CONFIG line must name the LPIPS weight
+    source, every train and val line must carry a finite LPIPS term above
+    0, and the reparam+KL kernels must launch as the run's steps and
+    validation batches say."""
+    import yaml
+
+    from betavae_tpu_torch.data.demo import generate_demo_data
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.loop import train
+
+    src = "configs/beta_vae_se_debug.yaml"
+    root = os.path.join(tmp, "debug")
+    cfg_path = write_config(src, root, "debug.yaml",
+                            **{"logging.log_to_file": True})
+    with open(src) as f:
+        raw = yaml.safe_load(f)
+    debug, batch = raw["debug"], int(raw["training"]["batch_size"])
+    generate_demo_data(os.path.join(root, "processed"), train_per_class=6,
+                       test_per_class=3, size=128)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    out = train(cfg_path)
+    reset_logger()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    log = os.path.join(root, "outputs", "logs", "beta_vae_se_debug.log")
+    with open(log) as f:
+        config_line = json.loads(next(
+            ln for ln in f if "| CONFIG " in ln).split("| CONFIG ", 1)[1])
+    lines = metrics_lines(log)
+    lpips = {phase: [m[f"{phase}_recon_lpips"] for m in lines
+                     if m["phase"] == phase] for phase in ("train", "val")}
+    if not all(v and all(math.isfinite(x) and x > 0 for x in v)
+               for v in lpips.values()):
+        fail(f"debug config: recon_lpips not finite and > 0: {lpips}")
+    source = config_line.get("lpips_weights")
+    if source is None:
+        fail("debug config: the CONFIG line names no lpips_weights source")
+    steps = out["total_steps"]
+    val_batches = min(int(debug["max_val_batches"]),
+                      -(-int(debug["test_samples"]) // batch))
+    want = {"fused_reparam_kl": steps + out["epoch"] * val_batches,
+            "reparam_kl_backward": steps}
+    got = {name: launches[name] for name in want}
+    if (out["epoch"], steps) != (int(debug["epochs"]), int(debug["epochs"])
+                                 * int(debug["max_train_batches"])) \
+            or got != want:
+        fail(f"debug config: {out['epoch']} epochs, {steps} steps, reparam+KL "
+             f"launches {got}, want {want}")
+    return {"phase": "debug_config", "config": src, "epochs": out["epoch"],
+            "train_steps": steps, "lpips_weights": source,
+            "train_recon_lpips": lpips["train"],
+            "val_recon_lpips": lpips["val"],
+            "val_total_loss": [m["val_total_loss"] for m in lines
+                               if m["phase"] == "val"],
+            "launches": launches, "seconds": seconds}
+
+
 def all_finite(value) -> bool:
     """Every number in a nested line is finite, and none is a string such
     as "FAIL: ..." or "skipped" where a number belongs."""
@@ -1033,8 +1419,8 @@ def all_finite(value) -> bool:
 def run_bench(tmp: str, kernels: dict) -> dict:
     """The port's bench in-process, its e2e work under ``tmp``: the kernel
     canary and PRNG check must read "ok", every number must be finite, and
-    the GN kernels (the canary), the head forward (the canary) and
-    reparam+KL (every step) must each have launched."""
+    the GN kernels (the canary), the head forward (the canary) and the
+    reparam+KL forward and backward (every step) must each have launched."""
     from betavae_tpu_torch import bench
 
     zero_counts(kernels)
@@ -1052,7 +1438,8 @@ def run_bench(tmp: str, kernels: dict) -> dict:
     if not all_finite(numbers):
         fail(f"bench: a number is missing or not finite: {line}")
     missing = [name for name in ("gn_forward", "gn_backward", "head_forward",
-                                 "fused_reparam_kl") if launches[name] < 1]
+                                 "fused_reparam_kl", "reparam_kl_backward")
+               if launches[name] < 1]
     if missing:
         fail(f"bench: kernels {missing} never launched ({launches})")
     # the canary's GN launches: every one on the cluster path
@@ -1073,7 +1460,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False")
     # the port itself: absent when this script stands alone
     from betavae_tpu_torch import _build
-    from betavae_tpu_torch.ops.elbo import fused_reparam_kl
+    from betavae_tpu_torch.ops.elbo import (fused_reparam_kl,
+                                            reparam_kl_backward)
     from betavae_tpu_torch.ops.gn import gn_backward, gn_forward
     from betavae_tpu_torch.ops.head import head_forward, head_m
 
@@ -1103,6 +1491,12 @@ def main() -> None:
             for s in ELBO_SHAPES}
     emit({"phase": "kernel", "name": "fused_reparam_kl", "card": card,
           "checks": elbo})
+    emit({"phase": "kernel", "name": "elbo_race_check", "card": card,
+          **elbo_race_check()})
+    emit({"phase": "kernel", "name": "elbo_host_split", "card": card,
+          "shape": list(ELBO_SHAPES[0]), "host_us": elbo_host_split()})
+    emit({"phase": "kernel", "name": "elbo_pdl_trial", "card": card,
+          **elbo_pdl_trial()})
     heads = [check_head(shape, dtype) for shape, dtype in HEAD_CASES]
     emit({"phase": "kernel", "name": "fused_se_conv_head", "card": card,
           "cases": heads})
@@ -1116,6 +1510,7 @@ def main() -> None:
           **gn_cluster16_trial()})
 
     kernels = {"fused_reparam_kl": fused_reparam_kl,
+               "reparam_kl_backward": reparam_kl_backward,
                "head_forward": head_forward, "head_m": head_m,
                "gn_forward": gn_forward, "gn_backward": gn_backward}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1130,6 +1525,9 @@ def main() -> None:
         epochs = run_epochs(tmp, kernels)
         epochs["card"] = card
         emit(epochs)
+        debug_run = run_debug_config(tmp, kernels)
+        debug_run["card"] = card
+        emit(debug_run)
         bench_run = run_bench(tmp, kernels)
         bench_run["card"] = card
         emit(bench_run)
@@ -1151,6 +1549,7 @@ def main() -> None:
         return {"epochs": epochs["launches"][name],
                 "flagship": flagship["launches"][name],
                 "flagship_fused_head": flagship_fused["launches"][name],
+                "debug_config": debug_run["launches"][name],
                 "bench": bench_run["launches"][name]}
 
     emit({"kernels": [{
@@ -1171,7 +1570,27 @@ def main() -> None:
         "device_ms": profiled["elbo_kernel_device_ms_per_step"],
         "check": "ok",
         "card": card,
-        "shapes": elbo,
+        "shapes": {k: {f: v for f, v in c.items() if f != "backward"}
+                   for k, c in elbo.items()},
+    }, {
+        "name": "reparam_kl_backward",
+        "route": "cuda",
+        "source": "betavae_tpu_torch/csrc/elbo.cu",
+        # the JAX custom VJP's backward, one XLA fusion on the TPU
+        "replaces": "betavae_tpu/ops/pallas_elbo.py:118",
+        "launches": epochs["launches"]["reparam_kl_backward"],
+        "launches_by_path": by_path("reparam_kl_backward"),
+        "max_abs_err": max(e for c in elbo.values()
+                           for e in c["backward_max_abs_err"].values()),
+        "ms": row["backward"]["ms"],
+        "plain_ms": row["backward"]["plain_ms"],
+        "bound_ms": row["backward"]["bound_ms"],
+        "bound_by": row["backward"]["bound_by"],
+        "library_ms": None,
+        "device_ms": profiled["elbo_backward_kernel_device_ms_per_step"],
+        "check": "ok",
+        "card": card,
+        "shapes": {k: c["backward"] for k, c in elbo.items()},
     }] + [{
         "name": name,
         "route": "cuda",

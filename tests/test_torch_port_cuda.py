@@ -6,10 +6,15 @@ file imports torch and the port only, so it runs on a machine without JAX:
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 """
 
+from pathlib import Path
+
 import pytest
 import torch
+import yaml
 
 from betavae_tpu_torch.ops.elbo import (fused_reparam_kl, philox_normal,
+                                        reparam_kl_backward,
+                                        reparam_kl_backward_reference,
                                         reparam_kl_forward,
                                         reparam_kl_reference)
 from betavae_tpu_torch.ops.gn import _DTYPE_CODES as _GN_CODES
@@ -36,7 +41,8 @@ def cuda_device():
 @pytest.mark.parametrize("shape", [(32, 64), (65536, 64)])
 def test_kernel_matches_plain_version(cuda_device, shape):
     """z and kl within 1e-5 relative of the plain version given the
-    kernel's ε; ε within 1e-5 of the plain Philox + Box–Muller."""
+    kernel's ε; ε bitwise the plain Philox + Box–Muller stream (the stream
+    every earlier build of the kernel drew)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     mu = torch.randn(shape, generator=g, device=cuda_device)
     logvar = torch.randn(shape, generator=g, device=cuda_device).clamp(-10, 5)
@@ -47,15 +53,50 @@ def test_kernel_matches_plain_version(cuda_device, shape):
     z_ref, kl_ref = reparam_kl_reference(mu, logvar, eps)
     torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(kl, kl_ref, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(
-        eps, philox_normal(shape, 115, 7, device=cuda_device),
-        rtol=1e-5, atol=1e-5)
+    assert torch.equal(eps, philox_normal(shape, 115, 7, device=cuda_device))
+
+
+def _close(got, want):
+    """1e-5 relative plus 1e-5 of the largest |value|: fp32 sums of the
+    same products in another order."""
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,broadcast", [
+    ((32, 64), False), ((32, 64), True), ((65536, 64), False),
+    ((3, 5, 7), False)])
+def test_backward_kernel_matches_closed_form(cuda_device, shape, broadcast):
+    """The backward kernel against the plain closed form on the same
+    residuals and gradients, one launch a call: contiguous gradients, a g_kl
+    broadcast along the latent dim as capacity mode's per-sample sum hands
+    it over (strides (1, 0), read in place), a large shape, and a 3-D one."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    mu, logvar, eps, g_z = (torch.randn(shape, generator=g, device=cuda_device)
+                            for _ in range(4))
+    logvar = logvar.clamp(-10, 5)
+    if broadcast:
+        g_kl = torch.randn(shape[0], 1, generator=g,
+                           device=cuda_device).expand(shape)
+        assert g_kl.stride() == (1, 0)
+    else:
+        g_kl = torch.randn(shape, generator=g, device=cuda_device)
+    before = reparam_kl_backward.launches
+    got = reparam_kl_backward(mu, logvar, eps, g_z, g_kl)
+    torch.cuda.synchronize()
+    assert reparam_kl_backward.launches == before + 1
+    want = reparam_kl_backward_reference(mu, logvar, eps, g_z, g_kl)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == shape
+        _close(a, b)
 
 
 @pytest.mark.cuda
 def test_kernel_gradients_match_plain_autograd(cuda_device):
-    """The autograd Function's closed-form backward against autograd
-    through the plain version with the kernel's ε: 1e-5 relative."""
+    """The autograd Function (forward and backward kernels) against
+    autograd through the plain version with the kernel's ε: 1e-5 relative
+    of the gradient's scale, one launch of each kernel."""
     shape = (32, 64)
     g = torch.Generator(device=cuda_device).manual_seed(1)
     mu = torch.randn(shape, generator=g, device=cuda_device)
@@ -64,15 +105,87 @@ def test_kernel_gradients_match_plain_autograd(cuda_device):
     g_kl = torch.randn(shape, generator=g, device=cuda_device)
     _, _, eps = reparam_kl_forward(mu, logvar, 3, 0)
 
+    before = (fused_reparam_kl.launches, reparam_kl_backward.launches)
     mu_k, lv_k = mu.clone().requires_grad_(), logvar.clone().requires_grad_()
     zk, klk = fused_reparam_kl(mu_k, lv_k, 3, 0)
     ((zk * g_z).sum() + (klk * g_kl).sum()).backward()
+    assert (fused_reparam_kl.launches, reparam_kl_backward.launches) == (
+        before[0] + 1, before[1] + 1)
     mu_p, lv_p = mu.clone().requires_grad_(), logvar.clone().requires_grad_()
     zp, klp = reparam_kl_reference(mu_p, lv_p, eps)
     ((zp * g_z).sum() + (klp * g_kl).sum()).backward()
     for got, want in ((mu_k.grad, mu_p.grad), (lv_k.grad, lv_p.grad)):
         scale = max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_forward_waits_for_the_kernel_that_writes_its_inputs(cuda_device):
+    """The race check of programmatic dependent launch: 1000 times, two
+    kernels write μ and logσ² in place (the second a reduction, the
+    forward's immediate predecessor, as the logvar clamp is in the model),
+    the forward follows on the same stream, and copies of μ and logσ² are
+    taken after it.  Every z and kl equals the plain version on the copied inputs and
+    the kernel's ε; a forward that read before the writer finished would
+    see the previous iteration's values."""
+    shape, iters = (32, 64), 1000
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    mu_src = torch.randn((iters, *shape), generator=g, device=cuda_device)
+    lv_src = 0.1 * torch.randn((iters, 16, *shape), generator=g,
+                               device=cuda_device)
+    mu = torch.empty(shape, device=cuda_device)
+    logvar = torch.empty(shape, device=cuda_device)
+    outs, seen = [], []
+    for i in range(iters):
+        torch.neg(mu_src[i], out=mu)
+        torch.sum(lv_src[i], dim=0, out=logvar)
+        outs.append(reparam_kl_forward(mu, logvar, 5, i))
+        seen.append((mu.clone(), logvar.clone()))
+    torch.cuda.synchronize()
+    z = torch.stack([o[0] for o in outs])
+    kl = torch.stack([o[1] for o in outs])
+    eps = torch.stack([o[2] for o in outs])
+    mus = torch.stack([m for m, _ in seen])
+    lvs = torch.stack([lv for _, lv in seen])
+    z_ref, kl_ref = reparam_kl_reference(mus, lvs, eps)
+    assert torch.equal(mus, -mu_src)
+    torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(kl, kl_ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_one_forward_and_one_backward_launch_per_train_step(cuda_device,
+                                                            tmp_path):
+    """Three steps of a small flagship-shaped config (capacity objective,
+    FFL) through ``train_steps``: each launches the forward kernel once and
+    the backward kernel once."""
+    from betavae_tpu_torch.config import reset_config_cache
+    from betavae_tpu_torch.data.demo import generate_demo_data
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.loop import train_steps
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = yaml.safe_load(open(root / "configs" / "beta_vae_se.yaml"))
+    cfg["paths"].update(processed_dir=str(tmp_path / "processed"),
+                        outputs_dir=str(tmp_path / "outputs"))
+    cfg["data"]["image_size"] = 32
+    cfg["model"].update(base_channels=8, latent_dim=8, num_blocks=2)
+    cfg["training"]["batch_size"] = 8
+    cfg["logging"].update(log_to_file=False, log_every_n_steps=100)
+    path = tmp_path / "small.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    generate_demo_data(tmp_path / "processed", train_per_class=4,
+                       test_per_class=1, size=32)
+    fused_reparam_kl.launches = reparam_kl_backward.launches = 0
+    reset_config_cache()
+    reset_logger()
+    try:
+        out = train_steps(str(path), 3, device="cuda")
+    finally:
+        reset_logger()
+        reset_config_cache()
+    assert out["steps"] == 3
+    assert (fused_reparam_kl.launches, reparam_kl_backward.launches) == (3, 3)
 
 
 def _head_inputs(shape, dtype, device, seed=0):
@@ -83,13 +196,6 @@ def _head_inputs(shape, dtype, device, seed=0):
     k = torch.randn(c, 3, 3, generator=g, device=device)
     dy = torch.randn(b, h, w, generator=g, device=device)
     return y, s, k, dy
-
-
-def _close(got, want):
-    """1e-5 relative plus 1e-5 of the largest |value|: fp32 sums of the
-    same products in another order."""
-    scale = float(want.abs().max())
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.fixture

@@ -6,7 +6,10 @@ its ε is recovered as ``(z − μ)/std`` and handed to the port's plain
 version.  Values hold to 1e-5 relative (atol 1e-6): the same fp32 formula,
 rounded in the same order.  The port's own noise (Philox4x32-10 +
 Box–Muller) is checked against Random123's known-answer vectors.  The
-kernel itself is held against the plain version on the card by
+autograd Function's CPU backward (the plain closed form the backward kernel
+replaces) is held to the JAX VJP ``_bwd`` called directly with a nonzero ε,
+since the interpreter's ε is zero and would hide the g_z term of dlogσ².
+The kernels themselves are held against the plain versions on the card by
 ``tests/test_torch_port_cuda.py``.
 """
 
@@ -16,10 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from betavae_tpu.ops.pallas_elbo import _bwd as jax_bwd
 from betavae_tpu.ops.pallas_elbo import fused_reparam_kl as jax_fused
 
 from betavae_tpu_torch.ops.elbo import (fused_reparam_kl, philox4x32_10,
-                                        philox_normal, reparam_kl_reference)
+                                        philox_normal, reparam_kl_backward,
+                                        reparam_kl_reference)
 
 
 def _inputs(seed, shape=(8, 64)):
@@ -72,6 +77,33 @@ def test_plain_autograd_matches_jax_vjp():
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(t_lv.grad.numpy(), np.asarray(d_logvar),
                                rtol=1e-4, atol=1e-5)
+
+
+def test_cpu_backward_matches_jax_bwd():
+    """Gradients of Σ(g_z·z + g_kl·kl) through the Function on CPU tensors
+    (its ε: the Philox stream at (seed, offset), nonzero) against the JAX
+    closed form on the same residuals (μ, logσ², ε) and cotangents: 1e-5
+    relative (atol 1e-6); the backward kernel's count stays 0."""
+    reparam_kl_backward.launches = 0
+    mu, logvar = _inputs(5)
+    rng = np.random.default_rng(6)
+    g_z = rng.normal(size=mu.shape).astype(np.float32)
+    g_kl = rng.normal(size=mu.shape).astype(np.float32)
+    eps = philox_normal(mu.shape, 21, 9)
+    assert float(eps.abs().min()) > 0
+    t_mu = torch.from_numpy(mu).requires_grad_()
+    t_lv = torch.from_numpy(logvar).requires_grad_()
+    z, kl = fused_reparam_kl(t_mu, t_lv, seed=21, offset=9)
+    torch.autograd.backward((z, kl), (torch.from_numpy(g_z),
+                                      torch.from_numpy(g_kl)))
+    _, want_mu, want_lv = jax_bwd(
+        False, (jnp.asarray(mu), jnp.asarray(logvar), jnp.asarray(eps.numpy())),
+        (jnp.asarray(g_z), jnp.asarray(g_kl)))
+    np.testing.assert_allclose(t_mu.grad.numpy(), np.asarray(want_mu),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(t_lv.grad.numpy(), np.asarray(want_lv),
+                               rtol=1e-5, atol=1e-6)
+    assert reparam_kl_backward.launches == 0
 
 
 def test_cpu_wrapper_is_the_plain_version_and_never_launches():

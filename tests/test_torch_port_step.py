@@ -1,8 +1,9 @@
 """The port's training step and its parts against the JAX package, on CPU.
 
 Schedules, augmentation ops fed the same draws, the optax clip and update
-rules, and three fp32 steps of the whole step (augmentation off) against
-JAX ``make_train_step`` with the same weights, batches and noise: ε is the
+rules, and three fp32 steps of the whole step (augmentation off; also with
+LPIPS on) against JAX ``make_train_step`` with the same weights, batches,
+LPIPS parameters and noise: ε is the
 JAX step's own, ``jax.random.normal(rkey, (B, L))`` after
 ``akey, rkey = jax.random.split(key)``.  Each test states its tolerance.
 """
@@ -23,6 +24,8 @@ from betavae_tpu.data.augment import (random_brightness, random_hflip,
 from betavae_tpu.io.checkpoint import flatten_pytree
 from betavae_tpu.models.beta_vae import model_from_config as jax_model_from
 from betavae_tpu.models.losses import loss_spec_from_config as jax_spec_from
+from betavae_tpu.ops.lpips import _load_or_init_params
+from betavae_tpu.ops.lpips import build_lpips_fn as jax_build_lpips_fn
 from betavae_tpu.train import schedules as jax_sched
 from betavae_tpu.train.loop import init_state, make_train_step as jax_step
 from betavae_tpu.train.optim import build_optimizer as jax_build_optimizer
@@ -33,6 +36,7 @@ from betavae_tpu_torch.io.weights import params_from_jax
 from betavae_tpu_torch.models.beta_vae import model_from_config
 from betavae_tpu_torch.models.losses import loss_spec_from_config
 from betavae_tpu_torch.ops.elbo import reparam_kl_reference
+from betavae_tpu_torch.ops.lpips import build_lpips_fn
 from betavae_tpu_torch.train import schedules, step as step_module
 from betavae_tpu_torch.train.optim import (build_optimizer,
                                            clip_by_global_norm_)
@@ -218,28 +222,43 @@ def test_update_rules_match_optax(optimizer):
 STEPS, B, N = 3, 4, 12
 
 
-@pytest.mark.parametrize("norm", ["layer", "batch"])
-def test_three_steps_match_jax_make_train_step(norm, demo_config_factory,
-                                               monkeypatch):
+@pytest.mark.parametrize("norm,lpips", [
+    pytest.param("layer", False, id="layer"),
+    pytest.param("batch", False, id="batch"),
+    pytest.param("layer", True, id="layer-lpips")])
+def test_three_steps_match_jax_make_train_step(norm, lpips, demo_config_factory,
+                                               monkeypatch, tmp_path):
     """Params, BN statistics and every step metric after three fp32 steps
-    (capacity objective, FFL on, a padded last batch).  Tolerance: metrics
-    1e-4 relative; params 1e-4 relative plus 2e-6 absolute, since Adam's
-    first steps move each weight by about lr·sign(g), so the rare weight
-    whose gradient is near zero carries the fp32 reassociation noise of
-    the two frameworks' convolutions."""
+    (capacity objective, FFL on, a padded last batch; with ``lpips``, the
+    LPIPS term at weight 20 as in the debug config, both sides loading one
+    ``.npz`` of the JAX module's parameters, at 32 px, the least size
+    AlexNet's pools take).  Tolerance: metrics 1e-4 relative; params 1e-4
+    relative plus 2e-6 absolute, since Adam's first steps move each weight
+    by about lr·sign(g), so the rare weight whose gradient is near zero
+    carries the fp32 reassociation noise of the two frameworks'
+    convolutions."""
+    size = 32 if lpips else 16
     path = demo_config_factory(
-        image_size=16, latent_dim=6, base_channels=4, num_blocks=2,
+        image_size=size, latent_dim=6, base_channels=4, num_blocks=2,
         batch_size=B, **{"model.encoder_norm": norm,
                          "model.se_reduction_ratio": 2,
                          "loss.use_ffl": True, "loss.ffl_weight": 0.5,
+                         "loss.use_lpips": lpips, "loss.lpips_weight": 20.0,
                          "optimization.lr": 1e-3})
+    jax_lpips = port_lpips = None
+    if lpips:
+        npz = str(tmp_path / "lpips.npz")
+        np.savez(npz, **flatten_pytree(_load_or_init_params(None)[1]))
+        jax_lpips = jax_build_lpips_fn(npz)
+        port_lpips = build_lpips_fn(npz, device="cpu")
     jcfg = jax_get_config(path)
     jmodel = jax_model_from(jcfg)
     tx = jax_build_optimizer(jcfg)
     state = init_state(jmodel, tx, jax.random.PRNGKey(0))
     aug_off = {"use_flip": False, "degrees": 0.0, "brightness": 0.0}
     jstep = jax_step(jmodel, tx, jax_spec_from(jcfg), aug_kwargs=aug_off,
-                     use_capacity=True, has_bn=norm == "batch", donate=False)
+                     use_capacity=True, lpips_fn=jax_lpips,
+                     has_bn=norm == "batch", donate=False)
 
     cfg = get_config(path)
     model = model_from_config(cfg, device="cpu")
@@ -249,10 +268,10 @@ def test_three_steps_match_jax_make_train_step(norm, demo_config_factory,
         model, build_optimizer(model.parameters(), cfg),
         loss_spec_from_config(cfg),
         aug_kwargs={"use_flip": False, "degrees": 0.0, "brightness_range": 0.0},
-        use_capacity=True, seed=0)
+        use_capacity=True, seed=0, lpips_fn=port_lpips)
 
     rng = np.random.default_rng(7)
-    images = rng.integers(0, 256, (N, 16, 16, 1), dtype=np.uint8)
+    images = rng.integers(0, 256, (N, size, size, 1), dtype=np.uint8)
     root = jax.random.PRNGKey(5)
     eps = {}
     for j in range(1, STEPS + 1):
@@ -277,6 +296,7 @@ def test_three_steps_match_jax_make_train_step(norm, demo_config_factory,
         for k in want:
             assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-4,
                                                   abs=1e-6), (j, k)
+        assert (float(got["recon_lpips"]) > 0) == lpips
 
     final = params_from_jax(flatten_pytree(state.model_variables()))
     ours = model.state_dict()

@@ -5,7 +5,10 @@ demo config must emit the same ``METRICS`` phases in the same order, the
 same number of lines and the same keys per phase, and the port's log file
 must parse with the JAX package's own ``eval.logs.parse_metrics``.  The
 port's run replays exactly across a resume (augmentation on), stops early
-with a final save, and writes no best checkpoint without validation.
+with a final save, and writes no best checkpoint without validation.  The
+debug config's LPIPS (random-init, allowed) trains and is logged, refused
+without ``lpips_allow_random`` as the JAX package refuses it; the keys whose
+JAX mechanism is not ported raise by name.
 """
 
 import json
@@ -254,3 +257,70 @@ def test_config_line_notes_synchronous_checkpoints(tmp_path):
     for tag in ("latest", "best"):
         assert len(discover_shards(str(models / f"run_{tag}.pt"))) == 2
         assert read_checkpoint_meta(str(models / f"run_{tag}.pt"))["epoch"] == 1
+
+
+def _config_line(path) -> dict:
+    cfg = yaml.safe_load(open(path))
+    log = os.path.join(cfg["paths"]["outputs_dir"], "logs", "run.log")
+    line = next(ln for ln in open(log) if "| CONFIG " in ln)
+    return json.loads(line.split("| CONFIG ", 1)[1])
+
+
+def test_debug_config_trains_with_random_init_lpips(tmp_path, monkeypatch):
+    """The debug config's loss section as it is (LPIPS at weight 20 with
+    ``lpips_allow_random: true``, FFL, free bits, l1), at 32 px, the least
+    size AlexNet's pools take: the CONFIG line names ``random-init``, and
+    every train and val line carries a finite LPIPS term above 0."""
+    monkeypatch.delenv("LPIPS_WEIGHTS", raising=False)
+    debug = yaml.safe_load(open(ROOT / "configs" / "beta_vae_se_debug.yaml"))
+    path = _config(tmp_path, **{"data.image_size": 32, **{
+        f"loss.{k}": v for k, v in debug["loss"].items()}})
+    assert yaml.safe_load(open(path))["loss"] == debug["loss"]
+    out = _port_train(path)
+    assert out["epoch"] == 2
+    assert _config_line(path)["lpips_weights"] == "random-init"
+    lines = _log(path)
+    for phase, key in (("train", "train_recon_lpips"),
+                       ("val", "val_recon_lpips")):
+        values = [m[key] for m in lines if m["phase"] == phase]
+        assert values and all(math.isfinite(v) and v > 0 for v in values), (
+            phase, values)
+
+
+def _raises_in_both_trainers(path, error, match) -> None:
+    from betavae_tpu_torch.train.loop import train_steps
+
+    for run in (lambda: train(path, device="cpu"),
+                lambda: train_steps(path, 1, device="cpu")):
+        reset_config_cache()
+        reset_logger()
+        try:
+            with pytest.raises(error, match=match):
+                run()
+        finally:
+            reset_logger()
+            reset_config_cache()
+
+
+def test_random_init_lpips_without_opt_in_raises(tmp_path, monkeypatch):
+    """The JAX package's gate: no weights and no ``lpips_allow_random``
+    refuses to train, with its message, in both trainers."""
+    monkeypatch.delenv("LPIPS_WEIGHTS", raising=False)
+    path = _config(tmp_path, **{"data.image_size": 32,
+                                "loss.use_lpips": True,
+                                "loss.lpips_allow_random": False})
+    _raises_in_both_trainers(path, RuntimeError, "use_lpips is ON but no "
+                             "pretrained weights were found")
+
+
+@pytest.mark.parametrize("overrides,key", [
+    ({"training.max_device_dataset_mb": 0}, "training.max_device_dataset_mb"),
+    ({"training.max_device_dataset_mb": 0, "training.host_feed_chunk_mb": 8},
+     "training.host_feed_chunk_mb"),
+    ({"logging.profile_steps": 3}, "logging.profile_steps")])
+def test_unported_keys_are_refused_by_name(tmp_path, overrides, key):
+    """A split over ``training.max_device_dataset_mb`` (the JAX loop's host
+    feed, which ``host_feed_chunk_mb`` paces) and ``logging.profile_steps``
+    > 0 raise ``NotImplementedError`` naming the key, in both trainers."""
+    _raises_in_both_trainers(_config(tmp_path, **overrides),
+                             NotImplementedError, key)
