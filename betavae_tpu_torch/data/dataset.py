@@ -5,8 +5,9 @@ The port's own copy of ``betavae_tpu/data/dataset.py``: scans
 ``seed`` (train) or ``seed + 1`` (test) then truncates to the limit;
 multiclass labels are the sorted-class index, binary labels are
 ``0 if class == 'notumor' else 1``.  Images are decoded once with PIL
-into a packed ``(N, H, W, C)`` uint8 array; :func:`load_image` decodes one
-file as ``betavae_tpu/data/preprocess.py::_load_image`` does.
+into a packed ``(N, H, W, C)`` uint8 array; :func:`build_datasets` gives
+both splits with the debug alias; :func:`load_image` decodes one file as
+``betavae_tpu/data/preprocess.py::_load_image`` does.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..config import get_config
+from ..config import get, get_config
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".tif", ".bmp", ".tiff")
 
@@ -34,6 +35,10 @@ class ArrayDataset:
 
     def __len__(self) -> int:
         return int(self.images.shape[0])
+
+    @property
+    def idx_to_class(self) -> dict:
+        return {v: k for k, v in self.class_to_idx.items()}
 
 
 def scan_split(root_dir: str, split: str, sample_limit=None):
@@ -97,6 +102,28 @@ def load_split(split: str, sample_limit=None) -> ArrayDataset:
         images=images, labels=labels, paths=[p for p, _ in samples],
         class_names=[cls for _, cls in samples], original_classes=classes,
         class_to_idx=class_to_idx, class_mode=class_mode)
+
+
+def build_datasets():
+    """``(train, test)`` splits; under ``model.deterministic_overfit`` with
+    ``debug.enabled`` the test split is the train split (the reference's
+    debug alias)."""
+    cfg = get_config()
+    train_ds = load_split("train")
+    test_ds = load_split("test")
+    if get(cfg.model, "deterministic_overfit", False) and get(
+            get(cfg, "debug", None), "enabled", False):
+        test_ds = train_ds
+    return train_ds, test_ds
+
+
+def images_to_tensor(images: np.ndarray, device) -> "torch.Tensor":
+    """Packed ``(N, H, W, C)`` uint8 images as the model's float32 NCHW
+    input in [0, 1] on ``device``."""
+    import torch
+
+    x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+    return x.permute(0, 3, 1, 2).float() / 255.0
 
 
 def load_image(path: str, grayscale: bool, size: int | None = None) -> np.ndarray:

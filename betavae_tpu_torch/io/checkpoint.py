@@ -12,6 +12,8 @@ either package reads the other's checkpoints:
 - each shard written to ``<shard>.tmp`` and moved into place with
   ``os.replace``; shards of an earlier, wider save and a stale unsharded
   base file removed after a save;
+- the reference's ``torch.save`` shards refused by name
+  (``NotImplementedError``), not read;
 - a load that checks the shard set is whole: every shard's recorded
   ``num_shards`` equals the files found, and ``epoch`` / ``total_steps``
   agree across shards.
@@ -65,12 +67,22 @@ def _write_shard(path: str, arrays: dict, meta: dict) -> None:
     os.replace(tmp, path)
 
 
+def _refuse_torch_pickle(path: str) -> None:
+    raise NotImplementedError(
+        f"{path} is a torch pickle, the reference's checkpoint format; "
+        "reading it is not ported yet (ROADMAP.md, A4)")
+
+
 def _read_shard(path: str):
-    """``(arrays, meta)`` of one shard; anything but this format raises."""
+    """``(arrays, meta)`` of one shard; anything but this format raises: a
+    ``torch.save`` pickle (a zip holding ``data.pkl``, or a legacy pickle)
+    ``NotImplementedError``, anything else ``ValueError``."""
     try:
         with zipfile.ZipFile(path, "r") as zf:
             names = zf.namelist()
             if _META_KEY + ".json" not in names:
+                if any(name.endswith("data.pkl") for name in names):
+                    _refuse_torch_pickle(path)
                 raise ValueError(f"{path} is a zip without {_META_KEY}.json: "
                                  "not a checkpoint shard of this format")
             meta = json.loads(zf.read(_META_KEY + ".json").decode("utf-8"))
@@ -78,6 +90,9 @@ def _read_shard(path: str):
                                                    allow_pickle=False)
                       for name in names if name.endswith(".npy")}
     except zipfile.BadZipFile as err:
+        with open(path, "rb") as f:
+            if f.read(1) == b"\x80":
+                _refuse_torch_pickle(path)
         raise ValueError(f"checkpoint shard {path} is not a zip: the file is "
                          "corrupt or truncated") from err
     return arrays, meta

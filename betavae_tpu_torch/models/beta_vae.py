@@ -16,6 +16,12 @@ Counterpart of ``betavae_tpu/models/beta_vae.py`` (``BetaVAEModule``,
 - norms: ``layer`` → GroupNorm(1) with flax's eps 1e-6, ``batch`` →
   BatchNorm with flax's update rule (momentum 0.99 is torch 0.01, running
   variance from the biased batch variance), ``none``,
+- sampling for evaluation and inference (:func:`sample_forward`,
+  :meth:`BetaVAEModule.sample_prior`, :meth:`BetaVAEModule.traverse`),
+  which draw ε through the reparam+KL kernel (``ops/elbo.py``) on the card
+  and its plain Philox version on the CPU, bitwise the same stream, and
+  the host-side encode and decode of the evaluation and inference CLIs
+  (:func:`encode_split`, :func:`decode_latents`),
 - module names are the reference torch model's (``encoder.{i}.conv|norm|
   se.block.fc.{0,2}``, ``decoder_blocks.{i}.up.1``, ``fc_mu``, ``fc_logvar``,
   ``fc_dec``, ``final_conv``), so :func:`..io.weights.params_from_jax`
@@ -30,12 +36,15 @@ from __future__ import annotations
 import contextlib
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import get, get_config
+from ..data.dataset import images_to_tensor
 from ..device import resolve_device
+from ..ops.elbo import reparam_kl_forward
 from ..ops.head import fused_se_conv_head
 from ..ops.reparam import reparameterize_and_kl
 from ..ops.upsample import Upsample2x
@@ -130,8 +139,23 @@ class DeconvBlock(nn.Module):
         return h, None
 
 
+@contextlib.contextmanager
+def inference(model: nn.Module):
+    """``torch.no_grad()`` in ``eval()`` mode, the module's mode restored
+    after."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        model.train(was_training)
+
+
 class BetaVAEModule(nn.Module):
-    """Inputs and outputs NCHW float in [0, 1]."""
+    """Inputs and outputs NCHW float in [0, 1].  ``deterministic`` is the
+    config's ``model.deterministic_overfit``: the default of
+    :func:`sample_forward`, as the JAX ``BetaVAE.deterministic`` is."""
 
     def __init__(self, image_size: int, in_channels: int, latent_dim: int,
                  base_channels: int, num_blocks: int, activation: str = "relu",
@@ -139,7 +163,8 @@ class BetaVAEModule(nn.Module):
                  use_decoder_se: bool = True, encoder_pooling: str = "flatten",
                  logvar_clamp: Optional[Sequence[float]] = None,
                  latent_clamp: Optional[float] = None,
-                 mixed_precision: bool = False, fused_head: bool = False):
+                 mixed_precision: bool = False, fused_head: bool = False,
+                 deterministic: bool = False):
         super().__init__()
         if encoder_pooling not in ("flatten", "gap"):
             raise ValueError("encoder_pooling must be flatten or gap")
@@ -154,6 +179,7 @@ class BetaVAEModule(nn.Module):
         self.latent_clamp = latent_clamp
         self.mixed_precision = mixed_precision
         self.fused_head = fused_head
+        self.deterministic = deterministic
 
         chs = self.channel_widths
         self.encoder = nn.ModuleList(
@@ -238,6 +264,81 @@ class BetaVAEModule(nn.Module):
                                      deterministic=deterministic)
         return self.decode(z), mu, logvar, z
 
+    def sample_prior(self, n: int, seed: int) -> torch.Tensor:
+        """``n`` decodes of z ~ N(0, I): z is the Philox stream at ``(seed,
+        0)``, drawn by the reparam+KL forward at μ = 0, logσ² = 0 (z = ε
+        exactly).  The JAX package draws with ``jax.random.normal``, so the
+        two agree in distribution, not bitwise."""
+        zeros = torch.zeros((n, self.latent_dim),
+                            device=self.fc_mu.weight.device)
+        z = reparam_kl_forward(zeros, zeros, seed, 0)[0]
+        with inference(self):
+            return self.decode(z)
+
+    def traverse(self, x: torch.Tensor, dim: int, steps: int = 7,
+                 span: float = 3.0):
+        """``(frames [B, steps, C, H, W], values [steps])``: μ of ``x`` with
+        dim ``dim`` set to each of ``linspace(-span, span, steps)``, the
+        whole sweep decoded in one call."""
+        vals = torch.linspace(-span, span, steps)
+        with inference(self):
+            mu, _ = self.encode(x)
+            z = mu[:, None, :].repeat(1, steps, 1)
+            z[:, :, dim] = vals.to(mu.device)
+            out = self.decode(z.reshape(-1, self.latent_dim))
+        return out.reshape(x.shape[0], steps, *out.shape[1:]), vals
+
+
+def sample_forward(model: BetaVAEModule, x: torch.Tensor, seed: int,
+                   offset: int = 0, deterministic: bool | None = None):
+    """``(recon, mu, logvar, z)`` of the evaluation forward, in ``eval()``
+    mode without autograd: encode, z from the reparam+KL forward with the
+    noise at ``(seed, offset)`` (the kernel on the card, its plain Philox
+    version on the CPU, bitwise the same ε), decode.  ``deterministic``
+    (default: the model's ``deterministic_overfit``) gives ``z = mu``.
+    The JAX package draws with threefry keys, so sampled metrics agree with
+    it in distribution, not bitwise."""
+    if deterministic is None:
+        deterministic = model.deterministic
+    with inference(model):
+        mu, logvar = model.encode(x)
+        z = mu if deterministic else reparam_kl_forward(mu, logvar, seed,
+                                                        offset)[0]
+        return model.decode(z), mu, logvar, z
+
+
+def to_numpy_images(frames: torch.Tensor) -> np.ndarray:
+    """Model output ``[N, C, H, W]`` as host ``(N, H, W, C)`` float32."""
+    return frames.permute(0, 2, 3, 1).float().cpu().numpy()
+
+
+def encode_split(model: BetaVAEModule, images: np.ndarray, batch_size: int,
+                 limit=None):
+    """``(mu, logvar)``, host float32 ``(N, D)``, of the first ``limit``
+    (all when falsy) packed uint8 images ``(N, H, W, C)``, encoded
+    ``batch_size`` at a time; the results cross to the host once, after
+    every batch is queued."""
+    n = min(limit, len(images)) if limit else len(images)
+    dev = model.fc_mu.weight.device
+    mus, logvars = [], []
+    with inference(model):
+        for s in range(0, n, batch_size):
+            mu, logvar = model.encode(
+                images_to_tensor(images[s:min(s + batch_size, n)], dev))
+            mus.append(mu)
+            logvars.append(logvar)
+    if not mus:
+        empty = np.zeros((0, model.latent_dim), np.float32)
+        return empty, empty.copy()
+    return torch.cat(mus).cpu().numpy(), torch.cat(logvars).cpu().numpy()
+
+
+def decode_latents(model: BetaVAEModule, zs) -> np.ndarray:
+    """Host ``(N, H, W, C)`` decodes of latents ``(N, D)``, in one call."""
+    z = torch.from_numpy(np.asarray(zs, np.float32))
+    with inference(model):
+        return to_numpy_images(model.decode(z.to(model.fc_mu.weight.device)))
+
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Kaiming-normal fan-in weights and zero biases for every conv and
@@ -296,6 +397,7 @@ def model_from_config(cfg=None, mixed_precision: bool | None = None,
         latent_clamp=get(mcfg, "latent_clamp", None),
         mixed_precision=mixed_precision,
         fused_head=resolve_fused_head(get(cfg.training, "fused_head", "auto")),
+        deterministic=bool(get(mcfg, "deterministic_overfit", False)),
     )
     init_weights(model, torch.Generator().manual_seed(int(dcfg.seed)))
     return model.to(dev)

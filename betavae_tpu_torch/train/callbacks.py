@@ -66,6 +66,22 @@ class EarlyStopping:
             self._bad_epoch()
 
 
+def _from_jax(state: dict) -> bool:
+    """Whether a checkpoint's model state holds the JAX package's flax
+    paths (``params/...``) rather than the port's torch names."""
+    return any("/" in key for key in state)
+
+
+def load_model_state(model: torch.nn.Module, state: dict) -> None:
+    """Load a checkpoint's ``model_state`` (either package's) into
+    ``model`` with ``strict=True``."""
+    if _from_jax(state):
+        model.load_state_dict(params_from_jax(state), strict=True)
+    else:
+        model.load_state_dict({k: torch.from_numpy(np.array(v))
+                               for k, v in state.items()}, strict=True)
+
+
 def restore_training_state(payload: dict, model: torch.nn.Module,
                            optimizer: OptimizerChain) -> None:
     """Load a checkpoint payload into ``model`` and ``optimizer``.
@@ -78,8 +94,8 @@ def restore_training_state(payload: dict, model: torch.nn.Module,
     """
     state = payload["model_state"]
     optim = payload.get("optim_state") or {}
-    if any("/" in key for key in state):                   # the JAX package
-        model.load_state_dict(params_from_jax(state), strict=True)
+    load_model_state(model, state)
+    if _from_jax(state):
         if not isinstance(optimizer.optimizer,
                           (torch.optim.Adam, torch.optim.AdamW)):
             logging.getLogger("beta_vae_se_torch").warning(
@@ -92,8 +108,6 @@ def restore_training_state(payload: dict, model: torch.nn.Module,
             sd["state"] = adam
             optimizer.optimizer.load_state_dict(sd)
         return
-    model.load_state_dict({k: torch.from_numpy(np.array(v))
-                           for k, v in state.items()}, strict=True)
     if optim:
         optim_state_from_flat(optim, optimizer.optimizer)
 

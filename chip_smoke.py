@@ -14,8 +14,8 @@ Phases, each printing one line (any failure exits non-zero at once):
 3. kernel: each kernel against its plain PyTorch version on the card, with
    gradients, and its time beside its bound, its plain version's and (where
    one PyTorch call computes the same function) that call's: the reparam+KL
-   forward and backward kernels at the training path's shape and a large
-   one (ε bitwise the plain Philox stream, noise moments, seed behaviour;
+   forward and backward kernels at the training path's shape, the
+   evaluation path's smaller ones and a large one (ε bitwise the plain Philox stream, noise moments, seed behaviour;
    the backward also with capacity mode's broadcast g_kl; the forward with
    programmatic dependent launch off and on in turns, alone and chained
    behind the logvar clamp, eager and replayed from a CUDA graph; the
@@ -24,7 +24,8 @@ Phases, each printing one line (any failure exits non-zero at once):
    where a reparam+KL call's host time goes, the graph-replayed chain for
    two variants of the forward's source (noise drawn after the wait; no
    ``launch_dependents``), the SE-gate∘head-conv forward
-   and M kernels at the flagship's y in bf16 and fp32 and at a ragged shape
+   and M kernels at the flagship's y in bf16 and fp32, at the evaluation
+   path's bf16 decodes of 1, 2, 7 and 8 rows and at a ragged shape
    (each with the path it took, TMA or generic, its profiler device time,
    and two launches held bitwise equal), the GroupNorm(1)+ReLU+pool
    forward and backward kernels at the flagship's eight block
@@ -43,17 +44,28 @@ Phases, each printing one line (any failure exits non-zero at once):
    default head and with the fused head; the epoch trainer ``train()`` on
    the flagship with the fused head for 2 epochs and then ``resume
    latest`` for a third, its checkpoints written by the background writer
-   (``training.async_checkpoint`` of the flagship config); ``train()`` on
-   ``configs/beta_vae_se_debug.yaml`` as it is (its ``debug:`` limits, 2
-   epochs, LPIPS with random-init features allowed), whose LPIPS term must
-   be finite and above 0 in every line; the port's bench
-   (``python -m betavae_tpu_torch.bench`` in-process at ``--steps 96
+   (``training.async_checkpoint`` of the flagship config); the
+   evaluation's sampling forward and latents of a small fp32 checkpoint on
+   the card against the CPU (1e-3 relative, probe metrics 0.05);
+   ``train()`` on ``configs/beta_vae_se_debug.yaml`` as it is (its
+   ``debug:`` limits, 2 epochs, LPIPS with random-init features allowed),
+   whose LPIPS term must be finite and above 0 in every line; the port's
+   bench (``python -m betavae_tpu_torch.bench`` in-process at ``--steps 96
    --warmup 32 --e2e-epochs 3``: steady state, e2e epochs at the reference
    dataset's scale, encode latencies, PRNG check and the kernel canary,
-   which is the GN kernels' path); every kernel's launch count is set to 0
+   which is the GN kernels' path); the evaluation and inference CLIs in
+   process on the epoch trainer's ``best`` checkpoint (``latent_analysis``,
+   ``run_evaluation``, ``encode``, ``generate --seed 3``, over the bench's
+   e2e data, 4 × 1456 train and 4 × 328 test images at 128 px: every
+   artifact, finite tables, SSIM in [0, 1], the traversal dims of the
+   ranking, the seconds of each CLI, the encoder's images/s in 5 passes
+   and which of matplotlib, pandas, scikit-learn, umap and PIL the install
+   has); every kernel's launch count is set to 0
    just before each of these runs and read just after, every head kernel
    launch there must have taken the TMA path, and every GN launch of the
-   canary the cluster path; then a
+   canary the cluster path (in the evaluation, the reparam+KL forward once
+   per test batch, panel and prior draw, the head forward once per decode,
+   nothing else); then a
    ``torch.profiler`` breakdown of the device time per step by kernel,
    default and fused head,
 5. kernels: one JSON line listing each kernel with its checks and numbers,
@@ -65,6 +77,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -79,11 +92,21 @@ FP32_OPS_PER_S = 67e12
 # sqrt, cos, 2 exp and the multiplies and adds of z and kl), all counted at
 # the fp32 rate
 ELBO_OPS_PER_ELEMENT = 120
-ELBO_SHAPES = ((32, 64), (65536, 64))   # the flagship's [batch, latent]; large
+# the flagship's [batch, latent]; the evaluation path's [1, 64] (the
+# recon/traversal panel) and [8, 64] (the prior grid); large
+ELBO_SHAPES = ((32, 64), (1, 64), (8, 64), (65536, 64))
 # the decoder's last activation y [B, C, H, W] at the flagship (bf16 under
-# autocast, fp32 without), and a ragged shape for the tiles' edges
+# autocast, fp32 without), the evaluation path's smaller decodes (1: the
+# panel, 2: its endpoints, 7: a traversal sweep, 8: the prior grid), and a
+# ragged shape for the tiles' edges
 HEAD_CASES = (((32, 64, 128, 128), "bfloat16"), ((32, 64, 128, 128), "float32"),
+              ((1, 64, 128, 128), "bfloat16"), ((2, 64, 128, 128), "bfloat16"),
+              ((7, 64, 128, 128), "bfloat16"), ((8, 64, 128, 128), "bfloat16"),
               ((3, 64, 37, 53), "float32"))
+# the reference dataset's scale, which the bench's e2e data has and the
+# evaluation CLIs run over: 4 classes of train and test images at 128 px
+REF_TRAIN_PER_CLASS, REF_TEST_PER_CLASS = 1456, 328
+ENCODE_PASSES = 5
 # the GN kernels' inputs: the flagship's eight block activations (encoder
 # then decoder, bf16 under autocast), the largest in fp32, a ragged shape,
 # and the bench canary's fp32 [2, 64, 32, 32], the shape of the GN kernels'
@@ -1340,6 +1363,225 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
             "peak_mem_gib": peak}
 
 
+def _cli(main, argv: list) -> float:
+    """Seconds of one in-process CLI run, from a fresh config cache and
+    logger (each CLI loads its own config)."""
+    import torch
+
+    from betavae_tpu_torch.config import reset_config_cache
+    from betavae_tpu_torch.logging_utils import reset_logger
+
+    reset_config_cache()
+    reset_logger()
+    t0 = time.perf_counter()
+    main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    reset_logger()
+    return seconds
+
+
+def _table(path: str) -> tuple:
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
+    """The evaluation and inference CLIs on the ``epochs`` run's ``best``
+    checkpoint (the flagship at full width, fused head), over the bench's
+    e2e demo data at the reference dataset's scale (4 × 1456 train and
+    4 × 328 test images at 128 px), in process and in the order a
+    researcher runs them: ``latent_analysis``, ``run_evaluation``,
+    ``encode``, ``generate --seed 3`` (with ``inference.tumor_latent_index:
+    0``, so the factor edit runs too).  Every artifact must be written,
+    every table number finite, SSIM in [0, 1], the traversal dims those of
+    the ranking; the reparam+KL forward must launch once per test batch,
+    once for the recon/traversal panel and once for the prior draw, the
+    head forward once per decode, all on the TMA path, and no other
+    kernel.  Then the encoder's rate over the test split, the model loaded
+    and warm, in ENCODE_PASSES timed passes."""
+    import importlib.util
+
+    import torch
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.data.dataset import build_datasets
+    from betavae_tpu_torch.eval import run_evaluation
+    from betavae_tpu_torch.eval.run_evaluation import load_model
+    from betavae_tpu_torch.infer import encode, generate, latent_analysis
+    from betavae_tpu_torch.logging_utils import reset_logger
+
+    root = os.path.join(tmp, "eval")
+    cfg_path = write_config(
+        "configs/beta_vae_se.yaml", root, "eval.yaml",
+        **{"training.fused_head": True, "inference.tumor_latent_index": 0,
+           "paths.models_dir": os.path.join(tmp, "epochs", "outputs",
+                                            "models"),
+           "paths.processed_dir": os.path.join(tmp, "bench_e2e",
+                                               "processed")})
+    installed = {m: importlib.util.find_spec(m) is not None
+                 for m in ("matplotlib", "pandas", "sklearn", "umap", "PIL")}
+    argv = ["--config", cfg_path]
+    zero_counts(kernels)
+    seconds = {"latent_analysis": _cli(latent_analysis.main, argv),
+               "run_evaluation": _cli(run_evaluation.main, argv),
+               "encode": _cli(encode.main, argv),
+               "generate": _cli(generate.main, argv + ["--seed", "3"])}
+    launches = read_counts(kernels)
+    paths = head_paths(kernels)
+
+    out = os.path.join(root, "outputs")
+    with open(os.path.join(out, "latent_ranking_summary.json")) as f:
+        ranking = json.load(f)["traversal_order_auc"]
+    dims = ranking[:7]                  # min(latent 64, traversal_steps 7)
+    tumor = ("glioma", "meningioma", "pituitary")
+    want_files = {
+        "tables": {f"{t}.csv" for t in (
+            "per_dimension_auc", "latent_usage", "latent_corr_pairs",
+            "metrics_summary", "confusion_matrix",
+            "traversal_probe_validation")}
+        | {f"{s}_latents_{k}" for s in ("train", "test")
+           for k in ("mu.npy", "logvar.npy", "embeddings.csv")},
+        "figures": {"latent_logreg_weights.png", "recon_vs_traversal.png",
+                    "latent_scatter.png", "latent_per_dim_violin.png",
+                    "samples.png", "edit_dim0.png", "interpolation.png"}
+        | {f"traversal_dim{d}.png" for d in dims}
+        | {f"traversal_tumor_{c}.png" for c in tumor}}
+    for sub, names in want_files.items():
+        have = set(os.listdir(os.path.join(out, sub)))
+        if have != names:
+            fail(f"eval_toolchain: {sub} holds {sorted(have)}, want "
+                 f"{sorted(names)}")
+    summary = {}
+    for name, value in _table(os.path.join(out, "tables",
+                                           "metrics_summary.csv"))[1]:
+        try:
+            summary[name] = float(value)
+        except ValueError:
+            summary[name] = value       # the lists: confusion matrix, ...
+    for table in ("per_dimension_auc", "latent_usage", "latent_corr_pairs"):
+        _, rows = _table(os.path.join(out, "tables", f"{table}.csv"))
+        if not all(math.isfinite(float(v)) for row in rows for v in row):
+            fail(f"eval_toolchain: {table}.csv holds a value that is not "
+                 f"finite")
+    numbers = {k: v for k, v in summary.items() if isinstance(v, float)}
+    if not all_finite(numbers) or not 0.0 <= summary["ssim_mean"] <= 1.0:
+        fail(f"eval_toolchain: metrics_summary {summary}")
+    test_batches = -(-4 * REF_TEST_PER_CLASS // 32)
+    decodes = (test_batches + 2        # recon metrics, panel, its endpoints
+               + len(dims) + len(tumor)            # traversals
+               + 3)                    # prior samples, edit, interpolation
+    want = {name: 0 for name in kernels}
+    want.update(fused_reparam_kl=test_batches + 1 + 1, head_forward=decodes)
+    if launches != want:
+        fail(f"eval_toolchain: kernel launches {launches}, want {want}")
+
+    # the encoder's rate over the test split, the model loaded and warm
+    reset_config_cache()
+    get_config(cfg_path)
+    model = load_model("best", device="cuda")
+    train_ds, test_ds = build_datasets()
+    if (len(train_ds), len(test_ds)) != (4 * REF_TRAIN_PER_CLASS,
+                                         4 * REF_TEST_PER_CLASS):
+        fail(f"eval_toolchain: {len(train_ds)} train and {len(test_ds)} "
+             f"test images, want the reference's scale")
+    encode.encode_dataset(model, test_ds)
+    rates = []
+    for _ in range(ENCODE_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode.encode_dataset(model, test_ds)
+        torch.cuda.synchronize()
+        rates.append(len(test_ds) / (time.perf_counter() - t0))
+    reset_config_cache()
+    reset_logger()
+    return {"phase": "eval_toolchain", "seconds": seconds,
+            "train_images": len(train_ds), "test_images": len(test_ds),
+            "test_batches": test_batches,
+            "traversal_dims": dims, "launches": launches,
+            "head_launches_by_path": paths,
+            "encode_images_per_sec": rates,
+            "encode_images_per_sec_median": statistics.median(rates),
+            "metrics": {k: numbers[k] for k in (
+                "mse_mean", "psnr_mean", "ssim_mean", "probe_macro_f1",
+                "probe_macro_auc", "silhouette")},
+            "installed": installed}
+
+
+def run_eval_vs_cpu(tmp: str, kernels: dict) -> dict:
+    """One small fp32 checkpoint (seeded weights, the fused head) on the
+    card and on the CPU: ``gather_reconstruction_metrics`` with sampling
+    on (the card's reparam+KL kernel and the CPU's plain Philox draw the
+    same ε) and ``extract_latents`` within 1e-3 relative, the logistic
+    probe's metrics within 0.05; TF32 off."""
+    import torch
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.data.dataset import build_datasets
+    from betavae_tpu_torch.data.demo import generate_demo_data
+    from betavae_tpu_torch.eval.recon_metrics import (
+        extract_latents, gather_reconstruction_metrics, logistic_probe)
+    from betavae_tpu_torch.eval.run_evaluation import load_model
+    from betavae_tpu_torch.io.checkpoint import save_sharded_checkpoint
+    from betavae_tpu_torch.models.beta_vae import model_from_config
+
+    root = os.path.join(tmp, "eval_cpu")
+    cfg_path = write_config(
+        "configs/beta_vae_se.yaml", root, "small.yaml",
+        **{"data.image_size": 32, "model.base_channels": 8,
+           "model.latent_dim": 8, "model.num_blocks": 2,
+           "training.batch_size": 8, "training.mixed_precision": False,
+           "training.fused_head": True, "logging.log_to_file": False})
+    generate_demo_data(os.path.join(root, "processed"), train_per_class=2,
+                       test_per_class=10, size=32)
+    reset_config_cache()
+    cfg = get_config(cfg_path)
+    state = model_from_config(cfg, device="cpu").state_dict()
+    save_sharded_checkpoint(
+        os.path.join(cfg.paths.models_dir, f"{cfg.paths.run_id}_best.pt"),
+        {"epoch": 0, "total_steps": 0,
+         "model_state": {k: v.numpy() for k, v in state.items()}})
+    _, test_ds = build_datasets()
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for device in ("cuda", "cpu"):
+            zero_counts(kernels)
+            model = load_model("best", device=device)
+            recon = gather_reconstruction_metrics(model, test_ds)
+            latents, labels, _ = extract_latents(model, test_ds)
+            probe = logistic_probe(latents, labels, binary=False)
+            out[device] = {"recon": recon, "latents": latents,
+                           "probe": probe, "launches": read_counts(kernels)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        reset_config_cache()
+    gpu, cpu = out["cuda"], out["cpu"]
+    recon_rel = max(abs(gpu["recon"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in cpu["recon"].items())
+    latent_rel = float(abs(gpu["latents"] - cpu["latents"]).max()
+                       / abs(cpu["latents"]).max())
+    probe_abs = max(abs(gpu["probe"][k] - cpu["probe"][k])
+                    for k in ("probe_macro_f1", "probe_macro_auc"))
+    batches = -(-len(test_ds) // 8)
+    want = {"fused_reparam_kl": batches, "head_forward": batches}
+    got = {k: gpu["launches"][k] for k in want}
+    if not (recon_rel <= 1e-3 and latent_rel <= 1e-3 and probe_abs <= 0.05
+            and got == want and not any(cpu["launches"].values())):
+        fail(f"eval_vs_cpu: recon max rel {recon_rel}, latents max rel "
+             f"{latent_rel}, probe max abs {probe_abs}, card launches "
+             f"{gpu['launches']} (want {want}), CPU launches "
+             f"{cpu['launches']}")
+    return {"phase": "eval_vs_cpu", "test_images": len(test_ds),
+            "recon_max_rel": recon_rel, "latents_max_rel": latent_rel,
+            "probe_max_abs": probe_abs, "gpu_launches": got,
+            "gpu_ssim_mean": gpu["recon"]["ssim_mean"],
+            "cpu_ssim_mean": cpu["recon"]["ssim_mean"]}
+
+
 def run_debug_config(tmp: str, kernels: dict) -> dict:
     """``train()`` on ``configs/beta_vae_se_debug.yaml`` as it is (its own
     ``debug:`` limits and 2 epochs, LPIPS on with random-init features
@@ -1525,12 +1767,19 @@ def main() -> None:
         epochs = run_epochs(tmp, kernels)
         epochs["card"] = card
         emit(epochs)
+        eval_cpu = run_eval_vs_cpu(tmp, kernels)
+        eval_cpu["card"] = card
+        emit(eval_cpu)
         debug_run = run_debug_config(tmp, kernels)
         debug_run["card"] = card
         emit(debug_run)
         bench_run = run_bench(tmp, kernels)
         bench_run["card"] = card
         emit(bench_run)
+        # after the bench, whose e2e data it reads
+        eval_run = run_eval_toolchain(tmp, kernels)
+        eval_run["card"] = card
+        emit(eval_run)
         profiled = profile_flagship(tmp, flagship["step_ms"], fused_head=False)
         emit(profiled)
         profiled_fused = profile_flagship(tmp, flagship_fused["step_ms"],
@@ -1547,6 +1796,7 @@ def main() -> None:
 
     def by_path(name):
         return {"epochs": epochs["launches"][name],
+                "eval": eval_run["launches"][name],
                 "flagship": flagship["launches"][name],
                 "flagship_fused_head": flagship_fused["launches"][name],
                 "debug_config": debug_run["launches"][name],

@@ -490,3 +490,36 @@ def test_checkpoint_pull_holds_the_state_at_save_time(cuda_device):
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         assert torch.equal(torch.from_numpy(got[k]), v), k
+
+
+@pytest.mark.cuda
+def test_sampling_on_the_card_equals_the_cpu(cuda_device, no_tf32):
+    """``sample_forward`` and ``sample_prior`` of a small fp32 model with
+    the fused head: the card (reparam+KL forward and head forward kernels)
+    equals the CPU (their plain versions) to 1e-5, ε bitwise the same
+    Philox stream, and each call launches the kernels."""
+    import copy
+
+    from betavae_tpu_torch.models.beta_vae import (BetaVAEModule,
+                                                   init_weights,
+                                                   sample_forward)
+
+    cpu = BetaVAEModule(image_size=32, in_channels=1, latent_dim=8,
+                        base_channels=8, num_blocks=2, se_reduction=2,
+                        fused_head=True)
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    x = torch.rand(5, 1, 32, 32, generator=torch.Generator().manual_seed(1))
+    fused_reparam_kl.launches = head_forward.launches = 0
+    got = sample_forward(gpu, x.to(cuda_device), seed=9, offset=4)
+    want = sample_forward(cpu, x, seed=9, offset=4)
+    assert (fused_reparam_kl.launches, head_forward.launches) == (1, 1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+    eps = philox_normal(want[1].shape, 9, 4)
+    torch.testing.assert_close(got[3].cpu(), reparam_kl_reference(
+        got[1].cpu(), got[2].cpu(), eps)[0], rtol=1e-5, atol=1e-6)
+    prior = gpu.sample_prior(6, 11)
+    assert (fused_reparam_kl.launches, head_forward.launches) == (2, 2)
+    torch.testing.assert_close(prior.cpu(), cpu.sample_prior(6, 11),
+                               rtol=1e-5, atol=1e-5)
