@@ -198,15 +198,17 @@ def _windowed_rates(span_wall, n_train: int, n_win: int):
 def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
                         per_class_test: int = 328, image_size: int = 128,
                         work_dir: str | None = None,
-                        device: str | torch.device = "cuda"):
+                        device: str | torch.device = "cuda",
+                        host_feed: bool = False):
     """End-to-end training rate at the reference dataset's scale.
 
     The port's ``train()`` on ``configs/beta_vae_se.yaml`` (validation,
     panels, probes, background checkpoint writes) over seeded demo data of
-    4 × ``per_class_train`` train images.  The rate pools the epochs'
-    ``t_drain_mono`` stamps: images over (last stamp − first steady stamp),
-    epoch 1 dropped when there are spans to spare (it carries the first
-    calls' set-up).  Returns ``(rate, breakdown)``.
+    4 × ``per_class_train`` train images, with ``host_feed`` both splits
+    fed from the host (``training.max_device_dataset_mb: 0``).  The rate
+    pools the epochs' ``t_drain_mono`` stamps: images over (last stamp −
+    first steady stamp), epoch 1 dropped when there are spans to spare (it
+    carries the first calls' set-up).  Returns ``(rate, breakdown)``.
     """
     # by default under the temporary directory, named apart from the JAX
     # bench's work directory
@@ -236,6 +238,8 @@ def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
         run_id="bench_e2e")
     base["data"]["image_size"] = int(image_size)
     base["training"]["epochs"] = int(epochs)
+    if host_feed:
+        base["training"]["max_device_dataset_mb"] = 0
     base["logging"]["log_to_file"] = False
     cfg_path = os.path.join(work, "e2e.yaml")
     with open(cfg_path, "w") as f:

@@ -10,8 +10,7 @@ the traversal dims, cut to ``min(latent_dim, evaluation.traversal_steps)``:
 the reference's ``traversal_steps`` doubling as a dim count, kept.
 
 :func:`load_model` reads checkpoints of either package (torch names or
-flax paths); the reference's torch-pickle shards raise
-``NotImplementedError`` (``io/checkpoint.py``).
+flax paths) and the reference's torch-pickle shards (``io/checkpoint.py``).
 """
 
 from __future__ import annotations

@@ -12,8 +12,14 @@ either package reads the other's checkpoints:
 - each shard written to ``<shard>.tmp`` and moved into place with
   ``os.replace``; shards of an earlier, wider save and a stale unsharded
   base file removed after a save;
-- the reference's ``torch.save`` shards refused by name
-  (``NotImplementedError``), not read;
+- the reference's ``torch.save`` shards (a zip holding ``data.pkl``, or a
+  legacy pickle) read with ``torch.load(..., weights_only=True)`` and
+  nothing less safe: their model state mapped to the port's names
+  (``io/weights.py::model_state_from_reference``), their Adam
+  ``optim_state`` kept, flat by ``<param index>/<field>``, as the
+  ``reference_optim_state`` section, for ``train/callbacks.py::
+  restore_training_state``; :func:`save_torch_reference_checkpoint` writes
+  them;
 - a load that checks the shard set is whole: every shard's recorded
   ``num_shards`` equals the files found, and ``epoch`` / ``total_steps``
   agree across shards.
@@ -37,6 +43,9 @@ import warnings
 import zipfile
 
 import numpy as np
+import torch
+
+from .weights import export_model_state, model_state_from_reference
 
 _META_KEY = "__meta__"
 _ARRAY_SECTIONS = ("model_state", "optim_state", "torch_adam_moments")
@@ -67,22 +76,50 @@ def _write_shard(path: str, arrays: dict, meta: dict) -> None:
     os.replace(tmp, path)
 
 
-def _refuse_torch_pickle(path: str) -> None:
-    raise NotImplementedError(
-        f"{path} is a torch pickle, the reference's checkpoint format; "
-        "reading it is not ported yet (ROADMAP.md, A4)")
+def _read_torch_shard(path: str):
+    """``(arrays, meta)`` of one of the reference's ``torch.save`` shards,
+    loaded with ``weights_only=True``: a pickle that needs more (one that
+    would run code of its own when loaded) raises ``ValueError`` naming the
+    file, and is never loaded unsafely."""
+    try:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as err:
+        raise ValueError(
+            f"{path}: torch.load(weights_only=True) cannot read this torch "
+            f"pickle ({type(err).__name__}: {err}); it is not loaded with "
+            "weights_only=False, which would run code from the file") from err
+    if not isinstance(payload, dict) or not isinstance(
+            payload.get("model_state"), dict):
+        raise ValueError(f"{path} is a torch pickle without a model_state "
+                         "dict: not a checkpoint shard of the reference")
+
+    def host(t):
+        return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+    arrays, meta = {}, {}
+    for key, val in payload.items():
+        if key == "model_state":
+            state = model_state_from_reference(
+                {k: host(t) for k, t in val.items()})
+            arrays.update({f"model_state/{k}": v for k, v in state.items()})
+        elif key == "optim_state":
+            for idx, fields in (val.get("state") or {}).items():
+                for field, t in fields.items():
+                    arrays[f"reference_optim_state/{idx}/{field}"] = host(t)
+        elif _json_scalar(val):
+            meta[key] = val
+    return arrays, meta
 
 
 def _read_shard(path: str):
-    """``(arrays, meta)`` of one shard; anything but this format raises: a
-    ``torch.save`` pickle (a zip holding ``data.pkl``, or a legacy pickle)
-    ``NotImplementedError``, anything else ``ValueError``."""
+    """``(arrays, meta)`` of one shard, of this format or a reference torch
+    pickle; anything else raises ``ValueError``."""
     try:
         with zipfile.ZipFile(path, "r") as zf:
             names = zf.namelist()
             if _META_KEY + ".json" not in names:
                 if any(name.endswith("data.pkl") for name in names):
-                    _refuse_torch_pickle(path)
+                    return _read_torch_shard(path)
                 raise ValueError(f"{path} is a zip without {_META_KEY}.json: "
                                  "not a checkpoint shard of this format")
             meta = json.loads(zf.read(_META_KEY + ".json").decode("utf-8"))
@@ -91,8 +128,8 @@ def _read_shard(path: str):
                       for name in names if name.endswith(".npy")}
     except zipfile.BadZipFile as err:
         with open(path, "rb") as f:
-            if f.read(1) == b"\x80":
-                _refuse_torch_pickle(path)
+            if f.read(1) == b"\x80":       # a legacy (pre-zip) torch pickle
+                return _read_torch_shard(path)
         raise ValueError(f"checkpoint shard {path} is not a zip: the file is "
                          "corrupt or truncated") from err
     return arrays, meta
@@ -100,13 +137,17 @@ def _read_shard(path: str):
 
 def read_checkpoint_meta(base_path: str) -> dict:
     """The payload's scalars (epoch, val_total, ...) from one shard's
-    metadata member, without reading any array."""
+    metadata member, without reading any array (a torch pickle has no such
+    member, and is read whole)."""
     shards = discover_shards(base_path)
     target = shards[0] if shards else base_path
     if not os.path.exists(target):
         raise FileNotFoundError(f"No checkpoint found at {base_path}")
-    with zipfile.ZipFile(target, "r") as zf:
-        meta = json.loads(zf.read(_META_KEY + ".json").decode("utf-8"))
+    try:
+        with zipfile.ZipFile(target, "r") as zf:
+            meta = json.loads(zf.read(_META_KEY + ".json").decode("utf-8"))
+    except (zipfile.BadZipFile, KeyError):
+        meta = _read_shard(target)[1]   # a torch pickle: read it whole
     return {k: v for k, v in meta.items() if k not in _SHARD_KEYS}
 
 
@@ -218,3 +259,40 @@ def load_sharded_checkpoint(base_path: str) -> dict:
     out.update({k: v for k, v in seen_meta[0][1].items()
                 if k not in _SHARD_KEYS})
     return _renest_moments(out)
+
+
+def save_torch_reference_checkpoint(base_path: str, payload: dict,
+                                    num_shards: int = 2,
+                                    optim_state: dict | None = None) -> list:
+    """``torch.save`` ``payload`` in the reference's shard layout, as the
+    JAX package's ``save_torch_reference_checkpoint`` does: the model state
+    (either package's, exported to the reference's names) sorted and dealt
+    round-robin over ``<base>_shard{i}<ext>``, every JSON scalar of the
+    payload and ``optim_state`` (an ``Adam.state_dict()`` payload from
+    ``io/weights.py::export_adam_optim_state``) in every shard, with
+    ``exported_by`` naming this package.  Each shard is written to
+    ``<shard>.tmp`` and moved into place.  Returns the shard paths."""
+    state = payload.get("model_state")
+    if state is None:
+        raise ValueError("payload missing model_state")
+    tensors = {k: torch.from_numpy(v)
+               for k, v in export_model_state(state).items()}
+    meta = {k: v for k, v in payload.items()
+            if k not in _ARRAY_SECTIONS and _json_scalar(v)}
+    meta["exported_by"] = "betavae_tpu_torch"
+    if optim_state is not None:
+        meta["optim_state"] = optim_state
+    parent = os.path.dirname(base_path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    num_shards = max(1, int(num_shards))
+    keys = sorted(tensors)
+    paths = _shard_paths(base_path, num_shards)
+    for shard_id, path in enumerate(paths):
+        torch.save({**meta,
+                    "model_state": {k: tensors[k]
+                                    for k in keys[shard_id::num_shards]},
+                    "shard_id": shard_id, "num_shards": num_shards},
+                   path + ".tmp")
+        os.replace(path + ".tmp", path)
+    return paths

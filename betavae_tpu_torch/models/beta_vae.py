@@ -13,6 +13,12 @@ Counterpart of ``betavae_tpu/models/beta_vae.py`` (``BetaVAEModule``,
   C→1 conv through the hand-written head kernels (``ops/head.py``), as the
   JAX ``FinalConvHead`` does with its Pallas kernel; ``final_conv`` keeps
   its parameters and names either way,
+- ``remat`` (``training.remat``): ``true``/``all`` recomputes every encoder
+  and decoder block's activations in the backward pass, ``decoder`` the
+  decoder blocks' only (``torch.utils.checkpoint``, as the JAX module wraps
+  the same blocks in ``nn.remat``); ``fc_*``, the reparam+KL and the head
+  are never recomputed, and the last decoder block's ``(activations,
+  gates)`` pair leaves its checkpoint for the fused head,
 - norms: ``layer`` → GroupNorm(1) with flax's eps 1e-6, ``batch`` →
   BatchNorm with flax's update rule (momentum 0.99 is torch 0.01, running
   variance from the biased batch variance), ``none``,
@@ -34,12 +40,14 @@ SE and ``fc_dec``, with fp32 params, heads and sigmoid input.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import get, get_config
 from ..data.dataset import images_to_tensor
@@ -68,12 +76,18 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.01)
+        # off while a remat checkpoint recomputes the block: the statistics
+        # were updated by the block's forward, once a step, as flax's remat
+        # updates them
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             x32 = x.float()
             mean = x32.mean(dim=(0, 2, 3))
@@ -140,6 +154,48 @@ class DeconvBlock(nn.Module):
 
 
 @contextlib.contextmanager
+def _frozen_statistics(block: nn.Module):
+    """The recompute of a checkpointed ``block``: its BatchNorms normalise
+    by the batch's statistics as in the forward, and leave their running
+    statistics as the forward left them."""
+    norms = [m for m in block.modules() if isinstance(m, FlaxBatchNorm2d)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+
+
+def _checkpointed(block: nn.Module, *args):
+    """``block(*args)`` with its activations recomputed in the backward
+    pass.  The recompute runs under the autocast state of the forward
+    (``checkpoint`` records and restores it).  No RNG state is kept
+    (``preserve_rng_state=False``): a block draws no random numbers, the
+    reparam noise being the kernel's Philox stream at an explicit
+    (seed, offset) outside every block."""
+    return checkpoint(
+        block, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _frozen_statistics(block)))
+
+
+def resolve_remat(value) -> str:
+    """``training.remat`` as ``"none"``, ``"decoder"`` or ``"all"``, with
+    the JAX module's spellings (``true``/``"all"``/``"true"``, ``"decoder"``,
+    ``false``/``None``/``"none"``/``"false"``)."""
+    if value in (True, "all", "true"):
+        return "all"
+    if value == "decoder":
+        return "decoder"
+    if value in (False, None, "none", "false"):
+        return "none"
+    raise ValueError(f"training.remat must be true/false/'decoder', got "
+                     f"{value!r}")
+
+
+@contextlib.contextmanager
 def inference(model: nn.Module):
     """``torch.no_grad()`` in ``eval()`` mode, the module's mode restored
     after."""
@@ -164,7 +220,7 @@ class BetaVAEModule(nn.Module):
                  logvar_clamp: Optional[Sequence[float]] = None,
                  latent_clamp: Optional[float] = None,
                  mixed_precision: bool = False, fused_head: bool = False,
-                 deterministic: bool = False):
+                 deterministic: bool = False, remat=False):
         super().__init__()
         if encoder_pooling not in ("flatten", "gap"):
             raise ValueError("encoder_pooling must be flatten or gap")
@@ -180,6 +236,7 @@ class BetaVAEModule(nn.Module):
         self.mixed_precision = mixed_precision
         self.fused_head = fused_head
         self.deterministic = deterministic
+        self.remat = resolve_remat(remat)
 
         chs = self.channel_widths
         self.encoder = nn.ModuleList(
@@ -218,11 +275,19 @@ class BetaVAEModule(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=torch.bfloat16)
 
+    def _block_fn(self, blk: nn.Module, decoder: bool):
+        """``blk``, checkpointed where ``remat`` covers it and a backward
+        pass can follow."""
+        if torch.is_grad_enabled() and (
+                self.remat == "all" or (decoder and self.remat == "decoder")):
+            return functools.partial(_checkpointed, blk)
+        return blk
+
     def encode(self, x: torch.Tensor):
         with self._autocast(x.device):
             h = x
             for blk in self.encoder:
-                h = blk(h)
+                h = self._block_fn(blk, decoder=False)(h)
             h = h.mean(dim=(2, 3)) if self.encoder_pooling == "gap" \
                 else h.reshape(h.shape[0], -1)
         with torch.autocast(x.device.type, enabled=False):
@@ -242,10 +307,10 @@ class BetaVAEModule(nn.Module):
             else:
                 h = h.reshape(h.shape[0], c, s, s)
             for blk in self.decoder_blocks[:-1]:
-                h = blk(h)
-            last = self.decoder_blocks[-1]
+                h = self._block_fn(blk, decoder=True)(h)
+            last = self._block_fn(self.decoder_blocks[-1], decoder=True)
             if self.fused_head and self.in_channels == 1:
-                h, gate = last(h, return_gate=True)
+                h, gate = last(h, True)         # (activations, SE gates)
                 if gate is None:
                     gate = torch.ones(h.shape[:2], dtype=h.dtype,
                                       device=h.device)
@@ -351,13 +416,6 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
-def _check_unported_options(tcfg) -> None:
-    remat = get(tcfg, "remat", False)
-    if remat not in (False, None, "none", "false"):
-        raise NotImplementedError(
-            f"training.remat={remat!r} is not ported yet")
-
-
 def resolve_fused_head(value) -> bool:
     """``training.fused_head``: true/false/None as in the JAX package's
     ``_resolve_fused_head``; ``auto`` (the default) is off, since the port
@@ -378,7 +436,6 @@ def model_from_config(cfg=None, mixed_precision: bool | None = None,
     dev = resolve_device(device)
     cfg = cfg or get_config()
     mcfg, dcfg = cfg.model, cfg.data
-    _check_unported_options(cfg.training)
     if mixed_precision is None:
         mixed_precision = bool(get(cfg.training, "mixed_precision", False))
     logvar_clamp = get(mcfg, "logvar_clamp", None)
@@ -398,6 +455,7 @@ def model_from_config(cfg=None, mixed_precision: bool | None = None,
         mixed_precision=mixed_precision,
         fused_head=resolve_fused_head(get(cfg.training, "fused_head", "auto")),
         deterministic=bool(get(mcfg, "deterministic_overfit", False)),
+        remat=get(cfg.training, "remat", False),
     )
     init_weights(model, torch.Generator().manual_seed(int(dcfg.seed)))
     return model.to(dev)

@@ -15,8 +15,8 @@ The port's own copy of ``betavae_tpu/train/callbacks.py``:
   ``async_io`` the writes run on a background thread, as the JAX
   package's ``CheckpointManager(async_io=True)`` does (the same files).
 
-:func:`restore_training_state` loads a payload written by either package
-into the port's model and optimizer.
+:func:`restore_training_state` loads a payload written by either package,
+or the reference's torch pickles, into the port's model and optimizer.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ import torch
 
 from ..io.artifacts import model_checkpoint_path
 from ..io.checkpoint import read_checkpoint_meta, save_sharded_checkpoint
-from ..io.weights import (adam_state_from_optax, optim_state_from_flat,
+from ..io.weights import (adam_state_from_optax, adam_state_from_reference,
+                          is_jax_state, optim_state_from_flat,
                           optim_state_tensors, params_from_jax)
 from .optim import OptimizerChain
 
@@ -66,20 +67,21 @@ class EarlyStopping:
             self._bad_epoch()
 
 
-def _from_jax(state: dict) -> bool:
-    """Whether a checkpoint's model state holds the JAX package's flax
-    paths (``params/...``) rather than the port's torch names."""
-    return any("/" in key for key in state)
-
-
 def load_model_state(model: torch.nn.Module, state: dict) -> None:
-    """Load a checkpoint's ``model_state`` (either package's) into
-    ``model`` with ``strict=True``."""
-    if _from_jax(state):
+    """Load a checkpoint's ``model_state`` (either package's, or the
+    reference's as ``io/checkpoint.py`` reads it) into ``model`` with
+    ``strict=True``."""
+    if is_jax_state(state):
         model.load_state_dict(params_from_jax(state), strict=True)
     else:
         model.load_state_dict({k: torch.from_numpy(np.array(v))
                                for k, v in state.items()}, strict=True)
+
+
+def _load_adam_state(optimizer: OptimizerChain, adam: dict) -> None:
+    sd = optimizer.optimizer.state_dict()
+    sd["state"] = adam
+    optimizer.optimizer.load_state_dict(sd)
 
 
 def restore_training_state(payload: dict, model: torch.nn.Module,
@@ -89,24 +91,32 @@ def restore_training_state(payload: dict, model: torch.nn.Module,
     The port's own checkpoints hold torch names and index-keyed optimizer
     state; the JAX package's hold flax paths (``params/...``,
     ``batch_stats/...``) and an optax state, whose Adam moments are mapped
-    through the parameter mapping (other optimizer states are not, and the
-    run resumes with a fresh optimizer, with a warning).
+    through the parameter mapping; the reference's torch pickles hold torch
+    names and an index-keyed Adam state (``reference_optim_state``), loaded
+    when the model's parameters are in the reference's order.  Other
+    optimizer states are not mapped, and the run resumes with a fresh
+    optimizer, with a warning.
     """
     state = payload["model_state"]
     optim = payload.get("optim_state") or {}
+    reference_optim = payload.get("reference_optim_state")
     load_model_state(model, state)
-    if _from_jax(state):
+    if is_jax_state(state) or reference_optim:
         if not isinstance(optimizer.optimizer,
                           (torch.optim.Adam, torch.optim.AdamW)):
             logging.getLogger("beta_vae_se_torch").warning(
                 "resume: the optimizer is not Adam; its state starts fresh")
             return
         names = [name for name, _ in model.named_parameters()]
-        adam = adam_state_from_optax(optim, state, names)
+        if reference_optim:
+            adam = adam_state_from_reference(reference_optim, state, names)
+        else:
+            adam = adam_state_from_optax(optim, state, names)
         if adam is not None:
-            sd = optimizer.optimizer.state_dict()
-            sd["state"] = adam
-            optimizer.optimizer.load_state_dict(sd)
+            _load_adam_state(optimizer, adam)
+            if reference_optim:
+                print("[RESUME] imported torch Adam moments (step count "
+                      f"{int(adam[0]['step'])})")
         return
     if optim:
         optim_state_from_flat(optim, optimizer.optimizer)

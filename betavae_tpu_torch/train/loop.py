@@ -15,9 +15,13 @@ rotation and no background panel writer (``training.scan_chunk_steps`` and
 the card once per log step and once per validation pass.  The LPIPS term
 (``loss.use_lpips``) runs under the JAX loop's gate: random-init features
 only with ``loss.lpips_allow_random: true``, and the CONFIG line names the
-weight source.  Keys whose JAX mechanism is not ported yet are refused by
-name: a split over ``training.max_device_dataset_mb`` (the JAX loop's host
-feed, with ``host_feed_chunk_mb``) and ``logging.profile_steps`` > 0.
+weight source.  A split over ``training.max_device_dataset_mb`` stays in
+host memory and is fed to the card batch by batch, staged up to
+``training.host_feed_chunk_mb`` worth of batches ahead
+(``data/pipeline.py``), with the same numbers as a resident split; and
+``logging.profile_steps`` > 0 writes a ``torch.profiler`` trace of the
+first train steps to ``<outputs_dir>/profile/`` (``utils/profiling.py``),
+in both trainers.
 
 :func:`train_steps` is the few-step trainer: the same set-up and train
 lines for at most ``max_steps`` steps, with the wall time of the steps
@@ -38,7 +42,7 @@ import torch
 from ..config import get, get_config
 from ..data.augment import augment_config_kwargs
 from ..data.dataset import load_image, load_split
-from ..data.pipeline import BatchPlan, DeviceData
+from ..data.pipeline import BatchPlan, DeviceData, host_feed_chunk_limit
 from ..device import resolve_device
 from ..eval.probes import NAN_METRICS, compute_probe_metrics
 from ..io.artifacts import ensure_dirs, model_checkpoint_path, save_image_grid
@@ -47,6 +51,7 @@ from ..logging_utils import init_logger, log_config, log_metrics
 from ..models.beta_vae import model_from_config
 from ..models.losses import loss_spec_from_config
 from ..ops.lpips import build_lpips_fn, resolve_weight_source
+from ..utils.profiling import StepProfiler
 from .callbacks import CheckpointManager, EarlyStopping, restore_training_state
 from .optim import build_optimizer
 from .schedules import lr_at, resolve_total_epochs, schedules_from_config
@@ -62,9 +67,11 @@ WARMUP_STEPS = 5
 # (fold_in(root, 2³¹ + e·100 000 + j)): far above any train step's offset
 VAL_OFFSET = 2**31
 PANEL_IMAGES = 8
-# the JAX loop's default device budget for a split (training.
-# max_device_dataset_mb); a split above it streams from the host there
+# the JAX loop's defaults: the device budget for a split (training.
+# max_device_dataset_mb), above which it is fed from the host, and the
+# host-fed batches' budget (training.host_feed_chunk_mb)
 MAX_DEVICE_DATASET_MB = 4096
+HOST_FEED_CHUNK_MB = 8.0
 
 
 def _sync(device: torch.device) -> None:
@@ -110,29 +117,23 @@ def _lpips_config_extras(cfg) -> dict:
     return {"lpips_weights": source}
 
 
-def _refuse_profile_steps(cfg) -> None:
-    """Raise ``NotImplementedError`` on ``logging.profile_steps`` > 0: the
-    JAX loop's ``StepProfiler`` is not ported yet."""
-    profile_steps = int(get(cfg.logging, "profile_steps", 0) or 0)
-    if profile_steps > 0:
-        raise NotImplementedError(
-            f"logging.profile_steps={profile_steps} is not ported yet (the "
-            "JAX package's StepProfiler); set it to 0")
-
-
-def _refuse_host_feed(cfg, ds, split: str) -> None:
-    """Raise ``NotImplementedError`` when ``split``'s uint8 images exceed
-    ``training.max_device_dataset_mb``: the JAX loop streams such a split
-    from the host (with ``training.host_feed_chunk_mb`` per dispatch), and
-    that host-feed mode is not ported yet."""
+def _device_data(cfg, ds, split: str, dev: torch.device) -> DeviceData:
+    """``split`` on ``dev``, or fed from the host when its uint8 images
+    exceed ``training.max_device_dataset_mb``, staged ahead by
+    ``host_feed_chunk_limit`` batches of ``training.host_feed_chunk_mb``."""
     budget_mb = int(get(cfg.training, "max_device_dataset_mb",
                         MAX_DEVICE_DATASET_MB))
-    if ds.images.nbytes > budget_mb * 1024 * 1024:
-        raise NotImplementedError(
-            f"the {split} split ({ds.images.nbytes} bytes) exceeds "
-            f"training.max_device_dataset_mb={budget_mb}: host feed (with "
-            "training.host_feed_chunk_mb) is not ported yet; raise the "
-            "budget to keep the split on the device")
+    depth = host_feed_chunk_limit(
+        int(cfg.training.batch_size), ds.images.shape[1:],
+        float(get(cfg.training, "host_feed_chunk_mb", HOST_FEED_CHUNK_MB)))
+    data = DeviceData.from_dataset(ds, dev,
+                                   max_device_bytes=budget_mb * 1024 * 1024,
+                                   depth=depth)
+    if data.host_feed:
+        print(f"[DATA] the {split} split ({ds.images.nbytes} bytes) exceeds "
+              f"training.max_device_dataset_mb={budget_mb}: fed from the "
+              f"host, up to {depth} batch(es) ahead")
+    return data
 
 
 class _Run:
@@ -140,7 +141,6 @@ class _Run:
     seeded model, the optimizer, the loss, the schedules and the step."""
 
     def __init__(self, cfg, dev: torch.device, *, with_test: bool):
-        _refuse_profile_steps(cfg)
         self.dev = dev
         self.seed = int(cfg.data.seed)
         debug_cfg = get(cfg, "debug", None)
@@ -148,15 +148,13 @@ class _Run:
         self.epochs = resolve_total_epochs(cfg)
         self.train_ds = load_split("train", sample_limit=(
             get(debug_cfg, "train_samples", None) if self.debug else None))
-        _refuse_host_feed(cfg, self.train_ds, "train")
-        self.train_dev = DeviceData.from_dataset(self.train_ds, dev)
+        self.train_dev = _device_data(cfg, self.train_ds, "train", dev)
         if with_test:
             self.test_ds = load_split("test", sample_limit=(
                 get(debug_cfg, "test_samples", None) if self.debug else None))
             if self.debug and get(cfg.model, "deterministic_overfit", False):
                 self.test_ds = self.train_ds
-            _refuse_host_feed(cfg, self.test_ds, "test")
-            self.test_dev = DeviceData.from_dataset(self.test_ds, dev)
+            self.test_dev = _device_data(cfg, self.test_ds, "test", dev)
         self.max_train_batches = (int(debug_cfg.max_train_batches)
                                   if self.debug else None)
         self.max_val_batches = (int(debug_cfg.max_val_batches)
@@ -188,6 +186,9 @@ class _Run:
                                          True))
         self.base_lr = float(cfg.optimization.lr)
         self.scheduler = str(cfg.optimization.scheduler)
+        self.profiler = StepProfiler(
+            get(cfg.logging, "profile_steps", 0),
+            os.path.join(cfg.paths.outputs_dir, "profile"), dev)
 
     def epoch_schedule(self, epoch: int):
         beta = self.beta_sched.value(epoch - 1)
@@ -210,10 +211,6 @@ class _Run:
 
     def train_batches(self, epoch: int) -> list:
         return list(self.train_plan.batches(epoch))[:self.max_train_batches]
-
-    def to_device(self, idx_np, mask_np):
-        return (torch.from_numpy(idx_np.astype(np.int64)).to(self.dev),
-                torch.from_numpy(mask_np).to(self.dev))
 
     def check_finite(self, value: float, step: int, epoch: int) -> None:
         if self.detect_anomalies and not np.isfinite(value):
@@ -250,8 +247,9 @@ def train_steps(config_path: str, max_steps: int,
                 device: str | torch.device = "cuda") -> dict:
     """Train for at most ``max_steps`` steps from the config at
     ``config_path``.  Returns ``{"steps", "totals", "timed_steps",
-    "timed_seconds", "batch_size"}``: the per-step total losses and the wall
-    time of the steps after the warm-up, ended by a device sync."""
+    "timed_seconds", "batch_size", "traces"}``: the per-step total losses,
+    the wall time of the steps after the warm-up, ended by a device sync,
+    and the paths of the ``logging.profile_steps`` traces."""
     dev = resolve_device(device)
     cfg = get_config(config_path)
     log_config(_lpips_config_extras(cfg) or None)
@@ -261,32 +259,37 @@ def train_steps(config_path: str, max_steps: int,
     totals = []
     total_steps = 0
     t_warm = time.perf_counter()
-    for epoch in range(1, run.epochs + 1):
-        if total_steps >= max_steps:
-            break
-        beta, capacity, free_bits = run.epoch_schedule(epoch)
-        running = {k: torch.zeros((), device=dev) for k in RUNNING_KEYS}
-        denom = 0
-        for idx_np, mask_np in run.train_batches(epoch):
+    try:
+        for epoch in range(1, run.epochs + 1):
             if total_steps >= max_steps:
                 break
-            lr = run.lr(epoch, total_steps)
-            last = run.step(run.train_dev.images, *run.to_device(idx_np, mask_np),
-                            run.sched(beta, capacity, free_bits, lr),
-                            total_steps + 1)
-            for k in RUNNING_KEYS:
-                running[k] += last[k]
-            totals.append(last["total"])
-            denom += 1
-            total_steps += 1
-            if total_steps == warmup:
-                _sync(dev)
-                t_warm = time.perf_counter()
-            if total_steps % run.log_every == 0:
-                run.train_line(epoch=epoch, beta=beta, capacity=capacity,
-                               running=running, denom=denom, last=last,
-                               lr=lr, step=total_steps)
-    _sync(dev)
+            beta, capacity, free_bits = run.epoch_schedule(epoch)
+            running = {k: torch.zeros((), device=dev) for k in RUNNING_KEYS}
+            denom = 0
+            batches = run.train_batches(epoch)[:max_steps - total_steps]
+            run.profiler.maybe_start(total_steps + 1)
+            for images, idx, mask in run.train_dev.feed(batches):
+                lr = run.lr(epoch, total_steps)
+                last = run.step(images, idx, mask,
+                                run.sched(beta, capacity, free_bits, lr),
+                                total_steps + 1)
+                for k in RUNNING_KEYS:
+                    running[k] += last[k]
+                totals.append(last["total"])
+                denom += 1
+                total_steps += 1
+                run.profiler.after_step(total_steps)
+                if total_steps == warmup:
+                    _sync(dev)
+                    t_warm = time.perf_counter()
+                if total_steps % run.log_every == 0:
+                    run.train_line(epoch=epoch, beta=beta, capacity=capacity,
+                                   running=running, denom=denom, last=last,
+                                   lr=lr, step=total_steps)
+            run.profiler.stop()
+        _sync(dev)
+    finally:
+        run.profiler.stop()
     timed_seconds = time.perf_counter() - t_warm
     return {
         "steps": total_steps,
@@ -294,6 +297,7 @@ def train_steps(config_path: str, max_steps: int,
         "timed_steps": total_steps - warmup,
         "timed_seconds": timed_seconds,
         "batch_size": run.batch_size,
+        "traces": run.profiler.paths,
     }
 
 
@@ -409,7 +413,8 @@ def train(config_path: str | None = None, resume: str = "none",
     step count carried over, so the run replays the uninterrupted one;
     a missing checkpoint starts fresh.
 
-    Returns ``{"model", "optimizer", "epoch", "total_steps"}``.
+    Returns ``{"model", "optimizer", "epoch", "total_steps", "traces"}``,
+    ``traces`` the paths of the ``logging.profile_steps`` traces.
 
     The ``epoch_end`` line has the JAX keys; three name the JAX dispatch
     mechanism and mean here: ``rotated`` is always ``False`` (no epoch
@@ -467,10 +472,11 @@ def train(config_path: str | None = None, resume: str = "none",
             denom = 0
             lr = run.lr(epoch, total_steps)
             epoch_t0 = time.perf_counter()
-            for idx_np, mask_np in run.train_batches(epoch):
+            run.profiler.maybe_start(total_steps + 1)
+            for images, idx, mask in run.train_dev.feed(
+                    run.train_batches(epoch)):
                 lr = run.lr(epoch, total_steps)
-                last = run.step(run.train_dev.images,
-                                *run.to_device(idx_np, mask_np),
+                last = run.step(images, idx, mask,
                                 run.sched(beta, capacity, free_bits, lr),
                                 total_steps + 1)
                 for k in RUNNING_KEYS:
@@ -478,10 +484,12 @@ def train(config_path: str | None = None, resume: str = "none",
                 totals.append(last["total"])
                 denom += 1
                 total_steps += 1
+                run.profiler.after_step(total_steps)
                 if total_steps % run.log_every == 0:
                     run.train_line(epoch=epoch, beta=beta, capacity=capacity,
                                    running=running, denom=denom, last=last,
                                    lr=lr, step=total_steps)
+            run.profiler.stop()
             if totals and run.detect_anomalies:
                 finite = torch.isfinite(torch.stack(totals)).cpu().numpy()
                 if not finite.all():
@@ -499,10 +507,11 @@ def train(config_path: str | None = None, resume: str = "none",
             sched_v = run.sched(beta, capacity, free_bits, lr)
             vbatches = list(test_plan.batches(epoch))[:run.max_val_batches]
             val_out = []
-            for j, (idx_np, mask_np) in enumerate(vbatches):
+            for j, (images, idx, mask) in enumerate(
+                    run.test_dev.feed(vbatches)):
                 val_out.append(eval_step(
-                    run.test_dev.images, *run.to_device(idx_np, mask_np),
-                    sched_v, VAL_OFFSET + epoch * 100_000 + j))
+                    images, idx, mask, sched_v,
+                    VAL_OFFSET + epoch * 100_000 + j))
             panel = _panel_images(cfg, run, vbatches)
             recon_dev = None
             if panel is not None:
@@ -629,6 +638,7 @@ def train(config_path: str | None = None, resume: str = "none",
         run_error = err
         raise
     finally:
+        run.profiler.stop()
         _finish(ckpt, run_error, old_sigterm)
     return {"model": model, "optimizer": optimizer, "epoch": epoch,
-            "total_steps": total_steps}
+            "total_steps": total_steps, "traces": run.profiler.paths}

@@ -38,8 +38,16 @@ class OptimizerChain:
         self.optimizer.zero_grad(set_to_none=True)
 
     def step(self, lr: float) -> None:
-        grads = [p.grad for group in self.optimizer.param_groups
-                 for p in group["params"] if p.grad is not None]
+        # optax updates every parameter, one the loss does not reach (fc_
+        # logvar under model.deterministic_overfit) with a zero gradient,
+        # so its moments and the step count move on; torch skips a
+        # parameter without a gradient
+        params = [p for group in self.optimizer.param_groups
+                  for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         if self.grad_clip > 0 and grads:
             clip_by_global_norm_(grads, self.grad_clip)
         for group in self.optimizer.param_groups:

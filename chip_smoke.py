@@ -60,7 +60,27 @@ Phases, each printing one line (any failure exits non-zero at once):
    artifact, finite tables, SSIM in [0, 1], the traversal dims of the
    ranking, the seconds of each CLI, the encoder's images/s in 5 passes
    and which of matplotlib, pandas, scikit-learn, umap and PIL the install
-   has); every kernel's launch count is set to 0
+   has); the flagship's fused step at ``training.remat`` false, decoder,
+   true and false again (20 steps each: first totals within 1e-5
+   relative, the launches of a step unchanged, each mode's step ms and
+   peak memory, the later steps beside the rerun's), and one fp32
+   backward from the same state at each mode (loss bitwise, gradients
+   within 1e-5); the epoch trainer's ``latest`` exported with its Adam
+   state by ``python -m betavae_tpu_torch.io.export_torch_checkpoint`` to
+   the reference's torch-pickle shards and resumed for one more epoch
+   beside a copy of the native checkpoint (first total within 1e-5
+   relative, the loaded moments bitwise, ``infer.encode`` latents within
+   1e-5 relative; the export's and the load's seconds); ``train()`` with
+   both splits fed from the host against the same run with them on the
+   device (first total bitwise, the same launches, later lines beside a
+   device-fed rerun's), every host-fed batch of an e2e epoch bitwise the
+   resident gather, then host feed and device feed one after the other:
+   the e2e rate over the bench's data (2 epochs each), the fused
+   flagship step's ms, device ms and busy share; ``train()`` with
+   ``logging.profile_steps: 5``,
+   whose traces (steps 1-3 and 4-5) ``utils/trace.py`` reads, each fused
+   step's kernels once a step, its device total per step beside the
+   ``profile`` phase's; every kernel's launch count is set to 0
    just before each of these runs and read just after, every head kernel
    launch there must have taken the TMA path, and every GN launch of the
    canary the cluster path (in the evaluation, the reparam+KL forward once
@@ -191,15 +211,16 @@ def device_ms_per_call(fn, case: str, calls: int = 5, before=None,
     call, which ``cuda_ms`` includes once calls are too short to queue up.
     ``before`` runs ahead of each call, and only kernels whose name holds
     ``only`` are counted.  A window that records no such kernel is taken
-    once more with four times the calls; if that too records none, the
-    run fails, naming ``case``."""
-    for n in (calls, 4 * calls):
+    again with four times the calls, twice at most (a window can miss its
+    events as a whole: GN enc3 and enc0 once each, in two runs); if none
+    records one, the run fails, naming ``case``."""
+    for n in (calls, 4 * calls, 4 * calls):
         events = [e for e in device_events(fn, n, before) if only in e.name]
         if events:
             return sum(e.device_time_total for e in events) / 1e3 / n
     fail(f"{case}: the profiler recorded no device event"
          f"{f' of a kernel named *{only}*' if only else ''} in "
-         f"{calls} and {4 * calls} calls")
+         f"{calls}, {4 * calls} and {4 * calls} calls")
 
 
 def host_us_per_call(fn, calls: int) -> float:
@@ -1169,30 +1190,37 @@ def check_small_slice(tmp: str, kernels: dict, fused_head: bool) -> dict:
             "gpu_kernel_launches": launches}
 
 
-def flagship_config(tmp: str, fused_head: bool) -> str:
+def flagship_config(tmp: str, fused_head: bool, **overrides) -> str:
     """configs/beta_vae_se.yaml at full width over seeded 128 px demo data
-    (24 train and 4 test images per class: three full batches of 32)."""
+    (24 train and 4 test images per class: three full batches of 32), with
+    ``overrides`` (``section.key`` → value)."""
     from betavae_tpu_torch.data.demo import generate_demo_data
 
     root = os.path.join(tmp, "flagship")
-    name = "flagship_fused.yaml" if fused_head else "flagship.yaml"
-    cfg = write_config("configs/beta_vae_se.yaml", root, name,
-                       **{"training.fused_head": fused_head})
+    name = "flagship_fused" if fused_head else "flagship"
+    name += "".join(f"_{k.split('.')[1]}-{v}" for k, v in overrides.items())
+    cfg = write_config("configs/beta_vae_se.yaml", root, name + ".yaml",
+                       **{"training.fused_head": fused_head, **overrides})
     if not os.path.isdir(os.path.join(root, "processed")):
         generate_demo_data(os.path.join(root, "processed"),
                            train_per_class=24, test_per_class=4, size=128)
     return cfg
 
 
-def run_flagship(tmp: str, kernels: dict, fused_head: bool) -> dict:
-    """FLAGSHIP_STEPS steps of the flagship at full width; every kernel of
-    the path launches once per step."""
+def run_flagship(tmp: str, kernels: dict, fused_head: bool,
+                 **overrides) -> dict:
+    """FLAGSHIP_STEPS steps of the flagship at full width (with the config
+    ``overrides``); every kernel of the path launches once per step."""
+    import gc
+
     import torch
 
     from betavae_tpu_torch.logging_utils import reset_logger
     from betavae_tpu_torch.train.loop import train_steps
 
-    cfg = flagship_config(tmp, fused_head)
+    cfg = flagship_config(tmp, fused_head, **overrides)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
     out = train_steps(cfg, FLAGSHIP_STEPS)
@@ -1208,6 +1236,7 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool) -> dict:
              f"{launches} in {FLAGSHIP_STEPS} steps, want {want}")
     step_ms = out["timed_seconds"] / out["timed_steps"] * 1e3
     return {"phase": "flagship", "fused_head": fused_head,
+            "overrides": overrides, "totals": totals,
             "steps": out["steps"], "launches": launches,
             "head_launches_by_path": paths,
             "first_total": totals[0], "last_total": totals[-1],
@@ -1216,7 +1245,8 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool) -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def profile_flagship(tmp: str, step_ms: float, fused_head: bool) -> dict:
+def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
+                     **overrides) -> dict:
     """Device time per flagship step by kernel (``torch.profiler``) over a
     second short run of the same config; its busy share is the device time
     per step over the unprofiled run's step time."""
@@ -1226,7 +1256,7 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool) -> dict:
     from betavae_tpu_torch.logging_utils import reset_logger
     from betavae_tpu_torch.train.loop import train_steps
 
-    cfg = flagship_config(tmp, fused_head)
+    cfg = flagship_config(tmp, fused_head, **overrides)
     steps = 8
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         train_steps(cfg, steps)
@@ -1242,7 +1272,8 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool) -> dict:
             evt.device_time_total / 1e3 / steps
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
-    return {"phase": "profile", "fused_head": fused_head, "steps": steps,
+    return {"phase": "profile", "fused_head": fused_head,
+            "overrides": overrides, "steps": steps,
             "device_ms_per_step": device_ms,
             "elbo_kernel_device_ms_per_step": sum(
                 ms for name, ms in per_kernel.items()
@@ -1361,6 +1392,424 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
             "ckpt_seconds": [m["ckpt_seconds"] for m in lines
                              if m["phase"] == "epoch_end"],
             "peak_mem_gib": peak}
+
+
+def _train_lines(cfg_path: str, resume: str = "none") -> tuple:
+    """``train()`` of ``cfg_path`` (its log written to a file) → (its
+    output, its METRICS lines)."""
+    import yaml
+
+    from betavae_tpu_torch.config import reset_config_cache
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.loop import train
+
+    with open(cfg_path) as f:
+        cfg = yaml.safe_load(f)
+    reset_config_cache()
+    reset_logger()
+    out = train(cfg_path, resume=resume)
+    reset_logger()
+    reset_config_cache()
+    log = os.path.join(cfg["paths"]["outputs_dir"], "logs",
+                       f"{cfg['paths']['run_id']}.log")
+    return out, metrics_lines(log)
+
+
+def epochs_config(tmp: str, root: str, name: str, **overrides) -> str:
+    """The ``epochs`` phase's config (the flagship at full width, fused
+    head, its data) under ``root``, with ``overrides``."""
+    return write_config(
+        "configs/beta_vae_se.yaml", root, name,
+        **{"training.fused_head": True, "logging.log_every_n_steps": 1,
+           "logging.log_to_file": True,
+           "paths.processed_dir": os.path.join(tmp, "epochs", "processed"),
+           **overrides})
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def run_reference_ckpt(tmp: str, kernels: dict) -> dict:
+    """The ``epochs`` run's ``latest`` exported by the port's exporter with
+    its Adam state, as ``<run_id>_latest_shard{0,1}.pt`` in a fresh models
+    dir (the reference's torch-pickle layout): ``train(resume="latest")``
+    from it for one more epoch must log a first total within 1e-5 relative
+    of the same resume from a copy of the native checkpoint, the Adam
+    moments it loads must equal the native ones bitwise, each kernel must
+    launch as the epoch's steps, validation batches and panel say, and
+    ``infer.encode`` on the shards must give the native checkpoint's
+    latents within 1e-5 relative.  Prints the export's and the load's
+    seconds."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.infer import encode
+    from betavae_tpu_torch.io import export_torch_checkpoint
+    from betavae_tpu_torch.io.checkpoint import (discover_shards,
+                                                 load_sharded_checkpoint)
+    from betavae_tpu_torch.models.beta_vae import model_from_config
+    from betavae_tpu_torch.train.callbacks import restore_training_state
+    from betavae_tpu_torch.train.optim import build_optimizer
+
+    root = os.path.join(tmp, "reference")
+    native_src = os.path.join(tmp, "epochs", "outputs", "models")
+    dirs = {"native": os.path.join(root, "native_models"),
+            "reference": os.path.join(root, "reference_models")}
+    shutil.copytree(native_src, dirs["native"])
+    configs = {tag: epochs_config(
+        tmp, os.path.join(root, tag), f"{tag}.yaml",
+        **{"paths.models_dir": d, "training.epochs": EPOCHS_TOTAL + 1})
+        for tag, d in dirs.items()}
+
+    reset_config_cache()
+    t0 = time.perf_counter()
+    paths = export_torch_checkpoint.main(
+        ["--config", configs["native"], "--checkpoint", "latest",
+         "--output", os.path.join(dirs["reference"], "beta_vae_se_latest.pt"),
+         "--include-optimizer"])
+    export_seconds = time.perf_counter() - t0
+    if [os.path.basename(p) for p in paths] != [
+            "beta_vae_se_latest_shard0.pt", "beta_vae_se_latest_shard1.pt"]:
+        fail(f"reference_ckpt: exported {paths}")
+
+    # the moments as loaded, each side into a fresh model and optimizer
+    loaded, load_seconds = {}, None
+    for tag, d in dirs.items():
+        reset_config_cache()
+        cfg = get_config(configs[tag])
+        model = model_from_config(cfg)
+        opt = build_optimizer(model.parameters(), cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_training_state(load_sharded_checkpoint(
+            os.path.join(d, "beta_vae_se_latest.pt")), model, opt)
+        torch.cuda.synchronize()
+        if tag == "reference":
+            load_seconds = time.perf_counter() - t0
+        loaded[tag] = (model.state_dict(), opt.optimizer.state_dict()["state"])
+    reset_config_cache()
+    (w_nat, m_nat), (w_ref, m_ref) = loaded["native"], loaded["reference"]
+    moments_equal = set(m_nat) == set(m_ref) and all(
+        torch.equal(m_nat[i][f], m_ref[i][f])
+        for i in m_nat for f in ("step", "exp_avg", "exp_avg_sq"))
+    weights_equal = all(torch.equal(w_nat[k], w_ref[k]) for k in w_nat)
+    if not (moments_equal and weights_equal and
+            float(m_ref[0]["step"]) > 0):
+        fail(f"reference_ckpt: loaded moments equal {moments_equal}, "
+             f"weights equal {weights_equal}")
+
+    # infer.encode on each checkpoint, before the resumed runs overwrite
+    # them (each in its own models and tables dirs)
+    latents = {}
+    for tag, d in dirs.items():
+        cfg_path = epochs_config(
+            tmp, os.path.join(root, f"encode_{tag}"), "encode.yaml",
+            **{"paths.models_dir": os.path.join(root, f"encode_{tag}",
+                                                "models")})
+        os.makedirs(os.path.join(root, f"encode_{tag}", "models"))
+        for shard in discover_shards(os.path.join(d, "beta_vae_se_latest.pt")):
+            shutil.copy(shard, os.path.join(root, f"encode_{tag}", "models"))
+        _cli(encode.main, ["--config", cfg_path])
+        latents[tag] = np.load(os.path.join(
+            root, f"encode_{tag}", "outputs", "tables",
+            "test_latents_mu.npy"))
+    latent_rel = float(np.abs(latents["reference"] - latents["native"]).max()
+                       / np.abs(latents["native"]).max())
+    if latents["reference"].shape != latents["native"].shape or \
+            not latent_rel <= 1e-5:
+        fail(f"reference_ckpt: encode latents max rel {latent_rel}")
+    runs = {}
+    for tag in ("native", "reference"):
+        zero_counts(kernels)
+        out, lines = _train_lines(configs[tag], resume="latest")
+        runs[tag] = {"out": out, "lines": lines,
+                     "launches": read_counts(kernels)}
+    first = {tag: next(m for m in r["lines"] if m["phase"] == "train")
+             for tag, r in runs.items()}
+    steps = runs["reference"]["out"]["total_steps"] - first["reference"][
+        "step"] + 1
+    want = {"head_forward": steps + 1 + 1, "head_m": steps,
+            "fused_reparam_kl": steps + 1, "reparam_kl_backward": steps,
+            "gn_forward": 0, "gn_backward": 0}
+    total_rel = _rel(first["reference"]["train_total_loss"],
+                     first["native"]["train_total_loss"])
+    if not (first["reference"]["epoch"] == EPOCHS_TOTAL + 1
+            and first["reference"]["step"] == first["native"]["step"]
+            and total_rel <= 1e-5
+            and runs["reference"]["launches"] == want):
+        fail(f"reference_ckpt: first resumed lines {first} (rel "
+             f"{total_rel}), launches {runs['reference']['launches']}, "
+             f"want {want}")
+
+    return {"phase": "reference_ckpt", "exported": paths,
+            "export_seconds": export_seconds,
+            "load_seconds": load_seconds,
+            "resumed_epoch": first["reference"]["epoch"],
+            "first_total": {t: f["train_total_loss"] for t, f in first.items()},
+            "first_total_rel": total_rel, "moments_bitwise": moments_equal,
+            "step_count": float(m_ref[0]["step"]),
+            "launches": runs["reference"]["launches"],
+            "encode_latents_max_rel": latent_rel,
+            "latents_shape": list(latents["reference"].shape)}
+
+
+def remat_gradients(tmp: str) -> dict:
+    """One backward of the fused flagship at full width from the same
+    weights and batch at each ``training.remat`` mode, and without remat a
+    second time, in fp32 with TF32 off (where a backward's own
+    nondeterminism, atomics summing in another order, stays near 1e-7): the
+    loss must be bitwise the no-remat one and the gradients within 1e-5 of
+    it (‖g − g₀‖ / ‖g₀‖ over every parameter)."""
+    import torch
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.models.beta_vae import (model_from_config,
+                                                   resolve_remat)
+    from betavae_tpu_torch.models.losses import loss_spec_from_config
+    from betavae_tpu_torch.train.step import _forward_losses
+
+    reset_config_cache()
+    cfg = get_config(flagship_config(tmp, True,
+                                     **{"training.mixed_precision": False}))
+    model = model_from_config(cfg).train()
+    spec = loss_spec_from_config(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((int(cfg.training.batch_size), 1, 128, 128), generator=g,
+                   device="cuda")
+    mask = torch.ones(x.shape[0], device="cuda")
+    sched = {"beta": 1.0, "capacity": 30.0, "capacity_weight": 1.0,
+             "free_bits": 0.0, "lr": 5e-4}
+    runs = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for tag, mode in (("false", False), ("false_rerun", False),
+                          ("decoder", "decoder"), ("true", True)):
+            model.remat = resolve_remat(mode)
+            model.zero_grad(set_to_none=True)
+            losses = _forward_losses(model, x, mask, sched, spec=spec,
+                                     use_capacity=True, seed=1, offset=1)
+            losses["total"].backward()
+            runs[tag] = (losses["total"].detach().clone(), torch.cat(
+                [p.grad.flatten() for p in model.parameters()]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        reset_config_cache()
+    loss0, grad0 = runs["false"]
+    out = {tag: {"loss_bitwise": bool(torch.equal(loss, loss0)),
+                 "grad_rel": float((grad - grad0).norm() / grad0.norm())}
+           for tag, (loss, grad) in runs.items()}
+    if not all(r["loss_bitwise"] and r["grad_rel"] <= 1e-5
+               for r in out.values()):
+        fail(f"remat: one fp32 backward from the same state: {out}")
+    return out
+
+
+def run_remat(tmp: str, kernels: dict) -> dict:
+    """FLAGSHIP_STEPS steps of the fused flagship (bf16) at
+    ``training.remat`` false, decoder and true, and false again
+    (``run_flagship``: finite totals, the launches of a step unchanged):
+    each mode's step ms and peak memory; the first-step totals within 1e-5
+    relative of false's.  The later steps are reported beside the
+    no-remat rerun's, not bounded: two identical runs already part by
+    ~1e-4 at step 2 and by percents at step 20 (the card's backward sums
+    with atomics in no fixed order, and Adam carries the difference
+    on).  The gradients of one step from the same state are held instead
+    (:func:`remat_gradients`)."""
+    modes = {}
+    for tag, mode in (("false", False), ("decoder", "decoder"),
+                      ("true", True), ("false_rerun", False)):
+        modes[tag] = run_flagship(tmp, kernels, fused_head=True,
+                                  **{"training.remat": mode})
+    base = modes["false"]["totals"]
+    first = {m: _rel(r["totals"][0], base[0]) for m, r in modes.items()}
+    if not all(v <= 1e-5 for v in first.values()):
+        fail(f"remat: first-step totals rel {first}")
+    return {"phase": "remat", "steps": FLAGSHIP_STEPS,
+            "first_total_rel": first,
+            "max_rel_vs_false": {m: max(_rel(a, b) for a, b in
+                                        zip(r["totals"], base))
+                                 for m, r in modes.items()},
+            "step_rel_vs_false": {m: [_rel(a, b) for a, b in
+                                      zip(r["totals"], base)]
+                                  for m, r in modes.items()},
+            "fp32_one_step": remat_gradients(tmp),
+            "step_ms": {m: r["step_ms"] for m, r in modes.items()},
+            "peak_mem_gib": {m: r["peak_mem_gib"] for m, r in modes.items()},
+            "launches": {m: r["launches"] for m, r in modes.items()
+                         if m != "false_rerun"},
+            "first_total": {m: r["first_total"] for m, r in modes.items()}}
+
+
+def e2e_train_split(tmp: str):
+    """The bench's e2e train split (4 × 1456 images at 128 px)."""
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.data.dataset import load_split
+
+    reset_config_cache()
+    get_config(write_config(
+        "configs/beta_vae_se.yaml", os.path.join(tmp, "host_feed", "batches"),
+        "batches.yaml",
+        **{"paths.processed_dir": os.path.join(tmp, "bench_e2e",
+                                               "processed")}))
+    try:
+        return load_split("train")
+    finally:
+        reset_config_cache()
+
+
+def host_fed_batches(ds, depth: int) -> dict:
+    """Every batch of one epoch of ``ds`` through a host-fed split (pinned
+    staging buffers, copies on a side stream, ``depth`` batches ahead) must
+    be bitwise the batch the resident split gathers."""
+    import torch
+
+    from betavae_tpu_torch.data.pipeline import (BatchPlan, DeviceData,
+                                                 gather_batch)
+
+    dev = torch.device("cuda")
+    host = DeviceData.from_dataset(ds, dev, max_device_bytes=0, depth=depth)
+    resident = DeviceData.from_dataset(ds, dev)
+    plan = list(BatchPlan(len(ds), 32, shuffle=True, seed=0).batches(1))
+    t0 = time.perf_counter()
+    # counted on the device, read once: the host runs ahead, refilling each
+    # staging buffer as soon as its last copy has left it
+    equal = torch.zeros((), dtype=torch.int64, device=dev)
+    for (x, i, _), (y, j, _) in zip(host.feed(plan), resident.feed(plan)):
+        equal += (gather_batch(x, i) == gather_batch(y, j)).all()
+    same = int(equal)
+    seconds = time.perf_counter() - t0
+    if same != len(plan) or not host.host_feed:
+        fail(f"host_feed: {same} of {len(plan)} host-fed batches equal the "
+             f"resident ones (depth {depth})")
+    return {"batches": len(plan), "equal": same, "depth": depth,
+            "seconds": seconds}
+
+
+def run_host_feed(tmp: str, kernels: dict) -> dict:
+    """``train()`` on the ``epochs`` config fed from the host
+    (``training.max_device_dataset_mb: 0``) against the same with the
+    splits on the device, and the device-fed run again: the first logged
+    total bitwise the device-fed one, and the same kernel launches; the
+    later lines are reported beside the device-fed rerun's, which parts
+    from the first run by ~1e-3 (the backward's atomics), not bounded.
+    Every batch of an epoch of the bench's e2e data through the host feed
+    (16 and 1 batches ahead) is held bitwise to the resident gather
+    (:func:`host_fed_batches`).  Then host feed, then device feed, one
+    after the other (host speed drifts within a call): the bench's e2e
+    img/s estimator over the bench's e2e data (4 × 1456 train images at
+    128 px, 2 epochs, one span), and the fused flagship step (20 steps,
+    then 8 profiled: step ms, device ms and busy share)."""
+    import contextlib
+
+    from betavae_tpu_torch import bench
+
+    runs = {}
+    for tag, mb in (("device", 4096), ("host", 0), ("device_rerun", 4096)):
+        cfg = epochs_config(tmp, os.path.join(tmp, "host_feed", tag),
+                            f"{tag}.yaml",
+                            **{"training.epochs": EPOCHS_FIRST,
+                               "training.max_device_dataset_mb": mb})
+        zero_counts(kernels)
+        out, lines = _train_lines(cfg)
+        runs[tag] = {"totals": [m["train_total_loss"] if m["phase"] == "train"
+                                else m["val_total_loss"] for m in lines
+                                if m["phase"] in ("train", "val")],
+                     "launches": read_counts(kernels)}
+    dev = runs["device"]["totals"]
+    rel = {tag: [_rel(a, b) for a, b in zip(r["totals"], dev)]
+           for tag, r in runs.items() if tag != "device"}
+    host = runs["host"]
+    if not (len(host["totals"]) == len(dev) > 1
+            and host["totals"][0] == dev[0]
+            and host["launches"] == runs["device"]["launches"]):
+        fail(f"host_feed: totals {host['totals']} vs device {dev}, launches "
+             f"{host['launches']} vs {runs['device']['launches']}")
+    ds = e2e_train_split(tmp)
+    batches = [host_fed_batches(ds, depth) for depth in (16, 1)]
+
+    timing = {}
+    for tag, host_feed in (("host", True), ("device", False)):
+        zero_counts(kernels)
+        with contextlib.redirect_stdout(sys.stderr):
+            rate, breakdown = bench._e2e_images_per_sec(
+                epochs=2, work_dir=os.path.join(tmp, "bench_e2e"),
+                host_feed=host_feed)
+        e2e_launches = read_counts(kernels)
+        if not (math.isfinite(rate) and e2e_launches["fused_reparam_kl"] > 0):
+            fail(f"host_feed: {tag}-fed e2e rate {rate}, launches "
+                 f"{e2e_launches}")
+        overrides = ({"training.max_device_dataset_mb": 0} if host_feed
+                     else {})
+        step = run_flagship(tmp, kernels, fused_head=True, **overrides)
+        prof = profile_flagship(tmp, step["step_ms"], fused_head=True,
+                                **overrides)
+        timing[tag] = {"e2e_images_per_sec": rate, "e2e_breakdown": breakdown,
+                       "e2e_launches": e2e_launches,
+                       "flagship_step_ms": step["step_ms"],
+                       "flagship_launches": step["launches"],
+                       "device_ms_per_step": prof["device_ms_per_step"],
+                       "device_busy_share": prof["device_busy_share"],
+                       "top_kernels": prof["top_kernels_ms_per_step"][:6]}
+    return {"phase": "host_feed", "first_total": host["totals"][0],
+            "line_rel_vs_device": rel, "launches": host["launches"],
+            "fed_batches": batches, "timing": timing}
+
+
+# the kernels of a fused train step in a profile_steps trace
+PROFILED_KERNELS = {"fused_reparam_kl": r"reparam_kl_kernel",
+                    "reparam_kl_backward": r"reparam_kl_backward_kernel",
+                    "head_forward": r"head_fwd_", "head_m": r"head_m_"}
+
+
+def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
+    """``train()`` on the ``epochs`` config (2 epochs of 3 steps) with
+    ``logging.profile_steps: 5``: one trace a window (steps 1-3 and 4-5,
+    the window closing at an epoch's end), each read with the port's
+    ``utils/trace.py``, whose rows must hold the reparam+KL forward and
+    backward and the head forward and M kernels at 1 a step; its device
+    kernels' total per step beside the ``profile`` phase's fused step."""
+    import re
+
+    from betavae_tpu_torch.utils.trace import parse_trace
+
+    cfg = epochs_config(tmp, os.path.join(tmp, "profile_steps"),
+                        "profile.yaml", **{"training.epochs": EPOCHS_FIRST,
+                                           "logging.profile_steps": 5})
+    zero_counts(kernels)
+    out, _ = _train_lines(cfg)
+    launches = read_counts(kernels)
+    names = [os.path.basename(p) for p in out["traces"]]
+    if names != ["steps_1-3.trace.json", "steps_4-5.trace.json"] or \
+            not all(os.path.exists(p) for p in out["traces"]):
+        fail(f"profile_steps: traces {out['traces']}")
+    windows = []
+    for path, steps in zip(out["traces"], (3, 2)):
+        summary = parse_trace(path, steps=steps)
+        per_step = {}
+        for name, pattern in PROFILED_KERNELS.items():
+            rows = [r for r in summary.rows if re.search(pattern, r.name)]
+            per_step[name] = sum(r.count for r in rows) / steps
+        if any(v != 1 for v in per_step.values()):
+            fail(f"profile_steps: {os.path.basename(path)} launches per "
+                 f"step {per_step}")
+        windows.append({
+            "trace": os.path.basename(path), "steps": steps,
+            "kernels_per_step": per_step,
+            "device_kernel_ms_per_step": summary.device_total_us / steps / 1e3,
+            "kernel_rows": len(summary.rows),
+            "top": [[n[:80], us / 1e3] for n, us, _ in
+                    summary.per_step()[:6]],
+            "bytes": os.path.getsize(path)})
+    return {"phase": "profile_steps", "windows": windows,
+            "launches": launches,
+            "profile_phase_device_ms_per_step":
+                profiled_fused["device_ms_per_step"]}
 
 
 def _cli(main, argv: list) -> float:
@@ -1764,9 +2213,16 @@ def main() -> None:
         flagship_fused = run_flagship(tmp, kernels, fused_head=True)
         flagship_fused["card"] = card
         emit(flagship_fused)
+        remat = run_remat(tmp, kernels)
+        remat["card"] = card
+        emit(remat)
         epochs = run_epochs(tmp, kernels)
         epochs["card"] = card
         emit(epochs)
+        # after the epochs run, whose latest it exports
+        reference = run_reference_ckpt(tmp, kernels)
+        reference["card"] = card
+        emit(reference)
         eval_cpu = run_eval_vs_cpu(tmp, kernels)
         eval_cpu["card"] = card
         emit(eval_cpu)
@@ -1786,6 +2242,13 @@ def main() -> None:
                                           fused_head=True)
         profiled_fused["card"] = card
         emit(profiled_fused)
+        # after the bench, whose e2e data it reads
+        host = run_host_feed(tmp, kernels)
+        host["card"] = card
+        emit(host)
+        prof_steps = run_profile_steps(tmp, kernels, profiled_fused)
+        prof_steps["card"] = card
+        emit(prof_steps)
 
     # the kernels' numbers at the main path's shapes: reparam+KL at the
     # flagship's [32, 64], the head at the flagship's bf16 y (autocast)
@@ -1800,7 +2263,15 @@ def main() -> None:
                 "flagship": flagship["launches"][name],
                 "flagship_fused_head": flagship_fused["launches"][name],
                 "debug_config": debug_run["launches"][name],
-                "bench": bench_run["launches"][name]}
+                "bench": bench_run["launches"][name],
+                "reference_ckpt": reference["launches"][name],
+                **{f"remat_{mode}": launches[name]
+                   for mode, launches in remat["launches"].items()},
+                "host_feed": host["launches"][name],
+                "host_feed_e2e": host["timing"]["host"]["e2e_launches"][name],
+                "host_feed_flagship": host["timing"]["host"][
+                    "flagship_launches"][name],
+                "profile_steps": prof_steps["launches"][name]}
 
     emit({"kernels": [{
         "name": "fused_reparam_kl",

@@ -523,3 +523,143 @@ def test_sampling_on_the_card_equals_the_cpu(cuda_device, no_tf32):
     assert (fused_reparam_kl.launches, head_forward.launches) == (2, 2)
     torch.testing.assert_close(prior.cpu(), cpu.sample_prior(6, 11),
                                rtol=1e-5, atol=1e-5)
+
+
+def _small_flagship(tmp_path, **training) -> str:
+    """The flagship config cut to 32 px, 2 blocks, base 8, latent 8, batch
+    8, fused head, over seeded demo data, with ``training`` overrides."""
+    from betavae_tpu_torch.data.demo import generate_demo_data
+
+    root = Path(__file__).resolve().parent.parent
+    cfg = yaml.safe_load(open(root / "configs" / "beta_vae_se.yaml"))
+    cfg["paths"].update(processed_dir=str(tmp_path / "processed"),
+                        outputs_dir=str(tmp_path / "outputs"))
+    cfg["data"]["image_size"] = 32
+    cfg["model"].update(base_channels=8, latent_dim=8, num_blocks=2)
+    cfg["training"].update(batch_size=8, fused_head=True, **training)
+    cfg["logging"].update(log_to_file=False, log_every_n_steps=100)
+    name = "_".join(f"{k}-{v}" for k, v in training.items()) or "base"
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    if not (tmp_path / "processed").exists():
+        generate_demo_data(tmp_path / "processed", train_per_class=8,
+                           test_per_class=1, size=32)
+    return str(path)
+
+
+def _few_steps(path: str, steps: int) -> list:
+    from betavae_tpu_torch.config import reset_config_cache
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.loop import train_steps
+
+    reset_config_cache()
+    reset_logger()
+    try:
+        return train_steps(path, steps, device="cuda")["totals"]
+    finally:
+        reset_logger()
+        reset_config_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [16, 1])
+def test_host_feed_on_the_card_gives_the_resident_batches(cuda_device,
+                                                          tmp_path, depth):
+    """A split fed from the host (pinned staging buffers, copies on a side
+    stream, ``depth`` batches ahead, the host never waiting on a batch):
+    every batch of an epoch bitwise the one the resident split gathers;
+    and a few steps of the trainer fed so: the first step's total bitwise
+    the resident split's.  (The later steps part run to run by ~1e-4 on
+    the card in either mode: its backward sums with atomics.)"""
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.data.dataset import load_split
+    from betavae_tpu_torch.data.pipeline import (BatchPlan, DeviceData,
+                                                 gather_batch)
+
+    path = _small_flagship(tmp_path)
+    reset_config_cache()
+    try:
+        get_config(path)
+        ds = load_split("train")
+    finally:
+        reset_config_cache()
+    host = DeviceData.from_dataset(ds, cuda_device, max_device_bytes=0,
+                                   depth=depth)
+    resident = DeviceData.from_dataset(ds, cuda_device)
+    plan = [b for epoch in (1, 2) for b in
+            BatchPlan(len(ds), 4, shuffle=True, seed=0).batches(epoch)]
+    equal = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    for (x, i, _), (y, j, _) in zip(host.feed(plan), resident.feed(plan)):
+        equal += (gather_batch(x, i) == gather_batch(y, j)).all()
+    assert host.host_feed and int(equal) == len(plan)
+
+    device_fed = _few_steps(path, 2)
+    host_fed = _few_steps(_small_flagship(
+        tmp_path, max_device_dataset_mb=0,
+        host_feed_chunk_mb=32 * 32 * 8 * depth / 2**20), 2)
+    assert host_fed[0] == device_fed[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["decoder", True])
+def test_remat_on_the_card_under_bf16(cuda_device, tmp_path, mode):
+    """``training.remat`` with bf16 autocast and the fused head on the
+    card: the first total bitwise the no-remat one (the forward does not
+    change) and the launches of a step unchanged (reparam+KL forward and
+    backward, head forward and M, once each)."""
+    wrappers = (fused_reparam_kl, reparam_kl_backward, head_forward, head_m)
+    runs = []
+    for remat in (False, mode):
+        for w in wrappers:
+            w.launches = 0
+        runs.append(_few_steps(_small_flagship(
+            tmp_path, mixed_precision=True, remat=remat), 4))
+        assert [w.launches for w in wrappers] == [4, 4, 4, 4]
+    assert runs[1][0] == runs[0][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["decoder", True])
+def test_remat_gradients_on_the_card(cuda_device, tmp_path, mode):
+    """One backward from the same weights and batch, fp32 with TF32 off
+    (a backward's own run-to-run spread stays near 1e-7 there): the loss
+    bitwise and the gradients within 1e-5 relative (norm over every
+    parameter) of the no-remat backward's."""
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.models.beta_vae import (model_from_config,
+                                                   resolve_remat)
+    from betavae_tpu_torch.models.losses import loss_spec_from_config
+    from betavae_tpu_torch.train.step import _forward_losses
+
+    reset_config_cache()
+    try:
+        cfg = get_config(_small_flagship(tmp_path, mixed_precision=False))
+        model = model_from_config(cfg).train()
+        spec = loss_spec_from_config(cfg)
+    finally:
+        reset_config_cache()
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand((8, 1, 32, 32), generator=g, device=cuda_device)
+    mask = torch.ones(8, device=cuda_device)
+    sched = {"beta": 1.0, "capacity": 30.0, "capacity_weight": 1.0,
+             "free_bits": 0.0, "lr": 5e-4}
+    runs = []
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for remat in (False, mode):
+            model.remat = resolve_remat(remat)
+            model.zero_grad(set_to_none=True)
+            losses = _forward_losses(model, x, mask, sched, spec=spec,
+                                     use_capacity=True, seed=1, offset=1)
+            losses["total"].backward()
+            runs.append((losses["total"].detach(), torch.cat(
+                [p.grad.flatten() for p in model.parameters()])))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old
+    (loss0, grad0), (loss1, grad1) = runs
+    assert torch.equal(loss1, loss0)
+    assert float((grad1 - grad0).norm() / grad0.norm()) <= 1e-5

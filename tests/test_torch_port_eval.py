@@ -18,9 +18,9 @@
   noise of one distribution).  ``run_evaluation.main`` writes every
   artifact the JAX ``main`` writes but ``latent_scatter_tsne.png`` and
   takes its traversal dims from ``latent_ranking_summary.json``.
-- ``load_model`` reads the port's ``train()`` checkpoints and the JAX
-  package's, falls back from ``best`` to ``latest``, and refuses a torch
-  pickle by name.
+- ``load_model`` reads the port's ``train()`` checkpoints, the JAX
+  package's and the reference's torch pickle, and falls back from ``best``
+  to ``latest``.
 """
 
 import json
@@ -324,7 +324,10 @@ def test_load_model_reads_both_packages_with_fallback(tmp_path):
 
     for shard in models.glob("run_*"):
         shard.unlink()
-    torch.save({"model_state": model.state_dict()}, models / "run_best.pt")
-    with pytest.raises(NotImplementedError, match="torch pickle"):
-        load_model("best", device="cpu")
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save({"model_state": saved}, models / "run_best.pt")
+    reference = load_model("best", device="cpu")   # the reference's pickle
+    assert not reference.training
+    for name, val in reference.state_dict().items():
+        assert torch.equal(val, saved[name]), name
     shutil.rmtree(models)

@@ -4,6 +4,9 @@ Weights are made from a seed with numpy in the JAX package's flat layout,
 mapped with ``params_from_jax`` and loaded ``strict=True``; inputs are
 numpy too.  Forward outputs (μ, logσ², recon) must agree to 1e-4 relative
 (atol 1e-5): both sides are fp32 convolutions summed in different orders.
+``training.remat`` (``false`` / ``decoder`` / ``true``) changes only when
+activations are computed: bitwise the same loss, gradients and BatchNorm
+statistics on the CPU, and each mode the JAX module's with the same remat.
 """
 
 import jax
@@ -40,11 +43,13 @@ def _random_flat(template: dict, seed: int) -> dict:
 
 
 def _pair(*, pooling="flatten", norm="layer", activation="relu", img=16,
-          blocks=2, latent_clamp=None, logvar_clamp=(-10.0, 5.0), seed=0):
+          blocks=2, latent_clamp=None, logvar_clamp=(-10.0, 5.0), seed=0,
+          remat=False):
     kw = dict(image_size=img, in_channels=1, latent_dim=LATENT,
               base_channels=BASE, num_blocks=blocks, activation=activation,
               norm_type=norm, se_reduction=RED, encoder_pooling=pooling,
-              logvar_clamp=logvar_clamp, latent_clamp=latent_clamp)
+              logvar_clamp=logvar_clamp, latent_clamp=latent_clamp,
+              remat=remat)
     jax_model = BetaVAE(module=JaxBetaVAEModule(**kw))
     template = jax_model.variables_template()   # shapes only, no compile
     flat = _random_flat(flatten_pytree(jax.tree_util.tree_map(
@@ -257,3 +262,104 @@ def test_fused_head_rejects_unknown_values():
     assert resolve_fused_head(None) is False
     with pytest.raises(ValueError, match="fused_head"):
         resolve_fused_head("sometimes")
+
+
+REMAT_MODES = (False, "decoder", True)
+
+
+def _train_step_grads(port, x: np.ndarray):
+    """Loss, gradients and buffers of one train-mode backward through
+    encode → decode(μ) with every parameter reached (recon error plus μ²
+    and logσ²)."""
+    port.train()
+    port.zero_grad(set_to_none=True)
+    mu, logvar = port.encode(_nchw(x))
+    recon = port.decode(mu)
+    loss = ((recon - _nchw(x)) ** 2).sum() + mu.square().sum() \
+        + logvar.square().sum()
+    loss.backward()
+    return (loss.detach(), {n: p.grad.clone() for n, p in
+                            port.named_parameters()},
+            {n: b.clone() for n, b in port.named_buffers()})
+
+
+@pytest.mark.parametrize("norm", ["layer", "batch"])
+@pytest.mark.parametrize("fused_head", [False, True])
+def test_remat_modes_give_bitwise_equal_loss_grads_and_statistics(
+        norm, fused_head):
+    """Remat ``false`` / ``decoder`` / ``true`` give bitwise the same loss
+    and gradients on the CPU (``tests/test_model.py:120``), the last
+    decoder block's (activations, gates) pair leaving its checkpoint for
+    the fused head; with BatchNorm, the running statistics and
+    ``num_batches_tracked`` are the no-remat step's: one update a step,
+    though a checkpointed block runs its forward again in the backward."""
+    x = _x(3, n=4)
+    runs = []
+    for mode in REMAT_MODES:
+        _, _, _, port = _pair(norm=norm, remat=mode, seed=2)
+        port.fused_head = fused_head
+        runs.append(_train_step_grads(port, x))
+    loss0, grads0, bufs0 = runs[0]
+    if norm == "batch":
+        assert {int(v) for k, v in bufs0.items()
+                if k.endswith("num_batches_tracked")} == {1}
+    for loss, grads, bufs in runs[1:]:
+        assert torch.equal(loss, loss0)
+        for name, g in grads0.items():
+            assert torch.equal(grads[name], g), name
+        for name, b in bufs0.items():
+            assert torch.equal(bufs[name], b), name
+
+
+@pytest.mark.parametrize("mode", REMAT_MODES, ids=str)
+def test_remat_matches_the_jax_module_with_the_same_remat(mode):
+    """Each mode's loss and gradients against the JAX module built with the
+    same ``remat`` (``nn.remat`` on the same blocks), at the forward
+    tolerance: 1e-4 relative, and 1e-5 absolute scaled by max(1, the
+    largest gradient of the tensor)."""
+    jax_model, variables, _, port = _pair(remat=mode, seed=4)
+    module = jax_model.module
+    x = _x(5, n=2)
+
+    def jax_loss(v):
+        recon, mu, logvar, _ = module.apply(v, jnp.asarray(x),
+                                            deterministic=True)
+        return (jnp.sum((recon - x) ** 2) + jnp.sum(mu ** 2)
+                + jnp.sum(logvar ** 2))
+
+    want_loss, want_grads = jax.value_and_grad(jax_loss)(variables)
+    loss, grads, _ = _train_step_grads(port, x)
+    np.testing.assert_allclose(float(loss), float(want_loss), RTOL, ATOL)
+    want = params_from_jax(flatten_pytree(want_grads))
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), RTOL,
+                                   ATOL * max(1.0, float(want[name].abs().max())),
+                                   err_msg=name)
+
+
+def test_remat_values_and_the_config_key(tmp_path):
+    """``training.remat`` takes the JAX module's spellings, reaches the
+    model through the config, and refuses anything else by name."""
+    import yaml
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.models.beta_vae import (model_from_config,
+                                                   resolve_remat)
+
+    assert [resolve_remat(v) for v in (True, "all", "true", "decoder", False,
+                                       None, "none", "false")] == \
+        ["all"] * 3 + ["decoder"] + ["none"] * 4
+    with pytest.raises(ValueError, match="training.remat"):
+        resolve_remat("encoder")
+    cfg = yaml.safe_load(open("configs/beta_vae_se_debug.yaml"))
+    cfg["data"]["image_size"] = 16
+    cfg["model"].update(base_channels=4, num_blocks=2, latent_dim=4)
+    cfg["training"]["remat"] = "decoder"
+    path = tmp_path / "c.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    reset_config_cache()
+    try:
+        assert model_from_config(get_config(str(path)),
+                                 device="cpu").remat == "decoder"
+    finally:
+        reset_config_cache()

@@ -7,10 +7,15 @@ must parse with the JAX package's own ``eval.logs.parse_metrics``.  The
 port's run replays exactly across a resume (augmentation on), stops early
 with a final save, and writes no best checkpoint without validation.  The
 debug config's LPIPS (random-init, allowed) trains and is logged, refused
-without ``lpips_allow_random`` as the JAX package refuses it; the keys whose
-JAX mechanism is not ported raise by name.
+without ``lpips_allow_random`` as the JAX package refuses it.  Resumed from
+the reference's torch-pickle shards (written by the JAX package), the
+port's ``train()`` matches the JAX ``train()`` resumed from the same shards;
+a split fed from the host trains bitwise as a resident one, however many
+batches are staged ahead; ``logging.profile_steps`` writes traces that
+``utils/trace.py`` parses, and the parser holds to a hand-written trace.
 """
 
+import gzip
 import json
 import math
 import os
@@ -18,17 +23,29 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 import yaml
+
+import jax
 
 from betavae_tpu.config import get_config as jax_get_config
 from betavae_tpu.config import reset_config_cache as jax_reset_config
+from betavae_tpu.data.pipeline import \
+    host_feed_chunk_limit as jax_chunk_limit
 from betavae_tpu.eval.logs import iter_metrics, parse_metrics
 from betavae_tpu.eval.probes import compute_probe_metrics as jax_probes
+from betavae_tpu.io.checkpoint import flatten_pytree
+from betavae_tpu.io.torch_compat import (export_adam_optim_state,
+                                         save_torch_reference_checkpoint)
 from betavae_tpu.logging_utils import reset_logger as jax_reset_logger
+from betavae_tpu.models.beta_vae import model_from_config as jax_model_from
+from betavae_tpu.train.loop import init_state
 from betavae_tpu.train.loop import train as jax_train
+from betavae_tpu.train.optim import build_optimizer as jax_build_optimizer
 
 from betavae_tpu_torch.config import reset_config_cache
 from betavae_tpu_torch.data.demo import generate_demo_data
+from betavae_tpu_torch.data.pipeline import host_feed_chunk_limit
 from betavae_tpu_torch.eval.probes import compute_probe_metrics
 from betavae_tpu_torch.io.checkpoint import discover_shards, read_checkpoint_meta
 from betavae_tpu_torch.logging_utils import reset_logger
@@ -36,7 +53,10 @@ from betavae_tpu_torch.ops.elbo import fused_reparam_kl
 from betavae_tpu_torch.ops.head import head_forward, head_m
 from betavae_tpu_torch.train.__main__ import main
 from betavae_tpu_torch.train.callbacks import CheckpointManager, EarlyStopping
+from betavae_tpu_torch.io.weights import params_from_jax
 from betavae_tpu_torch.train.loop import train
+from betavae_tpu_torch.utils import profile_step
+from betavae_tpu_torch.utils.trace import find_traces, parse_trace
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -313,14 +333,300 @@ def test_random_init_lpips_without_opt_in_raises(tmp_path, monkeypatch):
                              "pretrained weights were found")
 
 
+def _config_lines(path) -> list:
+    cfg = yaml.safe_load(open(path))
+    with open(os.path.join(cfg["paths"]["outputs_dir"], "logs",
+                           "run.log")) as f:
+        return [json.loads(line.split("| CONFIG ", 1)[1])
+                for line in f if "| CONFIG " in line]
+
+
 @pytest.mark.parametrize("overrides,key", [
     ({"training.max_device_dataset_mb": 0}, "training.max_device_dataset_mb"),
     ({"training.max_device_dataset_mb": 0, "training.host_feed_chunk_mb": 8},
      "training.host_feed_chunk_mb"),
     ({"logging.profile_steps": 3}, "logging.profile_steps")])
-def test_unported_keys_are_refused_by_name(tmp_path, overrides, key):
-    """A split over ``training.max_device_dataset_mb`` (the JAX loop's host
-    feed, which ``host_feed_chunk_mb`` paces) and ``logging.profile_steps``
-    > 0 raise ``NotImplementedError`` naming the key, in both trainers."""
-    _raises_in_both_trainers(_config(tmp_path, **overrides),
-                             NotImplementedError, key)
+def test_unported_keys_are_refused_by_name(tmp_path, capsys, overrides, key):
+    """The keys once refused by name now train, in both trainers, and are
+    logged: each in both trainers' CONFIG lines; a split over
+    ``training.max_device_dataset_mb`` is fed from the host, staged
+    ``host_feed_chunk_limit`` batches of ``training.host_feed_chunk_mb``
+    ahead, as a ``[DATA]`` line says; ``logging.profile_steps`` writes one
+    trace per trainer."""
+    from betavae_tpu_torch.train.loop import train_steps
+
+    path = _config(tmp_path, **overrides)
+    whole = _port_train(path)
+    reset_config_cache()
+    reset_logger()
+    try:
+        few = train_steps(path, 3, device="cpu")
+    finally:
+        reset_logger()
+        reset_config_cache()
+    assert whole["total_steps"] == 6 and few["steps"] == 3
+    sec, name = key.split(".")
+    lines = _config_lines(path)
+    assert len(lines) == 2
+    assert all(line[sec][name] == overrides[key] for line in lines)
+    out = capsys.readouterr().out
+    if sec == "training":
+        depth = host_feed_chunk_limit(4, (16, 16, 1), float(
+            overrides.get("training.host_feed_chunk_mb", 8.0)))
+        for split, runs in (("train", 2), ("test", 1)):
+            assert out.count(f"[DATA] the {split} split") == runs
+        assert f"up to {depth} batch(es) ahead" in out
+        assert whole["traces"] == few["traces"] == []
+    else:
+        profile = tmp_path / "outputs" / "profile"
+        assert whole["traces"] == few["traces"] == [
+            str(profile / "steps_1-3.trace.json")]
+        assert os.path.exists(whole["traces"][0])
+
+
+# ---------------------------------------------------------------------------
+# resume from the reference's shards
+# ---------------------------------------------------------------------------
+
+def _reference_shards(path, steps: int) -> None:
+    """``<run_id>_latest_shard{0,1}.pt`` of epoch 1 after ``steps`` steps,
+    written by the JAX package's reference exporter: seeded weights moved
+    by ``steps`` Adam updates with seeded gradients, and that Adam state."""
+    jax_reset_config()
+    try:
+        jcfg = jax_get_config(path)
+        tx = jax_build_optimizer(jcfg)
+        state = init_state(jax_model_from(jcfg), tx, jax.random.PRNGKey(2))
+        rng = np.random.default_rng(6)
+        params, opt_state = state.params, state.opt_state
+        for _ in range(steps):
+            grads = jax.tree_util.tree_map(
+                lambda p: rng.normal(size=p.shape).astype(np.float32), params)
+            updates, opt_state = tx.update(grads, opt_state, params)
+            params = jax.tree_util.tree_map(lambda p, u: p + u, params,
+                                            updates)
+        state = state.replace(params=params, opt_state=opt_state)
+        model_flat = flatten_pytree(state.model_variables())
+        models = jcfg.paths.models_dir
+        os.makedirs(models, exist_ok=True)
+        save_torch_reference_checkpoint(
+            os.path.join(models, "run_latest.pt"),
+            {"epoch": 1, "total_steps": steps, "val_total": 1e9,
+             "model_state": model_flat},
+            optim_state=export_adam_optim_state(
+                flatten_pytree(state.opt_state), model_flat, lr=1e-3))
+    finally:
+        jax_reset_config()
+
+
+def test_resume_from_reference_shards_matches_jax_train(tmp_path, capsys):
+    """The same reference shards (epoch 1, 3 steps, Adam state) resumed by
+    the JAX ``train()`` and the port's for one more epoch, z = μ
+    (``deterministic_overfit``) and augmentation off, so both take the same
+    steps: every logged loss within 1e-4 relative and the final params
+    within 1e-4 relative plus 2e-6, the three-step parity test's
+    tolerances."""
+    common = {"model.deterministic_overfit": True,
+              "augmentation.use_augmentations": False,
+              "optimization.scheduler": "none"}
+    jax_path = _config(tmp_path / "jax", **common)
+    port_path = _config(tmp_path / "port", **common, **{
+        "paths.processed_dir": str(tmp_path / "jax" / "processed")})
+    for path in (jax_path, port_path):
+        _reference_shards(path, steps=3)
+    jax_reset_config()
+    jax_reset_logger()
+    try:
+        jax_get_config(jax_path)
+        state = jax_train(resume="latest")
+    finally:
+        jax_reset_logger()
+        jax_reset_config()
+    out = _port_train(port_path, resume="latest")
+    printed = capsys.readouterr().out
+    assert printed.count("imported torch Adam moments (step count 3)") == 2
+    assert out["epoch"] == 2 and out["total_steps"] == 6
+
+    jax_log, port_log = _log(jax_path), _log(port_path)
+    assert [(m["phase"], m["step"]) for m in port_log] == \
+        [(m["phase"], m["step"]) for m in jax_log] and port_log
+    for want, got in zip(jax_log, port_log):
+        for key in ("train_total_loss", "train_recon_loss", "val_total_loss",
+                    "val_recon_loss"):
+            if key in want:
+                assert got[key] == pytest.approx(want[key], rel=1e-4,
+                                                 abs=1e-6), (want["step"], key)
+    final = params_from_jax(flatten_pytree(state.model_variables()))
+    ours = out["model"].state_dict()
+    for key, value in final.items():
+        np.testing.assert_allclose(ours[key].numpy(), value.numpy(),
+                                   rtol=1e-4, atol=2e-6, err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# host feed
+# ---------------------------------------------------------------------------
+
+_TIMES = {"epoch_seconds", "train_steps_per_sec", "train_images_per_sec"}
+
+
+def _numbers(path) -> list:
+    """The METRICS lines but their wall times (epoch_end lines are all
+    times)."""
+    return [{k: v for k, v in m.items() if k not in _TIMES}
+            for m in _log(path) if m["phase"] != "epoch_end"]
+
+
+@pytest.fixture(scope="module")
+def device_fed(tmp_path_factory):
+    root = tmp_path_factory.mktemp("device_fed")
+    path = _config(root, **{"training.fused_head": True,
+                            "augmentation.use_augmentations": True})
+    out = _port_train(path)
+    return root, _model_state(out), _numbers(path)
+
+
+@pytest.mark.parametrize("chunk_mb", [8.0, 1e-9], ids=["staged", "one-batch"])
+def test_host_feed_equals_device_feed_bitwise(device_fed, tmp_path, chunk_mb):
+    """Both splits fed from the host (``max_device_dataset_mb: 0``), with
+    every batch of an epoch staged ahead (8 MB) or one (``host_feed_chunk_mb``
+    under one batch): every logged number and every final weight bitwise
+    those of the resident splits, as the JAX package's host feed is
+    (``tests/test_host_feed.py``)."""
+    root, state, numbers = device_fed
+    assert host_feed_chunk_limit(4, (16, 16, 1), chunk_mb) == (
+        1 if chunk_mb < 1 else 8192)
+    path = _config(tmp_path, **{
+        "training.fused_head": True, "augmentation.use_augmentations": True,
+        "training.max_device_dataset_mb": 0,
+        "training.host_feed_chunk_mb": chunk_mb,
+        "paths.processed_dir": str(root / "processed")})
+    out = _port_train(path)
+    assert _numbers(path) == numbers
+    got = _model_state(out)
+    assert set(got) == set(state)
+    for name, value in state.items():
+        assert torch.equal(got[name], value), name
+
+
+@pytest.mark.parametrize("batch,shape,budget_mb", [
+    (32, (128, 128, 1), 8.0), (32, (128, 128, 1), 0.001),
+    (8, (8, 8, 1), 8.0), (4, (16, 16, 1), 1e-9)])
+def test_host_feed_chunk_limit_matches_jax(batch, shape, budget_mb):
+    """The JAX package's values (16 batches of the flagship in 8 MB, at
+    least 1, else bounded by the budget alone)."""
+    assert host_feed_chunk_limit(batch, shape, budget_mb) == \
+        jax_chunk_limit(batch, shape, budget_mb)
+
+
+# ---------------------------------------------------------------------------
+# logging.profile_steps and the trace tools
+# ---------------------------------------------------------------------------
+
+def test_profile_steps_write_traces_the_parser_reads(tmp_path):
+    """``logging.profile_steps: 2`` traces steps 1-2 of ``train()``; over
+    two epochs of 3 steps, 5 in ``train_steps`` give one window an epoch
+    (steps 1-3 and 4-5), as the JAX profiler restarts at an epoch.  Each
+    trace is a Chrome trace the parser reads; on the CPU it holds no device
+    kernel."""
+    from betavae_tpu_torch.train.loop import train_steps
+
+    path = _config(tmp_path, **{"logging.profile_steps": 2})
+    out = _port_train(path)
+    profile = tmp_path / "outputs" / "profile"
+    assert out["traces"] == [str(profile / "steps_1-2.trace.json")]
+    with open(out["traces"][0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    summary = parse_trace(out["traces"][0], steps=2)
+    assert summary.rows == [] and summary.device_total_us == 0
+    assert "TOTAL" in summary.table()
+
+    path = _config(tmp_path / "few", **{"logging.profile_steps": 5})
+    reset_config_cache()
+    reset_logger()
+    try:
+        few = train_steps(path, 6, device="cpu")
+    finally:
+        reset_logger()
+        reset_config_cache()
+    profile = tmp_path / "few" / "outputs" / "profile"
+    assert few["traces"] == [str(profile / "steps_1-3.trace.json"),
+                             str(profile / "steps_4-5.trace.json")]
+    assert sorted(find_traces(str(profile))) == few["traces"]
+
+
+def _chrome_trace(path, gz=False) -> None:
+    """Two kernels (one launched twice), a copy, a CPU operator, an
+    annotation on the device's track and an instant event: only the three
+    kernel launches count."""
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "reparam_kl_kernel", "dur": 1.5,
+         "ts": 0, "pid": 0, "tid": 7, "args": {"grid": [1, 1, 1],
+                                              "block": [256, 1, 1]}},
+        {"ph": "X", "cat": "kernel", "name": "reparam_kl_kernel", "dur": 2.5,
+         "ts": 10, "pid": 0, "tid": 7, "args": {}},
+        {"ph": "X", "cat": "kernel",
+         "name": "void at::native::upsample_bilinear2d_out_frame<float>()",
+         "dur": 100.0, "ts": 20, "pid": 0, "tid": 7, "args": {}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pageable)",
+         "dur": 50.0, "ts": 0, "pid": 0, "tid": 8},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::conv2d", "dur": 999.0,
+         "ts": 0, "pid": 1, "tid": 1},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "Optimizer.step",
+         "dur": 500.0, "ts": 0, "pid": 0, "tid": 7},
+        {"ph": "i", "cat": "kernel", "name": "reparam_kl_kernel", "ts": 3,
+         "pid": 0, "tid": 7},
+    ]
+    opener = gzip.open if gz else open
+    with opener(path, "wt") as f:
+        json.dump({"traceEvents": events}, f)
+
+
+@pytest.mark.parametrize("gz", [False, True], ids=["json", "json.gz"])
+def test_trace_parser_counts_device_kernels_only(tmp_path, capsys, gz):
+    """A hand-written Chrome trace: rows by kernel name with µs and
+    launches, per step over the declared steps, the name filter, the table
+    and its total, and ``profile_step --parse-only`` on its directory."""
+    path = str(tmp_path / ("t.trace.json.gz" if gz else "t.trace.json"))
+    _chrome_trace(path, gz=gz)
+    s = parse_trace(path, steps=2)
+    assert [(r.name, r.total_us, r.count) for r in s.rows] == [
+        ("void at::native::upsample_bilinear2d_out_frame<float>()", 100.0, 1),
+        ("reparam_kl_kernel", 4.0, 2)]
+    assert s.rows[1].example == "grid [1, 1, 1] block [256, 1, 1]"
+    assert s.device_total_us == 104.0
+    assert {n: (us, k) for n, us, k in s.per_step()}[
+        "reparam_kl_kernel"] == (2.0, 1.0)
+    table = s.table(top=1)
+    assert "upsample" in table and "reparam" not in table
+    assert table.splitlines()[-1].split()[0] == "52.0"
+    only = parse_trace(path, steps=1, name_filter="reparam")
+    assert [r.name for r in only.rows] == ["reparam_kl_kernel"]
+    assert only.device_total_us == 4.0
+    assert find_traces(str(tmp_path)) == [path]
+    summary = profile_step.main(["--parse-only", str(tmp_path),
+                                 "--steps", "2"])
+    assert summary.device_total_us == 104.0 and summary.steps == 2
+    assert f"trace: {path}" in capsys.readouterr().out
+
+
+def test_profile_step_cli_traces_the_step_on_the_cpu(tmp_path, capsys):
+    """``python -m betavae_tpu_torch.utils.profile_step --device cpu``
+    times the step, writes its trace under ``--logdir`` and prints the
+    table; without ``--device`` it needs a GPU."""
+    path = _config(tmp_path)
+    reset_config_cache()
+    try:
+        summary = profile_step.main(["--config", path, "--steps", "2",
+                                     "--device", "cpu", "--logdir",
+                                     str(tmp_path / "trace")])
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="cuda"):
+                profile_step.main(["--config", path, "--steps", "1"])
+    finally:
+        reset_config_cache()
+    out = capsys.readouterr().out
+    assert "step time (warm, host-observed)" in out and "TOTAL" in out
+    assert summary.steps == 2
+    assert os.path.exists(tmp_path / "trace" / "profile_step_2.trace.json")
