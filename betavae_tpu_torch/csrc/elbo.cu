@@ -18,10 +18,13 @@
 //     dlogvar = eps/2 * exp(logvar/2) * g_z + (exp(logvar) - 1)/2 * g_kl (row 1)
 //
 // Noise: Philox4x32-10 keyed by the 64-bit seed, with the 128-bit counter
-// (element index, offset), so each element's draw is independent of the
-// launch shape and a (seed, offset) pair replays bitwise.  Box-Muller on the
-// top 24 bits of two words, u1 clamped at 1e-7, the cosine branch only: the
-// transform of pallas_elbo.py:49-60.  The TPU kernel uses the TPU's own
+// (start + element index, offset), so each element's draw is independent of
+// the launch shape and a (seed, offset) pair replays bitwise.  `start` is
+// the flat index of the launch's first element in a larger tensor: a
+// data-parallel rank holding rows [r*b, (r+1)*b) of a [B, D] batch passes
+// start = r*b*D and draws exactly those rows of the whole batch's noise.
+// Box-Muller on the top 24 bits of two words, u1 clamped at 1e-7, the cosine
+// branch only: the transform of pallas_elbo.py:49-60.  The TPU kernel uses the TPU's own
 // PRNG, so the streams differ by design; the distribution is the same.
 //
 // What bounds it on an H100.  At the flagship's [32, 64] (2048 elements, 8
@@ -117,17 +120,17 @@ __global__ void __launch_bounds__(kThreads)
     reparam_kl_kernel(const float* __restrict__ mu,
                       const float* __restrict__ logvar,
                       float* __restrict__ out, int64_t n, uint64_t seed,
-                      uint64_t offset) {
+                      uint64_t offset, int64_t start) {
   const uint2 key = make_uint2(static_cast<uint32_t>(seed),
                                static_cast<uint32_t>(seed >> 32));
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   // the first element's noise needs neither input: draw it while the
   // previous grid drains
-  float e = i < n ? normal_at(i, key, offset) : 0.0f;
+  float e = i < n ? normal_at(start + i, key, offset) : 0.0f;
   wait_for_previous_grid();
   for (bool first = true; i < n; i += stride, first = false) {
-    if (!first) e = normal_at(i, key, offset);
+    if (!first) e = normal_at(start + i, key, offset);
     const float m = mu[i];
     const float lv = logvar[i];
     if (first) allow_next_grid();
@@ -207,12 +210,15 @@ int launch(Kernel kernel, int64_t n, void* stream, int pdl, Args... args) {
 
 }  // namespace
 
-// out: [3, n] fp32, rows z, kl, eps
+// out: [3, n] fp32, rows z, kl, eps; element i draws from the counter
+// (start + i, offset)
 extern "C" int betavae_reparam_kl(const float* mu, const float* logvar,
                                   float* out, int64_t n, uint64_t seed,
-                                  uint64_t offset, void* stream, int pdl) {
+                                  uint64_t offset, int64_t start,
+                                  void* stream, int pdl) {
+  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch(reparam_kl_kernel, n, stream, pdl, mu, logvar, out, n, seed,
-                offset);
+                offset, start);
 }
 
 // out: [2, n] fp32, rows dmu, dlogvar; mu, logvar and eps contiguous, g_z

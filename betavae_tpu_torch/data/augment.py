@@ -50,13 +50,18 @@ def brightness(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
 
 def augment_batch(x: torch.Tensor, generator: torch.Generator, *,
                   use_flip: bool = True, degrees: float = 0.0,
-                  brightness_range: float = 0.0) -> torch.Tensor:
+                  brightness_range: float = 0.0, rows: slice | None = None,
+                  global_batch: int | None = None) -> torch.Tensor:
     """Flip → rotate → brightness, with every draw taken from ``generator``
-    (which must live on ``x``'s device)."""
-    b = x.shape[0]
+    (which must live on ``x``'s device).  With ``rows``, ``x`` is those rows
+    of a batch of ``global_batch`` (a data-parallel rank's share): each op
+    draws its values for the whole batch and applies the rows', so the
+    rank's images are bitwise those rows of the single-process batch."""
+    b = x.shape[0] if rows is None else int(global_batch)
+    take = slice(None) if rows is None else rows
 
     def uniform(lo: float, hi: float) -> torch.Tensor:
-        u = torch.rand(b, generator=generator, device=x.device)
+        u = torch.rand(b, generator=generator, device=x.device)[take]
         return lo + (hi - lo) * u
 
     if use_flip:

@@ -10,7 +10,9 @@ staging buffer and copied to the card on a side stream, up to
 step gathers that batch with ``arange(B)``, so the two modes give the same
 numbers.  ``BatchPlan`` gives the seeded per-epoch order and pads the last
 short batch with repeated indices plus a validity mask, as the JAX package
-does.
+does.  A data-parallel rank feeds its rows of each batch: with the split
+resident it gathers them from its own whole copy (the JAX mesh replicates
+the split), and fed from the host it stages only those rows.
 """
 
 from __future__ import annotations
@@ -73,11 +75,14 @@ class DeviceData:
         return cls(images=_upload(images, device), labels=labels,
                    device=device)
 
-    def feed(self, batches):
+    def feed(self, batches, rows: slice | None = None):
         """``(images, idx, mask)`` on the device for each ``(idx, mask)``
         numpy pair of ``batches``, for ``gather_batch(images, idx)``: the
         resident split and the uploaded indices, or with ``host_feed`` the
-        batch itself and ``arange(B)``."""
+        batch itself and ``arange(B)``.  With ``rows`` (a data-parallel
+        rank's), only those rows of each batch."""
+        if rows is not None:
+            batches = [(idx[rows], mask[rows]) for idx, mask in batches]
         if not self.host_feed:
             for idx, mask in batches:
                 yield (self.images, _upload(idx.astype(np.int64), self.device),

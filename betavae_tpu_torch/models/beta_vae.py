@@ -56,6 +56,7 @@ from ..ops.elbo import reparam_kl_forward
 from ..ops.head import fused_se_conv_head
 from ..ops.reparam import reparameterize_and_kl
 from ..ops.upsample import Upsample2x
+from ..parallel.reduce import global_sum, world_size
 from .se import SEBlock
 
 
@@ -72,7 +73,13 @@ def _activation(name: str) -> nn.Module:
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's running-statistics rule: the running variance
     is updated from the *biased* batch variance (torch uses the unbiased
-    one).  Normalisation and parameter names are torch's."""
+    one).  Normalisation and parameter names are torch's.
+
+    With a data-parallel ``group`` (set by the trainer), the batch
+    statistics are the global batch's, as under the JAX package's mesh:
+    the mean and then the biased variance from sums over the group
+    (differentiable, :func:`..parallel.reduce.global_sum`), and the
+    running statistics move by those, identically on every rank."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.01)
@@ -80,10 +87,31 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         # were updated by the block's forward, once a step, as flax's remat
         # updates them
         self.update_stats = True
+        self.group = None
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        """``(y, mean, var)``: ``x`` normalised by the statistics of the
+        group's whole batch, in fp32."""
+        x32 = x.float()
+        n = x.shape[0] * x.shape[2] * x.shape[3] * world_size(self.group)
+        mean = global_sum(x32.sum(dim=(0, 2, 3)), self.group) / n
+        xc = x32 - mean[None, :, None, None]
+        var = global_sum((xc * xc).sum(dim=(0, 2, 3)), self.group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = xc * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean.detach(), var.detach()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            y, mean, var = self._global_batch_norm(x)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(var, self.momentum)
+                    self.num_batches_tracked += 1
+            return y
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         if not self.update_stats:

@@ -7,6 +7,12 @@ per-dim free bits, capacity mode ``rec + γ·|kl_mean − C|``, the optional
 ``λ·mean(mu²)`` latent regulariser, the optional LPIPS extra (through the
 ``lpips_fn`` the trainer builds, :func:`..ops.lpips.build_lpips_fn`), and
 the deterministic mode that zeroes the KL path.  Every reduction is fp32.
+
+Every batch reduction is over the global batch: with a data-parallel
+``group`` each is a local sum passed through :func:`..parallel.reduce.
+global_sum` before any nonlinearity (the capacity term's ``|·|``, the free
+bits' clamp, the divisions), as the JAX package's mesh reduces over the
+sharded batch; with ``group=None`` the sums are the rank's own.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from ..config import get, get_config
 from ..ops.ffl import focal_frequency_loss
+from ..parallel.reduce import global_sum
 
 
 @dataclass(frozen=True)
@@ -72,28 +79,30 @@ def _per_sample_recon(recon, x, kind: str) -> torch.Tensor:
 def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
                  capacity=None, capacity_weight=None, free_bits=0.0,
                  mask: Optional[torch.Tensor] = None,
-                 lpips_fn: Optional[Callable] = None) -> dict:
+                 lpips_fn: Optional[Callable] = None, group=None) -> dict:
     """``outputs`` is ``(recon, mu, logvar, z, kl_elem)``; ``capacity`` and
     ``capacity_weight`` both set select capacity mode.  ``lpips_fn(recon,
-    x)`` adds ``lpips_weight`` times the perceptual distance to the
-    reconstruction term when ``use_lpips`` is on and weighted, as in the JAX
-    package."""
+    x, group=group)`` adds ``lpips_weight`` times the perceptual distance
+    to the reconstruction term when ``use_lpips`` is on and weighted, as in
+    the JAX package.  ``group`` is the data-parallel process group of which
+    ``x`` is this rank's rows, or None."""
     recon, mu, logvar, z, kl_elem = outputs
     dev = x.device
     if mask is None:
         mask = torch.ones(x.shape[0], device=dev)
     mask = mask.float()
-    msum = torch.clamp_min(mask.sum(), 1.0)
+    msum = torch.clamp_min(global_sum(mask.sum(), group), 1.0)
     zero = torch.zeros((), device=dev)
 
-    base_recon = (_per_sample_recon(recon, x, spec.recon_loss_type)
-                  * mask).sum() / msum
+    base_recon = global_sum((_per_sample_recon(recon, x, spec.recon_loss_type)
+                             * mask).sum(), group) / msum
     lp = zero
     ff = zero
     if spec.use_lpips and spec.lpips_weight > 0 and lpips_fn is not None:
-        lp = lpips_fn(recon, x) * spec.lpips_weight
+        lp = lpips_fn(recon, x, group=group) * spec.lpips_weight
     if spec.use_ffl and spec.ffl_weight > 0:
-        ff = focal_frequency_loss(recon, x, alpha=spec.ffl_alpha) * spec.ffl_weight
+        ff = focal_frequency_loss(recon, x, alpha=spec.ffl_alpha,
+                                  group=group) * spec.ffl_weight
     rec_loss = base_recon + lp + ff
 
     use_capacity = capacity is not None and capacity_weight is not None
@@ -103,8 +112,9 @@ def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
         kl_effective = zero
     else:
         kl32 = kl_elem.float()
-        kl_per_dim = (kl32 * mask[:, None]).sum(dim=0) / msum
-        kl_mean = (kl32.sum(dim=1) * mask).sum() / msum
+        kl_per_dim = global_sum((kl32 * mask[:, None]).sum(dim=0),
+                                group) / msum
+        kl_mean = global_sum((kl32.sum(dim=1) * mask).sum(), group) / msum
         if spec.free_bits_enabled and not use_capacity:
             kl_effective = torch.clamp(kl_per_dim, min=free_bits).sum()
         else:
@@ -112,7 +122,8 @@ def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
 
     latent_reg = zero
     if spec.latent_reg_lambda > 0:
-        mu_sq_mean = ((mu.float() ** 2).mean(dim=1) * mask).sum() / msum
+        mu_sq_mean = global_sum(((mu.float() ** 2).mean(dim=1) * mask).sum(),
+                                group) / msum
         latent_reg = spec.latent_reg_lambda * mu_sq_mean
 
     if spec.deterministic:

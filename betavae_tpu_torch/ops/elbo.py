@@ -65,14 +65,18 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def philox_normal(shape, seed: int, offset: int,
-                  device: torch.device | str = "cpu") -> torch.Tensor:
+                  device: torch.device | str = "cpu",
+                  start: int = 0) -> torch.Tensor:
     """The kernel's ε in plain torch: element ``i`` of the flattened shape
     is Box–Muller (cosine branch) on words 0 and 1 of Philox4x32-10 with
-    key ``seed`` and counter ``(i, offset)``."""
+    key ``seed`` and counter ``(start + i, offset)``, so ``start = k``
+    gives elements ``k, k+1, …`` of a larger draw."""
     n = math.prod(shape)
     seed &= _MASK64
     offset &= _MASK64
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start}")
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     c0 = idx & _MASK32
     c1 = idx >> 32
     c2 = torch.full_like(idx, offset & _MASK32)
@@ -113,8 +117,8 @@ def _library():
     forward, backward = lib.betavae_reparam_kl, lib.betavae_reparam_kl_backward
     # without argtypes ctypes would pass each pointer as a 32-bit int
     forward.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p,
-        ctypes.c_int]
+        ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int]
     strided = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
     backward.argtypes = [ctypes.c_void_p] * 3 + strided * 2 + [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
@@ -140,17 +144,20 @@ def _check_like(mu: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 def _launch(mu: torch.Tensor, logvar: torch.Tensor, seed: int, offset: int,
-            pdl: bool = True):
+            pdl: bool = True, start: int = 0):
     """``(z, kl, eps)``, rows of one fp32 ``[3, *shape]`` buffer, for
-    contiguous fp32 CUDA ``mu`` and ``logvar``.  ``pdl=False`` launches
-    without programmatic dependent launch, for measuring what it buys."""
+    contiguous fp32 CUDA ``mu`` and ``logvar``, the noise from counter
+    ``start`` on.  ``pdl=False`` launches without programmatic dependent
+    launch, for measuring what it buys."""
     _check_like(mu, logvar)
     if mu.device.index != torch.cuda.current_device():
         with torch.cuda.device(mu.device):
-            return _launch(mu, logvar, seed, offset, pdl)
+            return _launch(mu, logvar, seed, offset, pdl, start)
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start}")
     out = mu.new_empty((3, *mu.shape))
     rc = _library()[0](mu.data_ptr(), logvar.data_ptr(), out.data_ptr(),
-                       mu.numel(), seed & _MASK64, offset & _MASK64,
+                       mu.numel(), seed & _MASK64, offset & _MASK64, start,
                        raw_stream(mu.device), int(pdl))
     if rc != 0:
         raise RuntimeError(f"elbo kernel launch failed with CUDA error {rc}")
@@ -159,15 +166,18 @@ def _launch(mu: torch.Tensor, logvar: torch.Tensor, seed: int, offset: int,
 
 
 def reparam_kl_forward(mu: torch.Tensor, logvar: torch.Tensor, seed: int,
-                       offset: int = 0):
+                       offset: int = 0, start: int = 0):
     """``(z, kl_elem, eps)``, all fp32, without autograd: the kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors.  ``start`` is the flat
+    index of ``mu``'s first element in the whole batch whose noise is
+    drawn (a data-parallel rank's first row times the latent width)."""
     mu, logvar = _fp32(mu), _fp32(logvar)
     if mu.device.type == "cuda":
-        return _launch(mu, logvar, int(seed), int(offset))
+        return _launch(mu, logvar, int(seed), int(offset), start=int(start))
     if mu.device.type != "cpu":
         raise ValueError(f"unsupported device {mu.device}")
-    eps = philox_normal(mu.shape, int(seed), int(offset), mu.device)
+    eps = philox_normal(mu.shape, int(seed), int(offset), mu.device,
+                        start=int(start))
     z, kl = reparam_kl_reference(mu, logvar, eps)
     return z, kl, eps
 
@@ -227,26 +237,30 @@ reparam_kl_backward.launches = 0
 
 class _FusedReparamKL(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mu, logvar, seed, offset):
+    def forward(ctx, mu, logvar, seed, offset, start):
         mu, logvar = _fp32(mu), _fp32(logvar)
-        z, kl, eps = reparam_kl_forward(mu, logvar, seed, offset)
+        z, kl, eps = reparam_kl_forward(mu, logvar, seed, offset, start)
         ctx.save_for_backward(mu, logvar, eps)
         return z, kl
 
     @staticmethod
     def backward(ctx, g_z, g_kl):
         d_mu, d_logvar = reparam_kl_backward(*ctx.saved_tensors, g_z, g_kl)
-        return d_mu, d_logvar, None, None
+        return d_mu, d_logvar, None, None, None
 
 
 def fused_reparam_kl(mu: torch.Tensor, logvar: torch.Tensor, seed: int,
-                     offset: int = 0):
+                     offset: int = 0, start: int = 0):
     """Returns ``(z, kl_elem)``, both fp32 with the shape of ``mu``.
 
     ``(seed, offset)`` selects the noise: the trainer passes the run's seed
     and the step number, so every step draws fresh ε and a run replays.
+    ``start`` places ``mu`` in a larger batch: a data-parallel rank passes
+    its first row times the latent width, and draws its rows of the noise
+    of the whole batch.
     """
-    return _FusedReparamKL.apply(mu, logvar, int(seed), int(offset))
+    return _FusedReparamKL.apply(mu, logvar, int(seed), int(offset),
+                                 int(start))
 
 
 fused_reparam_kl.launches = 0

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.reduce import global_sum, world_size
 
 # official LPIPS input scaling (net preprocessing)
 _SHIFT = (-0.030, -0.088, -0.188)
@@ -169,7 +170,9 @@ def build_lpips_fn(weights_path: str | None = None,
 
     The reference's preparation: 1→3 channel repeat, [0, 1]→[−1, 1], the
     distance clamped at 0, the batch mean.  The parameters are frozen on
-    ``device``: gradients flow to ``pred`` only.
+    ``device``: gradients flow to ``pred`` only.  With a data-parallel
+    ``group`` (``lpips(pred, target, group=g)``), ``pred`` is a rank's rows
+    and the mean is over the global batch.
     """
     dev = resolve_device(device)
     module = load_lpips_module(weights_path).to(dev)
@@ -180,13 +183,15 @@ def build_lpips_fn(weights_path: str | None = None,
             x = x.repeat(1, 3, 1, 1)
         return x * 2.0 - 1.0
 
-    def lpips(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    def lpips(pred: torch.Tensor, target: torch.Tensor,
+              group=None) -> torch.Tensor:
         if pred.shape != target.shape:
             raise ValueError(
                 f"Shape mismatch: pred {tuple(pred.shape)} vs target "
                 f"{tuple(target.shape)}")
         with torch.autocast(pred.device.type, enabled=False):
             d = module(_prep(pred), _prep(target))
-        return torch.clamp(d, min=0.0).mean()
+        d = torch.clamp(d, min=0.0)
+        return global_sum(d.sum(), group) / (d.numel() * world_size(group))
 
     return lpips

@@ -26,6 +26,18 @@ in both trainers.
 :func:`train_steps` is the few-step trainer: the same set-up and train
 lines for at most ``max_steps`` steps, with the wall time of the steps
 after a warm-up, and no validation, checkpoints or panels.
+
+Both take ``mesh=`` (:func:`..parallel.mesh.data_parallel_mesh`), as the
+JAX ``train(mesh=...)`` does: each rank of the mesh calls the trainer in
+its own process, holds the whole split (or, fed from the host, stages its
+rows only), runs its rows of every global batch of
+``training.batch_size`` (which must divide evenly over the ranks) and
+validates its rows of every validation batch.  Every loss, metric and
+decision is the global batch's, so every rank takes the same steps and
+stops together, and the run computes what the single process does.  Only
+rank 0 writes the checkpoints, panels, profiler traces and ``CONFIG`` /
+``METRICS`` lines; the checkpoints are those of a single-process run and
+resume in either mode.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from ..logging_utils import init_logger, log_config, log_metrics
 from ..models.beta_vae import model_from_config
 from ..models.losses import loss_spec_from_config
 from ..ops.lpips import build_lpips_fn, resolve_weight_source
+from ..parallel.reduce import gather_rows
 from ..utils.profiling import StepProfiler
 from .callbacks import CheckpointManager, EarlyStopping, restore_training_state
 from .optim import build_optimizer
@@ -85,12 +98,12 @@ def _lpips_on(cfg) -> bool:
             and float(get(loss_cfg, "lpips_weight", 0.0) or 0.0) > 0)
 
 
-def _lpips_config_extras(cfg) -> dict:
+def _lpips_config_extras(cfg, warn: bool = True) -> dict:
     """The JAX loop's LPIPS gate (``train/loop.py:405-441`` of the JAX
     package), run before the CONFIG line: with LPIPS on and weighted,
     ``{"lpips_weights": "pretrained:<path>" | "random-init"}``; random-init
     raises unless ``loss.lpips_allow_random`` is true, and is logged as a
-    warning when it is.  ``{}`` with LPIPS off."""
+    warning (with ``warn``) when it is.  ``{}`` with LPIPS off."""
     if not _lpips_on(cfg):
         return {}
     loss_cfg = get(cfg, "loss", None)
@@ -108,19 +121,22 @@ def _lpips_config_extras(cfg) -> dict:
                 "then set loss.lpips_weights_path (or $LPIPS_WEIGHTS), "
                 "or opt in explicitly with loss.lpips_allow_random: "
                 "true.")
-        init_logger().warning(
-            "use_lpips is ON with loss.lpips_allow_random: true — "
-            "training against deterministic RANDOM frozen features "
-            "(lpips_weights=random-init in the CONFIG line). Set "
-            "loss.lpips_weights_path or $LPIPS_WEIGHTS for the "
-            "reference's pretrained-AlexNet loss.")
+        if warn:
+            init_logger().warning(
+                "use_lpips is ON with loss.lpips_allow_random: true — "
+                "training against deterministic RANDOM frozen features "
+                "(lpips_weights=random-init in the CONFIG line). Set "
+                "loss.lpips_weights_path or $LPIPS_WEIGHTS for the "
+                "reference's pretrained-AlexNet loss.")
     return {"lpips_weights": source}
 
 
-def _device_data(cfg, ds, split: str, dev: torch.device) -> DeviceData:
+def _device_data(cfg, ds, split: str, dev: torch.device,
+                 say: bool = True) -> DeviceData:
     """``split`` on ``dev``, or fed from the host when its uint8 images
     exceed ``training.max_device_dataset_mb``, staged ahead by
-    ``host_feed_chunk_limit`` batches of ``training.host_feed_chunk_mb``."""
+    ``host_feed_chunk_limit`` batches of ``training.host_feed_chunk_mb``
+    (counted at the global batch, as the JAX package counts them)."""
     budget_mb = int(get(cfg.training, "max_device_dataset_mb",
                         MAX_DEVICE_DATASET_MB))
     depth = host_feed_chunk_limit(
@@ -129,7 +145,7 @@ def _device_data(cfg, ds, split: str, dev: torch.device) -> DeviceData:
     data = DeviceData.from_dataset(ds, dev,
                                    max_device_bytes=budget_mb * 1024 * 1024,
                                    depth=depth)
-    if data.host_feed:
+    if data.host_feed and say:
         print(f"[DATA] the {split} split ({ds.images.nbytes} bytes) exceeds "
               f"training.max_device_dataset_mb={budget_mb}: fed from the "
               f"host, up to {depth} batch(es) ahead")
@@ -138,23 +154,32 @@ def _device_data(cfg, ds, split: str, dev: torch.device) -> DeviceData:
 
 class _Run:
     """What both trainers build from the config: data on the device, the
-    seeded model, the optimizer, the loss, the schedules and the step."""
+    seeded model, the optimizer, the loss, the schedules and the step; with
+    a ``mesh``, this rank's part of them."""
 
-    def __init__(self, cfg, dev: torch.device, *, with_test: bool):
+    def __init__(self, cfg, dev: torch.device, *, with_test: bool,
+                 mesh=None):
         self.dev = dev
+        self.mesh = mesh
+        self.main = mesh is None or mesh.is_main
+        self.batch_size = int(cfg.training.batch_size)
+        # this rank's rows of every batch (raises unless they divide evenly)
+        self.rows = None if mesh is None else mesh.rows(self.batch_size)
         self.seed = int(cfg.data.seed)
         debug_cfg = get(cfg, "debug", None)
         self.debug = bool(get(debug_cfg, "enabled", False))
         self.epochs = resolve_total_epochs(cfg)
         self.train_ds = load_split("train", sample_limit=(
             get(debug_cfg, "train_samples", None) if self.debug else None))
-        self.train_dev = _device_data(cfg, self.train_ds, "train", dev)
+        self.train_dev = _device_data(cfg, self.train_ds, "train", dev,
+                                      say=self.main)
         if with_test:
             self.test_ds = load_split("test", sample_limit=(
                 get(debug_cfg, "test_samples", None) if self.debug else None))
             if self.debug and get(cfg.model, "deterministic_overfit", False):
                 self.test_ds = self.train_ds
-            self.test_dev = _device_data(cfg, self.test_ds, "test", dev)
+            self.test_dev = _device_data(cfg, self.test_ds, "test", dev,
+                                         say=self.main)
         self.max_train_batches = (int(debug_cfg.max_train_batches)
                                   if self.debug else None)
         self.max_val_batches = (int(debug_cfg.max_val_batches)
@@ -177,8 +202,7 @@ class _Run:
             self.model, self.optimizer, self.spec,
             aug_kwargs=augment_config_kwargs(cfg),
             use_capacity=self.use_capacity, seed=self.seed,
-            lpips_fn=self.lpips_fn)
-        self.batch_size = int(cfg.training.batch_size)
+            lpips_fn=self.lpips_fn, mesh=mesh)
         self.train_plan = BatchPlan(len(self.train_ds), self.batch_size,
                                     shuffle=True, seed=self.seed)
         self.log_every = int(cfg.logging.log_every_n_steps)
@@ -186,8 +210,9 @@ class _Run:
                                          True))
         self.base_lr = float(cfg.optimization.lr)
         self.scheduler = str(cfg.optimization.scheduler)
+        # rank 0 alone traces: the ranks would write the same files
         self.profiler = StepProfiler(
-            get(cfg.logging, "profile_steps", 0),
+            get(cfg.logging, "profile_steps", 0) if self.main else 0,
             os.path.join(cfg.paths.outputs_dir, "profile"), dev)
 
     def epoch_schedule(self, epoch: int):
@@ -212,6 +237,11 @@ class _Run:
     def train_batches(self, epoch: int) -> list:
         return list(self.train_plan.batches(epoch))[:self.max_train_batches]
 
+    def log(self, metrics: dict, **kw) -> None:
+        """A ``METRICS`` line, from rank 0 alone."""
+        if self.main:
+            log_metrics(metrics, **kw)
+
     def check_finite(self, value: float, step: int, epoch: int) -> None:
         if self.detect_anomalies and not np.isfinite(value):
             raise FloatingPointError(
@@ -223,7 +253,7 @@ class _Run:
                    lr, step) -> None:
         avg = {k: float(v) / denom for k, v in running.items()}
         self.check_finite(float(last["total"]), step, epoch)
-        log_metrics({
+        self.log({
             "epoch": epoch,
             "beta": float(beta),
             "capacity": float(capacity) if capacity is not None else 0.0,
@@ -243,17 +273,33 @@ class _Run:
         }, step=step, phase="train")
 
 
+def _rank_device(device, mesh) -> torch.device:
+    """The trainer's device: ``device``, or with a mesh the rank's, which
+    must be of the kind asked for."""
+    if mesh is None:
+        return resolve_device(device)
+    if torch.device(device).type != mesh.device.type:
+        raise ValueError(f"device {str(device)!r} asked for, but this rank "
+                         f"of the mesh runs on {mesh.device}")
+    return mesh.device
+
+
 def train_steps(config_path: str, max_steps: int,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda", mesh=None) -> dict:
     """Train for at most ``max_steps`` steps from the config at
     ``config_path``.  Returns ``{"steps", "totals", "timed_steps",
-    "timed_seconds", "batch_size", "traces"}``: the per-step total losses,
-    the wall time of the steps after the warm-up, ended by a device sync,
-    and the paths of the ``logging.profile_steps`` traces."""
-    dev = resolve_device(device)
+    "timed_seconds", "batch_size", "traces", "model"}``: the per-step total
+    losses, the wall time of the steps after the warm-up, ended by a device
+    sync, the paths of the ``logging.profile_steps`` traces and the trained
+    model.  With ``mesh``, this rank's part of a data-parallel run (the
+    module docstring)."""
+    dev = _rank_device(device, mesh)
     cfg = get_config(config_path)
-    log_config(_lpips_config_extras(cfg) or None)
-    run = _Run(cfg, dev, with_test=False)
+    main = mesh is None or mesh.is_main
+    extras = _lpips_config_extras(cfg, warn=main)
+    if main:
+        log_config(extras or None)
+    run = _Run(cfg, dev, with_test=False, mesh=mesh)
     warmup = min(WARMUP_STEPS, max_steps // 2)
 
     totals = []
@@ -268,7 +314,7 @@ def train_steps(config_path: str, max_steps: int,
             denom = 0
             batches = run.train_batches(epoch)[:max_steps - total_steps]
             run.profiler.maybe_start(total_steps + 1)
-            for images, idx, mask in run.train_dev.feed(batches):
+            for images, idx, mask in run.train_dev.feed(batches, run.rows):
                 lr = run.lr(epoch, total_steps)
                 last = run.step(images, idx, mask,
                                 run.sched(beta, capacity, free_bits, lr),
@@ -298,6 +344,7 @@ def train_steps(config_path: str, max_steps: int,
         "timed_seconds": timed_seconds,
         "batch_size": run.batch_size,
         "traces": run.profiler.paths,
+        "model": run.model,
     }
 
 
@@ -405,16 +452,20 @@ def _finish(ckpt: CheckpointManager, run_error, old_sigterm) -> None:
 
 
 def train(config_path: str | None = None, resume: str = "none",
-          device: str | torch.device = "cuda") -> dict:
+          device: str | torch.device = "cuda", mesh=None) -> dict:
     """Full training run from the config at ``config_path``.
 
     ``resume="best"|"latest"`` continues from ``<run_id>_<resume>.pt``
     (written by either package) at the epoch after the saved one, with the
     step count carried over, so the run replays the uninterrupted one;
-    a missing checkpoint starts fresh.
+    a missing checkpoint starts fresh.  With ``mesh``, this rank's part of
+    a data-parallel run (the module docstring): every rank reads the
+    checkpoint it resumes from, and rank 0 alone writes.
 
-    Returns ``{"model", "optimizer", "epoch", "total_steps", "traces"}``,
-    ``traces`` the paths of the ``logging.profile_steps`` traces.
+    Returns ``{"model", "optimizer", "epoch", "total_steps", "traces",
+    "checkpoint_writes"}``, ``traces`` the paths of the
+    ``logging.profile_steps`` traces and ``checkpoint_writes`` the
+    checkpoints this process wrote (none on a rank other than 0).
 
     The ``epoch_end`` line has the JAX keys; three name the JAX dispatch
     mechanism and mean here: ``rotated`` is always ``False`` (no epoch
@@ -422,14 +473,19 @@ def train(config_path: str | None = None, resume: str = "none",
     ``val_dispatch_seconds`` is the host time to enqueue the validation
     batches and the panel forward before the one read of their results.
     """
-    dev = resolve_device(device)
+    dev = _rank_device(device, mesh)
     cfg = get_config(config_path)
+    main = mesh is None or mesh.is_main
+    group = None if mesh is None else mesh.group
     ensure_dirs()
-    log_config(_lpips_config_extras(cfg) or None)
-    run = _Run(cfg, dev, with_test=True)
+    extras = _lpips_config_extras(cfg, warn=main)
+    if main:
+        log_config(extras or None)
+    run = _Run(cfg, dev, with_test=True, mesh=mesh)
     model, optimizer = run.model, run.optimizer
     eval_step = make_eval_step(model, run.spec, use_capacity=run.use_capacity,
-                               seed=run.seed, lpips_fn=run.lpips_fn)
+                               seed=run.seed, lpips_fn=run.lpips_fn,
+                               mesh=mesh)
     test_plan = BatchPlan(len(run.test_ds), run.batch_size, shuffle=False,
                           seed=run.seed)
     early = EarlyStopping(
@@ -446,15 +502,17 @@ def train(config_path: str | None = None, resume: str = "none",
         try:
             payload = load_sharded_checkpoint(path)
         except FileNotFoundError:
-            print(f"[RESUME] Requested '{resume}' but checkpoint not found at "
-                  f"{path}; starting fresh.")
+            if main:
+                print(f"[RESUME] Requested '{resume}' but checkpoint not "
+                      f"found at {path}; starting fresh.")
         else:
             restore_training_state(payload, model, optimizer)
             start_epoch = int(payload.get("epoch", 0)) + 1
             total_steps = int(payload.get("total_steps", 0))
             ckpt.restore_best_history()
-            print(f"[RESUME] Loaded checkpoint '{resume}' from {path}, "
-                  f"restarting at epoch {start_epoch}")
+            if main:
+                print(f"[RESUME] Loaded checkpoint '{resume}' from {path}, "
+                      f"restarting at epoch {start_epoch}")
     elif resume != "none":
         raise ValueError(f"resume must be none, best or latest, got "
                          f"{resume!r}")
@@ -474,7 +532,7 @@ def train(config_path: str | None = None, resume: str = "none",
             epoch_t0 = time.perf_counter()
             run.profiler.maybe_start(total_steps + 1)
             for images, idx, mask in run.train_dev.feed(
-                    run.train_batches(epoch)):
+                    run.train_batches(epoch), run.rows):
                 lr = run.lr(epoch, total_steps)
                 last = run.step(images, idx, mask,
                                 run.sched(beta, capacity, free_bits, lr),
@@ -508,11 +566,11 @@ def train(config_path: str | None = None, resume: str = "none",
             vbatches = list(test_plan.batches(epoch))[:run.max_val_batches]
             val_out = []
             for j, (images, idx, mask) in enumerate(
-                    run.test_dev.feed(vbatches)):
+                    run.test_dev.feed(vbatches, run.rows)):
                 val_out.append(eval_step(
                     images, idx, mask, sched_v,
                     VAL_OFFSET + epoch * 100_000 + j))
-            panel = _panel_images(cfg, run, vbatches)
+            panel = _panel_images(cfg, run, vbatches) if main else None
             recon_dev = None
             if panel is not None:
                 model.eval()
@@ -532,7 +590,10 @@ def train(config_path: str | None = None, resume: str = "none",
                     torch.stack([m[k].float() for k in names])
                     for m, _ in val_out]).cpu().numpy()
                 mk = {k: stacked[:, i] for i, k in enumerate(names)}
-                mu_all = torch.stack([mu for _, mu in val_out]).cpu().numpy()
+                # [batches, rows, latent]: the ranks' rows back in row order
+                mu_all = gather_rows(torch.stack(
+                    [mu for _, mu in val_out]).transpose(0, 1),
+                    group).transpose(0, 1).cpu().numpy()
                 if run.detect_anomalies:
                     for k in RUNNING_KEYS:
                         finite = np.isfinite(mk[k])
@@ -557,11 +618,11 @@ def train(config_path: str | None = None, resume: str = "none",
             vb = max(1, val_batches)
             val_total = val_sums["total"] / vb
             probe_metrics = {name: float("nan") for name in NAN_METRICS}
-            if val_latents and len(val_labels) >= 2:
+            if main and val_latents and len(val_labels) >= 2:
                 probe_metrics = compute_probe_metrics(
                     np.concatenate(val_latents, axis=0), val_labels)
             probe_seconds = time.perf_counter() - tail_t0 - val_seconds
-            log_metrics({
+            run.log({
                 "epoch": epoch,
                 "beta": float(beta),
                 "capacity": float(capacity) if capacity is not None else 0.0,
@@ -586,19 +647,21 @@ def train(config_path: str | None = None, resume: str = "none",
             t_ckpt = time.perf_counter()
             extra = {"val_total": val_total}
             saved_latest = epoch % ckpt_every == 0 or epoch == run.epochs
-            if saved_latest:
-                ckpt.save_latest(model, optimizer, epoch, total_steps, extra)
             # without validation batches val_total is a meaningless 0.0: it
             # must not become the best checkpoint or feed early stopping
             have_val = val_batches > 0
-            if have_val:
-                ckpt.save_best(model, optimizer, epoch, total_steps, extra,
-                               monitor_value=val_total)
-            elif not no_val_warned:
-                no_val_warned = True
-                print("[VAL] no validation batches this run — "
-                      "best-checkpoint tracking and early stopping are "
-                      "disabled")
+            if main:
+                if saved_latest:
+                    ckpt.save_latest(model, optimizer, epoch, total_steps,
+                                     extra)
+                if have_val:
+                    ckpt.save_best(model, optimizer, epoch, total_steps,
+                                   extra, monitor_value=val_total)
+                elif not no_val_warned:
+                    no_val_warned = True
+                    print("[VAL] no validation batches this run — "
+                          "best-checkpoint tracking and early stopping are "
+                          "disabled")
             ckpt_seconds = time.perf_counter() - t_ckpt
 
             t_panel = time.perf_counter()
@@ -610,7 +673,7 @@ def train(config_path: str | None = None, resume: str = "none",
             panel_seconds = time.perf_counter() - t_panel
 
             tail_seconds = time.perf_counter() - tail_t0
-            log_metrics({
+            run.log({
                 "epoch": epoch,
                 "val_seconds": round(val_seconds, 3),
                 "val_dispatch_seconds": round(val_dispatch_seconds, 3),
@@ -628,7 +691,7 @@ def train(config_path: str | None = None, resume: str = "none",
             if have_val:
                 early.update(val_total)
             if early.should_stop:
-                if not saved_latest:
+                if not saved_latest and main:
                     # the run ends here: without this save '--resume latest'
                     # would replay up to checkpoint_every_epochs − 1 epochs
                     ckpt.save_latest(model, optimizer, epoch, total_steps,
@@ -641,4 +704,5 @@ def train(config_path: str | None = None, resume: str = "none",
         run.profiler.stop()
         _finish(ckpt, run_error, old_sigterm)
     return {"model": model, "optimizer": optimizer, "epoch": epoch,
-            "total_steps": total_steps, "traces": run.profiler.paths}
+            "total_steps": total_steps, "traces": run.profiler.paths,
+            "checkpoint_writes": ckpt.writes}

@@ -13,36 +13,53 @@ JAX step's key ``fold_in(root_key, n)`` is: the noise is the kernel's
 Philox stream at ``(seed, n)`` and the augmentation's generator is seeded
 from ``(seed, n)`` at the start of the step, so a resumed run replays the
 uninterrupted one.
+
+With a data mesh (:mod:`..parallel.mesh`) each rank runs the step on its
+rows of the global batch and computes what the single process computes:
+its augmentation draws and its ε are its rows of the whole batch's (the
+kernel's counter starts at the rank's first row), every batch reduction of
+the loss and the metrics is over the group (:mod:`..parallel.reduce`), and
+the model runs inside ``DistributedDataParallel``, whose gradient mean
+then equals the single-process gradient; the clip and the update follow
+the sync, identically on every rank.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import torch
+from torch import nn
 
 from ..data.augment import augment_batch
 from ..data.pipeline import gather_batch
-from ..models.beta_vae import BetaVAEModule
+from ..models.beta_vae import BetaVAEModule, FlaxBatchNorm2d
 from ..models.losses import LossSpec, compute_loss
 from ..ops.elbo import fused_reparam_kl
 from ..ops.reparam import reparameterize_and_kl
+from ..parallel.reduce import global_sum
 from .optim import OptimizerChain
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    msum = torch.clamp_min(mask.sum(), 1.0)
-    return (x.mean(dim=tuple(range(1, x.ndim))) * mask).sum() / msum
+def masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                group=None) -> torch.Tensor:
+    msum = torch.clamp_min(global_sum(mask.sum(), group), 1.0)
+    return global_sum((x.mean(dim=tuple(range(1, x.ndim))) * mask).sum(),
+                      group) / msum
 
 
-def masked_std(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_std(x: torch.Tensor, mask: torch.Tensor,
+               group=None) -> torch.Tensor:
     """Unbiased std over the masked rows (``Tensor.std()`` semantics)."""
     d = x.shape[1] if x.ndim > 1 else 1
-    n = torch.clamp_min(mask.sum() * d, 2.0)
+    n = torch.clamp_min(global_sum(mask.sum(), group) * d, 2.0)
     m = mask[:, None] if x.ndim > 1 else mask
-    mean = (x * m).sum() / n
-    return torch.sqrt((((x - mean) ** 2) * m).sum() / (n - 1.0))
+    mean = global_sum((x * m).sum(), group) / n
+    return torch.sqrt(global_sum((((x - mean) ** 2) * m).sum(), group)
+                      / (n - 1.0))
 
 
-def scalar_metrics(losses: dict, mask: torch.Tensor) -> dict:
+def scalar_metrics(losses: dict, mask: torch.Tensor, group=None) -> dict:
     return {
         "total": losses["total"].detach(),
         "recon": losses["recon"].detach(),
@@ -52,8 +69,8 @@ def scalar_metrics(losses: dict, mask: torch.Tensor) -> dict:
         "kl_mean": losses["kl_mean"].detach(),
         "kl_effective": losses["kl_effective"].detach(),
         "kl_per_dim_mean": losses["kl_per_dim"].detach().mean(),
-        "mu_mean_batch": masked_mean(losses["mu"].detach(), mask),
-        "z_std_batch": masked_std(losses["z"].detach(), mask),
+        "mu_mean_batch": masked_mean(losses["mu"].detach(), mask, group),
+        "z_std_batch": masked_std(losses["z"].detach(), mask, group),
     }
 
 
@@ -65,23 +82,59 @@ def augment_seed(seed: int, step_index: int) -> int:
 
 def _forward_losses(model, x, mask, sched: dict, *, spec: LossSpec,
                     use_capacity: bool, seed: int, offset: int,
-                    lpips_fn=None) -> dict:
+                    lpips_fn=None, row0: int = 0, group=None) -> dict:
+    """The loss of ``x``, which is rows ``row0…`` of the batch whose noise
+    the step draws, and of ``group``'s batch when ``group`` is given."""
     mu, logvar = model.encode(x)
     if spec.deterministic:
         z, kl_elem = reparameterize_and_kl(mu, logvar, deterministic=True)
     else:
-        z, kl_elem = fused_reparam_kl(mu, logvar, seed, offset)
+        z, kl_elem = fused_reparam_kl(mu, logvar, seed, offset,
+                                      row0 * mu.shape[1])
     recon = model.decode(z)
     return compute_loss(
         (recon, mu, logvar, z, kl_elem), x, spec=spec, beta=sched["beta"],
         capacity=sched["capacity"] if use_capacity else None,
         capacity_weight=sched["capacity_weight"] if use_capacity else None,
-        free_bits=sched["free_bits"], mask=mask, lpips_fn=lpips_fn)
+        free_bits=sched["free_bits"], mask=mask, lpips_fn=lpips_fn,
+        group=group)
+
+
+class _Objective(nn.Module):
+    """The model and its loss as one module: ``DistributedDataParallel``
+    prepares its gradient sync in the forward of the module it wraps, so
+    that forward must be the whole loss (encode, reparam+KL, decode)."""
+
+    def __init__(self, model: BetaVAEModule, **loss_kwargs):
+        super().__init__()
+        self.model = model
+        self.loss_kwargs = loss_kwargs
+
+    def forward(self, x, mask, sched: dict, offset: int, row0: int):
+        return _forward_losses(self.model, x, mask, sched, offset=offset,
+                               row0=row0, **self.loss_kwargs)
+
+
+def _join_mesh(model: BetaVAEModule, mesh) -> None:
+    """Point ``model``'s BatchNorms at ``mesh``'s group, so that their
+    batch statistics are the global batch's."""
+    for m in model.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.group = mesh.group
+
+
+def _rows(mesh, local_batch: int):
+    """``(rows, global batch)`` of a rank holding ``local_batch`` rows;
+    ``(None, local_batch)`` without a mesh."""
+    if mesh is None:
+        return None, local_batch
+    batch = local_batch * mesh.world
+    return mesh.rows(batch), batch
 
 
 def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
                     spec: LossSpec, *, aug_kwargs: dict, use_capacity: bool,
-                    seed: int, lpips_fn=None):
+                    seed: int, lpips_fn=None, mesh=None):
     """Build ``step(images, idx, mask, sched, step_index) -> metrics``.
 
     ``images`` is the device-resident uint8 split, ``idx`` (B,) int64 and
@@ -91,37 +144,68 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
     its augmentation draws from a generator seeded from the same pair.
     ``lpips_fn`` is the perceptual distance the loss adds when the spec
     turns LPIPS on (:func:`..ops.lpips.build_lpips_fn`).
+
+    With a ``mesh`` (:func:`..parallel.mesh.data_parallel_mesh`), ``idx``
+    and ``mask`` are this rank's rows of the global batch, the model runs
+    inside ``DistributedDataParallel`` (its gradients are averaged over the
+    ranks in ``backward()``, in place in its buckets: the gradients are
+    views of them) and the metrics are the global batch's.  Under
+    ``model.deterministic_overfit`` ``fc_logvar`` gets no gradient, so DDP
+    looks for unused parameters there, and only there.
     """
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
+    group = None if mesh is None else mesh.group
+    objective = _Objective(model, spec=spec, use_capacity=use_capacity,
+                           seed=seed, lpips_fn=lpips_fn, group=group)
+    if mesh is not None:
+        _join_mesh(model, mesh)
+        with warnings.catch_warnings():
+            # newer torch marks broadcast_buffers deprecated and advises
+            # keeping it False where buffers must not be synced: BatchNorm's
+            # running statistics move identically on every rank already
+            warnings.filterwarnings("ignore", "`broadcast_buffers`",
+                                    FutureWarning)
+            objective = nn.parallel.DistributedDataParallel(
+                objective,
+                device_ids=[device.index] if device.type == "cuda" else None,
+                broadcast_buffers=False, gradient_as_bucket_view=True,
+                find_unused_parameters=spec.deterministic)
 
     def step(images, idx, mask, sched: dict, step_index: int) -> dict:
         model.train()
+        rows, batch = _rows(mesh, len(idx))
         generator.manual_seed(augment_seed(seed, step_index))
-        x = augment_batch(gather_batch(images, idx), generator, **aug_kwargs)
+        x = augment_batch(gather_batch(images, idx), generator, rows=rows,
+                          global_batch=batch, **aug_kwargs)
         optimizer.zero_grad()
-        losses = _forward_losses(model, x, mask, sched, spec=spec,
-                                 use_capacity=use_capacity, seed=seed,
-                                 offset=step_index, lpips_fn=lpips_fn)
+        losses = objective(x, mask, sched, step_index,
+                           0 if rows is None else rows.start)
         losses["total"].backward()
         optimizer.step(sched["lr"])
-        return scalar_metrics(losses, mask)
+        return scalar_metrics(losses, mask, group)
 
     return step
 
 
 def make_eval_step(model: BetaVAEModule, spec: LossSpec, *,
-                   use_capacity: bool, seed: int, lpips_fn=None):
+                   use_capacity: bool, seed: int, lpips_fn=None, mesh=None):
     """Build ``eval_step(images, idx, mask, sched, offset) -> (metrics,
     mu)``: one stochastic validation batch in eval mode without autograd,
-    its noise the kernel's Philox stream at ``(seed, offset)``."""
+    its noise the kernel's Philox stream at ``(seed, offset)``.  With a
+    ``mesh``, ``idx`` and ``mask`` are this rank's rows, the metrics the
+    global batch's and ``mu`` this rank's rows."""
+    group = None if mesh is None else mesh.group
 
     @torch.no_grad()
     def eval_step(images, idx, mask, sched: dict, offset: int):
         model.eval()
+        rows, _ = _rows(mesh, len(idx))
         losses = _forward_losses(model, gather_batch(images, idx), mask,
                                  sched, spec=spec, use_capacity=use_capacity,
-                                 seed=seed, offset=offset, lpips_fn=lpips_fn)
-        return scalar_metrics(losses, mask), losses["mu"]
+                                 seed=seed, offset=offset, lpips_fn=lpips_fn,
+                                 row0=0 if rows is None else rows.start,
+                                 group=group)
+        return scalar_metrics(losses, mask, group), losses["mu"]
 
     return eval_step

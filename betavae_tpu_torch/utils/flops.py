@@ -4,8 +4,8 @@ roofline floor on an H100.
 The port's own copy of ``betavae_tpu/utils/flops.py`` with the same counts;
 only the card changes: the defaults are the H100 SXM's data sheet (dense
 bf16 on the tensor cores, HBM3 bandwidth, at the full 700 W power limit)
-instead of the TPU's.  ``data_parallel_scaling`` is not here yet: it models
-the TPU's interconnect and waits for the port's data-parallel slice.
+instead of the TPU's, and ``data_parallel_scaling`` models the gradient
+all-reduce over NVLink instead of the TPU's interconnect.
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ from dataclasses import dataclass
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 H100_SXM_BF16_TFLOPS = 989.0
 H100_SXM_HBM_GBPS = 3350.0
+# NVIDIA H100 SXM data sheet: NVLink 4, 900 GB/s a GPU in both directions
+# together, so 450 GB/s a direction: what each rank of a ring sends at most
+H100_SXM_NVLINK_GBPS = 450.0
 
 
 @dataclass
@@ -170,3 +173,44 @@ def speed_of_light_ms(image_size: int, in_channels: int, latent_dim: int,
             "sol_step_ms": round(fwd_ms + bwd_ms, 3),
             "layers": [(n, round(f * 1e3, 4), round(b * 1e3, 4))
                        for n, f, b in rows]}
+
+
+def data_parallel_scaling(per_chip_step_ms: float, param_count: int,
+                          n_chips: int,
+                          link_gb_per_s: float = H100_SXM_NVLINK_GBPS,
+                          grad_bytes_per_param: int = 4,
+                          bwd_fraction: float = 0.6) -> dict:
+    """Analytic N-GPU data-parallel efficiency: a prediction, never a
+    measurement.
+
+    The JAX package's model (``utils/flops.py::data_parallel_scaling``)
+    with the link changed: the step's gradient all-reduce as a ring, each
+    GPU moving ``2·(N−1)/N · param_count · grad_bytes`` bytes (reduce-scatter
+    then all-gather) at ``link_gb_per_s``, by default the H100 SXM's NVLink
+    4 rate a direction from the data sheet.  Gradients are fp32 (4 bytes a
+    parameter; parameters stay fp32 under bf16 autocast).
+    ``per_chip_step_ms`` is the single-GPU step at the per-GPU batch.
+    ``overlapped`` assumes the all-reduce hides under the last
+    ``bwd_fraction`` of the step (DDP starts a bucket's all-reduce as soon
+    as its gradients are ready), ``serial`` that it does not.
+    """
+    if n_chips <= 1:
+        return {"n_chips": n_chips, "comm_ms": 0.0,
+                "step_ms_overlapped": per_chip_step_ms,
+                "step_ms_serial": per_chip_step_ms,
+                "efficiency_overlapped": 1.0, "efficiency_serial": 1.0}
+    grad_bytes = param_count * grad_bytes_per_param
+    wire = 2.0 * (n_chips - 1) / n_chips * grad_bytes
+    comm_ms = wire / (link_gb_per_s * 1e9) * 1e3
+    bwd_ms = bwd_fraction * per_chip_step_ms
+    fwd_ms = per_chip_step_ms - bwd_ms
+    overlapped = fwd_ms + max(bwd_ms, comm_ms)
+    serial = per_chip_step_ms + comm_ms
+    return {
+        "n_chips": n_chips,
+        "comm_ms": round(comm_ms, 4),
+        "step_ms_overlapped": round(overlapped, 3),
+        "step_ms_serial": round(serial, 3),
+        "efficiency_overlapped": round(per_chip_step_ms / overlapped, 4),
+        "efficiency_serial": round(per_chip_step_ms / serial, 4),
+    }

@@ -16,6 +16,8 @@ Phases, each printing one line (any failure exits non-zero at once):
    one PyTorch call computes the same function) that call's: the reparam+KL
    forward and backward kernels at the training path's shape, the
    evaluation path's smaller ones and a large one (ε bitwise the plain Philox stream, noise moments, seed behaviour;
+   a data-parallel rank's launch at [16, 64] with ``start`` 16·64 bitwise
+   rows 16–31 of the [32, 64] launch;
    the backward also with capacity mode's broadcast g_kl; the forward with
    programmatic dependent launch off and on in turns, alone and chained
    behind the logvar clamp, eager and replayed from a CUDA graph; the
@@ -53,7 +55,17 @@ Phases, each printing one line (any failure exits non-zero at once):
    bench (``python -m betavae_tpu_torch.bench`` in-process at ``--steps 96
    --warmup 32 --e2e-epochs 3``: steady state, e2e epochs at the reference
    dataset's scale, encode latencies, PRNG check and the kernel canary,
-   which is the GN kernels' path); the evaluation and inference CLIs in
+   which is the GN kernels' path); the data-parallel path on the fused
+   flagship at full width (global batch 32; ``betavae_tpu_torch/
+   parallel/``): one NCCL rank in this process (20 steps of
+   ``train_steps``: first total bitwise the single process's, one fp32
+   backward's gradients within 1e-5, step ms, busy share and NCCL kernels
+   a step), two ranks sharing the card over gloo in their own processes
+   (10 steps, 16 rows each: first total 1e-3 relative, one fp32
+   backward's gradients 1e-4, both ranks' parameters bitwise equal, each
+   kernel once a step a rank), the dry run on those two ranks and the
+   bench's ``--data-parallel 1`` line beside its steady line, with the
+   analytic 8-GPU prediction; the evaluation and inference CLIs in
    process on the epoch trainer's ``best`` checkpoint (``latent_analysis``,
    ``run_evaluation``, ``encode``, ``generate --seed 3``, over the bench's
    e2e data, 4 × 1456 train and 4 × 328 test images at 128 px: every
@@ -94,6 +106,7 @@ Phases, each printing one line (any failure exits non-zero at once):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -113,16 +126,22 @@ FP32_OPS_PER_S = 67e12
 # the fp32 rate
 ELBO_OPS_PER_ELEMENT = 120
 # the flagship's [batch, latent]; the evaluation path's [1, 64] (the
-# recon/traversal panel) and [8, 64] (the prior grid); large
-ELBO_SHAPES = ((32, 64), (1, 64), (8, 64), (65536, 64))
+# recon/traversal panel) and [8, 64] (the prior grid); large; a rank's
+# [16, 64] in the data_parallel phase (two ranks of the global 32)
+ELBO_SHAPES = ((32, 64), (1, 64), (8, 64), (65536, 64), (16, 64))
 # the decoder's last activation y [B, C, H, W] at the flagship (bf16 under
 # autocast, fp32 without), the evaluation path's smaller decodes (1: the
-# panel, 2: its endpoints, 7: a traversal sweep, 8: the prior grid), and a
-# ragged shape for the tiles' edges
+# panel, 2: its endpoints, 7: a traversal sweep, 8: the prior grid), a
+# ragged shape for the tiles' edges, and a rank's bf16 y in the
+# data_parallel phase (16 rows of the global 32, its own split of the
+# persistent TMA grid's work)
 HEAD_CASES = (((32, 64, 128, 128), "bfloat16"), ((32, 64, 128, 128), "float32"),
               ((1, 64, 128, 128), "bfloat16"), ((2, 64, 128, 128), "bfloat16"),
               ((7, 64, 128, 128), "bfloat16"), ((8, 64, 128, 128), "bfloat16"),
-              ((3, 64, 37, 53), "float32"))
+              ((3, 64, 37, 53), "float32"), ((16, 64, 128, 128), "bfloat16"))
+# the cases whose launches must take the TMA path, as the main path's do
+HEAD_TMA_CASES = (((32, 64, 128, 128), "bfloat16"),
+                  ((16, 64, 128, 128), "bfloat16"))
 # the reference dataset's scale, which the bench's e2e data has and the
 # evaluation CLIs run over: 4 classes of train and test images at 128 px
 REF_TRAIN_PER_CLASS, REF_TEST_PER_CLASS = 1456, 328
@@ -501,6 +520,44 @@ def check_elbo(shape, check_moments: bool) -> dict:
     return out
 
 
+def check_elbo_start() -> dict:
+    """A data-parallel rank's launch: the reparam+KL forward at [16, 64]
+    with ``start = 16·64`` must give rows 16–31 of the [32, 64] launch
+    bitwise (ε, z and KL) and match its plain version (ε bitwise the plain
+    Philox stream from ``start``, z and KL 1e-5 relative); ``start = 0`` is
+    the launch without it, bitwise."""
+    import torch
+
+    from betavae_tpu_torch.ops.elbo import (philox_normal,
+                                            reparam_kl_forward,
+                                            reparam_kl_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    mu = torch.randn((32, 64), generator=g, device="cuda")
+    logvar = torch.randn((32, 64), generator=g, device="cuda").clamp(-10, 5)
+    full = reparam_kl_forward(mu, logvar, 115, 7)
+    zero = reparam_kl_forward(mu, logvar, 115, 7, 0)
+    part = reparam_kl_forward(mu[16:], logvar[16:], 115, 7, 16 * 64)
+    torch.cuda.synchronize()
+    names = ("z", "kl", "eps")
+    bitwise = {n: bool(torch.equal(a, b[16:]))
+               for n, a, b in zip(names, part, full)}
+    start_zero = all(torch.equal(a, b) for a, b in zip(full, zero))
+    eps_plain = bool(torch.equal(part[2], philox_normal(
+        (16, 64), 115, 7, device="cuda", start=16 * 64)))
+    z_ref, kl_ref = reparam_kl_reference(mu[16:], logvar[16:], part[2])
+    torch.testing.assert_close(part[0], z_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(part[1], kl_ref, rtol=1e-5, atol=1e-6)
+    if not (all(bitwise.values()) and start_zero and eps_plain):
+        fail(f"elbo start: rows 16-31 bitwise {bitwise}, start 0 unchanged "
+             f"{start_zero}, eps the plain stream {eps_plain}")
+    return {"shape": [16, 64], "start": 16 * 64, "of": [32, 64],
+            "rows_bitwise": bitwise, "start_0_bitwise": start_zero,
+            "eps_bitwise_vs_plain": eps_plain,
+            "max_abs_err": max(float((part[0] - z_ref).abs().max()),
+                               float((part[1] - kl_ref).abs().max()))}
+
+
 def elbo_pdl_trial() -> dict:
     """Where the cost of programmatic dependent launch in a CUDA graph comes
     from: the clamp → forward chain at [32, 64] replayed from a graph (2000
@@ -517,14 +574,15 @@ def elbo_pdl_trial() -> dict:
     from betavae_tpu_torch.ops.elbo import _launch
 
     src = (_build.SRC_DIR / "elbo.cu").read_text()
-    early = ("  float e = i < n ? normal_at(i, key, offset) : 0.0f;\n"
+    early = ("  float e = i < n ? normal_at(start + i, key, offset) : 0.0f;\n"
              "  wait_for_previous_grid();\n")
     trigger = "    if (first) allow_next_grid();\n"
     if early not in src or trigger not in src:
         fail("elbo pdl trial: the source no longer has the lines it varies")
     texts = {"wait_first": src.replace(early, (
                  "  wait_for_previous_grid();\n"
-                 "  float e = i < n ? normal_at(i, key, offset) : 0.0f;\n")),
+                 "  float e = i < n ? normal_at(start + i, key, offset) "
+                 ": 0.0f;\n")),
              "no_trigger": src.replace(trigger, "", 1)}
     procs = {}
     for name, text in texts.items():
@@ -541,8 +599,8 @@ def elbo_pdl_trial() -> dict:
             fail(f"elbo pdl trial: the {name} variant did not build:\n{log}")
         fn = ctypes.CDLL(str(so)).betavae_reparam_kl
         fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p,
-            ctypes.c_int]
+            ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
         entries[name] = fn
 
@@ -556,7 +614,7 @@ def elbo_pdl_trial() -> dict:
             lv = pre.clamp(-10.0, 5.0)
             out = mu.new_empty((3, *shape))
             if entries[name](mu.data_ptr(), lv.data_ptr(), out.data_ptr(),
-                             mu.numel(), 1, 2, raw_stream(mu.device), 1):
+                             mu.numel(), 1, 2, 0, raw_stream(mu.device), 1):
                 fail(f"elbo pdl trial: the {name} variant did not launch")
             return out
         return chain
@@ -608,7 +666,7 @@ def elbo_host_split() -> dict:
         "data_ptr_x3": lambda: (mu.data_ptr(), logvar.data_ptr(),
                                 out3.data_ptr()),
         "ctypes_forward_launch": lambda: forward(
-            mu.data_ptr(), logvar.data_ptr(), out3.data_ptr(), n, 115, 7,
+            mu.data_ptr(), logvar.data_ptr(), out3.data_ptr(), n, 115, 7, 0,
             stream, 1),
         "ctypes_backward_launch": lambda: backward(
             mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), g_z.data_ptr(),
@@ -662,6 +720,9 @@ def check_head(shape, dtype_name: str) -> dict:
              for name, f in (("forward", head_forward), ("m", head_m))}
     if any(len(p) != 1 for p in paths.values()):
         fail(f"head {shape} {dtype_name}: launches by path {paths}")
+    if (tuple(shape), dtype_name) in HEAD_TMA_CASES and any(
+            p != ["tma"] for p in paths.values()):
+        fail(f"head {shape} {dtype_name}: paths {paths}, want the TMA path")
     # two launches give the same bits (fixed order, no atomics)
     if not (torch.equal(out, head_forward(y, s, k))
             and torch.equal(m, head_m(y, dy))):
@@ -1246,10 +1307,11 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool,
 
 
 def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
-                     **overrides) -> dict:
+                     mesh=None, **overrides) -> dict:
     """Device time per flagship step by kernel (``torch.profiler``) over a
-    second short run of the same config; its busy share is the device time
-    per step over the unprofiled run's step time."""
+    second short run of the same config (on ``mesh`` when given); its busy
+    share is the device time per step over the unprofiled run's step time.
+    ``collective_kernels_per_step`` counts NCCL's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1259,7 +1321,7 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
     cfg = flagship_config(tmp, fused_head, **overrides)
     steps = 8
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_steps(cfg, steps)
+        train_steps(cfg, steps, mesh=mesh)
     reset_logger()
     # device activity only: kernels, copies and fills, not the ranges that
     # annotations such as Optimizer.step project onto the device track
@@ -1289,6 +1351,11 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
                 if "head_m_" in name),
             "device_busy_share": device_ms / step_ms,
             "kernels_per_step": len(work) / steps,
+            "collective_kernels_per_step": sum(
+                "nccl" in e.name.lower() for e in work) / steps,
+            "collective_device_ms_per_step": sum(
+                ms for name, ms in per_kernel.items()
+                if "nccl" in name.lower()),
             "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in top]}
 
 
@@ -1584,6 +1651,9 @@ def remat_gradients(tmp: str) -> dict:
     sched = {"beta": 1.0, "capacity": 30.0, "capacity_weight": 1.0,
              "free_bits": 0.0, "lr": 5e-4}
     runs = {}
+    # put back as found: a later phase's numbers depend on them
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -1597,8 +1667,8 @@ def remat_gradients(tmp: str) -> dict:
             runs[tag] = (losses["total"].detach().clone(), torch.cat(
                 [p.grad.flatten() for p in model.parameters()]))
     finally:
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
         reset_config_cache()
     loss0, grad0 = runs["false"]
     out = {tag: {"loss_bitwise": bool(torch.equal(loss, loss0)),
@@ -2093,6 +2163,271 @@ def run_debug_config(tmp: str, kernels: dict) -> dict:
             "launches": launches, "seconds": seconds}
 
 
+DP_STEPS, DP_GLOO_STEPS = 20, 10
+
+
+def dp_fp32_case(tmp: str):
+    """One fp32 step of the fused flagship over 32 seeded 128 px images,
+    whose gradients :func:`fp32_grads` keeps."""
+    import numpy as np
+
+    from betavae_tpu_torch.parallel.dryrun import Case
+
+    rng = np.random.default_rng(4)
+    return Case(images=rng.integers(0, 256, (64, 128, 128, 1), np.uint8),
+                batches=[(np.arange(32, dtype=np.int32),
+                          np.ones(32, np.float32))],
+                scheds=[{"beta": 1.0, "capacity": 30.0,
+                         "capacity_weight": 1.0, "free_bits": 0.0,
+                         "lr": 5e-4}],
+                config=flagship_config(tmp, True, **{
+                    "training.mixed_precision": False}),
+                device="cuda")
+
+
+def fp32_grads(mesh, case) -> dict:
+    """The gradients this rank of ``mesh`` (one process when None) holds
+    after ``case``'s one step's sync, before the clip, by parameter name;
+    TF32 off for the step and put back after."""
+    import torch
+
+    from betavae_tpu_torch.parallel.dryrun import case_step, take_steps
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model, optimizer, step = case_step(mesh, case)
+        names = {p: n for n, p in model.named_parameters()}
+        grads = {}
+        update = optimizer.step
+
+        def update_keeping_grads(lr: float) -> None:
+            grads.update({names[p]: p.grad.detach().float().cpu().numpy()
+                          for p in names if p.grad is not None})
+            update(lr)
+
+        optimizer.step = update_keeping_grads
+        take_steps(mesh, case, step)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    return grads
+
+
+def dp_shared_card_rank(mesh, cfg: str, case, dry_case) -> tuple:
+    """Part (b)'s work on one rank (a spawned process, which imports this
+    script by name): DP_GLOO_STEPS steps of ``train_steps``, the fp32
+    step's gradients and the dry run's step."""
+    from betavae_tpu_torch.parallel.dryrun import run_steps
+    from betavae_tpu_torch.parallel.launch import train_rank
+
+    return (train_rank(mesh, cfg, "none", "cuda", DP_GLOO_STEPS),
+            fp32_grads(mesh, case), run_steps(mesh, dry_case))
+
+
+def grad_rel(got: dict, want: dict) -> float:
+    """‖g − g₀‖ / ‖g₀‖ over every parameter."""
+    import numpy as np
+
+    keys = sorted(want)
+    a = np.concatenate([got[k].ravel() for k in keys]).astype(np.float64)
+    b = np.concatenate([want[k].ravel() for k in keys]).astype(np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+DP_MODES = ("single", "ddp_only", "sums_only", "nccl_1rank")
+
+
+@contextlib.contextmanager
+def dp_mode(mesh, mode: str):
+    """``mesh`` as the trainer gets it in ``mode``, for finding where the
+    one-rank mesh's time goes: ``single`` none; ``nccl_1rank`` the mesh;
+    ``ddp_only`` the mesh without its group for the batch reductions (DDP
+    syncs the gradients, every sum stays local); ``sums_only`` the mesh
+    with DDP's wrapper taken out (every sum through the group, no gradient
+    sync).  On one rank all four compute the same numbers."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    if mode == "single":
+        yield None
+    elif mode == "nccl_1rank":
+        yield mesh
+    elif mode == "ddp_only":
+        yield dataclasses.replace(mesh, group=None)
+    else:
+        with mock.patch.object(torch.nn.parallel, "DistributedDataParallel",
+                               lambda module, **kw: module):
+            yield mesh
+
+
+def dp_cost_in_turns(mesh, cfg: str) -> dict:
+    """DDP's and the global sums' cost on one rank: DP_STEPS steps in each
+    of DP_MODES and back in reverse order, their step ms and first totals
+    (host-timed steps drift within a call, so only turns compare)."""
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.loop import train_steps
+
+    ab = {mode: [] for mode in DP_MODES}
+    firsts = []
+    for mode in DP_MODES + DP_MODES[::-1]:
+        with dp_mode(mesh, mode) as m:
+            run = train_steps(cfg, DP_STEPS, mesh=m)
+        reset_logger()
+        ab[mode].append(run["timed_seconds"] / run["timed_steps"] * 1e3)
+        firsts.append(run["totals"][0])
+    return {"step_ms_in_turns": ab, "first_totals": firsts}
+
+
+def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
+                      card: str) -> dict:
+    """The fused flagship at full width (bf16, global batch 32) through the
+    data-parallel path: (a) one NCCL rank on cuda:0 in this process: the
+    single process, DDP alone, the global sums alone and the mesh in turns
+    (:func:`dp_cost_in_turns`), every first total bitwise the same,
+    ``train_steps`` for DP_STEPS steps
+    (launches, step ms, busy share and NCCL kernels a step), and one fp32
+    backward's gradients within 1e-5 (norm) of the single process's; (b)
+    two ranks sharing the card over gloo, 16 rows each, DP_GLOO_STEPS
+    steps: first total
+    1e-3 relative, one fp32 backward 1e-4 (norm), both ranks' parameters
+    bitwise equal after the last step, each kernel once a step a rank (the
+    head on the TMA path); then the dry run on those two ranks; (c) the
+    port's bench with ``--data-parallel 1 --skip-e2e`` over NCCL beside
+    the bench phase's steady line, and the analytic 8-GPU prediction.
+    Nothing falls back: a failed rank fails the run."""
+    import torch
+
+    from betavae_tpu_torch import bench
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.parallel.dryrun import dryrun_case, dryrun_check
+    from betavae_tpu_torch.parallel.launch import launch
+    from betavae_tpu_torch.parallel.mesh import data_parallel_mesh
+    from betavae_tpu_torch.train.loop import train_steps
+    from betavae_tpu_torch.utils.flops import data_parallel_scaling
+
+    t_phase = time.perf_counter()
+    cfg = flagship_config(tmp, True)
+
+    # (a) one NCCL rank, in this process; the single process's first total
+    # (in turns with the mesh's) is the reference of (a) and (b)
+    mesh = data_parallel_mesh(devices=["cuda:0"])
+    try:
+        if mesh.backend != "nccl":
+            fail(f"data_parallel (a): backend {mesh.backend}, want nccl")
+        turns = dp_cost_in_turns(mesh, cfg)
+        firsts = turns["first_totals"]
+        single_first = firsts[0]
+        if len(set(firsts)) != 1:
+            fail(f"data_parallel (a): first totals in turns {firsts}, want "
+                 f"one value (bitwise)")
+        zero_counts(kernels)
+        out = train_steps(cfg, DP_STEPS, mesh=mesh)
+        launches = read_counts(kernels)
+        paths = head_paths(kernels)
+        reset_logger()
+        step_ms = out["timed_seconds"] / out["timed_steps"] * 1e3
+        prof = profile_flagship(tmp, step_ms, fused_head=True, mesh=mesh)
+        reset_logger()
+        case = dp_fp32_case(tmp)
+        single_grads = fp32_grads(None, case)
+        rel_a = grad_rel(fp32_grads(mesh, case), single_grads)
+    finally:
+        mesh.close()
+    totals = out["totals"]
+    want = launches_per_step(kernels, True, DP_STEPS)
+    if not (len(totals) == DP_STEPS and all(map(math.isfinite, totals))
+            and totals[0] == single_first and launches == want):
+        fail(f"data_parallel (a): first total {totals[:1]} vs single "
+             f"{single_first} (bitwise), launches {launches} (want {want}), "
+             f"totals {totals}")
+    if rel_a > 1e-5:
+        fail(f"data_parallel (a): one fp32 backward, gradients rel {rel_a}")
+    part_a = {"backend": "nccl", "steps": DP_STEPS, "totals": totals,
+              "first_total": totals[0], "single_first_total": single_first,
+              "first_totals_in_turns": firsts,
+              "first_total_bitwise": True, "fp32_grad_rel": rel_a,
+              "step_ms": step_ms,
+              "step_ms_in_turns": turns["step_ms_in_turns"],
+              "launches": launches, "head_launches_by_path": paths,
+              "profile": {k: prof[k] for k in (
+                  "device_ms_per_step", "device_busy_share",
+                  "kernels_per_step", "collective_kernels_per_step",
+                  "collective_device_ms_per_step",
+                  "top_kernels_ms_per_step")}}
+
+    # (b) two ranks on the one card over gloo, each its own process
+    t0 = time.perf_counter()
+    shared = ["cuda:0", "cuda:0"]
+    dry_case = dryrun_case(shared)
+    ranks = launch(dp_shared_card_rank, shared, (cfg, case, dry_case),
+                   backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    trained = [r[0] for r in ranks]
+    rel_b = [grad_rel(r[1], single_grads) for r in ranks]
+    first_rel = [_rel(t["totals"][0], single_first) for t in trained]
+    want_b = {"fused_reparam_kl": DP_GLOO_STEPS,
+              "reparam_kl_backward": DP_GLOO_STEPS,
+              "head_forward": DP_GLOO_STEPS, "head_m": DP_GLOO_STEPS,
+              "gn_forward": 0, "gn_backward": 0}
+    rank_launches = [{k: t["launches"][k] for k in want_b} for t in trained]
+    head_by_path = [t["launches"]["head_by_path"] for t in trained]
+    ok_b = (all(len(t["totals"]) == DP_GLOO_STEPS
+                and all(map(math.isfinite, t["totals"])) for t in trained)
+            and trained[0]["totals"] == trained[1]["totals"]
+            and max(first_rel) <= 1e-3 and max(rel_b) <= 1e-4
+            and trained[0]["checksum"] == trained[1]["checksum"]
+            and all(rl == want_b for rl in rank_launches)
+            and all(p[k]["generic"] == 0 for p in head_by_path for k in p))
+    if not ok_b:
+        fail(f"data_parallel (b): first totals rel {first_rel}, fp32 grads "
+             f"rel {rel_b}, checksums {[t['checksum'] for t in trained]}, "
+             f"launches {rank_launches} (want {want_b}), head paths "
+             f"{head_by_path}, totals {[t['totals'] for t in trained]}")
+    t0 = time.perf_counter()
+    dry = dryrun_check([r[2] for r in ranks], dry_case, shared, "gloo")
+    part_b = {"backend": "gloo", "devices": shared, "rows_per_rank": 16,
+              "steps": DP_GLOO_STEPS,
+              "totals": trained[0]["totals"],
+              "first_total_rel": first_rel, "fp32_grad_rel": rel_b,
+              "replicas_bitwise_equal": True,
+              "checksum": trained[0]["checksum"],
+              "step_ms": [t["timed_seconds"] / t["timed_steps"] * 1e3
+                          for t in trained],
+              "launch_seconds": spawn_s, "launches": rank_launches,
+              "head_launches_by_path": head_by_path,
+              "dryrun": dry,
+              "dryrun_single_seconds": time.perf_counter() - t0}
+
+    # (c) the bench's --data-parallel line over one NCCL rank
+    zero_counts(kernels)
+    line = bench.main(["--data-parallel", "1", "--skip-e2e", "--steps", "96",
+                       "--warmup", "32"])
+    bench_launches = read_counts(kernels)
+    n_params = sum(p.numel() for p in bench.flagship_model(
+        device="cpu").parameters())
+    steady = bench_run["line"]["steady_state_images_per_sec"]
+    pred = data_parallel_scaling(line["step_ms"], n_params, 8)
+    if not (line["metric"] == "train_images_per_sec_dp1_128px_bs32"
+            and line["backend"] == "nccl" and math.isfinite(line["value"])
+            and bench_launches["fused_reparam_kl"] > 0):
+        fail(f"data_parallel (c): bench line {line}, launches "
+             f"{bench_launches}")
+    part_c = {"line": line, "launches": bench_launches,
+              "bench_steady_images_per_sec": steady,
+              "dp1_over_single": line["value"] / steady,
+              "dp8_prediction": {"label": "analytic, not measured",
+                                 "param_count": n_params, **pred}}
+    return {"phase": "data_parallel", "card": card,
+            "seconds": time.perf_counter() - t_phase,
+            "one_rank_nccl": part_a, "two_ranks_gloo": part_b,
+            "bench_dp1": part_c}
+
+
 def all_finite(value) -> bool:
     """Every number in a nested line is finite, and none is a string such
     as "FAIL: ..." or "skipped" where a number belongs."""
@@ -2182,6 +2517,9 @@ def main() -> None:
             for s in ELBO_SHAPES}
     emit({"phase": "kernel", "name": "fused_reparam_kl", "card": card,
           "checks": elbo})
+    elbo_start = check_elbo_start()
+    emit({"phase": "kernel", "name": "elbo_start", "card": card,
+          **elbo_start})
     emit({"phase": "kernel", "name": "elbo_race_check", "card": card,
           **elbo_race_check()})
     emit({"phase": "kernel", "name": "elbo_host_split", "card": card,
@@ -2232,6 +2570,9 @@ def main() -> None:
         bench_run = run_bench(tmp, kernels)
         bench_run["card"] = card
         emit(bench_run)
+        # after the bench, whose steady line it is set beside
+        dp = run_data_parallel(tmp, kernels, bench_run, card)
+        emit(dp)
         # after the bench, whose e2e data it reads
         eval_run = run_eval_toolchain(tmp, kernels)
         eval_run["card"] = card
@@ -2271,7 +2612,13 @@ def main() -> None:
                 "host_feed_e2e": host["timing"]["host"]["e2e_launches"][name],
                 "host_feed_flagship": host["timing"]["host"][
                     "flagship_launches"][name],
-                "profile_steps": prof_steps["launches"][name]}
+                "profile_steps": prof_steps["launches"][name],
+                "data_parallel_nccl_1rank": dp["one_rank_nccl"]["launches"][
+                    name],
+                **{f"data_parallel_gloo_rank{r}": launches[name]
+                   for r, launches in enumerate(
+                       dp["two_ranks_gloo"]["launches"])},
+                "data_parallel_bench_dp1": dp["bench_dp1"]["launches"][name]}
 
     emit({"kernels": [{
         "name": "fused_reparam_kl",
@@ -2291,6 +2638,7 @@ def main() -> None:
         "device_ms": profiled["elbo_kernel_device_ms_per_step"],
         "check": "ok",
         "card": card,
+        "start_check": elbo_start,
         "shapes": {k: {f: v for f, v in c.items() if f != "backward"}
                    for k, c in elbo.items()},
     }, {

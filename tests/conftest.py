@@ -50,6 +50,7 @@ _FAST_MODULES = {
     "test_torch_port_gn", "test_torch_port_bench",
     "test_torch_port_async_checkpoint",
     "test_torch_port_infer", "test_torch_port_eval",
+    "test_torch_port_parallel",
 }
 
 

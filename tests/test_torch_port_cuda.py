@@ -56,6 +56,33 @@ def test_kernel_matches_plain_version(cuda_device, shape):
     assert torch.equal(eps, philox_normal(shape, 115, 7, device=cuda_device))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,world", [(16, 2), (8, 4)])
+def test_kernel_start_draws_the_rows_of_the_whole_batch(cuda_device, rows,
+                                                        world):
+    """A data-parallel rank's launch with ``start = r·rows·64`` gives rows
+    ``[r·rows, (r+1)·rows)`` of the whole batch's launch bitwise (ε, z and
+    KL) and its ε is the plain Philox stream from ``start``; ``start = 0``
+    is the launch without it, bitwise."""
+    shape = (rows * world, 64)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    mu = torch.randn(shape, generator=g, device=cuda_device)
+    logvar = torch.randn(shape, generator=g, device=cuda_device).clamp(-10, 5)
+    full = reparam_kl_forward(mu, logvar, 115, 7)
+    zero = reparam_kl_forward(mu, logvar, 115, 7, 0)
+    assert all(torch.equal(a, b) for a, b in zip(full, zero))
+    for r in range(world):
+        sl = slice(r * rows, (r + 1) * rows)
+        start = r * rows * 64
+        part = reparam_kl_forward(mu[sl], logvar[sl], 115, 7, start)
+        assert all(torch.equal(a, b[sl]) for a, b in zip(part, full))
+        assert torch.equal(part[2], philox_normal(
+            (rows, 64), 115, 7, device=cuda_device, start=start))
+        z_ref, kl_ref = reparam_kl_reference(mu[sl], logvar[sl], part[2])
+        torch.testing.assert_close(part[0], z_ref, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(part[1], kl_ref, rtol=1e-5, atol=1e-6)
+
+
 def _close(got, want):
     """1e-5 relative plus 1e-5 of the largest |value|: fp32 sums of the
     same products in another order."""

@@ -10,7 +10,8 @@ autograd Function's CPU backward (the plain closed form the backward kernel
 replaces) is held to the JAX VJP ``_bwd`` called directly with a nonzero ε,
 since the interpreter's ε is zero and would hide the g_z term of dlogσ².
 The kernels themselves are held against the plain versions on the card by
-``tests/test_torch_port_cuda.py``.
+``tests/test_torch_port_cuda.py``.  A data-parallel rank's ``start`` draws
+its rows of the whole batch's noise, bitwise.
 """
 
 import jax
@@ -24,6 +25,7 @@ from betavae_tpu.ops.pallas_elbo import fused_reparam_kl as jax_fused
 
 from betavae_tpu_torch.ops.elbo import (fused_reparam_kl, philox4x32_10,
                                         philox_normal, reparam_kl_backward,
+                                        reparam_kl_forward,
                                         reparam_kl_reference)
 
 
@@ -162,3 +164,29 @@ def test_noise_statistics_and_seeding():
     # element i depends on i alone, not on the shape of the call
     assert torch.equal(eps.reshape(-1)[:100],
                        philox_normal((100,), seed=3, offset=0))
+
+
+@pytest.mark.parametrize("rows,world", [(16, 2), (8, 4), (1, 32)])
+def test_start_draws_the_rows_of_the_whole_batch(rows, world):
+    """A data-parallel rank r holding ``rows`` rows of a [rows·world, 64]
+    batch passes ``start = r·rows·64`` and must draw exactly those rows of
+    the whole batch's ε, bitwise: the plain Philox and the CPU wrapper's
+    z and KL; ``start = 0`` is the call without it, bitwise."""
+    shape = (rows * world, 64)
+    full = philox_normal(shape, seed=115, offset=7)
+    assert torch.equal(full, philox_normal(shape, 115, 7, start=0))
+    mu, logvar = (torch.from_numpy(a) for a in _inputs(5, shape))
+    z_full, kl_full, eps_full = reparam_kl_forward(mu, logvar, 115, 7)
+    assert torch.equal(eps_full, full)
+    for r in range(world):
+        sl = slice(r * rows, (r + 1) * rows)
+        start = r * rows * 64
+        assert torch.equal(philox_normal((rows, 64), 115, 7, start=start),
+                           full[sl])
+        z, kl, eps = reparam_kl_forward(mu[sl], logvar[sl], 115, 7, start)
+        assert torch.equal(eps, full[sl])
+        assert torch.equal(z, z_full[sl]) and torch.equal(kl, kl_full[sl])
+        zf, klf = fused_reparam_kl(mu[sl], logvar[sl], 115, 7, start)
+        assert torch.equal(zf, z_full[sl]) and torch.equal(klf, kl_full[sl])
+    with pytest.raises(ValueError, match="start"):
+        philox_normal((2, 64), 115, 7, start=-1)

@@ -279,7 +279,7 @@ def test_three_steps_match_jax_make_train_step(norm, lpips, demo_config_factory,
         eps[j] = np.array(jax.random.normal(rkey, (B, 6)))
     monkeypatch.setattr(
         step_module, "fused_reparam_kl",
-        lambda mu, logvar, seed, offset: reparam_kl_reference(
+        lambda mu, logvar, seed, offset, start=0: reparam_kl_reference(
             mu, logvar, torch.from_numpy(eps[offset])))
 
     for j in range(1, STEPS + 1):
