@@ -104,13 +104,13 @@ def load_split(split: str, sample_limit=None) -> ArrayDataset:
         class_to_idx=class_to_idx, class_mode=class_mode)
 
 
-def build_datasets():
-    """``(train, test)`` splits; under ``model.deterministic_overfit`` with
-    ``debug.enabled`` the test split is the train split (the reference's
-    debug alias)."""
+def build_datasets(train_limit=None, test_limit=None):
+    """``(train, test)`` splits, each cut to its limit after the shuffle;
+    under ``model.deterministic_overfit`` with ``debug.enabled`` the test
+    split is the train split (the reference's debug alias)."""
     cfg = get_config()
-    train_ds = load_split("train")
-    test_ds = load_split("test")
+    train_ds = load_split("train", sample_limit=train_limit)
+    test_ds = load_split("test", sample_limit=test_limit)
     if get(cfg.model, "deterministic_overfit", False) and get(
             get(cfg, "debug", None), "enabled", False):
         test_ds = train_ds
@@ -118,12 +118,13 @@ def build_datasets():
 
 
 def images_to_tensor(images: np.ndarray, device) -> "torch.Tensor":
-    """Packed ``(N, H, W, C)`` uint8 images as the model's float32 NCHW
-    input in [0, 1] on ``device``."""
+    """Packed ``(N, H, W, C)`` uint8 images (or float images already in
+    [0, 1]) as the model's float32 NCHW input in [0, 1] on ``device``."""
     import torch
 
     x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-    return x.permute(0, 3, 1, 2).float() / 255.0
+    x = x.permute(0, 3, 1, 2).float()
+    return x / 255.0 if images.dtype == np.uint8 else x
 
 
 def load_image(path: str, grayscale: bool, size: int | None = None) -> np.ndarray:

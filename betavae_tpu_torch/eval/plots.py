@@ -4,8 +4,9 @@ The JAX package draws its figures with matplotlib, which the port's
 runtime does not carry (torch, numpy, scipy and PIL only).  This module
 holds what the port's figures share: class colours (matplotlib's default
 blue/red pair for binary labels, tab10 for multiclass), the diverging
-``RdBu_r`` colormap, :class:`Axes` (a data rectangle with ticks, a title
-and points or polygons in data coordinates) and image panels.  Text uses
+``RdBu_r`` colormap, :class:`Axes` (a data rectangle with ticks, a title,
+and points, polygons, solid or dashed polylines in data coordinates and a
+legend) and image panels.  Text uses
 PIL's default font.
 """
 
@@ -105,6 +106,63 @@ class Axes:
         us, vs = self.px(xs, ys)
         self.draw.polygon(list(zip(us.tolist(), vs.tolist())), fill=color,
                           outline="black")
+
+    def line(self, xs, ys, color, dashed: bool = False,
+             width: int = 2) -> None:
+        """A polyline through ``(xs, ys)``, broken where a value is NaN (as
+        matplotlib breaks one); ``dashed`` draws 8 px on, 5 off."""
+        us, vs = self.px(xs, ys)
+        runs, run = [], []
+        for u, v in zip(np.atleast_1d(us).tolist(), np.atleast_1d(vs).tolist()):
+            if np.isfinite(u) and np.isfinite(v):
+                run.append((u, v))
+            elif run:
+                runs.append(run)
+                run = []
+        runs.append(run)
+        for pts in runs:
+            if len(pts) > 1 and not dashed:
+                self.draw.line(pts, fill=color, width=width)
+            elif len(pts) > 1:
+                _dashes(self.draw, pts, color, width)
+
+    def legend(self, entries) -> None:
+        """``(label, color, dashed)`` entries in a box at the upper right."""
+        rows = [text_size(self.draw, label) for label, _, _ in entries]
+        w = 40 + max(tw for tw, _ in rows)
+        h = 8 + 18 * len(entries)
+        x1, y0 = self.box[2] - 8, self.box[1] + 8
+        self.draw.rectangle((x1 - w, y0, x1, y0 + h), fill="white",
+                            outline="#cccccc")
+        for i, (label, color, dashed) in enumerate(entries):
+            y = y0 + 13 + 18 * i
+            pts = [(x1 - w + 6, y), (x1 - w + 30, y)]
+            if dashed:
+                _dashes(self.draw, pts, color, 2)
+            else:
+                self.draw.line(pts, fill=color, width=2)
+            self.draw.text((x1 - w + 34, y - rows[i][1] / 2 - 1), label,
+                           fill="black", font=font())
+
+
+def _dashes(draw: ImageDraw.ImageDraw, pts: list, color, width: int,
+            on: float = 8.0, off: float = 5.0) -> None:
+    """A dashed polyline through pixel points, its pattern running on
+    across the corners."""
+    phase = 0.0
+    for (u0, v0), (u1, v1) in zip(pts, pts[1:]):
+        seg = float(np.hypot(u1 - u0, v1 - v0))
+        t = 0.0
+        while t < seg:
+            pos = phase % (on + off)
+            step = min((on - pos) if pos < on else (on + off - pos), seg - t)
+            if pos < on:
+                a, b = t / seg, (t + step) / seg
+                draw.line([(u0 + a * (u1 - u0), v0 + a * (v1 - v0)),
+                           (u0 + b * (u1 - u0), v0 + b * (v1 - v0))],
+                          fill=color, width=width)
+            t += step
+            phase += step
 
 
 def image_panel(img: np.ndarray, size: int) -> Image.Image:

@@ -52,7 +52,14 @@ def load_model(weights: str = "best",
     path = tag_path(weights)
     if not _checkpoint_exists(path):
         path = tag_path("latest")
-    model = model_from_config(cfg, device=device)
+    return load_checkpoint_model(path, device)
+
+
+def load_checkpoint_model(path: str,
+                          device: str | torch.device = "cuda") -> BetaVAEModule:
+    """The config's model on ``device`` in ``eval()`` mode, with the weights
+    of the checkpoint at ``path`` (shards or base file)."""
+    model = model_from_config(get_config(), device=device)
     load_model_state(model, load_sharded_checkpoint(path)["model_state"])
     return model.eval()
 

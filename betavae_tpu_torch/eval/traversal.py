@@ -10,7 +10,9 @@ The port's own copy of ``betavae_tpu/eval/traversal.py``:
   ``logreg_weight_*`` columns where the analysis CLI wrote them, else from
   a logistic regression fitted on the test latents now; sweeps ``μ +
   v·dir`` → ``traversal_tumor_{class}.png``, classes whose name holds
-  "notumor" left out.
+  "notumor" left out; ``images_override`` (one user image, as
+  ``scripts/traverse_image.py`` passes it) takes the first test image's
+  place.
 
 A whole sweep decodes in one call.
 """
@@ -103,7 +105,9 @@ def _directions_from_fresh_probe(model: BetaVAEModule, test_ds) -> dict:
 
 
 def run_traversals(model: BetaVAEModule, test_ds, indices=None, steps=None,
-                   span=3.0) -> None:
+                   span=3.0, images_override=None) -> None:
+    """The sweeps around the first test image, or around the first of
+    ``images_override`` (float ``(N, H, W, C)`` in [0, 1]) where given."""
     cfg = get_config()
     out_dir = cfg.paths.figures_dir
 
@@ -111,9 +115,12 @@ def run_traversals(model: BetaVAEModule, test_ds, indices=None, steps=None,
     if not class_dirs:
         class_dirs = _directions_from_fresh_probe(model, test_ds)
 
-    if len(test_ds) == 0:
+    if images_override is not None:
+        imgs = np.asarray(images_override, np.float32)[:1]
+    elif len(test_ds) > 0:
+        imgs = test_ds.images[:1]
+    else:
         return
-    imgs = test_ds.images[:1]
 
     latent_traversal(model, imgs, out_dir, indices=indices, steps=steps,
                      span=span)

@@ -8,7 +8,9 @@ either package reads the other's checkpoints:
   ``__meta__.json`` member holding the payload's scalars and the shard's
   ``shard_id`` / ``num_shards``;
 - the keys of every array section (``model_state``, ``optim_state``,
-  ``torch_adam_moments``) sorted and dealt round-robin over the shards;
+  ``torch_adam_moments``, and ``reference_optim_state`` where a reference
+  torch checkpoint was read, so a reshard of one keeps its Adam state)
+  sorted and dealt round-robin over the shards;
 - each shard written to ``<shard>.tmp`` and moved into place with
   ``os.replace``; shards of an earlier, wider save and a stale unsharded
   base file removed after a save;
@@ -20,6 +22,9 @@ either package reads the other's checkpoints:
   ``reference_optim_state`` section, for ``train/callbacks.py::
   restore_training_state``; :func:`save_torch_reference_checkpoint` writes
   them;
+- :func:`normalize_base_path` and :func:`checkpoint_shard_count`, which
+  the reshard CLI (``scripts/reshard_checkpoint.py``) uses, as the JAX
+  copy's;
 - a load that checks the shard set is whole: every shard's recorded
   ``num_shards`` equals the files found, and ``epoch`` / ``total_steps``
   agree across shards.
@@ -48,7 +53,8 @@ import torch
 from .weights import export_model_state, model_state_from_reference
 
 _META_KEY = "__meta__"
-_ARRAY_SECTIONS = ("model_state", "optim_state", "torch_adam_moments")
+_ARRAY_SECTIONS = ("model_state", "optim_state", "torch_adam_moments",
+                   "reference_optim_state")
 _MOMENTS_COUNT_KEY = "torch_adam_moments_count"
 _SHARD_KEYS = ("shard_id", "num_shards")
 
@@ -58,11 +64,29 @@ def _shard_paths(base_path: str, num_shards: int) -> list:
     return [f"{root}_shard{i}{ext or '.pt'}" for i in range(num_shards)]
 
 
+def normalize_base_path(base_path: str) -> str:
+    """``base_path`` with the default ``.pt`` extension where it has none."""
+    return base_path if os.path.splitext(base_path)[1] else base_path + ".pt"
+
+
 def discover_shards(base_path: str) -> list:
     """The on-disk ``<base>_shard*<ext>`` files of a checkpoint base, the
     base path taken literally (``glob.escape``)."""
     root, ext = os.path.splitext(base_path)
     return sorted(glob.glob(f"{glob.escape(root)}_shard*{ext or '.pt'}"))
+
+
+def checkpoint_shard_count(base_path: str) -> int:
+    """How many files hold the checkpoint at ``base_path`` (1: an unsharded
+    base file); raises ``FileNotFoundError`` where there is neither."""
+    found = discover_shards(base_path)
+    if found:
+        return len(found)
+    if os.path.exists(base_path):
+        return 1
+    raise FileNotFoundError(
+        f"checkpoint not found: no shard files and no base file at "
+        f"{base_path}")
 
 
 def _write_shard(path: str, arrays: dict, meta: dict) -> None:
@@ -238,10 +262,19 @@ def _renest_moments(out: dict) -> dict:
     return out
 
 
-def load_sharded_checkpoint(base_path: str) -> dict:
+def load_sharded_checkpoint(base_path: str,
+                            num_shards: int | None = None) -> dict:
     """Merge a checkpoint's shards (or read its unsharded base file) into
-    one payload; raises ``FileNotFoundError`` when neither exists."""
-    shard_paths = discover_shards(base_path)
+    one payload; raises ``FileNotFoundError`` when neither exists.  With
+    ``num_shards``, the shards read are ``<base>_shard0`` to
+    ``_shard{num_shards - 1}`` where all of them exist, else the base
+    file."""
+    if num_shards is None:
+        shard_paths = discover_shards(base_path)
+    else:
+        shard_paths = _shard_paths(base_path, int(num_shards))
+        if not all(os.path.exists(p) for p in shard_paths):
+            shard_paths = []
     if not shard_paths:
         if not os.path.exists(base_path):
             raise FileNotFoundError(

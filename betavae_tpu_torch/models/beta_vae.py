@@ -408,7 +408,8 @@ def to_numpy_images(frames: torch.Tensor) -> np.ndarray:
 def encode_split(model: BetaVAEModule, images: np.ndarray, batch_size: int,
                  limit=None):
     """``(mu, logvar)``, host float32 ``(N, D)``, of the first ``limit``
-    (all when falsy) packed uint8 images ``(N, H, W, C)``, encoded
+    (all when falsy) packed uint8 images ``(N, H, W, C)`` (or float
+    images in [0, 1]), encoded
     ``batch_size`` at a time; the results cross to the host once, after
     every batch is queued."""
     n = min(limit, len(images)) if limit else len(images)

@@ -14,7 +14,8 @@ no kernel here either.  Layout NCHW, so "channels" is dim 1.
 Weights come from ``loss.lpips_weights_path`` or ``$LPIPS_WEIGHTS``: an
 ``.npz`` in the layout ``scripts/convert_lpips_weights.py`` writes
 (``net/conv{i}/kernel`` HWIO, ``net/conv{i}/bias``, ``lin{i}`` of shape
-``(C,)``).  Without one, the network is a deterministic random init from a
+``(C,)``), which :func:`convert` writes from the official torch files.
+Without one, the network is a deterministic random init from a
 ``torch.Generator`` seeded with 0, drawn from flax's distributions (LeCun
 normal kernels, zero biases, ``lin{i}`` uniform in [0, 0.1)); it makes no
 bitwise claim against the JAX package's ``PRNGKey(0)`` init.  Nothing is
@@ -145,6 +146,36 @@ def _load_npz(module: LPIPSModule, path: str) -> None:
             state[f"lins.{i}"] = torch.from_numpy(flat[f"lin{i}"])
     module.load_state_dict({k: v.float() for k, v in state.items()},
                            strict=True)
+
+
+# torch AlexNet ``features`` indices of the five convolutions
+_TORCH_CONV_IDX = (0, 3, 6, 8, 10)
+
+
+def convert(alexnet_path: str, linear_path: str, out_path: str) -> str:
+    """The official weights (torchvision's AlexNet state dict and the lpips
+    package's ``alex.pth`` heads, each read with ``torch.load(...,
+    weights_only=True)``) as the ``.npz`` :func:`load_lpips_module` reads:
+    ``net/conv{i}/kernel`` HWIO of ``features.{0,3,6,8,10}.weight``, its
+    bias, and ``lin{i}`` flattened from ``lin{i}.model.1.weight`` (or
+    ``.model.0.`` in releases without the dropout layer).  The file is
+    loaded back strictly before the path is returned."""
+    feats = torch.load(alexnet_path, map_location="cpu", weights_only=True)
+    lins = torch.load(linear_path, map_location="cpu", weights_only=True)
+    flat = {}
+    for i, ti in enumerate(_TORCH_CONV_IDX):
+        w = feats[f"features.{ti}.weight"].numpy()         # (O, I, H, W)
+        flat[f"net/conv{i}/kernel"] = np.transpose(w, (2, 3, 1, 0))
+        flat[f"net/conv{i}/bias"] = feats[f"features.{ti}.bias"].numpy()
+    for i in range(len(_ALEX_CFG)):
+        key = f"lin{i}.model.1.weight"
+        if key not in lins:
+            key = f"lin{i}.model.0.weight"
+        flat[f"lin{i}"] = lins[key].numpy().reshape(-1)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    np.savez(out_path, **flat)
+    _load_npz(LPIPSModule(), out_path)
+    return out_path
 
 
 def load_lpips_module(weights_path: str | None = None) -> LPIPSModule:

@@ -72,7 +72,19 @@ Phases, each printing one line (any failure exits non-zero at once):
    artifact, finite tables, SSIM in [0, 1], the traversal dims of the
    ranking, the seconds of each CLI, the encoder's images/s in 5 passes
    and which of matplotlib, pandas, scikit-learn, umap and PIL the install
-   has); the flagship's fused step at ``training.remat`` false, decoder,
+   has); the port's remaining CLIs (``betavae_tpu_torch/scripts/``, phase
+   ``scripts``): ``preprocess_data`` over raw trees of 4 × 1784 images at
+   256 px as class folders (the seeded 80/20 split) and as
+   ``Training/Testing`` (copied through), then ``global_z`` on a copy,
+   ``reshard_checkpoint`` of the epoch trainer's ``best`` from 2 to 4
+   shards (bitwise) and the refused shrink, ``preview_val_batch`` twice
+   (equal manifests), ``traverse_image`` on one test image (the head
+   forward once a decode, all TMA, no reparam+KL launch),
+   ``diag_overfit`` (the reparam+KL forward once a batch, no backward),
+   the four log tools on the epoch trainer's log and panels, and
+   ``parity_check --run-eval`` against the evaluation's tables (exit 0),
+   with each CLI's seconds and the preprocessing's images/s a stage; the
+   flagship's fused step at ``training.remat`` false, decoder,
    true and false again (20 steps each: first totals within 1e-5
    relative, the launches of a step unchanged, each mode's step ms and
    peak memory, the later steps beside the rerun's), and one fp32
@@ -1882,9 +1894,9 @@ def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
                 profiled_fused["device_ms_per_step"]}
 
 
-def _cli(main, argv: list) -> float:
-    """Seconds of one in-process CLI run, from a fresh config cache and
-    logger (each CLI loads its own config)."""
+def _cli_run(main, argv: list) -> tuple:
+    """``(seconds, what main returned)`` of one in-process CLI run, from a
+    fresh config cache and logger (each CLI loads its own config)."""
     import torch
 
     from betavae_tpu_torch.config import reset_config_cache
@@ -1893,11 +1905,16 @@ def _cli(main, argv: list) -> float:
     reset_config_cache()
     reset_logger()
     t0 = time.perf_counter()
-    main(argv)
+    result = main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     reset_logger()
-    return seconds
+    return seconds, result
+
+
+def _cli(main, argv: list) -> float:
+    """Seconds of one in-process CLI run (:func:`_cli_run`)."""
+    return _cli_run(main, argv)[0]
 
 
 def _table(path: str) -> tuple:
@@ -2028,6 +2045,334 @@ def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
                 "mse_mean", "psnr_mean", "ssim_mean", "probe_macro_f1",
                 "probe_macro_auc", "silhouette")},
             "installed": installed}
+
+
+# the raw trees of the scripts phase: 256 px, so that the resize to 128 px
+# does real work (real MRI slices are larger), and SCRIPTS_UNIQUE images
+# drawn a class, every other file a hard link to one of them
+SCRIPTS_RAW_PX, SCRIPTS_UNIQUE = 256, 64
+
+
+def raw_trees(root: str) -> dict:
+    """Two raw trees of 4 × (1456 + 328) demo images at SCRIPTS_RAW_PX:
+    ``classes`` (class folders) and ``presplit`` (``Training/`` with each
+    class's first 1456 files and ``Testing/`` with the rest, the layout of
+    the reference's dataset).  Every file is read, resized and written by
+    the preprocessing, hard link or not."""
+    import numpy as np
+    from PIL import Image
+
+    from betavae_tpu_torch.data.demo import CLASSES, pattern_for_class
+
+    rng = np.random.default_rng(0)
+    trees = {layout: os.path.join(root, f"raw_{layout}")
+             for layout in ("classes", "presplit")}
+    for cls in CLASSES:
+        src = os.path.join(trees["classes"], cls)
+        os.makedirs(src)
+        for split in ("Training", "Testing"):
+            os.makedirs(os.path.join(trees["presplit"], split, cls))
+        for i in range(REF_TRAIN_PER_CLASS + REF_TEST_PER_CLASS):
+            path = os.path.join(src, f"{cls}_{i}.png")
+            if i < SCRIPTS_UNIQUE:
+                arr = pattern_for_class(cls, rng, SCRIPTS_RAW_PX) * 255
+                Image.fromarray(arr.astype(np.uint8)).save(path)
+            else:
+                os.link(os.path.join(src, f"{cls}_{i % SCRIPTS_UNIQUE}.png"),
+                        path)
+            split = "Training" if i < REF_TRAIN_PER_CLASS else "Testing"
+            os.link(path, os.path.join(trees["presplit"], split, cls,
+                                       f"{cls}_{i}.png"))
+    return trees
+
+
+def processed_counts(processed: str) -> dict:
+    """``{split: {class: images}}`` of a processed tree; fails unless every
+    image is 128 × 128 L."""
+    from PIL import Image
+
+    counts = {}
+    for split in ("train", "test"):
+        for cls in sorted(os.listdir(os.path.join(processed, split))):
+            names = os.listdir(os.path.join(processed, split, cls))
+            for name in names:
+                with Image.open(os.path.join(processed, split, cls,
+                                             name)) as im:
+                    if im.size != (128, 128) or im.mode != "L":
+                        fail(f"scripts: {split}/{cls}/{name} is {im.size} "
+                             f"{im.mode}, want (128, 128) L")
+            counts.setdefault(split, {})[cls] = len(names)
+    return counts
+
+
+def same_payload(a, b) -> bool:
+    """Two checkpoint payloads hold the same keys, scalars and arrays
+    (dtype, shape and bytes)."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_payload(a[k], b[k]) for k in a)
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def run_scripts(tmp: str, kernels: dict) -> dict:
+    """The CLIs of ``betavae_tpu_torch/scripts/`` in process, each timed,
+    with the counts set to 0 before each and read after:
+
+    - ``preprocess_data`` over the two raw trees of :func:`raw_trees`: the
+      class folders split 80/20 by the seed (floor(0.8·1784) / the rest a
+      class), the pre-split tree copied through (1456 / 328), every output
+      128 × 128 L; then ``global_z`` on a copy of the first output
+      (``norm_stats.json`` finite, std > 0); seconds and images/s a stage;
+    - ``reshard_checkpoint``: the ``epochs`` run's ``best`` from 2 to 4
+      shards, every array read back bitwise; asking the result for 2 must
+      raise ``would not grow``;
+    - ``preview_val_batch`` twice over the bench's e2e data (4 × 1456
+      train, 4 × 328 test): the manifests byte-equal;
+    - ``traverse_image`` on one test PNG with ``best`` (the flagship at full
+      width, fused head) and the ``eval_toolchain`` phase's
+      ``latent_usage.csv``: every figure of the JAX script for the same
+      flags, the head forward once a decode, all TMA, no reparam+KL launch
+      (the encoder gives μ);
+    - ``diag_overfit`` on ``latest`` (the config's ``debug.train_samples`` /
+      ``test_samples``): a finite JSON, the reparam+KL forward once a
+      train batch, a val batch and the statistics batch, no backward;
+    - ``plot_logs``, ``plot_phase_losses``, ``fix_steps`` (its count = the
+      val lines) and ``make_recon_gif`` (one frame a panel) on the
+      ``epochs`` run's log and panels;
+    - ``parity_check --run-eval`` against a copy of the ``eval_toolchain``
+      phase's tables taken before the rerun: exit 0 at the default
+      tolerances, the evaluation's launches.
+
+    The host CLIs must launch no kernel."""
+    import io
+    import shutil
+
+    import yaml
+    from PIL import Image
+
+    from betavae_tpu_torch.io.checkpoint import (discover_shards,
+                                                 load_sharded_checkpoint)
+    from betavae_tpu_torch.scripts import (diag_overfit, fix_steps,
+                                           make_recon_gif, parity_check,
+                                           plot_logs, plot_phase_losses,
+                                           preprocess_data,
+                                           preview_val_batch,
+                                           reshard_checkpoint, traverse_image)
+
+    root = os.path.join(tmp, "scripts")
+    models = os.path.join(tmp, "epochs", "outputs", "models")
+    e2e = os.path.join(tmp, "bench_e2e", "processed")
+    seconds, launches = {}, {}
+    total = {name: 0 for name in kernels}
+    none = {name: 0 for name in kernels}
+
+    def run(name, main, argv):
+        zero_counts(kernels)
+        seconds[name], result = _cli_run(main, argv)
+        launches[name] = read_counts(kernels)
+        for k, v in launches[name].items():
+            total[k] += v
+        return result
+
+    def config(name, **overrides):
+        return write_config("configs/beta_vae_se.yaml", root, name,
+                            **overrides)
+
+    def host_only(*names):
+        bad = {n: launches[n] for n in names if launches[n] != none}
+        if bad:
+            fail(f"scripts: host CLIs launched kernels: {bad}")
+
+    # preprocess_data: class folders, pre-split, then global_z on a copy
+    t0 = time.perf_counter()
+    trees = raw_trees(root)
+    raw_seconds = time.perf_counter() - t0
+    per_class = REF_TRAIN_PER_CLASS + REF_TEST_PER_CLASS
+    images = 4 * per_class
+    stages, counts = {}, {}
+    processed = {layout: os.path.join(root, f"processed_{layout}")
+                 for layout in ("classes", "presplit", "global_z")}
+    for layout, raw in trees.items():
+        cfg = config(f"pre_{layout}.yaml", **{
+            "paths.raw_dir": raw, "paths.processed_dir": processed[layout]})
+        stages[layout] = run(f"preprocess_data_{layout}",
+                             preprocess_data.main, ["--config", cfg])
+        counts[layout] = processed_counts(processed[layout])
+    shutil.copytree(processed["classes"], processed["global_z"])
+    cfg = config("pre_global_z.yaml", **{
+        "paths.raw_dir": trees["classes"],
+        "paths.processed_dir": processed["global_z"]})
+    with contextlib.chdir(root):        # norm_stats.json is cwd-relative
+        stages["global_z"] = run("preprocess_data_global_z",
+                                 preprocess_data.main,
+                                 ["--config", cfg, "--normalization",
+                                  "global_z"])
+    counts["global_z"] = processed_counts(processed["global_z"])
+    with open(os.path.join(root, "data", "intermediate",
+                           "norm_stats.json")) as f:
+        norm_stats = json.load(f)
+    split = {"train": math.floor(0.8 * per_class)}
+    split["test"] = per_class - split["train"]
+    classes = ("glioma", "meningioma", "notumor", "pituitary")
+    want = {layout: {s: {c: n for c in classes} for s, n in split_.items()}
+            for layout, split_ in (
+                ("classes", split), ("global_z", split),
+                ("presplit", {"train": REF_TRAIN_PER_CLASS,
+                              "test": REF_TEST_PER_CLASS}))}
+    if counts != want or not (all_finite(norm_stats)
+                              and norm_stats["std"] > 0):
+        fail(f"scripts: processed counts {counts}, want {want}; "
+             f"norm_stats {norm_stats}")
+
+    # reshard_checkpoint: best 2 → 4 shards, then 4 → 2 refused
+    cfg = config("reshard.yaml", **{"paths.models_dir": models})
+    out = os.path.join(root, "resharded", "beta_vae_se_best.pt")
+    written = run("reshard_checkpoint", reshard_checkpoint.main,
+                  ["--config", cfg, "--checkpoint", "best",
+                   "--num-shards", "4", "--output", out])
+    src = os.path.join(models, "beta_vae_se_best.pt")
+    bitwise = same_payload(load_sharded_checkpoint(src),
+                           load_sharded_checkpoint(out))
+    try:
+        _cli_run(reshard_checkpoint.main,
+                 ["--config", cfg, "--checkpoint", out, "--num-shards", "2"])
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    if not (bitwise and len(discover_shards(src)) == 2
+            and written == discover_shards(out) and len(written) == 4
+            and refused and "would not grow" in refused):
+        fail(f"scripts: reshard wrote {written}, bitwise {bitwise}, "
+             f"shrink refused with {refused!r}")
+
+    # preview_val_batch, twice
+    manifests = []
+    for i in (1, 2):
+        cfg = config(f"preview{i}.yaml", **{
+            "paths.processed_dir": e2e,
+            "paths.figures_dir": os.path.join(root, f"preview{i}")})
+        _, manifest = run(f"preview_val_batch_{i}", preview_val_batch.main,
+                          ["--config", cfg])
+        with open(manifest, "rb") as f:
+            manifests.append(f.read())
+    if manifests[0] != manifests[1] or manifests[0].count(b"\n") != 32:
+        fail("scripts: preview_val_batch manifests differ between two runs")
+
+    # traverse_image on one test image
+    figures = os.path.join(root, "traverse")
+    cfg = config("traverse.yaml", **{
+        "training.fused_head": True, "paths.models_dir": models,
+        "paths.processed_dir": e2e, "paths.figures_dir": figures,
+        "paths.tables_dir": os.path.join(tmp, "eval", "outputs", "tables")})
+    glioma = os.path.join(e2e, "test", "glioma")
+    image = os.path.join(glioma, sorted(os.listdir(glioma))[0])
+    run("traverse_image", traverse_image.main,
+        ["--config", cfg, "--image", image])
+    head_by_path = head_paths(kernels)
+    want_figures = ({f"traversal_dim{d}.png" for d in range(4)}
+                    | {f"traversal_tumor_{c}.png" for c in classes
+                       if c != "notumor"})
+    want = dict(none, head_forward=len(want_figures))
+    if set(os.listdir(figures)) != want_figures or \
+            launches["traverse_image"] != want:
+        fail(f"scripts: traverse_image wrote {sorted(os.listdir(figures))}, "
+             f"launched {launches['traverse_image']}, want {want}")
+
+    # diag_overfit on latest
+    cfg = config("diag.yaml", **{"training.fused_head": True,
+                                 "paths.models_dir": models,
+                                 "paths.processed_dir": e2e})
+    stats = run("diag_overfit", diag_overfit.main, ["--config", cfg])
+    with open("configs/beta_vae_se.yaml") as f:
+        flagship = yaml.safe_load(f)
+    bs = flagship["training"]["batch_size"]
+    batches = (-(-flagship["debug"]["train_samples"] // bs)
+               + -(-flagship["debug"]["test_samples"] // bs) + 1)
+    want = dict(none, fused_reparam_kl=batches, head_forward=batches)
+    if not all_finite(stats) or launches["diag_overfit"] != want:
+        fail(f"scripts: diag_overfit {stats}, launched "
+             f"{launches['diag_overfit']}, want {want}")
+
+    # the log tools on the epochs run's log and panels
+    epochs_out = os.path.join(tmp, "epochs", "outputs")
+    figures = os.path.join(root, "logs")
+    os.makedirs(figures)
+    panels = [n for n in os.listdir(os.path.join(epochs_out, "figures"))
+              if n.startswith("recon_epoch") and n.endswith(".png")]
+    for name in panels:
+        shutil.copy(os.path.join(epochs_out, "figures", name), figures)
+    cfg = config("logs.yaml", **{"paths.outputs_dir": epochs_out,
+                                 "paths.figures_dir": figures})
+    log = os.path.join(epochs_out, "logs", "beta_vae_se.log")
+    plots = {"plot_logs": run("plot_logs", plot_logs.main, ["--config", cfg]),
+             "plot_phase_losses": run("plot_phase_losses",
+                                      plot_phase_losses.main,
+                                      ["--config", cfg])}
+    sizes = {}
+    for name, path in plots.items():
+        with Image.open(path) as im:
+            sizes[name] = im.size
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        code = run("fix_steps", fix_steps.main,
+                   [log, os.path.join(root, "fixed.log")])
+    rewritten = int(printed.getvalue().split()[1])
+    val_lines = sum(m["phase"] == "val" for m in metrics_lines(log))
+    gif = run("make_recon_gif", make_recon_gif.main, ["--config", cfg])
+    with Image.open(gif) as im:
+        frames = im.n_frames
+    want_frames = sum("_diff" not in n for n in panels)
+    if not (code == 0 and rewritten == val_lines > 0
+            and sizes == {"plot_logs": (1200, 1800),
+                          "plot_phase_losses": (1500, 600)}
+            and frames == want_frames > 0):
+        fail(f"scripts: fix_steps exit {code} rewrote {rewritten} of "
+             f"{val_lines} val lines; figures {sizes}; GIF {frames} frames "
+             f"for {want_frames} panels")
+
+    # parity_check --run-eval against the eval_toolchain phase's tables
+    reference = os.path.join(root, "reference_tables")
+    shutil.copytree(os.path.join(tmp, "eval", "outputs", "tables"), reference)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        code = run("parity_check", parity_check.main,
+                   ["--reference-tables", reference, "--config",
+                    os.path.join(tmp, "eval", "eval.yaml"), "--run-eval"])
+    report = printed.getvalue().splitlines()
+    parity = json.loads(report[-1].split("PARITY ", 1)[1])
+    test_batches = -(-4 * REF_TEST_PER_CLASS // bs)
+    want = dict(none, fused_reparam_kl=test_batches + 1,
+                head_forward=test_batches + 2 + 7 + 3)
+    if code != 0 or launches["parity_check"] != want:
+        fail(f"scripts: parity_check exit {code} ({report[-1]}), launched "
+             f"{launches['parity_check']}, want {want}; rows not OK: "
+             f"{[ln for ln in report if ln.endswith((' FAIL', ' MISSING'))]}")
+    host_only(*(n for n in launches
+                if n.startswith(("preprocess", "reshard", "preview"))),
+              "plot_logs", "plot_phase_losses", "fix_steps", "make_recon_gif")
+
+    return {"phase": "scripts", "seconds": seconds,
+            "phase_seconds": sum(seconds.values()) + raw_seconds,
+            "raw_tree_seconds": raw_seconds,
+            "preprocess": {
+                "images": images, "raw_px": SCRIPTS_RAW_PX,
+                "stage_seconds": stages,
+                "images_per_sec": {layout: {k: images / v
+                                            for k, v in st.items()}
+                                   for layout, st in stages.items()},
+                "counts": counts, "norm_stats": norm_stats},
+            "reshard": {"shards": len(written), "bitwise": bitwise,
+                        "shrink_refused": refused},
+            "traverse_figures": sorted(want_figures),
+            "diag_overfit": stats, "fix_steps_rewritten": rewritten,
+            "gif_frames": frames, "parity": parity,
+            "launches": total, "launches_by_cli": launches,
+            "head_launches_by_path": head_by_path}
 
 
 def run_eval_vs_cpu(tmp: str, kernels: dict) -> dict:
@@ -2577,6 +2922,11 @@ def main() -> None:
         eval_run = run_eval_toolchain(tmp, kernels)
         eval_run["card"] = card
         emit(eval_run)
+        # after the epochs run and the evaluation, whose checkpoints, log,
+        # panels and tables its CLIs read
+        scripts = run_scripts(tmp, kernels)
+        scripts["card"] = card
+        emit(scripts)
         profiled = profile_flagship(tmp, flagship["step_ms"], fused_head=False)
         emit(profiled)
         profiled_fused = profile_flagship(tmp, flagship_fused["step_ms"],
@@ -2618,7 +2968,8 @@ def main() -> None:
                 **{f"data_parallel_gloo_rank{r}": launches[name]
                    for r, launches in enumerate(
                        dp["two_ranks_gloo"]["launches"])},
-                "data_parallel_bench_dp1": dp["bench_dp1"]["launches"][name]}
+                "data_parallel_bench_dp1": dp["bench_dp1"]["launches"][name],
+                "scripts": scripts["launches"][name]}
 
     emit({"kernels": [{
         "name": "fused_reparam_kl",

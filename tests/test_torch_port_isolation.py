@@ -1,9 +1,11 @@
 """The port stands alone: no JAX, no ``betavae_tpu``, no silent CPU.
 
 Every module of ``betavae_tpu_torch`` and ``chip_smoke.py`` is scanned for
-imports of ``jax``, ``flax``, ``optax`` or ``betavae_tpu``; importing every
-module in a fresh interpreter must leave JAX and the JAX package unloaded;
-and the entry points' default device must raise where there is no GPU.
+imports of ``jax``, ``flax``, ``optax`` or ``betavae_tpu``, of the JAX
+scripts' ``_bootstrap``, and of matplotlib, pandas or scikit-learn, which
+the card's install lacks; importing every module in a fresh interpreter
+must leave all of them unloaded; and the entry points that build the model
+must raise by default where there is no GPU.
 """
 
 import ast
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "betavae_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "betavae_tpu", "_bootstrap",
+             "matplotlib", "pandas", "sklearn"}
 PORT_FILES = sorted((ROOT / "betavae_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -43,9 +46,8 @@ def test_importing_the_port_loads_no_jax():
         "import betavae_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "print(sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'flax', 'optax',"
-        " 'betavae_tpu')))\n")
+        f"print(sorted(k for k in sys.modules\n"
+        f"             if k.split('.')[0] in {sorted(FORBIDDEN)}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
@@ -58,6 +60,8 @@ def test_default_device_raises_without_a_gpu(demo_config_factory):
         pytest.skip("a GPU is present: the default device is usable")
     from betavae_tpu_torch.config import get_config, reset_config_cache
     from betavae_tpu_torch.models.beta_vae import model_from_config
+    from betavae_tpu_torch.scripts import (diag_overfit, parity_check,
+                                           traverse_image)
     from betavae_tpu_torch.train.loop import train, train_steps
 
     path = demo_config_factory()
@@ -69,5 +73,13 @@ def test_default_device_raises_without_a_gpu(demo_config_factory):
             train_steps(path, max_steps=1)
         with pytest.raises(RuntimeError, match="cuda"):
             train(path)
+        for main, argv in (
+                (traverse_image.main, ["--image", "x.png"]),
+                (diag_overfit.main, []),
+                (parity_check.main, ["--reference-tables", ".",
+                                     "--run-eval"])):
+            reset_config_cache()
+            with pytest.raises(RuntimeError, match="cuda"):
+                main(["--config", path, *argv])
     finally:
         reset_config_cache()
