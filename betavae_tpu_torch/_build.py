@@ -1,4 +1,4 @@
-"""Build the CUDA sources in ``csrc/`` into shared libraries at first use.
+"""Build the sources in ``csrc/`` into shared libraries at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
@@ -6,6 +6,11 @@ alone (no PyTorch headers, so a build takes seconds) into
 with ``ctypes``.  The digest covers the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  ``build`` starts
 one ``nvcc`` per source, all at once, and waits for them together.
+
+``csrc/<name>.cpp`` is host code (the packed-dataset decoder), compiled by
+the host's ``g++`` with the JAX package's flags for its own copy
+(``betavae_tpu/native/__init__.py``) into the same directory under the same
+digest rule: :func:`load_host`.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+GXX_LIBS = ("-lpng", "-ljpeg", "-pthread")
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -31,10 +39,18 @@ def sources() -> list[str]:
     return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
 
 
+def _digest_path(src: Path, flags) -> Path:
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
+    return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
+
+
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    return _digest_path(SRC_DIR / f"{name}.cu", NVCC_FLAGS)
+
+
+def host_library_path(name: str) -> Path:
+    return _digest_path(SRC_DIR / f"{name}.cpp", GXX_FLAGS + GXX_LIBS)
 
 
 def _nvcc() -> str:
@@ -85,6 +101,36 @@ def build_log(name: str) -> str:
     shared-memory lines included)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def build_host(name: str) -> None:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` unless its library is up to
+    date.  Raises ``OSError`` without ``g++`` and ``RuntimeError`` on a
+    failed build (no libpng or libjpeg headers)."""
+    out = host_library_path(name)
+    if out.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    res = subprocess.run(["g++", *GXX_FLAGS, str(SRC_DIR / f"{name}.cpp"),
+                          "-o", str(tmp), *GXX_LIBS],
+                         capture_output=True, text=True, timeout=120)
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ build of {name}.cpp failed (exit "
+                           f"{res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cpp``, building it if needed."""
+    key = f"{name}.cpp"
+    lib = _loaded.get(key)
+    if lib is None:
+        build_host(name)
+        lib = ctypes.CDLL(str(host_library_path(name)))
+        _loaded[key] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

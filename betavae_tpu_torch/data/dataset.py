@@ -4,8 +4,11 @@ The port's own copy of ``betavae_tpu/data/dataset.py``: scans
 ``processed/{train,test}/<class>/*``, classes sorted, shuffles with
 ``seed`` (train) or ``seed + 1`` (test) then truncates to the limit;
 multiclass labels are the sorted-class index, binary labels are
-``0 if class == 'notumor' else 1``.  Images are decoded once with PIL
-into a packed ``(N, H, W, C)`` uint8 array; :func:`build_datasets` gives
+``0 if class == 'notumor' else 1``.  Images are decoded once into a packed
+``(N, H, W, C)`` uint8 array by the native decoder (:mod:`.native`, the
+JAX package's libpng/libjpeg code and bilinear resize), as the JAX
+``load_split`` does, and with PIL only where it cannot build or an image
+fails to decode; :func:`build_datasets` gives
 both splits with the debug alias; :func:`load_image` decodes one file as
 ``betavae_tpu/data/preprocess.py::_load_image`` does.
 """
@@ -19,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..config import get, get_config
+from ..logging_utils import init_logger
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".tif", ".bmp", ".tiff")
 
@@ -32,6 +36,7 @@ class ArrayDataset:
     original_classes: list = field(default_factory=list)
     class_to_idx: dict = field(default_factory=dict)
     class_mode: str = "multiclass"
+    decoder: str = ""           # "native" or "PIL": what load_split took
 
     def __len__(self) -> int:
         return int(self.images.shape[0])
@@ -69,9 +74,38 @@ def scan_split(root_dir: str, split: str, sample_limit=None):
     return samples, classes
 
 
-def load_split(split: str, sample_limit=None) -> ArrayDataset:
-    """Decode one split into a packed ArrayDataset at ``data.image_size``."""
+_decoders_logged: set = set()
+
+
+def _log_decoder(decoder: str) -> None:
+    """Log once a process which decoder ``load_split`` took."""
+    if decoder not in _decoders_logged:
+        _decoders_logged.add(decoder)
+        init_logger().info("[DATA] load_split decodes with %s", decoder)
+
+
+def decode_pil(paths, size: int, grayscale: bool) -> np.ndarray:
+    """The PIL decode of ``paths`` into a packed ``(N, size, size, C)``
+    uint8 array (``convert`` then a bicubic ``resize`` where the size
+    differs): the JAX ``load_split``'s fallback."""
     from PIL import Image
+
+    images = np.empty((len(paths), size, size, 1 if grayscale else 3),
+                      dtype=np.uint8)
+    for i, path in enumerate(paths):
+        with Image.open(path) as im:
+            im = im.convert("L" if grayscale else "RGB")
+            if im.size != (size, size):
+                im = im.resize((size, size))
+            arr = np.asarray(im, dtype=np.uint8)
+        images[i] = arr[..., None] if arr.ndim == 2 else arr
+    return images
+
+
+def load_split(split: str, sample_limit=None) -> ArrayDataset:
+    """Decode one split into a packed ArrayDataset at ``data.image_size``:
+    the native decoder, else PIL (:func:`decode_pil`)."""
+    from . import native
 
     cfg = get_config()
     samples, classes = scan_split(cfg.paths.processed_dir, split, sample_limit)
@@ -86,22 +120,21 @@ def load_split(split: str, sample_limit=None) -> ArrayDataset:
 
     n = len(samples)
     labels = np.empty((n,), dtype=np.int32)
-    images = np.empty((n, size, size, c), dtype=np.uint8)
-    for i, (path, cls) in enumerate(samples):
+    for i, (_, cls) in enumerate(samples):
         if class_mode == "multiclass":
             labels[i] = class_to_idx[cls]
         else:
             labels[i] = 0 if cls == "notumor" else 1
-        with Image.open(path) as im:
-            im = im.convert("L" if grayscale else "RGB")
-            if im.size != (size, size):
-                im = im.resize((size, size))
-            arr = np.asarray(im, dtype=np.uint8)
-        images[i] = arr[..., None] if arr.ndim == 2 else arr
+    paths = [p for p, _ in samples]
+    images = native.pack_images(paths, size, c)
+    decoder = "native" if images is not None else "PIL"
+    _log_decoder(decoder)
+    if images is None:
+        images = decode_pil(paths, size, grayscale)
     return ArrayDataset(
-        images=images, labels=labels, paths=[p for p, _ in samples],
+        images=images, labels=labels, paths=paths,
         class_names=[cls for _, cls in samples], original_classes=classes,
-        class_to_idx=class_to_idx, class_mode=class_mode)
+        class_to_idx=class_to_idx, class_mode=class_mode, decoder=decoder)
 
 
 def build_datasets(train_limit=None, test_limit=None):

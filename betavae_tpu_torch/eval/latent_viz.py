@@ -6,17 +6,19 @@ The port's own copy of ``betavae_tpu/eval/latent_viz.py``, drawn with PIL
 - :func:`reduce_latents`: ``"umap"`` takes PCA, the JAX package's fallback
   when umap-learn is absent (the port carries no umap); ``"pca"`` is
   scikit-learn's ``PCA.fit_transform`` (``eval/probes.py::pca``);
-  ``"tsne"`` raises ``NotImplementedError``: t-SNE is not ported,
-- :func:`plot_latent_scatter`: ``latent_scatter.png`` (binary labels in a
-  fixed blue/red pair, multiclass in tab10),
+  ``"tsne"`` is scikit-learn's t-SNE as the JAX package calls it, in its
+  exact form (:mod:`.tsne`),
+- :func:`plot_latent_scatter`: ``latent_scatter.png`` and
+  ``latent_scatter_tsne.png`` (binary labels in a fixed blue/red pair,
+  multiclass in tab10),
 - :func:`per_dim_violin`: one violin per class for every latent dimension
   (``scipy.stats.gaussian_kde`` with Scott's bandwidth, matplotlib's
   ``violinplot`` default) → ``latent_per_dim_violin.png``.
 
-:func:`generate_latent_visualizations` keeps the JAX package's guarded
-t-SNE call, so ``latent_scatter_tsne.png`` is not written and a warning
-says so.  The 3-D scatters, which the JAX package shows on screen and never
-saves, are not ported.
+:func:`generate_latent_visualizations` writes the JAX package's three
+figures.  The 3-D scatters, which the JAX package shows on screen and never
+saves, are not ported (``scripts/generate_umap_and_grid.py`` draws the
+3-component reduction as a rotating GIF).
 """
 
 from __future__ import annotations
@@ -31,15 +33,14 @@ from ..logging_utils import init_logger
 from . import plots
 from .probes import pca
 from .recon_metrics import extract_latents
+from .tsne import tsne
 
 
-def reduce_latents(latents, method="umap", n_components=2):
+def reduce_latents(latents, method="umap", n_components=2, seed=42):
     if method in ("umap", "pca"):
         return pca(latents, n_components)
     if method == "tsne":
-        raise NotImplementedError("t-SNE is not ported (it needs "
-                                  "scikit-learn, which the port does not "
-                                  "carry)")
+        return tsne(latents, n_components, seed=seed)[0]
     raise ValueError(f"unknown reduction method {method}")
 
 
@@ -131,6 +132,8 @@ def generate_latent_visualizations(model, test_ds):
     save_figure(plot_latent_scatter(emb, labels, "Latent Scatter (UMAP/PCA)",
                                     binary=binary, class_names=idx_to_class),
                 "latent_scatter")
+    # the JAX package skips the figure where scikit-learn refuses the
+    # points (no more than the perplexity): the same refusal here
     try:
         emb_tsne = reduce_latents(latents, method="tsne", n_components=2)
         save_figure(plot_latent_scatter(emb_tsne, labels,
@@ -138,6 +141,6 @@ def generate_latent_visualizations(model, test_ds):
                                         binary=binary,
                                         class_names=idx_to_class),
                     "latent_scatter_tsne")
-    except NotImplementedError as err:
+    except ValueError as err:
         init_logger().warning("latent_scatter_tsne.png not written: %s", err)
     per_dim_violin(latents, labels, binary)

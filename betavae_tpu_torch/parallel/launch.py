@@ -168,11 +168,14 @@ def kernel_launches() -> dict:
     from ..ops.elbo import fused_reparam_kl, reparam_kl_backward
     from ..ops.gn import gn_backward, gn_forward
     from ..ops.head import head_forward, head_m
+    from ..ops.upsample import upsample2x_backward, upsample2x_forward
 
     wrappers = {"fused_reparam_kl": fused_reparam_kl,
                 "reparam_kl_backward": reparam_kl_backward,
                 "head_forward": head_forward, "head_m": head_m,
-                "gn_forward": gn_forward, "gn_backward": gn_backward}
+                "gn_forward": gn_forward, "gn_backward": gn_backward,
+                "upsample_forward": upsample2x_forward,
+                "upsample_backward": upsample2x_backward}
     out = {name: w.launches for name, w in wrappers.items()}
     out["head_by_path"] = {name: dict(wrappers[name].launches_by_path)
                            for name in ("head_forward", "head_m")}

@@ -37,13 +37,27 @@ Phases, each printing one line (any failure exits non-zero at once):
    flushes, the host's microseconds a call, and two launches held bitwise
    equal; every block but dec3, and the canary, must take the cluster
    path), each beside ``F.group_norm`` and the unfused sequence the port's
-   blocks run; where a GN call's host time goes at the canary; and dec3's
-   bf16 sample on a non-portable cluster of 16 against the generic path,
+   blocks run; where a GN call's host time goes at the canary; dec3's
+   bf16 sample on a non-portable cluster of 16 against the generic path;
+   and the bilinear ×2 upsample's forward and gather-backward kernels at
+   the flagship decoder's four shapes in bf16 and fp32, a ragged shape
+   and the scaled config's five shapes (B = 256, bf16), each against its
+   plain version (bitwise expected, 1e-6 / 2⁻⁸ held), two launches
+   bitwise equal, beside its bound, its plain version and
+   ``F.interpolate``'s forward and autograd backward,
 4. slice: 3 fp32 steps of a small config on the card against the same steps
    on the CPU (the kernels' plain versions), with the default head and with
    ``training.fused_head: true``; 20 training steps of the flagship config
    (``configs/beta_vae_se.yaml`` at full width, demo data), with the
-   default head and with the fused head; the epoch trainer ``train()`` on
+   default head and with the fused head; replay: those 20 steps twice from
+   one seed with each head, every total bitwise the first run's;
+   ``configs/beta_vae_se_tpu_scaled.yaml`` at full width (256 px, 5
+   blocks, latent 128, global batch 256) through the training CLI with
+   ``--data-parallel -1``, 2 epochs of 2 steps over seeded 256 px demo
+   data (finite lines, each kernel's launches, step ms, peak memory); the
+   packed-dataset decoder (g++ and the libpng/libjpeg headers on this
+   host, the decoder ``load_split`` took on the bench's e2e data, its
+   seconds native and with PIL); the epoch trainer ``train()`` on
    the flagship with the fused head for 2 epochs and then ``resume
    latest`` for a third, its checkpoints written by the background writer
    (``training.async_checkpoint`` of the flagship config); the
@@ -81,23 +95,29 @@ Phases, each printing one line (any failure exits non-zero at once):
    (equal manifests), ``traverse_image`` on one test image (the head
    forward once a decode, all TMA, no reparam+KL launch),
    ``diag_overfit`` (the reparam+KL forward once a batch, no backward),
+   ``diag_overfit`` on ``configs/overfit_capacity.yaml`` over a 128 px
+   tree read at its 256 px, ``generate_umap_and_grid`` on ``best`` and the
+   evaluation's traversal figures (a GIF of 60 frames, the grid),
    the four log tools on the epoch trainer's log and panels, and
    ``parity_check --run-eval`` against the evaluation's tables (exit 0),
    with each CLI's seconds and the preprocessing's images/s a stage; the
    flagship's fused step at ``training.remat`` false, decoder,
    true and false again (20 steps each: first totals within 1e-5
    relative, the launches of a step unchanged, each mode's step ms and
-   peak memory, the later steps beside the rerun's), and one fp32
+   peak memory, every mode's totals and the rerun's bitwise false's at
+   every step), and one fp32
    backward from the same state at each mode (loss bitwise, gradients
-   within 1e-5); the epoch trainer's ``latest`` exported with its Adam
+   within 1e-5); one fp32 backward three times from one state with
+   cuDNN's default algorithms and with ``cudnn.deterministic``, and the
+   bf16 flagship's step ms with that flag off and on in turns (reported); the epoch trainer's ``latest`` exported with its Adam
    state by ``python -m betavae_tpu_torch.io.export_torch_checkpoint`` to
    the reference's torch-pickle shards and resumed for one more epoch
    beside a copy of the native checkpoint (first total within 1e-5
    relative, the loaded moments bitwise, ``infer.encode`` latents within
    1e-5 relative; the export's and the load's seconds); ``train()`` with
    both splits fed from the host against the same run with them on the
-   device (first total bitwise, the same launches, later lines beside a
-   device-fed rerun's), every host-fed batch of an e2e epoch bitwise the
+   device (every logged total bitwise, and a device-fed rerun's, the
+   same launches), every host-fed batch of an e2e epoch bitwise the
    resident gather, then host feed and device feed one after the other:
    the e2e rate over the bench's data (2 epochs each), the fused
    flagship step's ms, device ms and busy share; ``train()`` with
@@ -139,8 +159,9 @@ FP32_OPS_PER_S = 67e12
 ELBO_OPS_PER_ELEMENT = 120
 # the flagship's [batch, latent]; the evaluation path's [1, 64] (the
 # recon/traversal panel) and [8, 64] (the prior grid); large; a rank's
-# [16, 64] in the data_parallel phase (two ranks of the global 32)
-ELBO_SHAPES = ((32, 64), (1, 64), (8, 64), (65536, 64), (16, 64))
+# [16, 64] in the data_parallel phase (two ranks of the global 32); the
+# scaled config's [256, 128]
+ELBO_SHAPES = ((32, 64), (1, 64), (8, 64), (65536, 64), (16, 64), (256, 128))
 # the decoder's last activation y [B, C, H, W] at the flagship (bf16 under
 # autocast, fp32 without), the evaluation path's smaller decodes (1: the
 # panel, 2: its endpoints, 7: a traversal sweep, 8: the prior grid), a
@@ -175,6 +196,24 @@ GN_GENERIC_BLOCKS = ("dec3",)
 # 3 (x, x² sums) + 6 (x̂, z, ReLU, pool sum); backward 7 + 9
 GN_FWD_OPS, GN_BWD_OPS = 9, 16
 FLAGSHIP_STEPS = 20
+# the ×2 upsample's inputs [B, C, H, W]: the flagship decoder's four (bf16
+# under autocast, and fp32), a ragged shape, and the scaled config's five
+# (configs/beta_vae_se_tpu_scaled.yaml: B = 256, bf16)
+UPSAMPLE_FLAGSHIP = ((32, 512, 8, 8), (32, 256, 16, 16), (32, 128, 32, 32),
+                     (32, 64, 64, 64))
+UPSAMPLE_SCALED = ((256, 1024, 8, 8), (256, 512, 16, 16), (256, 256, 32, 32),
+                   (256, 128, 64, 64), (256, 64, 128, 128))
+UPSAMPLE_CASES = (tuple((s, "bfloat16") for s in UPSAMPLE_FLAGSHIP)
+                  + tuple((s, "float32") for s in UPSAMPLE_FLAGSHIP)
+                  + (((3, 5, 37, 53), "float32"), ((3, 5, 37, 53), "bfloat16"))
+                  + tuple((s, "bfloat16") for s in UPSAMPLE_SCALED))
+# fp32 operations, counted from the kernels' arithmetic: forward 30 an
+# input value (6 row and 4 column two-tap sums of 3), backward 35 a dx value
+# (5 four-tap sums of 7)
+UPSAMPLE_FWD_OPS, UPSAMPLE_BWD_OPS = 30, 35
+# the decoder's upsamples a forward: the flagship's blocks, the small
+# configs' (32 px, 2 blocks) and the scaled config's
+FLAGSHIP_BLOCKS, SMALL_BLOCKS, SCALED_BLOCKS = 4, 2, 5
 EPOCHS_FIRST, EPOCHS_TOTAL = 2, 3
 BENCH_ARGS = ["--steps", "96", "--warmup", "32", "--e2e-epochs", "3"]
 
@@ -184,7 +223,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line gets the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -865,6 +910,102 @@ def check_head(shape, dtype_name: str) -> dict:
             "forward": fwd, "m": mk}
 
 
+def check_upsample(shape, dtype_name: str) -> dict:
+    """The ×2 upsample's forward and gather-backward kernels on the card
+    against their plain versions (fp32 1e-6 relative, bf16 2⁻⁸, plus that
+    of the largest |value|; both compute in one order, so they are
+    expected bitwise, and that is reported), two launches of each bitwise
+    equal, the autograd Function's value and gradient the kernels', and
+    times: each kernel a call and on the device, its bound, its plain
+    version's time, and ``F.interpolate``'s forward and autograd backward
+    (the library call, whose backward scatters with atomics)."""
+    import torch
+    import torch.nn.functional as F
+
+    from betavae_tpu_torch.ops.upsample import (
+        bilinear_upsample_x2, upsample2x_backward,
+        upsample2x_backward_reference, upsample2x_forward,
+        upsample2x_reference)
+
+    dtype = getattr(torch, dtype_name)
+    b, c, h, w = shape
+    case = f"upsample {shape} {dtype_name}"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    dy = torch.randn((b, c, 2 * h, 2 * w), generator=g,
+                     device="cuda").to(dtype)
+    before = (upsample2x_forward.launches, upsample2x_backward.launches)
+    y = upsample2x_forward(x)
+    dx = upsample2x_backward(dy)
+    torch.cuda.synchronize()
+    if (upsample2x_forward.launches - before[0],
+            upsample2x_backward.launches - before[1]) != (1, 1):
+        fail(f"{case}: one call of each did not launch each kernel once")
+    if not (torch.equal(y, upsample2x_forward(x))
+            and torch.equal(dx, upsample2x_backward(dy))):
+        fail(f"{case}: two launches differ")
+    tol = 1e-6 if dtype_name == "float32" else 2**-8
+    checks = {}
+    for name, got, ref in (("forward", y, upsample2x_reference),
+                           ("backward", dx, upsample2x_backward_reference)):
+        want = ref(x if name == "forward" else dy)
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol * scale)
+        checks[name] = {"max_abs_err": float((got.float() - want.float())
+                                             .abs().max()),
+                        "max_abs_ref": scale,
+                        "bitwise_vs_plain": bool(torch.equal(got, want))}
+        del want
+    xr = x.clone().requires_grad_()
+    yr = bilinear_upsample_x2(xr)
+    yr.backward(dy)
+    if not (torch.equal(yr, y) and torch.equal(xr.grad, dx)):
+        fail(f"{case}: the autograd Function's value or gradient is not the "
+             f"kernels'")
+    del xr, yr
+    # the library call on the same inputs: its values beside the kernels'
+    xl = x.clone().requires_grad_()
+    y_lib = F.interpolate(xl, scale_factor=2, mode="bilinear",
+                          align_corners=False)
+    (dx_lib,) = torch.autograd.grad(y_lib, xl, dy, retain_graph=True)
+    checks["library_max_abs_diff"] = {
+        "forward": float((y_lib.detach().float() - y.float()).abs().max()),
+        "backward": float((dx_lib.float() - dx.float()).abs().max())}
+    del dx_lib
+
+    out_bytes = y.numel() * y.element_size()
+    iters = max(3, min(200, int(4e9 // out_bytes)))
+    plain_iters = max(2, iters // 10)
+    rows = {}
+    for name, kernel, plain, library, ops, only in (
+            ("forward", lambda: upsample2x_forward(x),
+             lambda: upsample2x_reference(x),
+             lambda: F.interpolate(x, scale_factor=2, mode="bilinear",
+                                   align_corners=False),
+             UPSAMPLE_FWD_OPS * x.numel(), "upsample2x_fwd"),
+            ("backward", lambda: upsample2x_backward(dy),
+             lambda: upsample2x_backward_reference(dy),
+             lambda: torch.autograd.grad(y_lib, xl, dy, retain_graph=True),
+             UPSAMPLE_BWD_OPS * x.numel(), "upsample2x_bwd")):
+        row = {"ms": cuda_ms(kernel, iters),
+               "device_ms": device_ms_per_call(kernel, f"{case} {name}",
+                                               only=only),
+               "plain_ms": cuda_ms(plain, plain_iters, warmup=2),
+               "library_ms": cuda_ms(library, plain_iters, warmup=2)}
+        bytes_ms = (x.numel() + y.numel()) * x.element_size() \
+            / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        row["bound_ms"] = max(bytes_ms, ops_ms)
+        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["bound_fraction"] = row["bound_ms"] / row["device_ms"]
+        rows[name] = row
+    del x, dy, y, dx, xl, y_lib
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "dtype": dtype_name, "checks": checks,
+            **rows}
+
+
 def gn_inputs(shape, dtype_name: str, seed: int = 0):
     import torch
 
@@ -1206,13 +1347,27 @@ def read_counts(kernels: dict) -> dict:
     return {name: wrapper.launches for name, wrapper in kernels.items()}
 
 
-def launches_per_step(kernels: dict, fused_head: bool, steps: int) -> dict:
+def launches_per_step(kernels: dict, fused_head: bool, steps: int,
+                      blocks: int = FLAGSHIP_BLOCKS,
+                      recompute: bool = False) -> dict:
     """Launches of ``steps`` train steps: the reparam+KL forward and
-    backward every step, the head kernels with the fused head, the GN
-    kernels never (the model keeps ``nn.GroupNorm``)."""
+    backward every step, the head kernels with the fused head, the
+    upsample forward and backward once a decoder block (the forward twice
+    where ``training.remat`` recomputes the decoder blocks in the
+    backward), the GN kernels never (the model keeps ``nn.GroupNorm``)."""
     per_step = {"fused_reparam_kl": 1, "reparam_kl_backward": 1,
-                "head_forward": int(fused_head), "head_m": int(fused_head)}
+                "head_forward": int(fused_head), "head_m": int(fused_head),
+                "upsample_forward": blocks * (1 + int(recompute)),
+                "upsample_backward": blocks}
     return {name: steps * per_step.get(name, 0) for name in kernels}
+
+
+def upsample_launches(decodes: int, backward_steps: int = 0,
+                      blocks: int = FLAGSHIP_BLOCKS) -> dict:
+    """The upsample kernels' launches of ``decodes`` decoder forwards, of
+    which ``backward_steps`` train steps ran the backward."""
+    return {"upsample_forward": blocks * decodes,
+            "upsample_backward": blocks * backward_steps}
 
 
 def check_small_slice(tmp: str, kernels: dict, fused_head: bool) -> dict:
@@ -1251,7 +1406,7 @@ def check_small_slice(tmp: str, kernels: dict, fused_head: bool) -> dict:
         reset_logger()
     finally:
         torch.backends.cudnn.allow_tf32 = True
-    want = launches_per_step(kernels, fused_head, 3)
+    want = launches_per_step(kernels, fused_head, 3, blocks=SMALL_BLOCKS)
     # fp32 on both sides, summed in other orders; Adam carries the
     # difference into the next step: 1e-3 relative over three steps
     rel = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(gpu, cpu))
@@ -1303,7 +1458,9 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool,
     totals = out["totals"]
     if len(totals) != FLAGSHIP_STEPS or not all(map(math.isfinite, totals)):
         fail(f"flagship: expected {FLAGSHIP_STEPS} finite losses, got {totals}")
-    want = launches_per_step(kernels, fused_head, FLAGSHIP_STEPS)
+    want = launches_per_step(
+        kernels, fused_head, FLAGSHIP_STEPS,
+        recompute=overrides.get("training.remat", False) is not False)
     if launches != want:
         fail(f"flagship (fused_head {fused_head}): kernel launches "
              f"{launches} in {FLAGSHIP_STEPS} steps, want {want}")
@@ -1316,6 +1473,107 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool,
             "timed_steps": out["timed_steps"], "step_ms": step_ms,
             "img_per_s": out["batch_size"] * 1e3 / step_ms,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def run_replay(tmp: str, kernels: dict) -> dict:
+    """The flagship (bf16, full width) through ``train_steps`` twice from
+    the same seed for FLAGSHIP_STEPS steps (``run_flagship``: finite
+    totals, each kernel's launches), with the default head and then the
+    fused head: every total of the rerun must equal the first run's,
+    bitwise, at every step."""
+    out = {}
+    for fused in (False, True):
+        runs = [run_flagship(tmp, kernels, fused_head=fused)
+                for _ in range(2)]
+        first, rerun = (r["totals"] for r in runs)
+        parted = [i + 1 for i, (a, b) in enumerate(zip(first, rerun))
+                  if a != b]
+        if parted:
+            fail(f"replay (fused_head {fused}): the rerun parts from the "
+                 f"first run at steps {parted}: {first} vs {rerun}")
+        out["fused_head" if fused else "default_head"] = {
+            "steps": len(first), "totals_bitwise": True, "totals": first,
+            "step_ms": [r["step_ms"] for r in runs],
+            "launches": runs[0]["launches"]}
+    return {"phase": "replay", **out}
+
+
+# the scaled config's run: 2 train steps an epoch (2 × 256 images), one
+# validation batch (128 images), two epochs
+SCALED_TRAIN_PER_CLASS, SCALED_TEST_PER_CLASS, SCALED_EPOCHS = 128, 32, 2
+
+
+def run_scaled(tmp: str, kernels: dict) -> dict:
+    """``configs/beta_vae_se_tpu_scaled.yaml`` at full width (256 px, 5
+    blocks, base 64, latent 128, global batch 256, bf16, the background
+    writer) through the training CLI with ``--data-parallel -1`` (every
+    visible card: one rank here), over seeded 256 px demo data, for
+    SCALED_EPOCHS epochs of 2 steps: every logged number finite, the
+    reparam+KL forward once a train step and validation batch and its
+    backward once a train step, the upsample forward 5 times a decode
+    (train steps, validation batches, an epoch's panel) and its backward 5
+    times a train step, nothing else; step ms (the trainer's images/s of
+    the second epoch), epoch wall and peak memory."""
+    import gc
+
+    import torch
+
+    from betavae_tpu_torch.data.demo import generate_demo_data
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.__main__ import main as train_cli
+
+    root = os.path.join(tmp, "scaled")
+    cfg = write_config("configs/beta_vae_se_tpu_scaled.yaml", root,
+                       "scaled.yaml", **{"training.epochs": SCALED_EPOCHS,
+                                         "logging.log_every_n_steps": 1})
+    generate_demo_data(os.path.join(root, "processed"),
+                       train_per_class=SCALED_TRAIN_PER_CLASS,
+                       test_per_class=SCALED_TEST_PER_CLASS, size=256)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    train_cli(["--config", cfg, "--data-parallel", "-1"])
+    seconds = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reset_logger()
+    lines = metrics_lines(os.path.join(root, "outputs", "logs",
+                                       "beta_vae_se_tpu_scaled.log"))
+    for m in lines:
+        bad = [k for k, v in m.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            fail(f"scaled: non-finite {bad} in {m}")
+    train_lines = [m for m in lines if m["phase"] == "train"]
+    val_lines = [m for m in lines if m["phase"] == "val"]
+    steps = max(m["step"] for m in train_lines)
+    batch = 256
+    val_batches = -(-4 * SCALED_TEST_PER_CLASS // batch)
+    if steps != SCALED_EPOCHS * 4 * SCALED_TRAIN_PER_CLASS // batch or \
+            len(val_lines) != SCALED_EPOCHS:
+        fail(f"scaled: {steps} steps and {len(val_lines)} val lines")
+    decodes = steps + SCALED_EPOCHS * (val_batches + 1)
+    want = {name: 0 for name in kernels}
+    want.update(fused_reparam_kl=steps + SCALED_EPOCHS * val_batches,
+                reparam_kl_backward=steps,
+                **upsample_launches(decodes, steps, blocks=SCALED_BLOCKS))
+    if launches != want:
+        fail(f"scaled: kernel launches {launches}, want {want}")
+    rate = val_lines[-1]["train_images_per_sec"]
+    return {"phase": "scaled", "config": "configs/beta_vae_se_tpu_scaled.yaml",
+            "data_parallel": -1, "train_steps": steps,
+            "val_batches_per_epoch": val_batches,
+            "totals": [m["train_total_loss"] for m in train_lines],
+            "val_total_loss": [m["val_total_loss"] for m in val_lines],
+            "launches": launches, "seconds": seconds,
+            "train_images_per_sec": [m["train_images_per_sec"]
+                                     for m in val_lines],
+            "step_ms": batch / rate * 1e3,
+            "epoch_wall_seconds": [m["epoch_wall_seconds"] for m in lines
+                                   if m["phase"] == "epoch_end"],
+            "peak_mem_gib": peak}
 
 
 def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
@@ -1361,6 +1619,10 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
             "head_m_kernel_device_ms_per_step": sum(
                 ms for name, ms in per_kernel.items()
                 if "head_m_" in name),
+            **{f"{part}_upsample_ms": sum(
+                ms for name, ms in per_kernel.items() if key in name)
+               for part, key in (("forward", "upsample2x_fwd"),
+                                 ("backward", "upsample2x_bwd"))},
             "device_busy_share": device_ms / step_ms,
             "kernels_per_step": len(work) / steps,
             "collective_kernels_per_step": sum(
@@ -1369,6 +1631,46 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
                 ms for name, ms in per_kernel.items()
                 if "nccl" in name.lower()),
             "top_kernels_ms_per_step": [[name[:80], ms] for name, ms in top]}
+
+
+def upsample_in_turns(tmp: str) -> dict:
+    """The flagship's default-head step with the upsample kernels and with
+    ``F.interpolate`` in their place (the library call, whose backward
+    scatters with atomics), in turns (kernel, library, library, kernel):
+    each turn's step ms over FLAGSHIP_STEPS steps, and its device ms a
+    step, busy share and largest kernels over 8 profiled steps."""
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.ops import upsample
+    from betavae_tpu_torch.train.loop import train_steps
+
+    def library(x):
+        with torch.autocast(x.device.type, enabled=False):
+            return F.interpolate(x, scale_factor=2, mode="bilinear",
+                                 align_corners=False)
+
+    cfg = flagship_config(tmp, False)
+    turns = {"kernel": [], "library": []}
+    for tag in ("kernel", "library", "library", "kernel"):
+        with (mock.patch.object(upsample, "bilinear_upsample_x2", library)
+              if tag == "library" else contextlib.nullcontext()):
+            run = train_steps(cfg, FLAGSHIP_STEPS)
+            reset_logger()
+            step_ms = run["timed_seconds"] / run["timed_steps"] * 1e3
+            prof = profile_flagship(tmp, step_ms, fused_head=False)
+        if not all(map(math.isfinite, run["totals"])):
+            fail(f"upsample_in_turns ({tag}): totals {run['totals']}")
+        turns[tag].append({"step_ms": step_ms,
+                           "device_ms_per_step": prof["device_ms_per_step"],
+                           "device_busy_share": prof["device_busy_share"],
+                           "kernels_per_step": prof["kernels_per_step"],
+                           "top_kernels_ms_per_step":
+                               prof["top_kernels_ms_per_step"][:6]})
+    return {"phase": "upsample_in_turns", **turns}
 
 
 def metrics_lines(log_path: str) -> list:
@@ -1445,11 +1747,12 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
     val_lines = [m for m in lines if m["phase"] == "val"]
     val_batches = -(-4 * 4 // 32)       # 16 test images in batches of 32
     train_steps = out2["total_steps"]
-    want = {"head_forward": train_steps + EPOCHS_TOTAL * (val_batches + 1),
-            "head_m": train_steps,
+    decodes = train_steps + EPOCHS_TOTAL * (val_batches + 1)
+    want = {"head_forward": decodes, "head_m": train_steps,
             "fused_reparam_kl": train_steps + EPOCHS_TOTAL * val_batches,
             "reparam_kl_backward": train_steps,
-            "gn_forward": 0, "gn_backward": 0}
+            "gn_forward": 0, "gn_backward": 0,
+            **upsample_launches(decodes, train_steps)}
     if launches != want:
         fail(f"epochs: kernel launches {launches}, want {want}")
     return {"phase": "epochs", "epochs": EPOCHS_TOTAL,
@@ -1613,7 +1916,8 @@ def run_reference_ckpt(tmp: str, kernels: dict) -> dict:
         "step"] + 1
     want = {"head_forward": steps + 1 + 1, "head_m": steps,
             "fused_reparam_kl": steps + 1, "reparam_kl_backward": steps,
-            "gn_forward": 0, "gn_backward": 0}
+            "gn_forward": 0, "gn_backward": 0,
+            **upsample_launches(steps + 1 + 1, steps)}
     total_rel = _rel(first["reference"]["train_total_loss"],
                      first["native"]["train_total_loss"])
     if not (first["reference"]["epoch"] == EPOCHS_TOTAL + 1
@@ -1639,8 +1943,8 @@ def run_reference_ckpt(tmp: str, kernels: dict) -> dict:
 def remat_gradients(tmp: str) -> dict:
     """One backward of the fused flagship at full width from the same
     weights and batch at each ``training.remat`` mode, and without remat a
-    second time, in fp32 with TF32 off (where a backward's own
-    nondeterminism, atomics summing in another order, stays near 1e-7): the
+    second time, in fp32 with TF32 off (where two backwards from one state
+    still part by ~1e-7 on the card, unlike the bf16 steps): the
     loss must be bitwise the no-remat one and the gradients within 1e-5 of
     it (‖g − g₀‖ / ‖g₀‖ over every parameter)."""
     import torch
@@ -1692,17 +1996,84 @@ def remat_gradients(tmp: str) -> dict:
     return out
 
 
+def cudnn_determinism(tmp: str, kernels: dict) -> dict:
+    """Where the card still does not replay.  One fp32 backward of the
+    fused flagship (TF32 off) from the same weights and batch three times,
+    with cuDNN's default algorithm choice and with
+    ``torch.backends.cudnn.deterministic``: the largest gradient difference
+    between the three and the parameters whose gradients differ; and the
+    bf16 flagship's step ms (FLAGSHIP_STEPS steps of ``run_flagship``, the
+    default head) with the flag off and on, in turns (off, on, on, off).
+    Reported, not bounded: the trainer leaves the flag at PyTorch's
+    default (off), under which the bf16 steps replay bitwise (the
+    ``replay`` phase)."""
+    import torch
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.models.beta_vae import model_from_config
+    from betavae_tpu_torch.models.losses import loss_spec_from_config
+    from betavae_tpu_torch.train.step import _forward_losses
+
+    reset_config_cache()
+    cfg = get_config(flagship_config(tmp, True,
+                                     **{"training.mixed_precision": False}))
+    torch.manual_seed(0)
+    model = model_from_config(cfg).train()
+    spec = loss_spec_from_config(cfg)
+    reset_config_cache()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((int(cfg.training.batch_size), 1, 128, 128), generator=g,
+                   device="cuda")
+    mask = torch.ones(x.shape[0], device="cuda")
+    sched = {"beta": 1.0, "capacity": 30.0, "capacity_weight": 1.0,
+             "free_bits": 0.0, "lr": 5e-4}
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        _forward_losses(model, x, mask, sched, spec=spec, use_capacity=True,
+                        seed=1, offset=1)["total"].backward()
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters()}
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    fp32 = {}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for tag, on in (("default", False), ("deterministic", True)):
+            torch.backends.cudnn.deterministic = on
+            runs = [grads() for _ in range(3)]
+            diff = {n: max(float((r[n] - runs[0][n]).abs().max())
+                           for r in runs[1:]) for n in runs[0]}
+            fp32[tag] = {"max_abs_diff": max(diff.values()),
+                         "params_differing": sorted(n for n, d in diff.items()
+                                                    if d)}
+        torch.backends.cuda.matmul.allow_tf32 = flags[2]
+        torch.backends.cudnn.allow_tf32 = flags[1]
+        step_ms = {"off": [], "on": []}
+        for on in (False, True, True, False):
+            torch.backends.cudnn.deterministic = on
+            step_ms["on" if on else "off"].append(
+                run_flagship(tmp, kernels, fused_head=False)["step_ms"])
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    return {"phase": "cudnn_determinism", "fp32_backward_three_times": fp32,
+            "bf16_flagship_step_ms_in_turns": step_ms}
+
+
 def run_remat(tmp: str, kernels: dict) -> dict:
     """FLAGSHIP_STEPS steps of the fused flagship (bf16) at
     ``training.remat`` false, decoder and true, and false again
     (``run_flagship``: finite totals, the launches of a step unchanged):
     each mode's step ms and peak memory; the first-step totals within 1e-5
-    relative of false's.  The later steps are reported beside the
-    no-remat rerun's, not bounded: two identical runs already part by
-    ~1e-4 at step 2 and by percents at step 20 (the card's backward sums
-    with atomics in no fixed order, and Adam carries the difference
-    on).  The gradients of one step from the same state are held instead
-    (:func:`remat_gradients`)."""
+    relative of false's; every mode's totals, and the no-remat rerun's,
+    bitwise false's at every step (the step replays: the upsample's
+    backward gathers, with no atomics, and a recomputed block runs the
+    same kernels on the same values).  The gradients of one fp32 step
+    from the same state are held too (:func:`remat_gradients`)."""
     modes = {}
     for tag, mode in (("false", False), ("decoder", "decoder"),
                       ("true", True), ("false_rerun", False)):
@@ -1712,8 +2083,12 @@ def run_remat(tmp: str, kernels: dict) -> dict:
     first = {m: _rel(r["totals"][0], base[0]) for m, r in modes.items()}
     if not all(v <= 1e-5 for v in first.values()):
         fail(f"remat: first-step totals rel {first}")
+    parted = {m: [i + 1 for i, (a, b) in enumerate(zip(r["totals"], base))
+                  if a != b] for m, r in modes.items()}
+    if any(parted.values()):
+        fail(f"remat: runs part from the no-remat run at steps {parted}")
     return {"phase": "remat", "steps": FLAGSHIP_STEPS,
-            "first_total_rel": first,
+            "first_total_rel": first, "steps_parted_vs_false": parted,
             "max_rel_vs_false": {m: max(_rel(a, b) for a, b in
                                         zip(r["totals"], base))
                                  for m, r in modes.items()},
@@ -1776,10 +2151,9 @@ def host_fed_batches(ds, depth: int) -> dict:
 def run_host_feed(tmp: str, kernels: dict) -> dict:
     """``train()`` on the ``epochs`` config fed from the host
     (``training.max_device_dataset_mb: 0``) against the same with the
-    splits on the device, and the device-fed run again: the first logged
-    total bitwise the device-fed one, and the same kernel launches; the
-    later lines are reported beside the device-fed rerun's, which parts
-    from the first run by ~1e-3 (the backward's atomics), not bounded.
+    splits on the device, and the device-fed run again: every logged
+    total of both bitwise the device-fed run's (the step replays), and the
+    same kernel launches.
     Every batch of an epoch of the bench's e2e data through the host feed
     (16 and 1 batches ahead) is held bitwise to the resident gather
     (:func:`host_fed_batches`).  Then host feed, then device feed, one
@@ -1808,7 +2182,7 @@ def run_host_feed(tmp: str, kernels: dict) -> dict:
            for tag, r in runs.items() if tag != "device"}
     host = runs["host"]
     if not (len(host["totals"]) == len(dev) > 1
-            and host["totals"][0] == dev[0]
+            and host["totals"] == dev == runs["device_rerun"]["totals"]
             and host["launches"] == runs["device"]["launches"]):
         fail(f"host_feed: totals {host['totals']} vs device {dev}, launches "
              f"{host['launches']} vs {runs['device']['launches']}")
@@ -1843,10 +2217,15 @@ def run_host_feed(tmp: str, kernels: dict) -> dict:
             "fed_batches": batches, "timing": timing}
 
 
-# the kernels of a fused train step in a profile_steps trace
-PROFILED_KERNELS = {"fused_reparam_kl": r"reparam_kl_kernel",
-                    "reparam_kl_backward": r"reparam_kl_backward_kernel",
-                    "head_forward": r"head_fwd_", "head_m": r"head_m_"}
+# the kernels of a fused train step in a profile_steps trace: name pattern,
+# launches a step
+PROFILED_KERNELS = {"fused_reparam_kl": (r"reparam_kl_kernel", 1),
+                    "reparam_kl_backward": (r"reparam_kl_backward_kernel", 1),
+                    "head_forward": (r"head_fwd_", 1),
+                    "head_m": (r"head_m_", 1),
+                    "upsample_forward": (r"upsample2x_fwd", FLAGSHIP_BLOCKS),
+                    "upsample_backward": (r"upsample2x_bwd",
+                                          FLAGSHIP_BLOCKS)}
 
 
 def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
@@ -1854,8 +2233,9 @@ def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
     ``logging.profile_steps: 5``: one trace a window (steps 1-3 and 4-5,
     the window closing at an epoch's end), each read with the port's
     ``utils/trace.py``, whose rows must hold the reparam+KL forward and
-    backward and the head forward and M kernels at 1 a step; its device
-    kernels' total per step beside the ``profile`` phase's fused step."""
+    backward and the head forward and M kernels at 1 a step, and the
+    upsample kernels at one a decoder block a step; its device kernels'
+    total per step beside the ``profile`` phase's fused step."""
     import re
 
     from betavae_tpu_torch.utils.trace import parse_trace
@@ -1874,10 +2254,11 @@ def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
     for path, steps in zip(out["traces"], (3, 2)):
         summary = parse_trace(path, steps=steps)
         per_step = {}
-        for name, pattern in PROFILED_KERNELS.items():
+        for name, (pattern, _) in PROFILED_KERNELS.items():
             rows = [r for r in summary.rows if re.search(pattern, r.name)]
             per_step[name] = sum(r.count for r in rows) / steps
-        if any(v != 1 for v in per_step.values()):
+        if any(per_step[name] != n
+               for name, (_, n) in PROFILED_KERNELS.items()):
             fail(f"profile_steps: {os.path.basename(path)} launches per "
                  f"step {per_step}")
         windows.append({
@@ -1936,16 +2317,22 @@ def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
     every table number finite, SSIM in [0, 1], the traversal dims those of
     the ranking; the reparam+KL forward must launch once per test batch,
     once for the recon/traversal panel and once for the prior draw, the
-    head forward once per decode, all on the TMA path, and no other
-    kernel.  Then the encoder's rate over the test split, the model loaded
-    and warm, in ENCODE_PASSES timed passes."""
+    head forward once per decode, all on the TMA path, the upsample
+    forward once a decoder block a decode, and no other kernel.  Then the
+    encoder's rate over the test split, the model loaded and warm, in
+    ENCODE_PASSES timed passes, and the seconds of the t-SNE of
+    ``evaluation.num_umap_samples`` (200) latents, which
+    ``latent_scatter_tsne.png`` draws."""
     import importlib.util
 
+    import numpy as np
     import torch
 
     from betavae_tpu_torch.config import get_config, reset_config_cache
     from betavae_tpu_torch.data.dataset import build_datasets
     from betavae_tpu_torch.eval import run_evaluation
+    from betavae_tpu_torch.eval.latent_viz import reduce_latents
+    from betavae_tpu_torch.eval.recon_metrics import extract_latents
     from betavae_tpu_torch.eval.run_evaluation import load_model
     from betavae_tpu_torch.infer import encode, generate, latent_analysis
     from betavae_tpu_torch.logging_utils import reset_logger
@@ -1982,7 +2369,8 @@ def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
         | {f"{s}_latents_{k}" for s in ("train", "test")
            for k in ("mu.npy", "logvar.npy", "embeddings.csv")},
         "figures": {"latent_logreg_weights.png", "recon_vs_traversal.png",
-                    "latent_scatter.png", "latent_per_dim_violin.png",
+                    "latent_scatter.png", "latent_scatter_tsne.png",
+                    "latent_per_dim_violin.png",
                     "samples.png", "edit_dim0.png", "interpolation.png"}
         | {f"traversal_dim{d}.png" for d in dims}
         | {f"traversal_tumor_{c}.png" for c in tumor}}
@@ -2011,7 +2399,8 @@ def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
                + len(dims) + len(tumor)            # traversals
                + 3)                    # prior samples, edit, interpolation
     want = {name: 0 for name in kernels}
-    want.update(fused_reparam_kl=test_batches + 1 + 1, head_forward=decodes)
+    want.update(fused_reparam_kl=test_batches + 1 + 1, head_forward=decodes,
+                **upsample_launches(decodes))
     if launches != want:
         fail(f"eval_toolchain: kernel launches {launches}, want {want}")
 
@@ -2032,9 +2421,17 @@ def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
         encode.encode_dataset(model, test_ds)
         torch.cuda.synchronize()
         rates.append(len(test_ds) / (time.perf_counter() - t0))
+    samples = int(get_config().evaluation.num_umap_samples)
+    latents, _, _ = extract_latents(model, test_ds, limit=samples)
+    t0 = time.perf_counter()
+    emb = reduce_latents(latents, method="tsne", n_components=2)
+    tsne_seconds = time.perf_counter() - t0
+    if emb.shape != (samples, 2) or not np.isfinite(emb).all():
+        fail(f"eval_toolchain: t-SNE of {latents.shape} gave {emb.shape}")
     reset_config_cache()
     reset_logger()
     return {"phase": "eval_toolchain", "seconds": seconds,
+            "tsne": {"samples": samples, "seconds": tsne_seconds},
             "train_images": len(train_ds), "test_images": len(test_ds),
             "test_batches": test_batches,
             "traversal_dims": dims, "launches": launches,
@@ -2045,6 +2442,77 @@ def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
                 "mse_mean", "psnr_mean", "ssim_mean", "probe_macro_f1",
                 "probe_macro_auc", "silhouette")},
             "installed": installed}
+
+
+DECODER_HEADERS = "#include <cstdio>\n#include <png.h>\nextern \"C\" {\n" \
+    "#include <jpeglib.h>\n}\n"
+
+
+def run_decoder(tmp: str) -> dict:
+    """The packed-dataset decoder (``csrc/packer.cpp``) on the card's host:
+    whether ``g++`` and the libpng and libjpeg headers are there (a
+    preprocessor pass over both includes), which decoder ``load_split``
+    took on the bench's e2e data (4 × 1456 train, 4 × 328 test PNGs at 128
+    px), and the seconds to decode both splits natively and with PIL, the
+    two byte-equal.  Fails if the toolchain is there and ``load_split``
+    did not take the native decoder."""
+    import shutil
+
+    import numpy as np
+
+    from betavae_tpu_torch import _build
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.data import native
+    from betavae_tpu_torch.data.dataset import decode_pil, load_split
+    from betavae_tpu_torch.logging_utils import reset_logger
+
+    gxx = shutil.which("g++")
+    headers = gxx is not None and subprocess.run(
+        [gxx, "-fsyntax-only", "-x", "c++", "-"], input=DECODER_HEADERS,
+        capture_output=True, text=True, timeout=60).returncode == 0
+    toolchain = {"g++": gxx, "png_and_jpeg_headers": headers}
+    t0 = time.perf_counter()
+    built = native.available()
+    build_seconds = time.perf_counter() - t0
+    if gxx and headers and not built:
+        fail(f"decoder: g++ and the headers are there, but csrc/packer.cpp "
+             f"did not build: {_build.host_library_path('packer')}")
+    cfg_path = write_config(
+        "configs/beta_vae_se.yaml", os.path.join(tmp, "decoder"),
+        "decoder.yaml", **{"paths.processed_dir": os.path.join(
+            tmp, "bench_e2e", "processed"), "logging.log_to_file": False})
+    reset_config_cache()
+    get_config(cfg_path)
+    seconds = {"load_split": 0.0, "native": 0.0, "pil": 0.0}
+    decoders, n = set(), 0
+    for split in ("train", "test"):
+        t0 = time.perf_counter()
+        ds = load_split(split)
+        seconds["load_split"] += time.perf_counter() - t0
+        decoders.add(ds.decoder)
+        n += len(ds)
+        if built:
+            t0 = time.perf_counter()
+            packed = native.pack_images(ds.paths, 128, 1)
+            seconds["native"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pil = decode_pil(ds.paths, 128, True)
+        seconds["pil"] += time.perf_counter() - t0
+        if built and not np.array_equal(packed, pil):
+            fail(f"decoder: the native and PIL decodes of the {split} split "
+                 f"differ on same-size gray PNGs")
+    reset_logger()
+    reset_config_cache()
+    if n != 4 * (REF_TRAIN_PER_CLASS + REF_TEST_PER_CLASS):
+        fail(f"decoder: {n} images, want the reference's scale")
+    if built and decoders != {"native"}:
+        fail(f"decoder: load_split took {decoders} with the native decoder "
+             f"built")
+    return {"phase": "decoder", "toolchain": toolchain, "built": built,
+            "build_seconds": build_seconds,
+            "load_split_decoder": sorted(decoders), "images": n,
+            "seconds": seconds,
+            "images_per_sec": {k: n / v for k, v in seconds.items() if v}}
 
 
 # the raw trees of the scripts phase: 256 px, so that the resize to 128 px
@@ -2146,18 +2614,30 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
       ``epochs`` run's log and panels;
     - ``parity_check --run-eval`` against a copy of the ``eval_toolchain``
       phase's tables taken before the rerun: exit 0 at the default
-      tolerances, the evaluation's launches.
+      tolerances, the evaluation's launches;
+    - ``diag_overfit`` on ``configs/overfit_capacity.yaml`` over a 128 px
+      tree (resized to its 256 px): a finite JSON, the upsample forward
+      once a decoder block a batch, nothing else (z = μ, default head);
+    - ``generate_umap_and_grid`` on ``best`` and the evaluation's
+      traversal figures: a GIF of 60 frames and a grid row a figure.
 
     The host CLIs must launch no kernel."""
     import io
     import shutil
 
+    import torch
     import yaml
     from PIL import Image
 
     from betavae_tpu_torch.io.checkpoint import (discover_shards,
                                                  load_sharded_checkpoint)
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.data import native
+    from betavae_tpu_torch.data.demo import generate_demo_data
+    from betavae_tpu_torch.io.checkpoint import save_sharded_checkpoint
+    from betavae_tpu_torch.models.beta_vae import model_from_config
     from betavae_tpu_torch.scripts import (diag_overfit, fix_steps,
+                                           generate_umap_and_grid,
                                            make_recon_gif, parity_check,
                                            plot_logs, plot_phase_losses,
                                            preprocess_data,
@@ -2277,7 +2757,8 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
     want_figures = ({f"traversal_dim{d}.png" for d in range(4)}
                     | {f"traversal_tumor_{c}.png" for c in classes
                        if c != "notumor"})
-    want = dict(none, head_forward=len(want_figures))
+    want = dict(none, head_forward=len(want_figures),
+                **upsample_launches(len(want_figures)))
     if set(os.listdir(figures)) != want_figures or \
             launches["traverse_image"] != want:
         fail(f"scripts: traverse_image wrote {sorted(os.listdir(figures))}, "
@@ -2293,10 +2774,67 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
     bs = flagship["training"]["batch_size"]
     batches = (-(-flagship["debug"]["train_samples"] // bs)
                + -(-flagship["debug"]["test_samples"] // bs) + 1)
-    want = dict(none, fused_reparam_kl=batches, head_forward=batches)
+    want = dict(none, fused_reparam_kl=batches, head_forward=batches,
+                **upsample_launches(batches))
     if not all_finite(stats) or launches["diag_overfit"] != want:
         fail(f"scripts: diag_overfit {stats}, launched "
              f"{launches['diag_overfit']}, want {want}")
+
+    # diag_overfit on configs/overfit_capacity.yaml (binary, base 32, SE
+    # 16, deterministic_overfit, batch 8, debug limits 8 and 8) over a tree
+    # of 128 px images, each resized to the config's 256 px by load_split,
+    # on a checkpoint of seeded weights: z = μ, so no reparam+KL launch,
+    # and the default head
+    over_root = os.path.join(root, "overfit")
+    generate_demo_data(os.path.join(over_root, "processed"),
+                       train_per_class=4, test_per_class=4, size=128)
+    over_cfg = write_config("configs/overfit_capacity.yaml", over_root,
+                            "overfit.yaml")
+    reset_config_cache()
+    over = get_config(over_cfg)
+    torch.manual_seed(0)
+    save_sharded_checkpoint(
+        os.path.join(over.paths.models_dir, f"{over.paths.run_id}_latest.pt"),
+        {"epoch": 1, "total_steps": 1, "model_state": {
+            k: v.numpy() for k, v in model_from_config(
+                over, device="cpu").state_dict().items()}})
+    reset_config_cache()
+    over_stats = run("diag_overfit_capacity", diag_overfit.main,
+                     ["--config", over_cfg])
+    want = dict(none, **upsample_launches(3))
+    if not all_finite(over_stats) or \
+            launches["diag_overfit_capacity"] != want:
+        fail(f"scripts: diag_overfit on overfit_capacity.yaml {over_stats}, "
+             f"launched {launches['diag_overfit_capacity']}, want {want}")
+
+    # generate_umap_and_grid on best, over the evaluation's traversal
+    # figures: a GIF of 60 frames, a grid row a figure, and no kernel but
+    # the encoder's (no decode, so no head or upsample launch)
+    figures = os.path.join(root, "umap")
+    os.makedirs(figures)
+    eval_figures = os.path.join(tmp, "eval", "outputs", "figures")
+    traversals = sorted(n for n in os.listdir(eval_figures)
+                        if n.startswith("traversal_") and n.endswith(".png"))
+    for name in traversals:
+        shutil.copy(os.path.join(eval_figures, name), figures)
+    cfg = config("umap.yaml", **{"training.fused_head": True,
+                                 "paths.models_dir": models,
+                                 "paths.processed_dir": e2e,
+                                 "paths.figures_dir": figures})
+    umap_out = run("generate_umap_and_grid", generate_umap_and_grid.main,
+                   ["--config", cfg])
+    with Image.open(umap_out["gif"]) as im:
+        umap_gif = {"frames": im.n_frames, "size": list(im.size)}
+    with Image.open(umap_out["grid"]) as im:
+        grid_size = list(im.size)
+    cell = generate_umap_and_grid.CELL
+    want_grid = [180 + 7 * cell, 36 + 24 + len(traversals) * cell]
+    if (umap_gif != {"frames": 60, "size": [600, 500]}
+            or grid_size != want_grid or not traversals
+            or launches["generate_umap_and_grid"] != none):
+        fail(f"scripts: generate_umap_and_grid GIF {umap_gif}, grid "
+             f"{grid_size} (want {want_grid} for {len(traversals)} "
+             f"figures), launched {launches['generate_umap_and_grid']}")
 
     # the log tools on the epochs run's log and panels
     epochs_out = os.path.join(tmp, "epochs", "outputs")
@@ -2347,7 +2885,8 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
     parity = json.loads(report[-1].split("PARITY ", 1)[1])
     test_batches = -(-4 * REF_TEST_PER_CLASS // bs)
     want = dict(none, fused_reparam_kl=test_batches + 1,
-                head_forward=test_batches + 2 + 7 + 3)
+                head_forward=test_batches + 2 + 7 + 3,
+                **upsample_launches(test_batches + 2 + 7 + 3))
     if code != 0 or launches["parity_check"] != want:
         fail(f"scripts: parity_check exit {code} ({report[-1]}), launched "
              f"{launches['parity_check']}, want {want}; rows not OK: "
@@ -2369,7 +2908,15 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
             "reshard": {"shards": len(written), "bitwise": bitwise,
                         "shrink_refused": refused},
             "traverse_figures": sorted(want_figures),
-            "diag_overfit": stats, "fix_steps_rewritten": rewritten,
+            "diag_overfit": stats,
+            "diag_overfit_capacity": {
+                "stats": over_stats, "image_size": int(over.data.image_size),
+                "stored_px": 128,
+                "decoder": "native" if native.available() else "PIL"},
+            "generate_umap_and_grid": {"gif": umap_gif,
+                                       "grid_size": grid_size,
+                                       "grid_rows": len(traversals)},
+            "fix_steps_rewritten": rewritten,
             "gif_frames": frames, "parity": parity,
             "launches": total, "launches_by_cli": launches,
             "head_launches_by_path": head_by_path}
@@ -2431,7 +2978,8 @@ def run_eval_vs_cpu(tmp: str, kernels: dict) -> dict:
     probe_abs = max(abs(gpu["probe"][k] - cpu["probe"][k])
                     for k in ("probe_macro_f1", "probe_macro_auc"))
     batches = -(-len(test_ds) // 8)
-    want = {"fused_reparam_kl": batches, "head_forward": batches}
+    want = {"fused_reparam_kl": batches, "head_forward": batches,
+            **upsample_launches(batches, blocks=SMALL_BLOCKS)}
     got = {k: gpu["launches"][k] for k in want}
     if not (recon_rel <= 1e-3 and latent_rel <= 1e-3 and probe_abs <= 0.05
             and got == want and not any(cpu["launches"].values())):
@@ -2492,7 +3040,10 @@ def run_debug_config(tmp: str, kernels: dict) -> dict:
     val_batches = min(int(debug["max_val_batches"]),
                       -(-int(debug["test_samples"]) // batch))
     want = {"fused_reparam_kl": steps + out["epoch"] * val_batches,
-            "reparam_kl_backward": steps}
+            "reparam_kl_backward": steps,
+            # the train steps, validation batches and an epoch's panel
+            **upsample_launches(steps + out["epoch"] * (val_batches + 1),
+                                steps)}
     got = {name: launches[name] for name in want}
     if (out["epoch"], steps) != (int(debug["epochs"]), int(debug["epochs"])
                                  * int(debug["max_train_batches"])) \
@@ -2715,10 +3266,7 @@ def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
     trained = [r[0] for r in ranks]
     rel_b = [grad_rel(r[1], single_grads) for r in ranks]
     first_rel = [_rel(t["totals"][0], single_first) for t in trained]
-    want_b = {"fused_reparam_kl": DP_GLOO_STEPS,
-              "reparam_kl_backward": DP_GLOO_STEPS,
-              "head_forward": DP_GLOO_STEPS, "head_m": DP_GLOO_STEPS,
-              "gn_forward": 0, "gn_backward": 0}
+    want_b = launches_per_step(kernels, True, DP_GLOO_STEPS)
     rank_launches = [{k: t["launches"][k] for k in want_b} for t in trained]
     head_by_path = [t["launches"]["head_by_path"] for t in trained]
     ok_b = (all(len(t["totals"]) == DP_GLOO_STEPS
@@ -2809,7 +3357,8 @@ def run_bench(tmp: str, kernels: dict) -> dict:
     if not all_finite(numbers):
         fail(f"bench: a number is missing or not finite: {line}")
     missing = [name for name in ("gn_forward", "gn_backward", "head_forward",
-                                 "fused_reparam_kl", "reparam_kl_backward")
+                                 "fused_reparam_kl", "reparam_kl_backward",
+                                 "upsample_forward", "upsample_backward")
                if launches[name] < 1]
     if missing:
         fail(f"bench: kernels {missing} never launched ({launches})")
@@ -2835,6 +3384,8 @@ def main() -> None:
                                             reparam_kl_backward)
     from betavae_tpu_torch.ops.gn import gn_backward, gn_forward
     from betavae_tpu_torch.ops.head import head_forward, head_m
+    from betavae_tpu_torch.ops.upsample import (upsample2x_backward,
+                                                upsample2x_forward)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2882,11 +3433,16 @@ def main() -> None:
           "host_us": gn_host_split()})
     emit({"phase": "kernel", "name": "gn_cluster16_trial", "card": card,
           **gn_cluster16_trial()})
+    ups = [check_upsample(shape, dtype) for shape, dtype in UPSAMPLE_CASES]
+    emit({"phase": "kernel", "name": "upsample2x", "card": card,
+          "cases": ups})
 
     kernels = {"fused_reparam_kl": fused_reparam_kl,
                "reparam_kl_backward": reparam_kl_backward,
                "head_forward": head_forward, "head_m": head_m,
-               "gn_forward": gn_forward, "gn_backward": gn_backward}
+               "gn_forward": gn_forward, "gn_backward": gn_backward,
+               "upsample_forward": upsample2x_forward,
+               "upsample_backward": upsample2x_backward}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         emit(check_small_slice(tmp, kernels, fused_head=False))
         emit(check_small_slice(tmp, kernels, fused_head=True))
@@ -2896,9 +3452,18 @@ def main() -> None:
         flagship_fused = run_flagship(tmp, kernels, fused_head=True)
         flagship_fused["card"] = card
         emit(flagship_fused)
+        replay = run_replay(tmp, kernels)
+        replay["card"] = card
+        emit(replay)
+        scaled = run_scaled(tmp, kernels)
+        scaled["card"] = card
+        emit(scaled)
         remat = run_remat(tmp, kernels)
         remat["card"] = card
         emit(remat)
+        determinism = cudnn_determinism(tmp, kernels)
+        determinism["card"] = card
+        emit(determinism)
         epochs = run_epochs(tmp, kernels)
         epochs["card"] = card
         emit(epochs)
@@ -2922,6 +3487,9 @@ def main() -> None:
         eval_run = run_eval_toolchain(tmp, kernels)
         eval_run["card"] = card
         emit(eval_run)
+        decoder = run_decoder(tmp)
+        decoder["card"] = card
+        emit(decoder)
         # after the epochs run and the evaluation, whose checkpoints, log,
         # panels and tables its CLIs read
         scripts = run_scripts(tmp, kernels)
@@ -2933,6 +3501,9 @@ def main() -> None:
                                           fused_head=True)
         profiled_fused["card"] = card
         emit(profiled_fused)
+        turns = upsample_in_turns(tmp)
+        turns["card"] = card
+        emit(turns)
         # after the bench, whose e2e data it reads
         host = run_host_feed(tmp, kernels)
         host["card"] = card
@@ -2947,6 +3518,11 @@ def main() -> None:
     row = elbo[main_shape]
     head_main = heads[0]
     gn_main = gn["cases"]["2x64x32x32_float32"]
+    ups_main = [c for c in ups if c["dtype"] == "bfloat16"
+                and tuple(c["shape"]) in UPSAMPLE_FLAGSHIP]
+    if any(c[part]["bound_by"] != "bytes" for c in ups_main
+           for part in ("forward", "backward")):
+        fail(f"upsample: a flagship shape bound by operations: {ups_main}")
 
     def by_path(name):
         return {"epochs": epochs["launches"][name],
@@ -2969,7 +3545,10 @@ def main() -> None:
                    for r, launches in enumerate(
                        dp["two_ranks_gloo"]["launches"])},
                 "data_parallel_bench_dp1": dp["bench_dp1"]["launches"][name],
-                "scripts": scripts["launches"][name]}
+                "scripts": scripts["launches"][name],
+                **{f"replay_{head}": r["launches"][name]
+                   for head, r in replay.items() if isinstance(r, dict)},
+                "scaled": scaled["launches"][name]}
 
     emit({"kernels": [{
         "name": "fused_reparam_kl",
@@ -3073,7 +3652,31 @@ def main() -> None:
         ("gn_forward", "forward", "betavae_tpu/ops/pallas_gn.py:113",
          ("y", "pooled", "m", "rstd")),
         ("gn_backward", "backward", "betavae_tpu/ops/pallas_gn.py:139",
-         ("dx", "dgamma", "dbeta")))]})
+         ("dx", "dgamma", "dbeta")))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "betavae_tpu_torch/csrc/upsample.cu",
+        # an XLA formulation in JAX (separable dilated depthwise convs, its
+        # backward XLA's transposed conv), not a Pallas kernel
+        "replaces": "betavae_tpu/ops/upsample.py:32",
+        "launches": epochs["launches"][name],
+        "launches_by_path": by_path(name),
+        "max_abs_err": max(c["checks"][part]["max_abs_err"] for c in ups),
+        "bitwise_vs_plain": all(c["checks"][part]["bitwise_vs_plain"]
+                                for c in ups),
+        # one flagship train step's four launches (the bf16 decoder shapes
+        # under autocast), summed
+        **{key: sum(c[part][key] for c in ups_main)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                       "device_ms")},
+        "bound_by": "bytes",
+        "device_ms_per_profiled_step": profiled[f"{part}_upsample_ms"],
+        "check": "ok",
+        "card": card,
+        "shapes": [{"shape": c["shape"], "dtype": c["dtype"], **c[part],
+                    **c["checks"][part]} for c in ups],
+    } for name, part in (("upsample_forward", "forward"),
+                         ("upsample_backward", "backward"))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -28,6 +28,11 @@ from betavae_tpu_torch.ops.head import _library as _head_library
 from betavae_tpu_torch.ops.head import (fused_se_conv_head, head_conv_reference,
                                         head_forward, head_m, head_m_reference,
                                         tma_path)
+from betavae_tpu_torch.ops.upsample import (bilinear_upsample_x2,
+                                            upsample2x_backward,
+                                            upsample2x_backward_reference,
+                                            upsample2x_forward,
+                                            upsample2x_reference)
 
 
 @pytest.fixture
@@ -596,8 +601,8 @@ def test_host_feed_on_the_card_gives_the_resident_batches(cuda_device,
     stream, ``depth`` batches ahead, the host never waiting on a batch):
     every batch of an epoch bitwise the one the resident split gathers;
     and a few steps of the trainer fed so: the first step's total bitwise
-    the resident split's.  (The later steps part run to run by ~1e-4 on
-    the card in either mode: its backward sums with atomics.)"""
+    the resident split's.  (A rerun's later steps are held by
+    ``test_train_steps_replay_bitwise_on_the_card``.)"""
     from betavae_tpu_torch.config import get_config, reset_config_cache
     from betavae_tpu_torch.data.dataset import load_split
     from betavae_tpu_torch.data.pipeline import (BatchPlan, DeviceData,
@@ -690,3 +695,68 @@ def test_remat_gradients_on_the_card(cuda_device, tmp_path, mode):
     (loss0, grad0), (loss1, grad1) = runs
     assert torch.equal(loss1, loss0)
     assert float((grad1 - grad0).norm() / grad0.norm()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the ×2 upsample
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((32, 512, 8, 8), torch.bfloat16), ((32, 64, 64, 64), torch.bfloat16),
+    ((32, 256, 16, 16), torch.float32), ((3, 5, 37, 53), torch.float32),
+    ((3, 5, 37, 53), torch.bfloat16), ((2, 3, 1, 1), torch.float32)])
+def test_upsample_kernels_match_plain_versions(cuda_device, shape, dtype):
+    """Forward and gather backward against their plain versions (fp32
+    1e-6 relative, bf16 2⁻⁸, plus that of the largest |value|: both
+    compute in one order), each launch counted once, two launches bitwise
+    equal (the backward has no atomics), and the autograd Function's value
+    and gradient the kernels'."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    b, c, h, w = shape
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    dy = torch.randn((b, c, 2 * h, 2 * w), generator=g,
+                     device=cuda_device).to(dtype)
+    before = (upsample2x_forward.launches, upsample2x_backward.launches)
+    y, dx = upsample2x_forward(x), upsample2x_backward(dy)
+    torch.cuda.synchronize()
+    assert (upsample2x_forward.launches - before[0],
+            upsample2x_backward.launches - before[1]) == (1, 1)
+    tol = 1e-6 if dtype == torch.float32 else 2**-8
+    for got, want in ((y, upsample2x_reference(x)),
+                      (dx, upsample2x_backward_reference(dy))):
+        assert got.dtype == dtype and got.shape == want.shape
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol * scale)
+    assert torch.equal(y, upsample2x_forward(x))
+    assert torch.equal(dx, upsample2x_backward(dy))
+    xr = x.clone().requires_grad_()
+    yr = bilinear_upsample_x2(xr)
+    yr.backward(dy)
+    assert torch.equal(yr, y) and torch.equal(xr.grad, dx)
+
+
+@pytest.mark.cuda
+def test_upsample_kernels_refuse_other_dtypes(cuda_device):
+    x = torch.zeros((1, 1, 4, 4), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        upsample2x_forward(x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        upsample2x_backward(torch.zeros((1, 1, 8, 8), dtype=torch.float16,
+                                        device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_train_steps_replay_bitwise_on_the_card(cuda_device, tmp_path):
+    """Four bf16 steps of the small flagship-shaped config with the fused
+    head, twice from the same seed: every total bitwise equal, and the
+    upsample kernels launched once a decoder block a step each way."""
+    path = _small_flagship(tmp_path, mixed_precision=True)
+    runs = []
+    for _ in range(2):
+        upsample2x_forward.launches = upsample2x_backward.launches = 0
+        runs.append(_few_steps(path, 4))
+        assert (upsample2x_forward.launches,
+                upsample2x_backward.launches) == (2 * 4, 2 * 4)
+    assert runs[0] == runs[1]

@@ -284,8 +284,8 @@ def test_run_evaluation_writes_the_jax_artifacts(evaluated):
         return {str(p.relative_to(evaluated / out))
                 for p in (evaluated / out).rglob("*") if p.is_file()}
 
-    want = listing("jax_out") - {"figures/latent_scatter_tsne.png"}
-    assert "figures/latent_scatter_tsne.png" in listing("jax_out")
+    want = listing("jax_out")
+    assert "figures/latent_scatter_tsne.png" in want
     assert listing("port_out") == want
     ranking = json.loads(
         (evaluated / "port_out" / "latent_ranking_summary.json").read_text())
@@ -331,3 +331,105 @@ def test_load_model_reads_both_packages_with_fallback(tmp_path):
     for name, val in reference.state_dict().items():
         assert torch.equal(val, saved[name]), name
     shutil.rmtree(models)
+
+
+# --------------------------------------------------------------------------
+# t-SNE: the port's exact optimisation against scikit-learn's, and its
+# result against the JAX call (Barnes–Hut) in distribution
+# --------------------------------------------------------------------------
+
+def _tsne_points(n: int = 200, d: int = 16, seed: int = 0):
+    """Four Gaussian clusters of latents, ``n`` points in ``d`` dims (the
+    evaluation's ``num_umap_samples`` is 200)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(0.0, 3.0, size=(4, d))
+    labels = np.arange(n) % 4
+    return (centres[labels] + rng.normal(size=(n, d))).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [12, 200])
+def test_tsne_joint_probabilities_match_sklearn(n):
+    """The perplexity bisection and the joint P at the JAX call's
+    perplexity, min(30, max(2, n/4 − 1)): 1e-6 relative."""
+    from sklearn.manifold import _t_sne as sk_tsne
+    from sklearn.metrics import pairwise_distances
+
+    from betavae_tpu_torch.eval import tsne
+
+    x = _tsne_points(n)
+    perplexity = tsne.default_perplexity(n)
+    want = sk_tsne._joint_probabilities(
+        pairwise_distances(x, metric="euclidean", squared=True),
+        perplexity, 0)
+    got = tsne.joint_probabilities(x, perplexity)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+def test_tsne_iterations_match_sklearn_exact():
+    """From one initial embedding, the first 10 iterations of the
+    exaggerated stage against scikit-learn's ``_gradient_descent`` over its
+    exact KL gradient, and the whole run (1000 iterations, both stages, its
+    stopping rules) against ``TSNE(method="exact")``: 1e-6 relative of the
+    largest coordinate.  (Both sum the gradient row by row in one order, so
+    the trajectories stay together; the early iterations of t-SNE amplify
+    a difference of one rounding by ~10× an iteration.)"""
+    from sklearn.manifold import TSNE
+    from sklearn.manifold import _t_sne as sk_tsne
+
+    from betavae_tpu_torch.eval import tsne
+
+    x = _tsne_points()
+    n = len(x)
+    perplexity = tsne.default_perplexity(n)
+    init = 1e-4 * np.random.RandomState(42).standard_normal(
+        size=(n, 2)).astype(np.float32)
+    p = tsne.joint_probabilities(x, perplexity) * tsne.EARLY_EXAGGERATION
+    lr = np.maximum(n / tsne.EARLY_EXAGGERATION / 4, 50)
+    want, want_err, _ = sk_tsne._gradient_descent(
+        sk_tsne._kl_divergence, init.ravel().copy(), it=0, max_iter=10,
+        n_iter_check=50, n_iter_without_progress=250, momentum=0.5,
+        learning_rate=lr, min_gain=0.01, min_grad_norm=1e-7, verbose=0,
+        args=[p, 1, n, 2], kwargs=dict(skip_num_points=0))
+    got, got_err, _ = tsne.gradient_descent(
+        init.ravel().copy(), p, 1, 2, it=0, max_iter=10, momentum=0.5,
+        learning_rate=lr, n_iter_without_progress=250)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+    assert got_err == pytest.approx(want_err, rel=1e-6)
+
+    sk = TSNE(2, random_state=42, init=init.copy(), learning_rate="auto",
+              perplexity=perplexity, method="exact")
+    want = sk.fit_transform(x)
+    got, kl, last = tsne.tsne(x, init=init.copy())
+    assert last == sk.n_iter_
+    assert kl == pytest.approx(sk.kl_divergence_, rel=1e-6)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def test_tsne_embedding_matches_the_jax_call_in_distribution():
+    """``reduce_latents(method="tsne")`` against the JAX package's (scikit-
+    learn's Barnes–Hut t-SNE, random init from the same seed) on 200
+    latents: the same shape, the KL divergence of each embedding under
+    the exact P within 5 % of each other, and the trustworthiness at 5
+    and at 30 neighbours (the perplexity) within 0.02."""
+    from betavae_tpu.eval.latent_viz import reduce_latents as jax_reduce
+    from sklearn.manifold import trustworthiness
+
+    from betavae_tpu_torch.eval import tsne
+    from betavae_tpu_torch.eval.latent_viz import reduce_latents
+
+    x = _tsne_points()
+    want = jax_reduce(x, method="tsne", n_components=2)
+    got = reduce_latents(x, method="tsne", n_components=2)
+    assert got.shape == want.shape == (len(x), 2)
+    p = tsne.joint_probabilities(x, tsne.default_perplexity(len(x)))
+    kl = {name: tsne.kl_divergence(emb.astype(np.float32).ravel(), p, 1,
+                                   2)[0]
+          for name, emb in (("port", got), ("jax", want))}
+    assert kl["port"] == pytest.approx(kl["jax"], rel=0.05), kl
+    for k in (5, 30):
+        t_port = trustworthiness(x, got, n_neighbors=k)
+        t_jax = trustworthiness(x, want, n_neighbors=k)
+        assert abs(t_port - t_jax) <= 0.02, (k, t_port, t_jax)
+        assert t_port > 0.9

@@ -60,8 +60,9 @@ def test_default_device_raises_without_a_gpu(demo_config_factory):
         pytest.skip("a GPU is present: the default device is usable")
     from betavae_tpu_torch.config import get_config, reset_config_cache
     from betavae_tpu_torch.models.beta_vae import model_from_config
-    from betavae_tpu_torch.scripts import (diag_overfit, parity_check,
-                                           traverse_image)
+    from betavae_tpu_torch.scripts import (diag_overfit,
+                                           generate_umap_and_grid,
+                                           parity_check, traverse_image)
     from betavae_tpu_torch.train.loop import train, train_steps
 
     path = demo_config_factory()
@@ -76,6 +77,7 @@ def test_default_device_raises_without_a_gpu(demo_config_factory):
         for main, argv in (
                 (traverse_image.main, ["--image", "x.png"]),
                 (diag_overfit.main, []),
+                (generate_umap_and_grid.main, ["--skip-grid"]),
                 (parity_check.main, ["--reference-tables", ".",
                                      "--run-eval"])):
             reset_config_cache()

@@ -23,7 +23,11 @@ from betavae_tpu.ops.upsample import bilinear_upsample_x2 as jax_upsample
 
 from betavae_tpu_torch.io.weights import params_from_jax
 from betavae_tpu_torch.models.beta_vae import BetaVAEModule
-from betavae_tpu_torch.ops.upsample import bilinear_upsample_x2
+from betavae_tpu_torch.ops.upsample import (bilinear_upsample_x2,
+                                            upsample2x_backward,
+                                            upsample2x_backward_reference,
+                                            upsample2x_forward,
+                                            upsample2x_reference)
 
 RTOL, ATOL = 1e-4, 1e-5
 LATENT, BASE, RED = 6, 4, 2
@@ -44,9 +48,9 @@ def _random_flat(template: dict, seed: int) -> dict:
 
 def _pair(*, pooling="flatten", norm="layer", activation="relu", img=16,
           blocks=2, latent_clamp=None, logvar_clamp=(-10.0, 5.0), seed=0,
-          remat=False):
-    kw = dict(image_size=img, in_channels=1, latent_dim=LATENT,
-              base_channels=BASE, num_blocks=blocks, activation=activation,
+          remat=False, latent=LATENT, base=BASE):
+    kw = dict(image_size=img, in_channels=1, latent_dim=latent,
+              base_channels=base, num_blocks=blocks, activation=activation,
               norm_type=norm, se_reduction=RED, encoder_pooling=pooling,
               logvar_clamp=logvar_clamp, latent_clamp=latent_clamp,
               remat=remat)
@@ -363,3 +367,152 @@ def test_remat_values_and_the_config_key(tmp_path):
                                  device="cpu").remat == "decoder"
     finally:
         reset_config_cache()
+
+
+# --------------------------------------------------------------------------
+# the ×2 upsample's plain versions (the kernels' oracles): forward and the
+# gather-form backward against the JAX function and its VJP, and against
+# F.interpolate's autograd
+# --------------------------------------------------------------------------
+
+# NCHW: odd H and W, H ≠ W, 1×1, B·C > 1
+UPSAMPLE_SHAPES = [(2, 3, 5, 7), (1, 1, 1, 1), (2, 2, 4, 3), (3, 1, 1, 6)]
+
+
+def _upsample_inputs(shape, dtype):
+    """x and dy from a seed, as the port's dtype and as the fp32 values of
+    those same numbers (bf16 inputs are rounded before either side sees
+    them, so both compute on one set of values)."""
+    rng = np.random.default_rng(sum(shape))
+    b, c, h, w = shape
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.normal(size=(b, c, 2 * h, 2 * w)).astype(
+        np.float32)).to(dtype)
+    return x, dy, x.float().numpy(), dy.float().numpy()
+
+
+def _upsample_tolerance(dtype, want):
+    """fp32: 1e-6 relative (plus 1e-6 of the largest |value|, for values
+    that cancel); bf16: one bf16 rounding of the fp32 result, 2⁻⁸."""
+    rtol = 1e-6 if dtype == torch.float32 else 2**-8
+    return dict(rtol=rtol, atol=1e-6 * float(np.abs(want).max()))
+
+
+def _port_value_and_grad(x, dy):
+    xg = x.clone().requires_grad_()
+    y = bilinear_upsample_x2(xg)
+    y.backward(dy)
+    assert y.dtype == x.dtype and xg.grad.dtype == x.dtype
+    return y.detach().float().numpy(), xg.grad.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES, ids=str)
+def test_upsample_plain_and_gradient_match_jax_vjp(shape, dtype):
+    """The plain forward and its gather backward (what CPU tensors take)
+    against ``bilinear_upsample_x2`` of the JAX package and its
+    ``jax.vjp``, fp32 on the JAX side."""
+    x, dy, x32, dy32 = _upsample_inputs(shape, dtype)
+    nhwc = (0, 2, 3, 1)
+    want, vjp = jax.vjp(jax_upsample, jnp.asarray(np.transpose(x32, nhwc)))
+    (want_dx,) = vjp(jnp.asarray(np.transpose(dy32, nhwc)))
+    want = np.transpose(np.asarray(want), (0, 3, 1, 2))
+    want_dx = np.transpose(np.asarray(want_dx), (0, 3, 1, 2))
+    got, got_dx = _port_value_and_grad(x, dy)
+    np.testing.assert_allclose(got, want, **_upsample_tolerance(dtype, want))
+    np.testing.assert_allclose(got_dx, want_dx,
+                               **_upsample_tolerance(dtype, want_dx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES, ids=str)
+def test_upsample_plain_and_gradient_match_interpolate_autograd(shape, dtype):
+    """The same against ``F.interpolate(scale_factor=2, mode="bilinear",
+    align_corners=False)`` and its autograd, in fp32 on the same values:
+    the library call the kernels are timed against."""
+    import torch.nn.functional as F
+
+    x, dy, x32, dy32 = _upsample_inputs(shape, dtype)
+    xr = torch.from_numpy(x32).requires_grad_()
+    want_t = F.interpolate(xr, scale_factor=2, mode="bilinear",
+                           align_corners=False)
+    want_t.backward(torch.from_numpy(dy32))
+    want, want_dx = want_t.detach().numpy(), xr.grad.numpy()
+    got, got_dx = _port_value_and_grad(x, dy)
+    np.testing.assert_allclose(got, want, **_upsample_tolerance(dtype, want))
+    np.testing.assert_allclose(got_dx, want_dx,
+                               **_upsample_tolerance(dtype, want_dx))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_upsample_gather_backward_is_the_forward_transposed(n):
+    """Per axis the gather backward is the forward's matrix transposed, the
+    clamped taps folded into the edge: ``dx[0] = 1.0·dy[0] + 0.75·dy[1] +
+    0.25·dy[2]``, and for n = 1 both taps of each output land on x[0]."""
+    eye = torch.eye(n, dtype=torch.float32)
+    # column k of the forward's [2n, n] matrix: the upsample of one-hot x
+    a = upsample2x_reference(eye.reshape(n, 1, n, 1).expand(n, 1, n, n)
+                             .contiguous())[:, 0, :, 0].t()
+    g = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(2 * n,)).astype(np.float32))
+    dy = g.reshape(1, 1, 2 * n, 1).expand(1, 1, 2 * n, 2).contiguous()
+    # W = 1: the W axis folds both taps of each output into one value
+    got = upsample2x_backward_reference(dy)[0, 0, :, 0]
+    torch.testing.assert_close(got, 2.0 * (a.t() @ g), rtol=1e-6, atol=1e-6)
+    if n == 1:
+        assert a.t().tolist() == [[1.0, 1.0]]
+    else:
+        assert a.t()[0, :3].tolist() == [1.0, 0.75, 0.25][:min(3, 2 * n)]
+
+
+def test_upsample_cpu_tensors_take_the_plain_versions_without_launches():
+    """On the CPU the wrappers return the plain versions' bits and count no
+    launch; the autograd Function's gradient is the gather backward's;
+    two calls give the same bits."""
+    x, dy, _, _ = _upsample_inputs((2, 3, 5, 4), torch.float32)
+    before = (upsample2x_forward.launches, upsample2x_backward.launches)
+    assert torch.equal(upsample2x_forward(x), upsample2x_reference(x))
+    assert torch.equal(upsample2x_backward(dy),
+                       upsample2x_backward_reference(dy))
+    _, got_dx = _port_value_and_grad(x, dy)
+    _, again_dx = _port_value_and_grad(x, dy)
+    assert np.array_equal(got_dx, upsample2x_backward_reference(dy).numpy())
+    assert np.array_equal(got_dx, again_dx)
+    assert (upsample2x_forward.launches, upsample2x_backward.launches) == before
+
+
+def test_scaled_config_geometry_matches_jax_forward_and_loss():
+    """A tiny geometry of ``configs/beta_vae_se_tpu_scaled.yaml``: 5 blocks
+    (32 px → 1 px bottleneck, base 4 → 64 channels, latent 8, GroupNorm(1),
+    flatten), its objective (MSE + FFL 0.5, capacity mode), against the
+    JAX module and ``compute_loss`` at the forward tolerance (1e-4)."""
+    from betavae_tpu.models.losses import LossSpec as JaxLossSpec
+    from betavae_tpu.models.losses import compute_loss as jax_compute_loss
+
+    from betavae_tpu_torch.models.losses import LossSpec, compute_loss
+
+    jax_model, variables, _, port = _pair(img=32, blocks=5, latent=8, base=4,
+                                          seed=11)
+    assert port.bottleneck_hw == jax_model.module.bottleneck_hw == 1
+    x = _x(12, n=3, img=32)
+    recon, mu, logvar, z = jax_model.module.apply(variables, jnp.asarray(x),
+                                                  deterministic=True)
+    kl = -0.5 * (1.0 + logvar - mu ** 2 - jnp.exp(logvar))
+    spec_kw = dict(use_ffl=True, ffl_weight=0.5)
+    call_kw = dict(beta=1.0, capacity=60.0, capacity_weight=1.0)
+    want = jax_compute_loss((recon, mu, logvar, z, kl), jnp.asarray(x),
+                            spec=JaxLossSpec(**spec_kw), **call_kw)
+    with torch.no_grad():
+        t_recon, t_mu, t_logvar, t_z = port(_nchw(x), deterministic=True)
+        t_kl = -0.5 * (1.0 + t_logvar - t_mu ** 2 - torch.exp(t_logvar))
+        got = compute_loss((t_recon, t_mu, t_logvar, t_z, t_kl), _nchw(x),
+                           spec=LossSpec(**spec_kw), **call_kw)
+    np.testing.assert_allclose(t_mu.numpy(), np.asarray(mu), RTOL, ATOL)
+    np.testing.assert_allclose(t_logvar.numpy(), np.asarray(logvar), RTOL,
+                               ATOL)
+    np.testing.assert_allclose(t_recon.numpy(),
+                               np.transpose(np.asarray(recon), (0, 3, 1, 2)),
+                               RTOL, ATOL)
+    for key in ("total", "recon", "recon_ffl", "kl_mean", "kl_effective"):
+        assert float(got[key]) == pytest.approx(float(want[key]), rel=RTOL,
+                                                abs=ATOL), key

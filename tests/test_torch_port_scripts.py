@@ -23,9 +23,15 @@ scripts or the library functions they call:
 - ``diag_overfit``: every key 1e-4 relative under
   ``model.deterministic_overfit``; with sampling on, the ε-free keys 1e-4,
   the others bounded as ``test_diag_overfit_sampling`` states;
+- ``diag_overfit`` on ``configs/overfit_capacity.yaml`` over a 128 px
+  tree read at its 256 px: the batches it reads are the JAX package's
+  bytes (the native decoder's resize), and its JSON is finite;
 - ``convert_lpips_weights``: equal keys and bitwise arrays, loaded
   strictly by the port;
-- ``generate_demo_data``: the same bytes.
+- ``generate_demo_data``: the same bytes;
+- ``generate_umap_and_grid``: the columns of a traversal figure bitwise
+  the JAX script's cut, the GIF's frame count and size, and the grid's
+  layout (a row a figure, 7 columns).
 """
 
 import importlib
@@ -64,6 +70,7 @@ from betavae_tpu_torch.models.beta_vae import model_from_config
 from betavae_tpu_torch.ops.lpips import load_lpips_module
 from betavae_tpu_torch.scripts import (convert_lpips_weights, diag_overfit,
                                        generate_demo_data as demo_cli,
+                                       generate_umap_and_grid,
                                        preprocess_data, preview_val_batch,
                                        reshard_checkpoint, traverse_image)
 
@@ -472,3 +479,106 @@ def test_generate_demo_data_cli_matches_jax(tmp_path, monkeypatch):
     demo_cli.main(["--config", paths["port"], *argv])
     want, got = _files(tmp_path / "jax"), _files(tmp_path / "port")
     assert len(got) == 12 and got == want
+
+
+# ---------------------------------------------------------------------------
+# diag_overfit on the overfit config, generate_umap_and_grid
+# ---------------------------------------------------------------------------
+
+def test_diag_overfit_on_the_overfit_config_reads_the_jax_bytes(
+        tmp_path, capsys):
+    """``configs/overfit_capacity.yaml`` as it is (binary, base 32, SE 16,
+    ``deterministic_overfit``, batch 8, its debug limits of 8 and 8) over a
+    tree stored at 128 px, so that every image is resized to its 256 px:
+    the batches ``diag_overfit`` reads (``build_datasets`` with those
+    limits) are the JAX package's bytes, taken by the native decoder on
+    both sides, and the port's JSON on a checkpoint of seeded weights is
+    finite, with the input range of the first batch."""
+    from betavae_tpu.data.dataset import build_datasets as jax_build
+
+    from betavae_tpu_torch.data.dataset import build_datasets, decode_pil
+
+    cfg = yaml.safe_load(open(ROOT / "configs" / "overfit_capacity.yaml"))
+    cfg["paths"].update(processed_dir=str(tmp_path / "processed"),
+                        outputs_dir=str(tmp_path / "outputs"),
+                        models_dir=str(tmp_path / "models"),
+                        figures_dir=str(tmp_path / "outputs" / "figures"),
+                        tables_dir=str(tmp_path / "outputs" / "tables"))
+    path = tmp_path / "overfit.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    generate_demo_data(tmp_path / "processed", train_per_class=3,
+                       test_per_class=3, size=128)
+    jax_get_config(str(path))
+    want = jax_build(train_limit=8, test_limit=8)
+    get_config(str(path))
+    got = build_datasets(train_limit=8, test_limit=8)
+    for g, w in zip(got, want):
+        assert g.images.shape == (8, 256, 256, 1) and g.decoder == "native"
+        np.testing.assert_array_equal(g.images, w.images)
+        np.testing.assert_array_equal(g.labels, w.labels)
+    assert not np.array_equal(got[0].images,
+                              decode_pil(got[0].paths, 256, True))
+
+    model = model_from_config(get_config(str(path)), device="cpu")
+    torch.manual_seed(0)
+    save_sharded_checkpoint(
+        str(tmp_path / "models" / "overfit_capacity_latest.pt"),
+        {"epoch": 1, "total_steps": 1, "model_state": {
+            k: v.numpy() for k, v in model.state_dict().items()}})
+    capsys.readouterr()
+    stats = diag_overfit.main(["--config", str(path), "--device", "cpu"])
+    assert all(np.isfinite(v) for v in stats.values())
+    x = got[0].images[:8].astype(np.float32) / 255.0
+    assert stats["x_min"] == float(x.min()) and \
+        stats["x_max"] == float(x.max())
+    assert stats["z_mean"] == stats["mu_mean"]     # deterministic_overfit
+
+
+@pytest.mark.parametrize("width,cols", [(7, 7), (50, 7), (129, 7), (448, 3)])
+def test_split_image_into_columns_is_the_jax_cut(monkeypatch, width, cols):
+    monkeypatch.syspath_prepend(SCRIPTS)
+    jax_script = importlib.import_module("generate_umap_and_grid")
+    arr = np.random.default_rng(width).integers(0, 256, (20, width, 3),
+                                                 np.uint8)
+    img = Image.fromarray(arr)
+    got = generate_umap_and_grid.split_image_into_columns(img, cols)
+    want = jax_script.split_image_into_columns(img, cols)
+    assert len(got) == len(want) == cols
+    for g, w in zip(got, want):
+        assert g.size == w.size
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_generate_umap_and_grid_writes_the_gif_and_the_grid(data_root):
+    """On the CPU, with the JAX script's flags: the GIF has ``--frames``
+    frames (60 by default) of the JAX figure's 600 × 500 pixels; the grid
+    a row a ``traversal_*.png`` (two here) and 7 columns, its cells the
+    figures' columns; ``--skip-gif`` and ``--skip-grid`` skip each."""
+    path = _config(data_root, "umap.yaml", "umap",
+                   **{"paths.models_dir": str(data_root / "umap_models")})
+    _write_random_checkpoint(path, "best", seed=3)
+    figures = data_root / "umap" / "figures"
+    figures.mkdir(parents=True)
+    strip = np.random.default_rng(0).integers(0, 256, (16, 7 * 16), np.uint8)
+    for name in ("traversal_dim0.png", "traversal_dim1.png"):
+        Image.fromarray(strip).save(figures / name)
+    out = generate_umap_and_grid.main(["--config", path, "--device", "cpu"])
+    with Image.open(out["gif"]) as gif:
+        assert (gif.n_frames, gif.size) == (60, (600, 500))
+    cell = generate_umap_and_grid.CELL
+    with Image.open(out["grid"]) as grid:
+        assert grid.size == (180 + 7 * cell, 36 + 24 + 2 * cell)
+        arr = np.asarray(grid.convert("L"))
+    # each cell's centre holds its column of the strip, enlarged
+    for c in range(7):
+        centre = arr[60 + cell // 2, 180 + cell * c + cell // 2]
+        column = strip[:, 16 * c:16 * (c + 1)]
+        assert column.min() <= centre <= column.max()
+
+    out = generate_umap_and_grid.main(["--config", path, "--device", "cpu",
+                                       "--frames", "5", "--skip-grid"])
+    assert list(out) == ["gif"]
+    with Image.open(out["gif"]) as gif:
+        assert gif.n_frames == 5
+    assert list(generate_umap_and_grid.main(
+        ["--config", path, "--skip-gif"])) == ["grid"]
