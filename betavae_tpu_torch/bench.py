@@ -65,7 +65,7 @@ import torch
 
 from .config import get_config, reset_config_cache
 from .data.demo import generate_demo_data
-from .device import resolve_device
+from .device import deterministic_cudnn, resolve_device
 from .logging_utils import reset_logger
 from .models.beta_vae import BetaVAEModule, init_weights
 from .models.losses import LossSpec
@@ -138,12 +138,14 @@ def _steady_state(model, args, dev: torch.device, mesh=None) -> float:
             metrics = step(images, idx, mask, sched, count)
         return float(metrics["total"])
 
-    run(max(1, args.warmup))
     dt = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run(max(1, args.steps))
-        dt = min(dt, time.perf_counter() - t0)
+    # the cuDNN setting of train(), so that the step timed is the one it runs
+    with deterministic_cudnn():
+        run(max(1, args.warmup))
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(max(1, args.steps))
+            dt = min(dt, time.perf_counter() - t0)
     return dt / max(1, args.steps)
 
 

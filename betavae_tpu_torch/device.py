@@ -1,6 +1,9 @@
-"""Device resolution: CUDA by default, the CPU only when asked for by name."""
+"""Device resolution (CUDA by default, the CPU only when asked for by
+name) and the cuDNN setting under which the trainer's runs replay."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -26,3 +29,21 @@ def raw_stream(device: torch.device) -> int:
     time a call on the H100's host, 12–15 % of a GN call;
     ``chip_smoke.py::gn_host_split`` times both)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block, its benchmark
+    autotuner off, both put back as found on the way out.  With PyTorch's
+    defaults two fp32 backwards of one state on an H100 part by up to ~2e-5
+    (``chip_smoke.py`` phase ``cudnn_determinism``), so a run would not
+    replay from its seed.  The two attributes are set directly:
+    ``torch.backends.cudnn.flags()`` resets every argument it is not given,
+    ``enabled`` among them, to False."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved

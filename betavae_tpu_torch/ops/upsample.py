@@ -11,13 +11,20 @@ Two kernels (``csrc/upsample.cu``, whose header gives their bound on an
 H100): :func:`upsample2x_forward`, and :func:`upsample2x_backward` in
 gather form, where each ``dx`` element is one thread's fixed-order sum of
 the ``dy`` taps that touch it, with no atomics, so a run replays bitwise
-(``F.interpolate``'s backward scatters with atomics).  Both compute in fp32,
-the H axis first, with every product and sum rounded on its own, and round
-once to the input's dtype; the plain versions (:func:`upsample2x_reference`,
-:func:`upsample2x_backward_reference`) do the same in torch ops, so kernel
-and plain version agree bitwise.  Each wrapper launches its kernel for a
-CUDA tensor and takes the plain version only for a CPU tensor; ``.launches``
-counts kernel launches.
+(``F.interpolate``'s backward scatters with atomics).  The forward computes
+in fp32 the H axis first, the backward the W axis first, with every product
+and sum rounded on its own, and round once to the input's dtype; the plain
+versions (:func:`upsample2x_reference`, :func:`upsample2x_backward_reference`)
+do the same in torch ops, so kernel and plain version agree bitwise.
+
+Each direction has two paths, by :func:`upsample_path` (shape, dtype and
+the pointers' alignment): ``"vector"``, a thread per band of rows and 16
+bytes of columns with 16-byte loads and stores (every shape of the
+flagship and the scaled config; :func:`vector_tiling` mirrors its index
+map), and ``"generic"``, a thread per input pixel or dx element, for
+everything else.  Each wrapper launches its kernel for a CUDA tensor and
+takes the plain version only for a CPU tensor; ``.launches`` counts kernel
+launches and ``.launches_by_path`` counts them by path.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,6 +41,10 @@ from .. import _build
 from ..device import raw_stream
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PATH_CODES = {"generic": 0, "vector": 1}
+# as in csrc/upsample.cu: threads a CTA; rows a vector-path thread walks,
+# forward and backward
+_THREADS, _FWD_BAND, _BWD_BAND = 256, 2, 4
 
 
 # ---------------------------------------------------------------------------
@@ -96,26 +108,159 @@ def _library():
     for fn in (lib.betavae_upsample2x_fwd, lib.betavae_upsample2x_bwd):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.betavae_upsample_path.argtypes = [ctypes.c_int64, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int64]
+    lib.betavae_upsample_path.restype = ctypes.c_int
     return lib
 
 
-def _launch(entry: str, src: torch.Tensor, out: torch.Tensor, h: int,
-            w: int) -> torch.Tensor:
+def _vector_width(dtype: torch.dtype) -> int:
+    """Values in 16 bytes: a vector-path thread's columns."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"upsample kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    return 16 // (2 if dtype == torch.bfloat16 else 4)
+
+
+def upsample_path(shape, dtype: torch.dtype, ptr_alignment: int) -> str:
+    """The path the kernels take for ``x`` (forward) or ``dx`` (backward)
+    of ``shape`` ``[B, C, H, W]`` and ``dtype``, where both pointers are
+    aligned to ``ptr_alignment`` bytes: ``"vector"`` where a row is 1, 2,
+    4, 8, 16 or 32 units of 16 bytes (8 bf16 or 4 fp32 values: every row
+    then starts on a 16-byte boundary and a warp holds whole rows), both
+    pointers are 16-byte aligned and ``B·C·H·(W / 16 bytes)``, which bounds
+    the thread count, is under 2³¹; else ``"generic"``.
+    ``betavae_upsample_path`` in ``csrc/upsample.cu`` states the same
+    rule."""
+    b, c, h, w = shape
+    v = _vector_width(dtype)
+    groups = w // v
+    if (ptr_alignment % 16 == 0 and min(b * c, h, w) > 0 and w % v == 0
+            and groups <= 32 and groups & (groups - 1) == 0
+            and b * c * h * groups < 2**31):
+        return "vector"
+    return "generic"
+
+
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two, up to 16, dividing every data pointer."""
+    return min(16, *(t.data_ptr() & -t.data_ptr() for t in tensors))
+
+
+def _fast_div(d: int) -> tuple[int, int]:
+    """``(m, s)`` of ``fast_div`` in ``csrc/upsample.cu``: ``n // d ==
+    ((n·m >> 32) + n) >> s`` for ``0 ≤ n < 2³¹``."""
+    s = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << s) - d)) // d + 1, s
+
+
+def _div_by(n: np.ndarray, d: int) -> np.ndarray:
+    m, s = _fast_div(d)
+    return ((n * m >> 32) + n) >> s
+
+
+def vector_tiling(shape, dtype: torch.dtype, backward: bool = False,
+                  items: slice | None = None) -> dict:
+    """A numpy mirror of the vector kernels' index map (``locate``, the
+    kernels and the forward's staged runs in ``csrc/upsample.cu``, the
+    magic-number divisions included) for the forward of ``x`` or the
+    backward to ``dx`` of ``shape`` ``[B, C, H, W]``, over the items
+    ``items`` (default all; a slice of whole warps).  Item ``n`` is thread
+    ``n % 256`` of CTA ``n // 256``.  Returns, one row an item: ``cta``,
+    ``thread``, ``plane``; ``computed``, the output's 16-byte chunks
+    (flat indices, −1 padding) whose values the thread computes (the
+    forward stages them in shared memory, the backward stores them);
+    ``stored``, the chunks it stores to device memory (the forward: chunks
+    ``l, l + 32, …`` of its warp's run, lane ``l``); and the rows
+    ``[in_row0, in_row1]`` and columns ``[in_col0, in_col1]`` of its plane
+    of the input that it loads (the values left and right of its columns
+    come from its neighbouring lanes' loads).  ``items_total`` is the
+    grid's item count, ``ctas`` its CTAs."""
+    b, c, h, w = shape
+    v = _vector_width(dtype)
+    band = _BWD_BAND if backward else _FWD_BAND
+    groups, bands = w // v, -(-h // band)
+    total = b * c * bands * groups
+    ctas = -(-total // _THREADS)
+    sl = items or slice(0, ctas * _THREADS)
+    t = np.arange(sl.start, sl.stop, dtype=np.int64)
+    active = t < total
+    n = np.minimum(t, total - 1)
+    rest = _div_by(n, groups)
+    g = n - rest * groups
+    plane = _div_by(rest, bands)
+    row0 = (rest - plane * bands) * band
+    col0 = g * v
+    # output rows 2i, 2i+1 (forward) or dx row i (backward) of each of the
+    # band's rows inside the plane, each as its 16-byte chunks
+    r = np.arange(band)
+    rows = row0[:, None] + r
+    live = active[:, None] & (rows < h)
+    if backward:
+        out_w = w // v
+        chunk = (plane[:, None] * h + rows) * out_w + g[:, None]
+        computed = np.where(live, chunk, -1)
+        stored = computed
+        in_rows = (np.clip(2 * row0 - 1, 0, 2 * h - 1),
+                   np.clip(2 * row0 + 2 * band, 0, 2 * h - 1))
+        in_cols = (2 * col0, 2 * col0 + 2 * v - 1)
+    else:
+        out_w = 2 * w // v
+        even = (plane[:, None] * 2 * h + 2 * rows) * out_w + 2 * g[:, None]
+        chunk = np.stack([even, even + 1, even + out_w, even + out_w + 1],
+                         axis=2).reshape(len(t), 4 * band)
+        computed = np.where(np.repeat(live, 4, axis=1), chunk, -1)
+        # a warp's run: from lane 0's first chunk to the end of its last
+        # computed one; lane l stores chunks l, l + 32, ... of it
+        warp = computed.reshape(-1, 32, 4 * band)
+        base = np.repeat(warp[:, 0, 0], 32)[:, None]
+        end = np.repeat(warp.max(axis=(1, 2)) + 1, 32)[:, None]
+        mine = base + (t % 32)[:, None] + 32 * np.arange(band * 4)
+        stored = np.where((base >= 0) & (mine < end), mine, -1)
+        in_rows = (np.clip(row0 - 1, 0, h - 1),
+                   np.clip(row0 + band, 0, h - 1))
+        in_cols = (col0, col0 + v - 1)
+    return {"cta": t // _THREADS, "thread": t % _THREADS, "plane": plane,
+            "computed": computed, "stored": stored,
+            "in_row0": in_rows[0], "in_row1": in_rows[1],
+            "in_col0": in_cols[0], "in_col1": in_cols[1],
+            "items_total": total, "ctas": ctas}
+
+
+def _launch(src: torch.Tensor, backward: bool,
+            path: str | None = None) -> torch.Tensor:
+    """One kernel launch for contiguous CUDA ``src`` (``x``, or ``dy`` with
+    ``backward``) into a new output, on the path :func:`upsample_path`
+    gives, or on ``path`` where a caller forces one (the vector path only
+    where the rule allows it: the kernel refuses it otherwise).  Counts the
+    launch on its wrapper, by path."""
     if src.dtype not in _DTYPE_CODES:
         raise TypeError(f"upsample kernel takes float32 or bfloat16, got "
                         f"{src.dtype}")
     if src.device.index != torch.cuda.current_device():
         with torch.cuda.device(src.device):
-            return _launch(entry, src, out, h, w)
-    b, c = src.shape[:2]
+            return _launch(src, backward, path)
+    b, c, h, w = src.shape
+    if backward:
+        h, w = h // 2, w // 2
+        out = src.new_empty((b, c, h, w))
+    else:
+        out = src.new_empty((b, c, 2 * h, 2 * w))
+    if path is None:
+        path = upsample_path((b, c, h, w), src.dtype, _alignment(src, out))
+    entry = "betavae_upsample2x_bwd" if backward else "betavae_upsample2x_fwd"
     rc = getattr(_library(), entry)(
         src.data_ptr(), out.data_ptr(), b * c, h, w, _DTYPE_CODES[src.dtype],
-        raw_stream(src.device))
+        _PATH_CODES[path], raw_stream(src.device))
     if rc != 0:
-        raise RuntimeError(f"upsample kernel {entry} failed with CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"upsample kernel {entry} ({path} path) failed "
+                           f"with CUDA error {rc}")
+    wrapper = _WRAPPERS[backward]
+    wrapper.launches += 1
+    wrapper.launches_by_path[path] += 1
     return out
 
 
@@ -132,15 +277,11 @@ def upsample2x_forward(x: torch.Tensor) -> torch.Tensor:
     CUDA tensor, the plain version for a CPU tensor."""
     if _device(x) == "cpu":
         return upsample2x_reference(x)
-    x = x.contiguous()
-    b, c, h, w = x.shape
-    out = _launch("betavae_upsample2x_fwd", x,
-                  x.new_empty((b, c, 2 * h, 2 * w)), h, w)
-    upsample2x_forward.launches += 1
-    return out
+    return _launch(x.contiguous(), backward=False)
 
 
 upsample2x_forward.launches = 0
+upsample2x_forward.launches_by_path = {"vector": 0, "generic": 0}
 
 
 def upsample2x_backward(dy: torch.Tensor) -> torch.Tensor:
@@ -148,18 +289,17 @@ def upsample2x_backward(dy: torch.Tensor) -> torch.Tensor:
     CUDA tensor, the plain version for a CPU tensor."""
     if _device(dy) == "cpu":
         return upsample2x_backward_reference(dy)
-    b, c, h2, w2 = dy.shape
-    if h2 % 2 or w2 % 2:
+    if dy.shape[2] % 2 or dy.shape[3] % 2:
         raise ValueError(f"upsample backward takes even H and W, got "
                          f"{tuple(dy.shape)}")
-    dy = dy.contiguous()
-    out = _launch("betavae_upsample2x_bwd", dy,
-                  dy.new_empty((b, c, h2 // 2, w2 // 2)), h2 // 2, w2 // 2)
-    upsample2x_backward.launches += 1
-    return out
+    return _launch(dy.contiguous(), backward=True)
 
 
 upsample2x_backward.launches = 0
+upsample2x_backward.launches_by_path = {"vector": 0, "generic": 0}
+# the counted wrappers by direction, as defined here (a caller may patch
+# the module's names)
+_WRAPPERS = (upsample2x_forward, upsample2x_backward)
 
 
 class _Upsample2x(torch.autograd.Function):

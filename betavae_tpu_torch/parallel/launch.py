@@ -164,7 +164,7 @@ def param_checksum(model: torch.nn.Module) -> str:
 
 def kernel_launches() -> dict:
     """This process's launch counts of the hand-written kernels (a spawned
-    rank's count is its run's), the head's by path."""
+    rank's count is its run's), the head's and the upsample's by path."""
     from ..ops.elbo import fused_reparam_kl, reparam_kl_backward
     from ..ops.gn import gn_backward, gn_forward
     from ..ops.head import head_forward, head_m
@@ -177,8 +177,11 @@ def kernel_launches() -> dict:
                 "upsample_forward": upsample2x_forward,
                 "upsample_backward": upsample2x_backward}
     out = {name: w.launches for name, w in wrappers.items()}
-    out["head_by_path"] = {name: dict(wrappers[name].launches_by_path)
-                           for name in ("head_forward", "head_m")}
+    for key, names in (("head_by_path", ("head_forward", "head_m")),
+                       ("upsample_by_path", ("upsample_forward",
+                                             "upsample_backward"))):
+        out[key] = {name: dict(wrappers[name].launches_by_path)
+                    for name in names}
     return out
 
 

@@ -55,7 +55,7 @@ from ..config import get, get_config
 from ..data.augment import augment_config_kwargs
 from ..data.dataset import load_image, load_split
 from ..data.pipeline import BatchPlan, DeviceData, host_feed_chunk_limit
-from ..device import resolve_device
+from ..device import deterministic_cudnn, resolve_device
 from ..eval.probes import NAN_METRICS, compute_probe_metrics
 from ..io.artifacts import ensure_dirs, model_checkpoint_path, save_image_grid
 from ..io.checkpoint import load_sharded_checkpoint
@@ -292,7 +292,14 @@ def train_steps(config_path: str, max_steps: int,
     losses, the wall time of the steps after the warm-up, ended by a device
     sync, the paths of the ``logging.profile_steps`` traces and the trained
     model.  With ``mesh``, this rank's part of a data-parallel run (the
-    module docstring)."""
+    module docstring).  cuDNN runs its deterministic algorithms meanwhile
+    (:func:`..device.deterministic_cudnn`), so the run replays in fp32
+    too."""
+    with deterministic_cudnn():
+        return _train_steps(config_path, max_steps, device, mesh)
+
+
+def _train_steps(config_path: str, max_steps: int, device, mesh) -> dict:
     dev = _rank_device(device, mesh)
     cfg = get_config(config_path)
     main = mesh is None or mesh.is_main
@@ -472,7 +479,15 @@ def train(config_path: str | None = None, resume: str = "none",
     rotation), ``rotate_dispatch_seconds`` is 0.0, and
     ``val_dispatch_seconds`` is the host time to enqueue the validation
     batches and the panel forward before the one read of their results.
+
+    cuDNN runs its deterministic algorithms meanwhile
+    (:func:`..device.deterministic_cudnn`), so the run replays in fp32 too.
     """
+    with deterministic_cudnn():
+        return _train(config_path, resume, device, mesh)
+
+
+def _train(config_path, resume: str, device, mesh) -> dict:
     dev = _rank_device(device, mesh)
     cfg = get_config(config_path)
     main = mesh is None or mesh.is_main

@@ -41,16 +41,19 @@ Phases, each printing one line (any failure exits non-zero at once):
    bf16 sample on a non-portable cluster of 16 against the generic path;
    and the bilinear ×2 upsample's forward and gather-backward kernels at
    the flagship decoder's four shapes in bf16 and fp32, a ragged shape
-   and the scaled config's five shapes (B = 256, bf16), each against its
-   plain version (bitwise expected, 1e-6 / 2⁻⁸ held), two launches
-   bitwise equal, beside its bound, its plain version and
-   ``F.interpolate``'s forward and autograd backward,
+   and the scaled config's five shapes (B = 256, bf16), on the path the
+   rule gives and on each path forced (vector where the rule allows it,
+   generic), each bitwise its plain version, two launches bitwise equal,
+   both paths' device times in turns (generic, vector, vector, generic)
+   beside the bound, the plain version and ``F.interpolate``'s forward
+   and autograd backward,
 4. slice: 3 fp32 steps of a small config on the card against the same steps
    on the CPU (the kernels' plain versions), with the default head and with
    ``training.fused_head: true``; 20 training steps of the flagship config
    (``configs/beta_vae_se.yaml`` at full width, demo data), with the
    default head and with the fused head; replay: those 20 steps twice from
-   one seed with each head, every total bitwise the first run's;
+   one seed with each head, and in fp32 with the default head, every
+   total bitwise the first run's;
    ``configs/beta_vae_se_tpu_scaled.yaml`` at full width (256 px, 5
    blocks, latent 128, global batch 256) through the training CLI with
    ``--data-parallel -1``, 2 epochs of 2 steps over seeded 256 px demo
@@ -109,7 +112,9 @@ Phases, each printing one line (any failure exits non-zero at once):
    backward from the same state at each mode (loss bitwise, gradients
    within 1e-5); one fp32 backward three times from one state with
    cuDNN's default algorithms and with ``cudnn.deterministic``, and the
-   bf16 flagship's step ms with that flag off and on in turns (reported); the epoch trainer's ``latest`` exported with its Adam
+   fp32 and bf16 flagship's step ms with the trainer's cuDNN setting
+   patched out and in, in turns (reported); the epoch trainer's
+   ``latest`` exported with its Adam
    state by ``python -m betavae_tpu_torch.io.export_torch_checkpoint`` to
    the reference's torch-pickle shards and resumed for one more epoch
    beside a copy of the native checkpoint (first total within 1e-5
@@ -126,8 +131,9 @@ Phases, each printing one line (any failure exits non-zero at once):
    step's kernels once a step, its device total per step beside the
    ``profile`` phase's; every kernel's launch count is set to 0
    just before each of these runs and read just after, every head kernel
-   launch there must have taken the TMA path, and every GN launch of the
-   canary the cluster path (in the evaluation, the reparam+KL forward once
+   launch there must have taken the TMA path, every upsample launch the
+   vector path, and every GN launch of the canary the cluster path (in
+   the evaluation, the reparam+KL forward once
    per test batch, panel and prior draw, the head forward once per decode,
    nothing else); then a
    ``torch.profiler`` breakdown of the device time per step by kernel,
@@ -281,22 +287,26 @@ def device_events(fn, calls: int, before=None) -> list:
 
 
 def device_ms_per_call(fn, case: str, calls: int = 5, before=None,
-                       only: str = "") -> float:
+                       only: str = "", per_call: int | None = None) -> float:
     """The device time of the kernels ``fn`` launches, per call
     (``torch.profiler``): the kernels alone, without the host's share of a
     call, which ``cuda_ms`` includes once calls are too short to queue up.
     ``before`` runs ahead of each call, and only kernels whose name holds
-    ``only`` are counted.  A window that records no such kernel is taken
-    again with four times the calls, twice at most (a window can miss its
-    events as a whole: GN enc3 and enc0 once each, in two runs); if none
-    records one, the run fails, naming ``case``."""
-    for n in (calls, 4 * calls, 4 * calls):
+    ``only`` are counted.  A window that records no such kernel (or, with
+    ``per_call``, not ``per_call`` of them a call) is taken again with four
+    times the calls, up to four times (a window can miss its events as a
+    whole: GN enc3 and enc0 once each, in two runs; or some of them: an
+    upsample case once read a fifth of its kernels' time); if none
+    records them, the run fails, naming ``case``."""
+    tries = (calls,) + (4 * calls,) * (4 if per_call else 2)
+    for n in tries:
         events = [e for e in device_events(fn, n, before) if only in e.name]
-        if events:
+        if events and (per_call is None or len(events) == per_call * n):
             return sum(e.device_time_total for e in events) / 1e3 / n
     fail(f"{case}: the profiler recorded no device event"
-         f"{f' of a kernel named *{only}*' if only else ''} in "
-         f"{calls}, {4 * calls} and {4 * calls} calls")
+         f"{f' of a kernel named *{only}*' if only else ''}"
+         f"{f' ({per_call} a call)' if per_call else ''} in windows of "
+         f"{tries} calls")
 
 
 def host_us_per_call(fn, calls: int) -> float:
@@ -911,17 +921,20 @@ def check_head(shape, dtype_name: str) -> dict:
 
 
 def check_upsample(shape, dtype_name: str) -> dict:
-    """The ×2 upsample's forward and gather-backward kernels on the card
-    against their plain versions (fp32 1e-6 relative, bf16 2⁻⁸, plus that
-    of the largest |value|; both compute in one order, so they are
-    expected bitwise, and that is reported), two launches of each bitwise
-    equal, the autograd Function's value and gradient the kernels', and
-    times: each kernel a call and on the device, its bound, its plain
-    version's time, and ``F.interpolate``'s forward and autograd backward
-    (the library call, whose backward scatters with atomics)."""
+    """The ×2 upsample's forward and gather-backward kernels on the card:
+    on the path the rule gives (``upsample_path``; launched once each, on
+    that path) and on each path forced (the vector path where the rule
+    allows it), bitwise equal to their plain versions (both compute in one
+    order); two launches of each bitwise equal; the autograd Function's
+    value and gradient the kernels'; and times: each path's kernel a call
+    and on the device in turns (generic, vector, vector, generic), its
+    bound, its plain version's time, and ``F.interpolate``'s forward and
+    autograd backward (the library call, whose backward scatters with
+    atomics)."""
     import torch
     import torch.nn.functional as F
 
+    from betavae_tpu_torch.ops import upsample
     from betavae_tpu_torch.ops.upsample import (
         bilinear_upsample_x2, upsample2x_backward,
         upsample2x_backward_reference, upsample2x_forward,
@@ -934,29 +947,40 @@ def check_upsample(shape, dtype_name: str) -> dict:
     x = torch.randn(shape, generator=g, device="cuda").to(dtype)
     dy = torch.randn((b, c, 2 * h, 2 * w), generator=g,
                      device="cuda").to(dtype)
-    before = (upsample2x_forward.launches, upsample2x_backward.launches)
+    path = upsample.upsample_path(shape, dtype, upsample._alignment(x, dy))
+    paths = ("generic", "vector") if path == "vector" else ("generic",)
+    wrappers = (upsample2x_forward, upsample2x_backward)
+    before = [dict(wr.launches_by_path) for wr in wrappers]
     y = upsample2x_forward(x)
     dx = upsample2x_backward(dy)
     torch.cuda.synchronize()
-    if (upsample2x_forward.launches - before[0],
-            upsample2x_backward.launches - before[1]) != (1, 1):
-        fail(f"{case}: one call of each did not launch each kernel once")
+    for wr, was in zip(wrappers, before):
+        if {p: n - was[p] for p, n in wr.launches_by_path.items()} != {
+                p: int(p == path) for p in ("vector", "generic")}:
+            fail(f"{case}: one call of each did not launch each kernel once "
+                 f"on the {path} path")
     if not (torch.equal(y, upsample2x_forward(x))
             and torch.equal(dx, upsample2x_backward(dy))):
         fail(f"{case}: two launches differ")
-    tol = 1e-6 if dtype_name == "float32" else 2**-8
-    checks = {}
-    for name, got, ref in (("forward", y, upsample2x_reference),
-                           ("backward", dx, upsample2x_backward_reference)):
-        want = ref(x if name == "forward" else dy)
-        scale = float(want.float().abs().max())
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol * scale)
-        checks[name] = {"max_abs_err": float((got.float() - want.float())
-                                             .abs().max()),
-                        "max_abs_ref": scale,
-                        "bitwise_vs_plain": bool(torch.equal(got, want))}
-        del want
+    checks = {"path": path}
+    for name, got, ref, src in (
+            ("forward", y, upsample2x_reference, x),
+            ("backward", dx, upsample2x_backward_reference, dy)):
+        want = ref(src)
+        forced = {p: upsample._launch(src, name == "backward", p)
+                  for p in paths}
+        bitwise = {p: bool(torch.equal(out, want))
+                   for p, out in forced.items()}
+        checks[name] = {"max_abs_err": max(float((out.float() - want.float())
+                                                 .abs().max())
+                                           for out in (got, *forced.values())),
+                        "max_abs_ref": float(want.float().abs().max()),
+                        "bitwise_vs_plain": bool(torch.equal(got, want)),
+                        "bitwise_vs_plain_by_path": bitwise}
+        if not (checks[name]["bitwise_vs_plain"] and all(bitwise.values())):
+            fail(f"{case} {name}: not bitwise the plain version: "
+                 f"{checks[name]}")
+        del want, forced
     xr = x.clone().requires_grad_()
     yr = bilinear_upsample_x2(xr)
     yr.backward(dy)
@@ -978,27 +1002,39 @@ def check_upsample(shape, dtype_name: str) -> dict:
     iters = max(3, min(200, int(4e9 // out_bytes)))
     plain_iters = max(2, iters // 10)
     rows = {}
-    for name, kernel, plain, library, ops, only in (
-            ("forward", lambda: upsample2x_forward(x),
-             lambda: upsample2x_reference(x),
+    for name, src, plain, library, ops, only in (
+            ("forward", x, lambda: upsample2x_reference(x),
              lambda: F.interpolate(x, scale_factor=2, mode="bilinear",
                                    align_corners=False),
              UPSAMPLE_FWD_OPS * x.numel(), "upsample2x_fwd"),
-            ("backward", lambda: upsample2x_backward(dy),
-             lambda: upsample2x_backward_reference(dy),
+            ("backward", dy, lambda: upsample2x_backward_reference(dy),
              lambda: torch.autograd.grad(y_lib, xl, dy, retain_graph=True),
              UPSAMPLE_BWD_OPS * x.numel(), "upsample2x_bwd")):
-        row = {"ms": cuda_ms(kernel, iters),
-               "device_ms": device_ms_per_call(kernel, f"{case} {name}",
-                                               only=only),
-               "plain_ms": cuda_ms(plain, plain_iters, warmup=2),
-               "library_ms": cuda_ms(library, plain_iters, warmup=2)}
+        bwd = name == "backward"
+        turns = {p: {"ms": [], "device_ms": []} for p in paths}
+        for p in (paths + paths[::-1] if len(paths) == 2 else paths * 2):
+            def kernel(p=p):
+                return upsample._launch(src, bwd, p)
+            turns[p]["ms"].append(cuda_ms(kernel, iters))
+            turns[p]["device_ms"].append(device_ms_per_call(
+                kernel, f"{case} {name} {p}", only=only, per_call=1))
         bytes_ms = (x.numel() + y.numel()) * x.element_size() \
             / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
-        row["bound_ms"] = max(bytes_ms, ops_ms)
-        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-        row["bound_fraction"] = row["bound_ms"] / row["device_ms"]
+        bound = max(bytes_ms, ops_ms)
+        row = {"path": path,
+               "ms": statistics.mean(turns[path]["ms"]),
+               "device_ms": statistics.mean(turns[path]["device_ms"]),
+               "plain_ms": cuda_ms(plain, plain_iters, warmup=2),
+               "library_ms": cuda_ms(library, plain_iters, warmup=2),
+               "bound_ms": bound,
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        row["bound_fraction"] = bound / row["device_ms"]
+        for p in paths:
+            row[f"{p}_ms_in_turns"] = turns[p]["ms"]
+            row[f"{p}_device_ms_in_turns"] = turns[p]["device_ms"]
+            row[f"{p}_bound_fraction"] = bound / statistics.mean(
+                turns[p]["device_ms"])
         rows[name] = row
     del x, dy, y, dx, xl, y_lib
     torch.cuda.empty_cache()
@@ -1326,11 +1362,28 @@ def write_config(src: str, root: str, name: str, **overrides) -> str:
     return path
 
 
+# the upsample kernels' launches by path over every main-path run since the
+# kernel phase, gathered as each run's counts are set to 0
+UPSAMPLE_PATH_TOTALS = {"upsample_forward": {"vector": 0, "generic": 0},
+                        "upsample_backward": {"vector": 0, "generic": 0}}
+
+
 def zero_counts(kernels: dict) -> None:
-    for wrapper in kernels.values():
+    for name, wrapper in kernels.items():
+        for path, n in UPSAMPLE_PATH_TOTALS.get(name, {}).items():
+            UPSAMPLE_PATH_TOTALS[name][path] = n + \
+                wrapper.launches_by_path[path]
         wrapper.launches = 0
         for path in getattr(wrapper, "launches_by_path", {}):
             wrapper.launches_by_path[path] = 0
+
+
+def upsample_path_totals(kernels: dict) -> dict:
+    """``UPSAMPLE_PATH_TOTALS`` with the launches since the last
+    ``zero_counts``."""
+    return {name: {p: n + kernels[name].launches_by_path[p]
+                   for p, n in paths.items()}
+            for name, paths in UPSAMPLE_PATH_TOTALS.items()}
 
 
 def head_paths(kernels: dict) -> dict:
@@ -1344,6 +1397,14 @@ def head_paths(kernels: dict) -> dict:
 
 
 def read_counts(kernels: dict) -> dict:
+    """Each kernel's launches since ``zero_counts``; every upsample launch
+    of the main paths must have taken the vector path (all their shapes
+    allow it)."""
+    generic = {name: kernels[name].launches_by_path["generic"]
+               for name in UPSAMPLE_PATH_TOTALS}
+    if any(generic.values()):
+        fail(f"upsample kernels took the generic path on the main path: "
+             f"{generic}")
     return {name: wrapper.launches for name, wrapper in kernels.items()}
 
 
@@ -1476,22 +1537,26 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool,
 
 
 def run_replay(tmp: str, kernels: dict) -> dict:
-    """The flagship (bf16, full width) through ``train_steps`` twice from
-    the same seed for FLAGSHIP_STEPS steps (``run_flagship``: finite
-    totals, each kernel's launches), with the default head and then the
-    fused head: every total of the rerun must equal the first run's,
-    bitwise, at every step."""
+    """The flagship (full width) through ``train_steps`` twice from the
+    same seed for FLAGSHIP_STEPS steps (``run_flagship``: finite totals,
+    each kernel's launches), in bf16 with the default head and then the
+    fused head, and in fp32 (``training.mixed_precision: false``, TF32 at
+    PyTorch's defaults) with the default head: every total of the rerun
+    must equal the first run's, bitwise, at every step."""
     out = {}
-    for fused in (False, True):
-        runs = [run_flagship(tmp, kernels, fused_head=fused)
+    for tag, fused, overrides in (
+            ("default_head", False, {}), ("fused_head", True, {}),
+            ("default_head_fp32", False,
+             {"training.mixed_precision": False})):
+        runs = [run_flagship(tmp, kernels, fused_head=fused, **overrides)
                 for _ in range(2)]
         first, rerun = (r["totals"] for r in runs)
         parted = [i + 1 for i, (a, b) in enumerate(zip(first, rerun))
                   if a != b]
         if parted:
-            fail(f"replay (fused_head {fused}): the rerun parts from the "
-                 f"first run at steps {parted}: {first} vs {rerun}")
-        out["fused_head" if fused else "default_head"] = {
+            fail(f"replay ({tag}): the rerun parts from the first run at "
+                 f"steps {parted}: {first} vs {rerun}")
+        out[tag] = {
             "steps": len(first), "totals_bitwise": True, "totals": first,
             "step_ms": [r["step_ms"] for r in runs],
             "launches": runs[0]["launches"]}
@@ -1513,7 +1578,8 @@ def run_scaled(tmp: str, kernels: dict) -> dict:
     backward once a train step, the upsample forward 5 times a decode
     (train steps, validation batches, an epoch's panel) and its backward 5
     times a train step, nothing else; step ms (the trainer's images/s of
-    the second epoch), epoch wall and peak memory."""
+    the second epoch), epoch wall and peak memory; then the device time a
+    step by kernel over 4 profiled steps of ``train_steps``."""
     import gc
 
     import torch
@@ -1562,6 +1628,8 @@ def run_scaled(tmp: str, kernels: dict) -> dict:
     if launches != want:
         fail(f"scaled: kernel launches {launches}, want {want}")
     rate = val_lines[-1]["train_images_per_sec"]
+    # the device's share of a step: 4 steps of the same config profiled
+    prof = profile_config(cfg, batch / rate * 1e3, steps=4)
     return {"phase": "scaled", "config": "configs/beta_vae_se_tpu_scaled.yaml",
             "data_parallel": -1, "train_steps": steps,
             "val_batches_per_epoch": val_batches,
@@ -1573,23 +1641,36 @@ def run_scaled(tmp: str, kernels: dict) -> dict:
             "step_ms": batch / rate * 1e3,
             "epoch_wall_seconds": [m["epoch_wall_seconds"] for m in lines
                                    if m["phase"] == "epoch_end"],
-            "peak_mem_gib": peak}
+            "peak_mem_gib": peak,
+            "profiled": {k: prof[k] for k in (
+                "steps", "device_ms_per_step", "forward_upsample_ms",
+                "backward_upsample_ms", "device_busy_share",
+                "kernels_per_step", "top_kernels_ms_per_step")}}
 
 
 def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
                      mesh=None, **overrides) -> dict:
-    """Device time per flagship step by kernel (``torch.profiler``) over a
-    second short run of the same config (on ``mesh`` when given); its busy
-    share is the device time per step over the unprofiled run's step time.
-    ``collective_kernels_per_step`` counts NCCL's kernels."""
+    """Device time per flagship step by kernel over a second short run of
+    the same config (:func:`profile_config`)."""
+    return {"phase": "profile", "fused_head": fused_head,
+            "overrides": overrides,
+            **profile_config(flagship_config(tmp, fused_head, **overrides),
+                             step_ms, mesh=mesh)}
+
+
+def profile_config(cfg: str, step_ms: float, steps: int = 8,
+                   mesh=None) -> dict:
+    """Device time per step by kernel (``torch.profiler``) over ``steps``
+    steps of ``train_steps`` on the config at ``cfg`` (on ``mesh`` when
+    given); its busy share is the device time per step over ``step_ms``,
+    an unprofiled run's step time.  ``collective_kernels_per_step`` counts
+    NCCL's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from betavae_tpu_torch.logging_utils import reset_logger
     from betavae_tpu_torch.train.loop import train_steps
 
-    cfg = flagship_config(tmp, fused_head, **overrides)
-    steps = 8
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         train_steps(cfg, steps, mesh=mesh)
     reset_logger()
@@ -1604,8 +1685,7 @@ def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
             evt.device_time_total / 1e3 / steps
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
-    return {"phase": "profile", "fused_head": fused_head,
-            "overrides": overrides, "steps": steps,
+    return {"steps": steps,
             "device_ms_per_step": device_ms,
             "elbo_kernel_device_ms_per_step": sum(
                 ms for name, ms in per_kernel.items()
@@ -1638,7 +1718,9 @@ def upsample_in_turns(tmp: str) -> dict:
     ``F.interpolate`` in their place (the library call, whose backward
     scatters with atomics), in turns (kernel, library, library, kernel):
     each turn's step ms over FLAGSHIP_STEPS steps, and its device ms a
-    step, busy share and largest kernels over 8 profiled steps."""
+    step, busy share and largest kernels over 8 profiled steps; and
+    before them, over 4 steps, how many of the dy that the backward
+    wrapper receives are not contiguous (each would be copied)."""
     from unittest import mock
 
     import torch
@@ -1654,6 +1736,20 @@ def upsample_in_turns(tmp: str) -> dict:
                                  align_corners=False)
 
     cfg = flagship_config(tmp, False)
+    # whether the backward's dy.contiguous() copies on this path: the
+    # layout of each dy the decoder's blocks hand it, over a few steps
+    seen = []
+    backward = upsample.upsample2x_backward
+
+    def recording(dy):
+        seen.append(dy.is_contiguous())
+        return backward(dy)
+
+    with mock.patch.object(upsample, "upsample2x_backward", recording):
+        train_steps(cfg, 4)
+        reset_logger()
+    dy_layout = {"backward_calls": len(seen),
+                 "dy_not_contiguous": seen.count(False)}
     turns = {"kernel": [], "library": []}
     for tag in ("kernel", "library", "library", "kernel"):
         with (mock.patch.object(upsample, "bilinear_upsample_x2", library)
@@ -1670,7 +1766,7 @@ def upsample_in_turns(tmp: str) -> dict:
                            "kernels_per_step": prof["kernels_per_step"],
                            "top_kernels_ms_per_step":
                                prof["top_kernels_ms_per_step"][:6]})
-    return {"phase": "upsample_in_turns", **turns}
+    return {"phase": "upsample_in_turns", "dy_layout": dy_layout, **turns}
 
 
 def metrics_lines(log_path: str) -> list:
@@ -1997,21 +2093,26 @@ def remat_gradients(tmp: str) -> dict:
 
 
 def cudnn_determinism(tmp: str, kernels: dict) -> dict:
-    """Where the card still does not replay.  One fp32 backward of the
-    fused flagship (TF32 off) from the same weights and batch three times,
-    with cuDNN's default algorithm choice and with
-    ``torch.backends.cudnn.deterministic``: the largest gradient difference
-    between the three and the parameters whose gradients differ; and the
-    bf16 flagship's step ms (FLAGSHIP_STEPS steps of ``run_flagship``, the
-    default head) with the flag off and on, in turns (off, on, on, off).
-    Reported, not bounded: the trainer leaves the flag at PyTorch's
-    default (off), under which the bf16 steps replay bitwise (the
-    ``replay`` phase)."""
+    """Why the trainer runs cuDNN's deterministic algorithms, and what it
+    costs.  One fp32 backward of the fused flagship (TF32 off) from the
+    same weights and batch three times, with cuDNN's default algorithm
+    choice and with ``torch.backends.cudnn.deterministic``: the largest
+    gradient difference between the three and the parameters whose
+    gradients differ (the record of the cause).  Then the default-head
+    flagship's step ms through ``train_steps`` (``run_flagship``,
+    FLAGSHIP_STEPS steps) in fp32 (``training.mixed_precision: false``) and
+    in bf16, with the trainer's setting patched out (off: PyTorch's default
+    algorithm choice) and as the trainer runs it (on), in turns (off, on,
+    on, off).  Reported, not bounded; the ``replay`` phase holds the fp32
+    and bf16 runs bitwise."""
+    from unittest import mock
+
     import torch
 
     from betavae_tpu_torch.config import get_config, reset_config_cache
     from betavae_tpu_torch.models.beta_vae import model_from_config
     from betavae_tpu_torch.models.losses import loss_spec_from_config
+    from betavae_tpu_torch.train import loop
     from betavae_tpu_torch.train.step import _forward_losses
 
     reset_config_cache()
@@ -2050,18 +2151,24 @@ def cudnn_determinism(tmp: str, kernels: dict) -> dict:
             fp32[tag] = {"max_abs_diff": max(diff.values()),
                          "params_differing": sorted(n for n, d in diff.items()
                                                     if d)}
-        torch.backends.cuda.matmul.allow_tf32 = flags[2]
-        torch.backends.cudnn.allow_tf32 = flags[1]
-        step_ms = {"off": [], "on": []}
-        for on in (False, True, True, False):
-            torch.backends.cudnn.deterministic = on
-            step_ms["on" if on else "off"].append(
-                run_flagship(tmp, kernels, fused_head=False)["step_ms"])
     finally:
         (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
+    step_ms = {}
+    for tag, overrides in (("fp32", {"training.mixed_precision": False}),
+                           ("bf16", {})):
+        turns = {"off": [], "on": []}
+        for on in (False, True, True, False):
+            with (contextlib.nullcontext() if on else mock.patch.object(
+                    loop, "deterministic_cudnn", contextlib.nullcontext)):
+                if not on and torch.backends.cudnn.deterministic:
+                    fail("cudnn_determinism: the flag is on outside the "
+                         "trainer")
+                turns["on" if on else "off"].append(run_flagship(
+                    tmp, kernels, fused_head=False, **overrides)["step_ms"])
+        step_ms[tag] = turns
     return {"phase": "cudnn_determinism", "fp32_backward_three_times": fp32,
-            "bf16_flagship_step_ms_in_turns": step_ms}
+            "flagship_step_ms_in_turns": step_ms}
 
 
 def run_remat(tmp: str, kernels: dict) -> dict:
@@ -3269,18 +3376,22 @@ def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
     want_b = launches_per_step(kernels, True, DP_GLOO_STEPS)
     rank_launches = [{k: t["launches"][k] for k in want_b} for t in trained]
     head_by_path = [t["launches"]["head_by_path"] for t in trained]
+    upsample_by_path = [t["launches"]["upsample_by_path"] for t in trained]
     ok_b = (all(len(t["totals"]) == DP_GLOO_STEPS
                 and all(map(math.isfinite, t["totals"])) for t in trained)
             and trained[0]["totals"] == trained[1]["totals"]
             and max(first_rel) <= 1e-3 and max(rel_b) <= 1e-4
             and trained[0]["checksum"] == trained[1]["checksum"]
             and all(rl == want_b for rl in rank_launches)
-            and all(p[k]["generic"] == 0 for p in head_by_path for k in p))
+            and all(p[k]["generic"] == 0 for p in head_by_path for k in p)
+            and all(p[k]["generic"] == 0 for p in upsample_by_path
+                    for k in p))
     if not ok_b:
         fail(f"data_parallel (b): first totals rel {first_rel}, fp32 grads "
              f"rel {rel_b}, checksums {[t['checksum'] for t in trained]}, "
              f"launches {rank_launches} (want {want_b}), head paths "
-             f"{head_by_path}, totals {[t['totals'] for t in trained]}")
+             f"{head_by_path}, upsample paths {upsample_by_path}, totals "
+             f"{[t['totals'] for t in trained]}")
     t0 = time.perf_counter()
     dry = dryrun_check([r[2] for r in ranks], dry_case, shared, "gloo")
     part_b = {"backend": "gloo", "devices": shared, "rows_per_rank": 16,
@@ -3293,6 +3404,7 @@ def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
                           for t in trained],
               "launch_seconds": spawn_s, "launches": rank_launches,
               "head_launches_by_path": head_by_path,
+              "upsample_launches_by_path": upsample_by_path,
               "dryrun": dry,
               "dryrun_single_seconds": time.perf_counter() - t0}
 
@@ -3436,6 +3548,9 @@ def main() -> None:
     ups = [check_upsample(shape, dtype) for shape, dtype in UPSAMPLE_CASES]
     emit({"phase": "kernel", "name": "upsample2x", "card": card,
           "cases": ups})
+    # the path totals count the main paths' launches from here on
+    for wrapper in (upsample2x_forward, upsample2x_backward):
+        wrapper.launches_by_path.update(vector=0, generic=0)
 
     kernels = {"fused_reparam_kl": fused_reparam_kl,
                "reparam_kl_backward": reparam_kl_backward,
@@ -3523,6 +3638,10 @@ def main() -> None:
     if any(c[part]["bound_by"] != "bytes" for c in ups_main
            for part in ("forward", "backward")):
         fail(f"upsample: a flagship shape bound by operations: {ups_main}")
+    ups_paths = upsample_path_totals(kernels)
+    if any(paths["generic"] for paths in ups_paths.values()):
+        fail(f"upsample kernels took the generic path on the main paths: "
+             f"{ups_paths}")
 
     def by_path(name):
         return {"epochs": epochs["launches"][name],
@@ -3670,6 +3789,9 @@ def main() -> None:
            for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                        "device_ms")},
         "bound_by": "bytes",
+        # every main-path launch of the script by the kernels' path (all
+        # vector: ``read_counts`` fails on a generic one)
+        "launches_by_kernel_path": ups_paths[name],
         "device_ms_per_profiled_step": profiled[f"{part}_upsample_ms"],
         "check": "ok",
         "card": card,

@@ -28,11 +28,13 @@ from betavae_tpu_torch.ops.head import _library as _head_library
 from betavae_tpu_torch.ops.head import (fused_se_conv_head, head_conv_reference,
                                         head_forward, head_m, head_m_reference,
                                         tma_path)
+from betavae_tpu_torch.ops import upsample as _upsample
 from betavae_tpu_torch.ops.upsample import (bilinear_upsample_x2,
                                             upsample2x_backward,
                                             upsample2x_backward_reference,
                                             upsample2x_forward,
-                                            upsample2x_reference)
+                                            upsample2x_reference,
+                                            upsample_path)
 
 
 @pytest.fixture
@@ -701,40 +703,91 @@ def test_remat_gradients_on_the_card(cuda_device, tmp_path, mode):
 # the ×2 upsample
 # ---------------------------------------------------------------------------
 
+def _paths(wrapper) -> dict:
+    return dict(wrapper.launches_by_path)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype", [
-    ((32, 512, 8, 8), torch.bfloat16), ((32, 64, 64, 64), torch.bfloat16),
-    ((32, 256, 16, 16), torch.float32), ((3, 5, 37, 53), torch.float32),
-    ((3, 5, 37, 53), torch.bfloat16), ((2, 3, 1, 1), torch.float32)])
-def test_upsample_kernels_match_plain_versions(cuda_device, shape, dtype):
-    """Forward and gather backward against their plain versions (fp32
-    1e-6 relative, bf16 2⁻⁸, plus that of the largest |value|: both
-    compute in one order), each launch counted once, two launches bitwise
-    equal (the backward has no atomics), and the autograd Function's value
-    and gradient the kernels'."""
+@pytest.mark.parametrize("shape,dtype,path", [
+    ((32, 512, 8, 8), torch.bfloat16, "vector"),
+    ((32, 64, 64, 64), torch.bfloat16, "vector"),
+    ((32, 256, 16, 16), torch.float32, "vector"),
+    ((3, 5, 37, 53), torch.float32, "generic"),
+    ((3, 5, 37, 53), torch.bfloat16, "generic"),
+    ((2, 3, 1, 1), torch.float32, "generic"),
+    ((2, 3, 5, 16), torch.bfloat16, "vector"),
+    ((3, 2, 7, 8), torch.float32, "vector"),
+    ((1, 2, 3, 256), torch.bfloat16, "vector"),
+    ((1, 2, 3, 24), torch.bfloat16, "generic")])
+def test_upsample_kernels_match_plain_versions(cuda_device, shape, dtype,
+                                               path):
+    """Forward and gather backward bitwise their plain versions on the
+    path the rule gives and on each path forced (the vector path where the
+    rule allows it, else the kernel refuses it), each launch counted once
+    and on its path, two launches bitwise equal (the backward has no
+    atomics), and the autograd Function's value and gradient the
+    kernels'.  The small vector shapes have a partial last band, rows of
+    one 16-byte unit and a row of a whole warp."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     b, c, h, w = shape
     x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
     dy = torch.randn((b, c, 2 * h, 2 * w), generator=g,
                      device=cuda_device).to(dtype)
-    before = (upsample2x_forward.launches, upsample2x_backward.launches)
+    assert upsample_path(shape, dtype, 16) == path
+    before = (_paths(upsample2x_forward), _paths(upsample2x_backward))
     y, dx = upsample2x_forward(x), upsample2x_backward(dy)
     torch.cuda.synchronize()
-    assert (upsample2x_forward.launches - before[0],
-            upsample2x_backward.launches - before[1]) == (1, 1)
-    tol = 1e-6 if dtype == torch.float32 else 2**-8
-    for got, want in ((y, upsample2x_reference(x)),
-                      (dx, upsample2x_backward_reference(dy))):
+    for wrapper, was in zip((upsample2x_forward, upsample2x_backward),
+                            before):
+        assert {k: v - was[k] for k, v in _paths(wrapper).items()} == {
+            p: int(p == path) for p in ("vector", "generic")}
+    want_y, want_dx = upsample2x_reference(x), upsample2x_backward_reference(dy)
+    for got, want in ((y, want_y), (dx, want_dx)):
         assert got.dtype == dtype and got.shape == want.shape
-        scale = float(want.float().abs().max())
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol * scale)
+        assert torch.equal(got, want)
     assert torch.equal(y, upsample2x_forward(x))
     assert torch.equal(dx, upsample2x_backward(dy))
+    for forced in ("vector", "generic"):
+        if forced == "vector" and path != "vector":
+            with pytest.raises(RuntimeError, match="vector path"):
+                _upsample._launch(x, backward=False, path=forced)
+            continue
+        assert torch.equal(_upsample._launch(x, False, forced), want_y)
+        assert torch.equal(_upsample._launch(dy, True, forced), want_dx)
     xr = x.clone().requires_grad_()
     yr = bilinear_upsample_x2(xr)
     yr.backward(dy)
     assert torch.equal(yr, y) and torch.equal(xr.grad, dx)
+
+
+@pytest.mark.cuda
+def test_upsample_path_rule_is_the_kernels(cuda_device):
+    """``upsample_path`` and ``betavae_upsample_path`` in
+    ``csrc/upsample.cu`` agree over shapes, dtypes and alignments."""
+    lib = _upsample._library()
+    for shape in ((32, 512, 8, 8), (256, 64, 128, 128), (3, 5, 37, 53),
+                  (2, 3, 5, 24), (1, 1, 1, 4), (1, 1, 2, 8), (2, 3, 1, 1),
+                  (1, 2, 3, 256), (1, 2, 3, 512), (2**15, 2**10, 64, 64)):
+        b, c, h, w = shape
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for align in (2, 4, 8, 16, 32):
+                want = upsample_path(shape, dtype, align) == "vector"
+                assert lib.betavae_upsample_path(b * c, h, w, code,
+                                                 align) == int(want)
+
+
+@pytest.mark.cuda
+def test_upsample_misaligned_input_takes_the_generic_path(cuda_device):
+    """A bf16 x one value past a 16-byte boundary: the generic path,
+    bitwise the plain version."""
+    shape = (2, 4, 8, 16)
+    n = 2 * 4 * 8 * 16
+    x = torch.randn(n + 1, device=cuda_device).to(torch.bfloat16)[1:]
+    x = x.view(shape)
+    was = _paths(upsample2x_forward)
+    y = upsample2x_forward(x)
+    assert _paths(upsample2x_forward)["generic"] == was["generic"] + 1
+    assert torch.equal(y, upsample2x_reference(x))
 
 
 @pytest.mark.cuda
@@ -759,4 +812,24 @@ def test_train_steps_replay_bitwise_on_the_card(cuda_device, tmp_path):
         runs.append(_few_steps(path, 4))
         assert (upsample2x_forward.launches,
                 upsample2x_backward.launches) == (2 * 4, 2 * 4)
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_fp32_train_steps_replay_bitwise_on_the_card(cuda_device, tmp_path):
+    """Four fp32 steps (TF32 off) of the small flagship-shaped config with
+    the fused head, twice from the same seed: every total bitwise equal
+    (the trainer runs cuDNN's deterministic algorithms), and the cuDNN
+    flags as they were after each run."""
+    path = _small_flagship(tmp_path, mixed_precision=False)
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark, cudnn.enabled,
+             cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = [_few_steps(path, 4) for _ in range(2)]
+        assert (cudnn.deterministic, cudnn.benchmark,
+                cudnn.enabled) == flags[:3]
+    finally:
+        cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags[3:]
     assert runs[0] == runs[1]

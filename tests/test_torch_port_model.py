@@ -9,6 +9,8 @@ activations are computed: bitwise the same loss, gradients and BatchNorm
 statistics on the CPU, and each mode the JAX module's with the same remat.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +25,12 @@ from betavae_tpu.ops.upsample import bilinear_upsample_x2 as jax_upsample
 
 from betavae_tpu_torch.io.weights import params_from_jax
 from betavae_tpu_torch.models.beta_vae import BetaVAEModule
-from betavae_tpu_torch.ops.upsample import (bilinear_upsample_x2,
+from betavae_tpu_torch.ops.upsample import (_alignment, bilinear_upsample_x2,
                                             upsample2x_backward,
                                             upsample2x_backward_reference,
                                             upsample2x_forward,
-                                            upsample2x_reference)
+                                            upsample2x_reference,
+                                            upsample_path, vector_tiling)
 
 RTOL, ATOL = 1e-4, 1e-5
 LATENT, BASE, RED = 6, 4, 2
@@ -479,6 +482,112 @@ def test_upsample_cpu_tensors_take_the_plain_versions_without_launches():
     assert np.array_equal(got_dx, upsample2x_backward_reference(dy).numpy())
     assert np.array_equal(got_dx, again_dx)
     assert (upsample2x_forward.launches, upsample2x_backward.launches) == before
+
+
+# --------------------------------------------------------------------------
+# the upsample kernels' path rule and the vector path's tiling (the kernels
+# run on the card only; their index map is mirrored in numpy)
+# --------------------------------------------------------------------------
+
+# x [B, C, H, W] of the flagship decoder's four upsamples and the scaled
+# config's five (configs/beta_vae_se_tpu_scaled.yaml: B 256, 5 blocks)
+UPSAMPLE_FLAGSHIP = [(32, 512, 8, 8), (32, 256, 16, 16), (32, 128, 32, 32),
+                     (32, 64, 64, 64)]
+UPSAMPLE_SCALED = [(256, 1024, 8, 8), (256, 512, 16, 16), (256, 256, 32, 32),
+                   (256, 128, 64, 64), (256, 64, 128, 128)]
+# small shapes on the vector path: odd H (a plane's last band partial),
+# a row of one 16-byte unit and a row of 32 (one warp)
+UPSAMPLE_ODD = [((2, 3, 5, 16), torch.bfloat16), ((3, 2, 7, 8), torch.float32),
+                ((1, 2, 3, 256), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", UPSAMPLE_FLAGSHIP + UPSAMPLE_SCALED, ids=str)
+def test_upsample_path_is_vector_on_the_main_shapes(shape, dtype):
+    """Every upsample of the flagship and the scaled config, both ways, in
+    bf16 and fp32, takes the vector path with 16-byte aligned pointers, as
+    fresh tensors have."""
+    assert upsample_path(shape, dtype, 16) == "vector"
+    assert upsample_path(shape, dtype, 256) == "vector"
+    x = torch.empty(shape, dtype=dtype)
+    y = torch.empty(shape[:2] + (2 * shape[2], 2 * shape[3]), dtype=dtype)
+    assert _alignment(x, y) == 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_upsample_path_is_generic_for_ragged_rows_and_misaligned_pointers(
+        dtype):
+    """[3, 5, 37, 53] (rows not a whole number of 16-byte units), rows of
+    3 and 64 units (not a power of two up to a warp), a pointer one value
+    past a 16-byte boundary (a storage offset of 1) and any alignment
+    under 16 take the generic path."""
+    v = 16 // torch.tensor([], dtype=dtype).element_size()
+    assert upsample_path((3, 5, 37, 53), dtype, 16) == "generic"
+    assert upsample_path((2, 3, 4, 6), dtype, 16) == "generic"
+    assert upsample_path((1, 2, 3, 3 * v), dtype, 16) == "generic"
+    assert upsample_path((1, 2, 3, 64 * v), dtype, 16) == "generic"
+    assert upsample_path((1, 2, 3, 32 * v), dtype, 16) == "vector"
+    shape = (32, 64, 64, 64)
+    n = math.prod(shape)
+    x = torch.empty(n + 1, dtype=dtype)[1:].view(shape)
+    assert x.is_contiguous() and x.storage_offset() == 1
+    out = torch.empty(shape[:2] + (128, 128), dtype=dtype)
+    align = _alignment(x, out)
+    assert align == x.element_size()
+    assert upsample_path(shape, dtype, align) == "generic"
+    for align in (1, 2, 4, 8):
+        assert upsample_path(shape, dtype, align) == "generic"
+
+
+def _check_tiling(shape, dtype, backward: bool) -> None:
+    """The mirror of the vector kernels' index map, a batch of whole warps
+    at a time: the chunks the batch's threads compute, and those they
+    store, are each one run of the output that starts where the last
+    batch's ended, every chunk once, and the runs end at the output's end
+    (so every output element is written exactly once, and the forward
+    stores only staged values); every load is inside the input plane."""
+    b, c, h, w = shape
+    in_hw = (2 * h, 2 * w) if backward else (h, w)
+    v = 16 // torch.tensor([], dtype=dtype).element_size()
+    out_chunks = b * c * h * w // v * (1 if backward else 4)
+    ctas = vector_tiling(shape, dtype, backward, items=slice(0, 32))["ctas"]
+    batch, done = 1 << 20, 0
+    for start in range(0, ctas * 256, batch):
+        tl = vector_tiling(shape, dtype, backward,
+                           items=slice(start, min(start + batch, ctas * 256)))
+        assert ((0 <= tl["plane"]) & (tl["plane"] < b * c)).all()
+        assert ((0 <= tl["in_row0"]) & (tl["in_row1"] < in_hw[0])).all()
+        assert ((0 <= tl["in_col0"]) & (tl["in_col1"] < in_hw[1])).all()
+        computed = np.sort(tl["computed"][tl["computed"] >= 0])
+        stored = np.sort(tl["stored"][tl["stored"] >= 0])
+        want = np.arange(done, done + len(computed))
+        assert np.array_equal(computed, want)
+        assert np.array_equal(stored, want)
+        done += len(computed)
+    assert done == out_chunks
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("shape,dtype", [
+    *((s, torch.bfloat16) for s in UPSAMPLE_FLAGSHIP + UPSAMPLE_SCALED),
+    *((s, torch.float32) for s in UPSAMPLE_FLAGSHIP)], ids=str)
+def test_upsample_vector_tiling_covers_the_output_once(shape, dtype, backward):
+    """At the main path's shapes (the flagship's in bf16 and fp32, the
+    scaled config's in bf16)."""
+    _check_tiling(shape, dtype, backward)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("shape,dtype", UPSAMPLE_ODD, ids=str)
+def test_upsample_vector_tiling_covers_odd_shapes_once(shape, dtype, backward):
+    """At small shapes on the vector path whose last band is partial or
+    whose rows fill one 16-byte unit or a whole warp; the last CTA's
+    threads past the last item compute nothing."""
+    assert upsample_path(shape, dtype, 16) == "vector"
+    tl = vector_tiling(shape, dtype, backward)
+    idle = np.arange(tl["ctas"] * 256) >= tl["items_total"]
+    assert idle.any() and (tl["computed"][idle] == -1).all()
+    _check_tiling(shape, dtype, backward)
 
 
 def test_scaled_config_geometry_matches_jax_forward_and_loss():

@@ -630,3 +630,89 @@ def test_profile_step_cli_traces_the_step_on_the_cpu(tmp_path, capsys):
     assert "step time (warm, host-observed)" in out and "TOTAL" in out
     assert summary.steps == 2
     assert os.path.exists(tmp_path / "trace" / "profile_step_2.trace.json")
+
+
+# ---------------------------------------------------------------------------
+# the trainer's runs under cuDNN's deterministic algorithms
+# ---------------------------------------------------------------------------
+
+# set before each run, each the other way from what a run must see
+_CUDNN_BEFORE = {"deterministic": False, "benchmark": True}
+
+
+def _cudnn_flags() -> tuple:
+    cudnn = torch.backends.cudnn
+    return cudnn.deterministic, cudnn.benchmark, cudnn.enabled
+
+
+def _recording_steps(monkeypatch, module, raises: bool) -> list:
+    """Patch ``module.make_train_step`` so that each step call records the
+    cuDNN flags it runs under (and then raises, with ``raises``)."""
+    seen = []
+    make = module.make_train_step
+
+    def recording(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def wrapped(*step_args, **step_kwargs):
+            seen.append(_cudnn_flags())
+            if raises:
+                raise RuntimeError("step failed on purpose")
+            return step(*step_args, **step_kwargs)
+        return wrapped
+
+    monkeypatch.setattr(module, "make_train_step", recording)
+    return seen
+
+
+def _bench_steady(path) -> None:
+    """The bench's steady loop over a tiny model, one warm-up and 3 × 1
+    timed steps."""
+    from types import SimpleNamespace
+
+    from betavae_tpu_torch.bench import _steady_state
+    from betavae_tpu_torch.models.beta_vae import BetaVAEModule
+
+    model = BetaVAEModule(image_size=16, in_channels=1, latent_dim=4,
+                          base_channels=4, num_blocks=2)
+    _steady_state(model, SimpleNamespace(batch_size=4, image_size=16,
+                                         steps=1, warmup=1),
+                  torch.device("cpu"))
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["returns", "raises"])
+@pytest.mark.parametrize("entry", ["train_steps", "train", "bench_steady"])
+def test_trainer_runs_under_deterministic_cudnn_and_restores_the_flags(
+        tmp_path, monkeypatch, entry, raises):
+    """Every step of ``train_steps``, ``train`` and the bench's steady loop
+    runs with ``cudnn.deterministic`` True and ``benchmark`` False (fp32
+    backwards replay on the card only so); each puts both back as it found
+    them, also when the run raises, and leaves ``cudnn.enabled`` alone."""
+    from betavae_tpu_torch import bench
+    from betavae_tpu_torch.train import loop
+
+    cudnn = torch.backends.cudnn
+    for name, value in _CUDNN_BEFORE.items():
+        monkeypatch.setattr(cudnn, name, value)
+    before = _cudnn_flags()
+    seen = _recording_steps(monkeypatch,
+                            bench if entry == "bench_steady" else loop,
+                            raises)
+    path = _config(tmp_path)
+    run = {"train_steps": lambda: loop.train_steps(path, 2, device="cpu"),
+           "train": lambda: loop.train(path, device="cpu"),
+           "bench_steady": lambda: _bench_steady(path)}[entry]
+    reset_config_cache()
+    reset_logger()
+    try:
+        if raises:
+            with pytest.raises(RuntimeError, match="on purpose"):
+                run()
+        else:
+            run()
+    finally:
+        reset_logger()
+        reset_config_cache()
+    assert seen and all(flags == (True, False, before[2]) for flags in seen)
+    assert len(seen) == 1 if raises else len(seen) > 1
+    assert _cudnn_flags() == before
