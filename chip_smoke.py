@@ -15,7 +15,9 @@ Phases, each printing one line (any failure exits non-zero at once):
    gradients, and its time beside its bound, its plain version's and (where
    one PyTorch call computes the same function) that call's: the reparam+KL
    forward and backward kernels at the training path's shape, the
-   evaluation path's smaller ones and a large one (ε bitwise the plain Philox stream, noise moments, seed behaviour;
+   evaluation path's smaller ones, the demo notebook's [16, 16] and a
+   large one (ε bitwise the plain Philox stream, noise moments, seed
+   behaviour;
    a data-parallel rank's launch at [16, 64] with ``start`` 16·64 bitwise
    rows 16–31 of the [32, 64] launch;
    the backward also with capacity mode's broadcast g_kl; the forward with
@@ -40,8 +42,9 @@ Phases, each printing one line (any failure exits non-zero at once):
    blocks run; where a GN call's host time goes at the canary; dec3's
    bf16 sample on a non-portable cluster of 16 against the generic path;
    and the bilinear ×2 upsample's forward and gather-backward kernels at
-   the flagship decoder's four shapes in bf16 and fp32, a ragged shape
-   and the scaled config's five shapes (B = 256, bf16), on the path the
+   the flagship decoder's four shapes in bf16 and fp32, a ragged shape,
+   the scaled config's five shapes (B = 256, bf16) and the demo
+   notebook's three (B = 16, fp32), on the path the
    rule gives and on each path forced (vector where the rule allows it,
    generic), each bitwise its plain version, two launches bitwise equal,
    both paths' device times in turns (generic, vector, vector, generic)
@@ -68,7 +71,16 @@ Phases, each printing one line (any failure exits non-zero at once):
    the card against the CPU (1e-3 relative, probe metrics 0.05);
    ``train()`` on ``configs/beta_vae_se_debug.yaml`` as it is (its
    ``debug:`` limits, 2 epochs, LPIPS with random-init features allowed),
-   whose LPIPS term must be finite and above 0 in every line; the port's
+   whose LPIPS term must be finite and above 0 in every line; the demo
+   notebook (``notebooks/train_and_eval_torch.ipynb``, phase
+   ``notebook``): every code cell in order on the card in a copy of it
+   and ``configs/demo_notebook.yaml`` (64 px, 3 blocks, latent 16, fp32;
+   TF32 off), each kernel's launches cell by cell as the cells derive
+   them (0 generic upsample launches), the reconstruction figure a PIL
+   image, and the same ``best`` checkpoint evaluated on the CPU (the
+   reconstruction metrics and latents within 1e-3 relative, the report's
+   other numbers within 0.05, NaN equal to NaN), with each cell's
+   seconds, the run's peak memory and the files written; the port's
    bench (``python -m betavae_tpu_torch.bench`` in-process at ``--steps 96
    --warmup 32 --e2e-epochs 3``: steady state, e2e epochs at the reference
    dataset's scale, encode latencies, PRNG check and the kernel canary,
@@ -166,8 +178,9 @@ ELBO_OPS_PER_ELEMENT = 120
 # the flagship's [batch, latent]; the evaluation path's [1, 64] (the
 # recon/traversal panel) and [8, 64] (the prior grid); large; a rank's
 # [16, 64] in the data_parallel phase (two ranks of the global 32); the
-# scaled config's [256, 128]
-ELBO_SHAPES = ((32, 64), (1, 64), (8, 64), (65536, 64), (16, 64), (256, 128))
+# scaled config's [256, 128]; the demo notebook's [16, 16]
+ELBO_SHAPES = ((32, 64), (1, 64), (8, 64), (65536, 64), (16, 64), (256, 128),
+               (16, 16))
 # the decoder's last activation y [B, C, H, W] at the flagship (bf16 under
 # autocast, fp32 without), the evaluation path's smaller decodes (1: the
 # panel, 2: its endpoints, 7: a traversal sweep, 8: the prior grid), a
@@ -203,23 +216,26 @@ GN_GENERIC_BLOCKS = ("dec3",)
 GN_FWD_OPS, GN_BWD_OPS = 9, 16
 FLAGSHIP_STEPS = 20
 # the ×2 upsample's inputs [B, C, H, W]: the flagship decoder's four (bf16
-# under autocast, and fp32), a ragged shape, and the scaled config's five
-# (configs/beta_vae_se_tpu_scaled.yaml: B = 256, bf16)
+# under autocast, and fp32), a ragged shape, the scaled config's five
+# (configs/beta_vae_se_tpu_scaled.yaml: B = 256, bf16) and the demo
+# notebook's three (configs/demo_notebook.yaml: B = 16, fp32)
 UPSAMPLE_FLAGSHIP = ((32, 512, 8, 8), (32, 256, 16, 16), (32, 128, 32, 32),
                      (32, 64, 64, 64))
 UPSAMPLE_SCALED = ((256, 1024, 8, 8), (256, 512, 16, 16), (256, 256, 32, 32),
                    (256, 128, 64, 64), (256, 64, 128, 128))
+UPSAMPLE_DEMO = ((16, 64, 8, 8), (16, 32, 16, 16), (16, 16, 32, 32))
 UPSAMPLE_CASES = (tuple((s, "bfloat16") for s in UPSAMPLE_FLAGSHIP)
                   + tuple((s, "float32") for s in UPSAMPLE_FLAGSHIP)
                   + (((3, 5, 37, 53), "float32"), ((3, 5, 37, 53), "bfloat16"))
-                  + tuple((s, "bfloat16") for s in UPSAMPLE_SCALED))
+                  + tuple((s, "bfloat16") for s in UPSAMPLE_SCALED)
+                  + tuple((s, "float32") for s in UPSAMPLE_DEMO))
 # fp32 operations, counted from the kernels' arithmetic: forward 30 an
 # input value (6 row and 4 column two-tap sums of 3), backward 35 a dx value
 # (5 four-tap sums of 7)
 UPSAMPLE_FWD_OPS, UPSAMPLE_BWD_OPS = 30, 35
 # the decoder's upsamples a forward: the flagship's blocks, the small
-# configs' (32 px, 2 blocks) and the scaled config's
-FLAGSHIP_BLOCKS, SMALL_BLOCKS, SCALED_BLOCKS = 4, 2, 5
+# configs' (32 px, 2 blocks), the scaled config's and the demo notebook's
+FLAGSHIP_BLOCKS, SMALL_BLOCKS, SCALED_BLOCKS, DEMO_BLOCKS = 4, 2, 5, 3
 EPOCHS_FIRST, EPOCHS_TOTAL = 2, 3
 BENCH_ARGS = ["--steps", "96", "--warmup", "32", "--e2e-epochs", "3"]
 
@@ -3166,6 +3182,177 @@ def run_debug_config(tmp: str, kernels: dict) -> dict:
             "launches": launches, "seconds": seconds}
 
 
+NOTEBOOK = "notebooks/train_and_eval_torch.ipynb"
+NOTEBOOK_CONFIG = "configs/demo_notebook.yaml"
+# its code cells: the device parameter, set-up, demo data, train(),
+# evaluate_full, the reconstruction figure, the latent figures
+NOTEBOOK_CELLS = ("parameter", "setup", "data", "train", "evaluate_full",
+                  "reconstructions", "latent_figures")
+
+
+def _finite_or_str(value):
+    """A report value for a JSON line: NaN and infinities as strings."""
+    if isinstance(value, float) and not math.isfinite(value):
+        return str(value)
+    return value
+
+
+def run_demo_notebook(tmp: str, kernels: dict) -> dict:
+    """The port's demo notebook, every code cell in order in one namespace
+    on the card (its own ``DEVICE = "cuda"``), in a copy of the notebook
+    and ``configs/demo_notebook.yaml`` under ``tmp``, with TF32 off, as
+    ``eval_vs_cpu`` runs, so that the card's evaluation can be held to the
+    CPU's.  Each kernel must launch as the cells say: the reparam+KL
+    forward each train step and validation batch, each test batch of
+    ``evaluate_full`` and its panel; its backward each train step; the
+    upsample DEMO_BLOCKS times a decode (train steps, validation batches,
+    an epoch's panel; the test batches, the panel and its two traversal
+    endpoints; the figure's one) and a backward, all on the vector path;
+    the head and GN kernels never.  Then the same ``best`` checkpoint is
+    evaluated by ``evaluate_full`` on the CPU (into another output tree):
+    the reconstruction metrics and latents within 1e-3 relative, every
+    other number of the report (probe, traversal, silhouette) within 0.05,
+    NaN equal to NaN.  Reports each cell's seconds, the run's peak memory
+    and the files written."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.data.dataset import build_datasets
+    from betavae_tpu_torch.eval.recon_metrics import (evaluate_full,
+                                                      extract_latents)
+    from betavae_tpu_torch.eval.run_evaluation import load_model
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.utils.notebook import code_cells, run_notebook
+
+    root = os.path.join(tmp, "notebook")
+    for src in (NOTEBOOK, NOTEBOOK_CONFIG):
+        os.makedirs(os.path.join(root, os.path.dirname(src)), exist_ok=True)
+        shutil.copy(src, os.path.join(root, src))
+    if len(code_cells(NOTEBOOK)) != len(NOTEBOOK_CELLS):
+        fail(f"notebook: {len(code_cells(NOTEBOOK))} code cells, want "
+             f"{len(NOTEBOOK_CELLS)} ({NOTEBOOK_CELLS})")
+    with open(NOTEBOOK_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    debug, batch = raw["debug"], int(raw["training"]["batch_size"])
+
+    after = []                  # each kernel's launches after each cell
+
+    def after_cell(i):
+        after.append(dict(read_counts(kernels)))
+
+    reset_config_cache()
+    reset_logger()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    try:
+        run = run_notebook(os.path.join(root, NOTEBOOK), after_cell=after_cell)
+        launches = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        reset_logger()
+        reset_config_cache()
+    ns = run["namespace"]
+    steps, epochs = ns["state"]["total_steps"], ns["state"]["epoch"]
+    val_batches = min(int(debug["max_val_batches"]),
+                      -(-int(debug["test_samples"]) // batch))
+    test_batches = -(-len(ns["test_ds"]) // batch)
+
+    def cell(fwd=0, bwd=0, decodes=0):
+        return {**{name: 0 for name in kernels},
+                "fused_reparam_kl": fwd, "reparam_kl_backward": bwd,
+                **upsample_launches(decodes, bwd, blocks=DEMO_BLOCKS)}
+
+    want = {"train": cell(steps + epochs * val_batches, steps,
+                          steps + epochs * (val_batches + 1)),
+            "evaluate_full": cell(test_batches + 1, 0, test_batches + 2),
+            "reconstructions": cell(0, 0, 1)}
+    got, prev = {}, {name: 0 for name in kernels}
+    for name, counts in zip(NOTEBOOK_CELLS, after):
+        got[name] = {k: counts[k] - prev[k] for k in kernels}
+        prev = counts
+    bad = {name: (got[name], want.get(name, cell()))
+           for name in NOTEBOOK_CELLS if got[name] != want.get(name, cell())}
+    if (epochs, steps) != (int(debug["epochs"]), int(debug["epochs"])
+                           * int(debug["max_train_batches"])) or bad:
+        fail(f"notebook: {epochs} epochs, {steps} steps; launches by cell "
+             f"(got, want) where they differ: {bad}")
+    figure = run["values"][NOTEBOOK_CELLS.index("reconstructions")]
+    side = 2 * int(raw["data"]["image_size"])
+    if not (isinstance(figure, Image.Image)
+            and figure.size == (8 * side, 2 * side)
+            and np.isfinite(ns["recon"]).all()):
+        fail(f"notebook: the reconstruction cell gave {figure!r}")
+
+    # the same best checkpoint evaluated on the CPU, into another tree
+    card_report = ns["metrics"]
+    for key in ("processed_dir", "models_dir"):
+        raw["paths"][key] = os.path.join(root, raw["paths"][key])
+    for key in ("outputs_dir", "figures_dir", "tables_dir"):
+        raw["paths"][key] = os.path.join(root, "cpu_eval",
+                                         raw["paths"][key])
+    cpu_cfg = os.path.join(root, "cpu_eval.yaml")
+    with open(cpu_cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+    try:
+        get_config(cpu_cfg)
+        train_ds, test_ds = build_datasets()
+        cpu_model = load_model("best", device="cpu")
+        cpu_report = evaluate_full(cpu_model, train_ds, test_ds)
+        latents = {"cuda": extract_latents(ns["model"], test_ds)[0],
+                   "cpu": extract_latents(cpu_model, test_ds)[0]}
+    finally:
+        reset_logger()
+        reset_config_cache()
+    if set(card_report) != set(cpu_report):
+        fail(f"notebook: the card's report has keys {sorted(card_report)}, "
+             f"the CPU's {sorted(cpu_report)}")
+    recon_rel, other_abs, mismatched = 0.0, 0.0, []
+    for key, want_val in cpu_report.items():
+        val = card_report[key]
+        if isinstance(want_val, list):
+            continue
+        if math.isnan(float(want_val)) or math.isnan(float(val)):
+            if not (math.isnan(float(want_val)) and math.isnan(float(val))):
+                mismatched.append(key)
+        elif key.startswith(("mse", "psnr", "ssim", "per_class/")):
+            recon_rel = max(recon_rel, abs(val - want_val)
+                            / max(abs(want_val), 1e-12))
+        else:
+            other_abs = max(other_abs, abs(val - want_val))
+    latent_rel = float(np.abs(latents["cuda"] - latents["cpu"]).max()
+                       / np.abs(latents["cpu"]).max())
+    if not (not mismatched and recon_rel <= 1e-3 and latent_rel <= 1e-3
+            and other_abs <= 0.05):
+        fail(f"notebook: card vs CPU evaluation: NaN on one side "
+             f"{mismatched}, recon max rel {recon_rel}, latents max rel "
+             f"{latent_rel}, probe and others max abs {other_abs}")
+    written = sorted(
+        os.path.relpath(os.path.join(d, f), root)
+        for d, _, files in os.walk(os.path.join(root, "outputs_demo"))
+        for f in files)
+    return {"phase": "notebook", "notebook": NOTEBOOK,
+            "config": NOTEBOOK_CONFIG, "epochs": epochs, "train_steps": steps,
+            "cell_seconds": dict(zip(NOTEBOOK_CELLS, run["seconds"])),
+            "seconds": sum(run["seconds"]), "peak_mem_gib": peak,
+            "launches": launches, "launches_by_cell": got,
+            "recon_max_rel": recon_rel, "latents_max_rel": latent_rel,
+            "probe_max_abs": other_abs,
+            "reports": {side: {k: _finite_or_str(report[k])
+                               for k in ("mse_mean", "ssim_mean",
+                                         "probe_macro_f1", "probe_macro_auc",
+                                         "silhouette")}
+                        for side, report in (("card", card_report),
+                                             ("cpu", cpu_report))},
+            "files_written": written}
+
+
 DP_STEPS, DP_GLOO_STEPS = 20, 10
 
 
@@ -3592,6 +3779,9 @@ def main() -> None:
         debug_run = run_debug_config(tmp, kernels)
         debug_run["card"] = card
         emit(debug_run)
+        notebook = run_demo_notebook(tmp, kernels)
+        notebook["card"] = card
+        emit(notebook)
         bench_run = run_bench(tmp, kernels)
         bench_run["card"] = card
         emit(bench_run)
@@ -3649,6 +3839,7 @@ def main() -> None:
                 "flagship": flagship["launches"][name],
                 "flagship_fused_head": flagship_fused["launches"][name],
                 "debug_config": debug_run["launches"][name],
+                "notebook": notebook["launches"][name],
                 "bench": bench_run["launches"][name],
                 "reference_ckpt": reference["launches"][name],
                 **{f"remat_{mode}": launches[name]

@@ -45,11 +45,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 64), (65536, 64)])
+@pytest.mark.parametrize("shape", [(32, 64), (65536, 64), (16, 16)])
 def test_kernel_matches_plain_version(cuda_device, shape):
     """z and kl within 1e-5 relative of the plain version given the
     kernel's ε; ε bitwise the plain Philox + Box–Muller stream (the stream
-    every earlier build of the kernel drew)."""
+    every earlier build of the kernel drew).  [16, 16] is the demo
+    notebook's batch and latent."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     mu = torch.randn(shape, generator=g, device=cuda_device)
     logvar = torch.randn(shape, generator=g, device=cuda_device).clamp(-10, 5)
@@ -100,7 +101,7 @@ def _close(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,broadcast", [
     ((32, 64), False), ((32, 64), True), ((65536, 64), False),
-    ((3, 5, 7), False)])
+    ((3, 5, 7), False), ((16, 16), False)])
 def test_backward_kernel_matches_closed_form(cuda_device, shape, broadcast):
     """The backward kernel against the plain closed form on the same
     residuals and gradients, one launch a call: contiguous gradients, a g_kl
@@ -718,7 +719,10 @@ def _paths(wrapper) -> dict:
     ((2, 3, 5, 16), torch.bfloat16, "vector"),
     ((3, 2, 7, 8), torch.float32, "vector"),
     ((1, 2, 3, 256), torch.bfloat16, "vector"),
-    ((1, 2, 3, 24), torch.bfloat16, "generic")])
+    ((1, 2, 3, 24), torch.bfloat16, "generic"),
+    ((16, 64, 8, 8), torch.float32, "vector"),
+    ((16, 32, 16, 16), torch.float32, "vector"),
+    ((16, 16, 32, 32), torch.float32, "vector")])
 def test_upsample_kernels_match_plain_versions(cuda_device, shape, dtype,
                                                path):
     """Forward and gather backward bitwise their plain versions on the
@@ -727,7 +731,9 @@ def test_upsample_kernels_match_plain_versions(cuda_device, shape, dtype,
     and on its path, two launches bitwise equal (the backward has no
     atomics), and the autograd Function's value and gradient the
     kernels'.  The small vector shapes have a partial last band, rows of
-    one 16-byte unit and a row of a whole warp."""
+    one 16-byte unit and a row of a whole warp; the last three are the
+    demo notebook's decoder inputs (``configs/demo_notebook.yaml``: B 16,
+    fp32)."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     b, c, h, w = shape
     x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)

@@ -1,11 +1,13 @@
 """The port stands alone: no JAX, no ``betavae_tpu``, no silent CPU.
 
-Every module of ``betavae_tpu_torch`` and ``chip_smoke.py`` is scanned for
-imports of ``jax``, ``flax``, ``optax`` or ``betavae_tpu``, of the JAX
-scripts' ``_bootstrap``, and of matplotlib, pandas or scikit-learn, which
-the card's install lacks; importing every module in a fresh interpreter
-must leave all of them unloaded; and the entry points that build the model
-must raise by default where there is no GPU.
+Every module of ``betavae_tpu_torch``, ``chip_smoke.py`` and each code
+cell of ``notebooks/train_and_eval_torch.ipynb`` is scanned for imports of
+``jax``, ``flax``, ``optax`` or ``betavae_tpu``, of the JAX scripts'
+``_bootstrap``, and of matplotlib, pandas or scikit-learn, which the
+card's install lacks; importing every module in a fresh interpreter must
+leave all of them unloaded; the entry points that build the model must
+raise by default where there is no GPU; and the notebook's first code cell
+sets ``DEVICE = "cuda"`` and no cell asks whether a GPU is there.
 """
 
 import ast
@@ -17,6 +19,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from betavae_tpu_torch.utils.notebook import code_cells
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "betavae_tpu", "_bootstrap",
              "matplotlib", "pandas", "sklearn"}
@@ -24,8 +28,12 @@ PORT_FILES = sorted((ROOT / "betavae_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
-def _absolute_imports(path: Path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+NOTEBOOK = ROOT / "notebooks" / "train_and_eval_torch.ipynb"
+NOTEBOOK_CELLS = code_cells(NOTEBOOK)
+
+
+def _absolute_imports(tree: ast.AST):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -35,9 +43,32 @@ def _absolute_imports(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
-    bad = [m for m in _absolute_imports(path)
-           if m.split(".")[0] in FORBIDDEN]
+    tree = ast.parse(path.read_text(), str(path))
+    bad = [m for m in _absolute_imports(tree) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("index", range(len(NOTEBOOK_CELLS)))
+def test_notebook_cell_imports_no_jax(index):
+    tree = ast.parse(NOTEBOOK_CELLS[index], f"{NOTEBOOK.name}[{index}]")
+    bad = [m for m in _absolute_imports(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"code cell {index} imports {bad}"
+
+
+def test_notebook_runs_on_the_card_unless_told():
+    """The parameter cell is ``DEVICE = "cuda"`` alone, and no cell asks
+    ``torch.cuda.is_available()``: a run without a GPU fails rather than
+    taking the CPU."""
+    (param,) = ast.parse(NOTEBOOK_CELLS[0]).body
+    assert isinstance(param, ast.Assign)
+    assert [t.id for t in param.targets] == ["DEVICE"]
+    assert isinstance(param.value, ast.Constant)
+    assert param.value.value == "cuda"
+    for index, source in enumerate(NOTEBOOK_CELLS):
+        for node in ast.walk(ast.parse(source)):
+            assert not (isinstance(node, ast.Attribute)
+                        and node.attr == "is_available"), \
+                f"code cell {index} asks whether a GPU is there"
 
 
 def test_importing_the_port_loads_no_jax():

@@ -31,9 +31,16 @@ scripts or the library functions they call:
 - ``generate_demo_data``: the same bytes;
 - ``generate_umap_and_grid``: the columns of a traversal figure bitwise
   the JAX script's cut, the GIF's frame count and size, and the grid's
-  layout (a row a figure, 7 columns).
+  layout (a row a figure, 7 columns);
+- every JAX CLI (``scripts/*.py``, ``bench.py`` and the four evaluation
+  and inference modules): each string its parser's ``add_argument`` calls
+  take is one of its port counterpart's, the exceptions by design listed
+  with their reasons (``NO_COUNTERPART``, ``FLAGS_BY_DESIGN``); and every
+  module of ``betavae_tpu`` has its counterpart in ``betavae_tpu_torch``
+  but those listed in ``NO_COUNTERPART``.
 """
 
+import ast
 import importlib
 import json
 import os
@@ -582,3 +589,123 @@ def test_generate_umap_and_grid_writes_the_gif_and_the_grid(data_root):
         assert gif.n_frames == 5
     assert list(generate_umap_and_grid.main(
         ["--config", path, "--skip-gif"])) == ["grid"]
+
+
+# ---------------------------------------------------------------------------
+# every JAX CLI's flags have a counterpart in the port
+# ---------------------------------------------------------------------------
+
+# the JAX scripts that call a module's ``main`` (their ``MODULE``): the
+# flags are that module's
+JAX_WRAPPED = {"run_evaluation": "betavae_tpu/eval/run_evaluation.py",
+               "encode": "betavae_tpu/infer/encode.py",
+               "generate": "betavae_tpu/infer/generate.py",
+               "latent_analysis": "betavae_tpu/infer/latent_analysis.py"}
+# the port's counterpart of each JAX CLI that is not at the same path in
+# ``betavae_tpu_torch`` or at ``betavae_tpu_torch/scripts/<name>.py``
+PORT_CLI = {"scripts/train.py": "betavae_tpu_torch/train/__main__.py",
+            "scripts/profile_step.py":
+                "betavae_tpu_torch/utils/profile_step.py",
+            "scripts/export_torch_checkpoint.py":
+                "betavae_tpu_torch/io/export_torch_checkpoint.py",
+            "bench.py": "betavae_tpu_torch/bench.py",
+            **{f"scripts/{name}.py": path.replace("betavae_tpu/",
+                                                  "betavae_tpu_torch/")
+               for name, path in JAX_WRAPPED.items()}}
+# by design, each with its reason
+NO_COUNTERPART = {
+    "scripts/xla_flag_sweep.py": "it times the JAX step under sets of "
+                                 "LIBTPU_INIT_ARGS, the TPU runtime's XLA "
+                                 "flags; the port runs no XLA",
+    "betavae_tpu/utils/compile_cache.py": "JAX's persistent compilation "
+                                          "cache; the port compiles only "
+                                          "its CUDA sources, once, into "
+                                          "build/kernels/"}
+# the JAX package's modules whose port counterpart has another name
+RENAMED = {"betavae_tpu/io/torch_compat.py": "betavae_tpu_torch/io/weights.py",
+           "betavae_tpu/native/__init__.py":
+               "betavae_tpu_torch/data/native.py",
+           **{f"betavae_tpu/ops/pallas_{k}.py": f"betavae_tpu_torch/ops/{k}.py"
+              for k in ("elbo", "gn", "head")}}
+JAX_MODULES = sorted(str(p.relative_to(ROOT))
+                     for p in (ROOT / "betavae_tpu").rglob("*.py"))
+FLAGS_BY_DESIGN = {
+    ("bench.py", "--scan-chunk"): "it sets K, the train steps a lax.scan "
+                                  "dispatch runs; the port launches each "
+                                  "step from the host"}
+# the JAX scripts that take positional arguments from sys.argv, as the
+# port's counterparts do
+POSITIONAL_ONLY = {"scripts/fix_steps.py"}
+JAX_CLIS = sorted(str(p.relative_to(ROOT)) for p in
+                  (ROOT / "scripts").glob("*.py")
+                  if p.name != "_bootstrap.py") + [
+    "bench.py", *JAX_WRAPPED.values()]
+
+
+def _argument_strings(path: Path) -> set:
+    """The string arguments of every ``add_argument`` call in ``path``:
+    option strings and positional names, also through an alias such as
+    ``flag = parser.add_argument``."""
+    tree = ast.parse(path.read_text(), str(path))
+    aliases = {target.id for node in ast.walk(tree)
+               if isinstance(node, ast.Assign)
+               and isinstance(node.value, ast.Attribute)
+               and node.value.attr == "add_argument"
+               for target in node.targets if isinstance(target, ast.Name)}
+    found = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        func = node.func
+        if (isinstance(func, ast.Attribute) and func.attr == "add_argument") \
+                or (isinstance(func, ast.Name) and func.id in aliases):
+            found |= {arg.value for arg in node.args
+                      if isinstance(arg, ast.Constant)
+                      and isinstance(arg.value, str)}
+    return found
+
+
+def _jax_module(cli: str) -> str:
+    """The file whose parser a JAX CLI runs: a wrapper's module, else the
+    CLI itself."""
+    source = (ROOT / cli).read_text()
+    for name, path in JAX_WRAPPED.items():
+        if cli == f"scripts/{name}.py":
+            assert f'MODULE = "{name}"' in source, cli
+            return path
+    return cli
+
+
+@pytest.mark.parametrize("cli", JAX_CLIS)
+def test_every_jax_cli_flag_has_a_port_counterpart(cli):
+    if cli in NO_COUNTERPART:
+        name = Path(cli).stem
+        assert not list((ROOT / "betavae_tpu_torch").rglob(f"{name}.py"))
+        return
+    port = PORT_CLI.get(cli)
+    if port is None:
+        same_path = cli.replace("betavae_tpu/", "betavae_tpu_torch/")
+        port = same_path if cli.startswith("betavae_tpu/") else \
+            f"betavae_tpu_torch/scripts/{Path(cli).name}"
+    assert (ROOT / port).is_file(), f"{cli}: no {port}"
+    want = _argument_strings(ROOT / _jax_module(cli))
+    if not want:
+        assert cli in POSITIONAL_ONLY, f"{cli}: no add_argument found"
+    exempt = {flag for (path, flag) in FLAGS_BY_DESIGN if path == cli}
+    assert exempt <= want, f"{cli}: a listed exception it does not have"
+    missing = want - exempt - _argument_strings(ROOT / port)
+    assert not missing, f"{port} lacks {sorted(missing)} of {cli}"
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_every_jax_module_has_a_port_counterpart(module):
+    """Each module of ``betavae_tpu`` has its counterpart at the same path
+    in ``betavae_tpu_torch`` (or the one ``RENAMED`` names), but those
+    without one by design (``NO_COUNTERPART``)."""
+    if module in NO_COUNTERPART:
+        name = Path(module).name
+        assert not list((ROOT / "betavae_tpu_torch").rglob(name))
+        return
+    port = RENAMED.get(module, module.replace("betavae_tpu/",
+                                              "betavae_tpu_torch/", 1))
+    assert (ROOT / port).is_file(), f"{module}: no {port}"
