@@ -37,16 +37,15 @@
 // reaches half the byte bound at 2048 elements, so the design works on the
 // launch, not on the bytes:
 //
-// - Programmatic dependent launch.  Both kernels are launched with
+// - Programmatic dependent launch.  Both kernels can be launched with
 //   cudaLaunchAttributeProgrammaticStreamSerialization, so the card may
-//   start them while the kernel before them (the logvar clamp, in the
-//   forward) still runs.  The forward draws its Philox words and eps, which
-//   depend on neither input, before griddepcontrol.wait; it reads mu and
-//   logvar, and writes anything, only after the wait, which returns once
-//   the previous grid has finished and its writes are visible.  Once its
-//   loads are issued it lets a dependent launch start
-//   (griddepcontrol.launch_dependents); a dependent launched the same way
-//   waits in turn for this grid to finish before it reads.
+//   start them while the kernel before them still runs.  Each reads its
+//   inputs, and writes anything, only after griddepcontrol.wait, which
+//   returns once the previous grid has finished and its writes are visible;
+//   once its loads are issued it lets a dependent launch start
+//   (griddepcontrol.launch_dependents).  The backward is launched with it;
+//   the forward without it, the faster of the two in a replayed CUDA graph
+//   (ops/elbo.py::FORWARD_PDL).
 // - The fused backward replaces the dozen elementwise PyTorch launches of
 //   the closed form with one.
 // - The host side of a call: one output buffer per direction, the caller's
@@ -58,10 +57,15 @@
 // is fused: they round exactly like them given the same eps, which lets the
 // checks against them be tight.
 //
+// The offset is read from device memory (*offset_at, an int64), after the
+// wait, so a launch captured in a CUDA graph draws the noise of whatever
+// step index the graph wrote there before it: a replay is not pinned to the
+// capture's offset.
+//
 // C interface, for ctypes: each entry returns the cudaError_t of the launch
 // (0 on success).  The caller allocates every buffer and passes its current
-// stream; nothing here allocates or synchronises.  `pdl` 0 launches without
-// the attribute, for measuring what it buys; the wrapper always passes 1.
+// stream; nothing here allocates or synchronises.  `pdl` 1 launches with
+// the attribute, 0 without it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,17 +124,16 @@ __global__ void __launch_bounds__(kThreads)
     reparam_kl_kernel(const float* __restrict__ mu,
                       const float* __restrict__ logvar,
                       float* __restrict__ out, int64_t n, uint64_t seed,
-                      uint64_t offset, int64_t start) {
+                      const int64_t* __restrict__ offset_at, int64_t start) {
   const uint2 key = make_uint2(static_cast<uint32_t>(seed),
                                static_cast<uint32_t>(seed >> 32));
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  // the first element's noise needs neither input: draw it while the
-  // previous grid drains
-  float e = i < n ? normal_at(start + i, key, offset) : 0.0f;
+  // the previous grid may have written the offset: read it after the wait
   wait_for_previous_grid();
+  const uint64_t offset = static_cast<uint64_t>(*offset_at);
   for (bool first = true; i < n; i += stride, first = false) {
-    if (!first) e = normal_at(start + i, key, offset);
+    const float e = normal_at(start + i, key, offset);
     const float m = mu[i];
     const float lv = logvar[i];
     if (first) allow_next_grid();
@@ -211,14 +214,15 @@ int launch(Kernel kernel, int64_t n, void* stream, int pdl, Args... args) {
 }  // namespace
 
 // out: [3, n] fp32, rows z, kl, eps; element i draws from the counter
-// (start + i, offset)
+// (start + i, *offset_at), the offset an int64 in device memory
 extern "C" int betavae_reparam_kl(const float* mu, const float* logvar,
                                   float* out, int64_t n, uint64_t seed,
-                                  uint64_t offset, int64_t start,
+                                  const int64_t* offset_at, int64_t start,
                                   void* stream, int pdl) {
-  if (start < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (start < 0 || offset_at == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch(reparam_kl_kernel, n, stream, pdl, mu, logvar, out, n, seed,
-                offset, start);
+                offset_at, start);
 }
 
 // out: [2, n] fp32, rows dmu, dlogvar; mu, logvar and eps contiguous, g_z

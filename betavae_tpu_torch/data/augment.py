@@ -9,6 +9,9 @@ directly (the JAX package's 3-shear form is a TPU workaround).
 
 Random draws come from an explicit ``torch.Generator``; each op also takes
 its draws (flip mask, angles, factors) so tests can feed JAX the same ones.
+:func:`draw_augment` draws a batch's uniforms apart from their use and
+:func:`apply_augment` applies them, so the trainers draw a chunk's ahead
+on the card and a captured step applies its own (``train/chunks.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +51,49 @@ def brightness(x: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x * factors[:, None, None, None], 0.0, 1.0)
 
 
+def draw_augment(generator: torch.Generator, batch: int, *,
+                 use_flip: bool = True, degrees: float = 0.0,
+                 brightness_range: float = 0.0,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """The uniforms :func:`augment_batch` draws from ``generator`` for a
+    batch of ``batch``, in its order (flip, angle, brightness, each only
+    when its op is on), as rows 0, 1 and 2 of a float ``[3, batch]`` on the
+    generator's device (``out``, when given); a row whose op is off is
+    left as it was (zeros in a fresh tensor)."""
+    if out is None:
+        out = torch.zeros((3, batch), device=generator.device)
+    ons = (use_flip, bool(degrees and degrees > 0),
+           bool(brightness_range and brightness_range > 0))
+    for row, on in enumerate(ons):
+        if on:
+            torch.rand(batch, generator=generator, device=out.device,
+                       out=out[row])
+    return out
+
+
+def apply_augment(x: torch.Tensor, draws: torch.Tensor, *,
+                  use_flip: bool = True, degrees: float = 0.0,
+                  brightness_range: float = 0.0,
+                  rows: slice | None = None) -> torch.Tensor:
+    """Flip → rotate → brightness of ``x`` from ``draws``, the ``[3, B]``
+    uniforms of :func:`draw_augment`: with ``rows``, ``x`` is those rows of
+    the batch of B the draws are for."""
+    take = slice(None) if rows is None else rows
+
+    def uniform(row: int, lo: float, hi: float) -> torch.Tensor:
+        return lo + (hi - lo) * draws[row][take]
+
+    if use_flip:
+        x = hflip(x, uniform(0, 0.0, 1.0) < 0.5)
+    if degrees and degrees > 0:
+        max_rad = math.radians(float(degrees))
+        x = rotate(x, uniform(1, -max_rad, max_rad))
+    if brightness_range and brightness_range > 0:
+        x = brightness(x, uniform(2, max(0.0, 1.0 - brightness_range),
+                                  1.0 + brightness_range))
+    return x
+
+
 def augment_batch(x: torch.Tensor, generator: torch.Generator, *,
                   use_flip: bool = True, degrees: float = 0.0,
                   brightness_range: float = 0.0, rows: slice | None = None,
@@ -57,22 +103,10 @@ def augment_batch(x: torch.Tensor, generator: torch.Generator, *,
     of a batch of ``global_batch`` (a data-parallel rank's share): each op
     draws its values for the whole batch and applies the rows', so the
     rank's images are bitwise those rows of the single-process batch."""
+    kw = {"use_flip": use_flip, "degrees": degrees,
+          "brightness_range": brightness_range}
     b = x.shape[0] if rows is None else int(global_batch)
-    take = slice(None) if rows is None else rows
-
-    def uniform(lo: float, hi: float) -> torch.Tensor:
-        u = torch.rand(b, generator=generator, device=x.device)[take]
-        return lo + (hi - lo) * u
-
-    if use_flip:
-        x = hflip(x, uniform(0.0, 1.0) < 0.5)
-    if degrees and degrees > 0:
-        max_rad = math.radians(float(degrees))
-        x = rotate(x, uniform(-max_rad, max_rad))
-    if brightness_range and brightness_range > 0:
-        x = brightness(x, uniform(max(0.0, 1.0 - brightness_range),
-                                  1.0 + brightness_range))
-    return x
+    return apply_augment(x, draw_augment(generator, b, **kw), rows=rows, **kw)
 
 
 def augment_config_kwargs(cfg) -> dict:

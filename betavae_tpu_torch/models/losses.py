@@ -76,12 +76,23 @@ def _per_sample_recon(recon, x, kind: str) -> torch.Tensor:
     raise ValueError("invalid reconstruction_loss")
 
 
+def _scalar(value, dev) -> torch.Tensor:
+    """A 0-d fp32 tensor of ``value``, a float or (a schedule read on the
+    card) a 0-d tensor, without a host sync."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().float().reshape(())
+    return torch.full((), float(value), device=dev)
+
+
 def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
                  capacity=None, capacity_weight=None, free_bits=0.0,
                  mask: Optional[torch.Tensor] = None,
                  lpips_fn: Optional[Callable] = None, group=None) -> dict:
     """``outputs`` is ``(recon, mu, logvar, z, kl_elem)``; ``capacity`` and
-    ``capacity_weight`` both set select capacity mode.  ``lpips_fn(recon,
+    ``capacity_weight`` both set select capacity mode.  ``beta``,
+    ``capacity``, ``capacity_weight`` and ``free_bits`` are floats or 0-d
+    fp32 tensors (one schedule row of a captured step), with bitwise the
+    same result: every one enters an fp32 operation.  ``lpips_fn(recon,
     x, group=group)`` adds ``lpips_weight`` times the perceptual distance
     to the reconstruction term when ``use_lpips`` is on and weighted, as in
     the JAX package.  ``group`` is the data-parallel process group of which
@@ -141,10 +152,8 @@ def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
         "recon_ffl": ff,
         "kl_mean": kl_mean,
         "kl_per_dim": kl_per_dim,
-        "beta": torch.full((), float(beta), device=dev),
-        "capacity": torch.full(
-            (), float(capacity) if capacity is not None else math.nan,
-            device=dev),
+        "beta": _scalar(beta, dev),
+        "capacity": _scalar(math.nan if capacity is None else capacity, dev),
         "latent_reg": latent_reg,
         "recon_img": recon,
         "z": z,

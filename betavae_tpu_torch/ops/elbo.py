@@ -17,6 +17,11 @@ then :func:`reparam_kl_reference`; :func:`reparam_kl_backward_reference`)
 only for CPU tensors: there is no fallback from the GPU.
 ``fused_reparam_kl.launches`` and ``reparam_kl_backward.launches`` count
 kernel launches.
+
+The forward kernel reads its Philox offset from device memory, so that a
+step captured in a CUDA graph draws each replay's own noise
+(``train/chunks.py``): the trainers pass the step's slot, a 0-d int64
+tensor; an int offset is written to such a tensor first.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ _MASK64 = 0xFFFFFFFFFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _TWO_PI = 6.283185307179586
+# programmatic dependent launch for the forward: off, the faster in a
+# replayed CUDA graph, the trainers' path (chip_smoke.py's kernel phase,
+# elbo_device_offset, times both in turns)
+FORWARD_PDL = False
 
 
 # ---------------------------------------------------------------------------
@@ -64,23 +73,29 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_normal(shape, seed: int, offset: int,
+def philox_normal(shape, seed: int, offset,
                   device: torch.device | str = "cpu",
                   start: int = 0) -> torch.Tensor:
     """The kernel's ε in plain torch: element ``i`` of the flattened shape
     is Box–Muller (cosine branch) on words 0 and 1 of Philox4x32-10 with
     key ``seed`` and counter ``(start + i, offset)``, so ``start = k``
-    gives elements ``k, k+1, …`` of a larger draw."""
+    gives elements ``k, k+1, …`` of a larger draw.  ``offset`` is an int or
+    a 0-d int64 tensor holding one ≥ 0 (read without a host sync)."""
     n = math.prod(shape)
     seed &= _MASK64
-    offset &= _MASK64
     if start < 0:
         raise ValueError(f"start must be >= 0, got {start}")
     idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     c0 = idx & _MASK32
     c1 = idx >> 32
-    c2 = torch.full_like(idx, offset & _MASK32)
-    c3 = torch.full_like(idx, offset >> 32)
+    if isinstance(offset, torch.Tensor):
+        offset = offset.to(device=idx.device, dtype=torch.int64)
+        c2 = (offset & _MASK32).expand_as(idx)
+        c3 = (offset >> 32).expand_as(idx)
+    else:
+        offset &= _MASK64
+        c2 = torch.full_like(idx, offset & _MASK32)
+        c3 = torch.full_like(idx, offset >> 32)
     r0, r1, _, _ = philox4x32_10(c0, c1, c2, c3, seed & _MASK32, seed >> 32)
     u1 = (r0 >> 8).to(torch.float32) * (1.0 / 16777216.0)
     u2 = (r1 >> 8).to(torch.float32) * (1.0 / 16777216.0)
@@ -117,7 +132,7 @@ def _library():
     forward, backward = lib.betavae_reparam_kl, lib.betavae_reparam_kl_backward
     # without argtypes ctypes would pass each pointer as a 32-bit int
     forward.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_int]
     strided = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
     backward.argtypes = [ctypes.c_void_p] * 3 + strided * 2 + [
@@ -143,11 +158,23 @@ def _check_like(mu: torch.Tensor, *others: torch.Tensor) -> None:
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def _launch(mu: torch.Tensor, logvar: torch.Tensor, seed: int, offset: int,
-            pdl: bool = True, start: int = 0):
+def _device_offset(offset: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``offset`` as the kernel reads it: one int64 on ``device``."""
+    if (offset.dim() != 0 or offset.dtype is not torch.int64
+            or offset.device != device):
+        raise ValueError(f"a device offset is a 0-d int64 tensor on "
+                         f"{device}, got {tuple(offset.shape)} "
+                         f"{offset.dtype} on {offset.device}")
+    return offset
+
+
+def _launch(mu: torch.Tensor, logvar: torch.Tensor, seed: int, offset,
+            pdl: bool = FORWARD_PDL, start: int = 0):
     """``(z, kl, eps)``, rows of one fp32 ``[3, *shape]`` buffer, for
     contiguous fp32 CUDA ``mu`` and ``logvar``, the noise from counter
-    ``start`` on.  ``pdl=False`` launches without programmatic dependent
+    ``start`` on.  ``offset`` is a 0-d int64 tensor on ``mu``'s device,
+    which the kernel reads, or an int, written to one first (its 64 bits
+    as the kernel reads them).  ``pdl`` chooses programmatic dependent
     launch, for measuring what it buys."""
     _check_like(mu, logvar)
     if mu.device.index != torch.cuda.current_device():
@@ -155,9 +182,15 @@ def _launch(mu: torch.Tensor, logvar: torch.Tensor, seed: int, offset: int,
             return _launch(mu, logvar, seed, offset, pdl, start)
     if start < 0:
         raise ValueError(f"start must be >= 0, got {start}")
+    if isinstance(offset, torch.Tensor):
+        offset = _device_offset(offset, mu.device)
+    else:
+        offset &= _MASK64
+        offset = torch.full((), offset - (offset >> 63 << 64),
+                            dtype=torch.int64, device=mu.device)
     out = mu.new_empty((3, *mu.shape))
     rc = _library()[0](mu.data_ptr(), logvar.data_ptr(), out.data_ptr(),
-                       mu.numel(), seed & _MASK64, offset & _MASK64, start,
+                       mu.numel(), seed & _MASK64, offset.data_ptr(), start,
                        raw_stream(mu.device), int(pdl))
     if rc != 0:
         raise RuntimeError(f"elbo kernel launch failed with CUDA error {rc}")
@@ -165,18 +198,27 @@ def _launch(mu: torch.Tensor, logvar: torch.Tensor, seed: int, offset: int,
     return out.unbind(0)
 
 
+def _offset_arg(offset):
+    """An int offset as a Python int; a tensor one as it is."""
+    return offset if isinstance(offset, torch.Tensor) else int(offset)
+
+
 def reparam_kl_forward(mu: torch.Tensor, logvar: torch.Tensor, seed: int,
-                       offset: int = 0, start: int = 0):
+                       offset=0, start: int = 0):
     """``(z, kl_elem, eps)``, all fp32, without autograd: the kernel for
-    CUDA tensors, the plain version for CPU tensors.  ``start`` is the flat
-    index of ``mu``'s first element in the whole batch whose noise is
-    drawn (a data-parallel rank's first row times the latent width)."""
+    CUDA tensors, the plain version for CPU tensors.  ``offset`` is an int
+    or a 0-d int64 tensor on ``mu``'s device.  ``start`` is the flat index
+    of ``mu``'s first element in the whole batch whose noise is drawn (a
+    data-parallel rank's first row times the latent width)."""
     mu, logvar = _fp32(mu), _fp32(logvar)
+    offset = _offset_arg(offset)
     if mu.device.type == "cuda":
-        return _launch(mu, logvar, int(seed), int(offset), start=int(start))
+        return _launch(mu, logvar, int(seed), offset, start=int(start))
     if mu.device.type != "cpu":
         raise ValueError(f"unsupported device {mu.device}")
-    eps = philox_normal(mu.shape, int(seed), int(offset), mu.device,
+    if isinstance(offset, torch.Tensor):
+        offset = _device_offset(offset, mu.device)
+    eps = philox_normal(mu.shape, int(seed), offset, mu.device,
                         start=int(start))
     z, kl = reparam_kl_reference(mu, logvar, eps)
     return z, kl, eps
@@ -250,16 +292,19 @@ class _FusedReparamKL(torch.autograd.Function):
 
 
 def fused_reparam_kl(mu: torch.Tensor, logvar: torch.Tensor, seed: int,
-                     offset: int = 0, start: int = 0):
+                     offset=0, start: int = 0):
     """Returns ``(z, kl_elem)``, both fp32 with the shape of ``mu``.
 
     ``(seed, offset)`` selects the noise: the trainer passes the run's seed
     and the step number, so every step draws fresh ε and a run replays.
+    ``offset`` is an int, or a 0-d int64 tensor on ``mu``'s device (the
+    same noise, bitwise): a captured step passes its slot's, so that each
+    replay draws its own.
     ``start`` places ``mu`` in a larger batch: a data-parallel rank passes
     its first row times the latent width, and draws its rows of the noise
     of the whole batch.
     """
-    return _FusedReparamKL.apply(mu, logvar, int(seed), int(offset),
+    return _FusedReparamKL.apply(mu, logvar, int(seed), _offset_arg(offset),
                                  int(start))
 
 

@@ -112,19 +112,33 @@ def case_step(mesh, case: Case):
     return model, optimizer, step
 
 
+def _aug_kwargs(case: Case) -> dict:
+    """``case``'s augmentation: the flagship's, or its config file's."""
+    from ..config import get_config
+    from ..data.augment import augment_config_kwargs
+
+    if case.config is None:
+        return FLAGSHIP_AUG
+    return augment_config_kwargs(get_config(case.config))
+
+
 def take_steps(mesh, case: Case, step) -> list:
     """Each of ``case``'s steps through ``step``, on this rank's rows of
     its batch under ``mesh``: the metrics of each, as floats."""
+    from ..train.step import draw_step_augment
+
     device = torch.device(case.device) if mesh is None else mesh.device
     images = torch.from_numpy(case.images).to(device)
+    aug, generator = _aug_kwargs(case), torch.Generator(device=device)
     metrics = []
     for k, ((idx, mask), sched) in enumerate(zip(case.batches, case.scheds)):
+        draws = draw_step_augment(generator, case.seed, k + 1, len(idx), aug)
         if mesh is not None:
             rows = mesh.rows(len(idx))
             idx, mask = idx[rows], mask[rows]
         out = step(images, torch.from_numpy(np.asarray(idx, np.int64))
                    .to(device), torch.from_numpy(mask).to(device), sched,
-                   k + 1)
+                   k + 1, draws)
         metrics.append({name: float(v) for name, v in out.items()})
     return metrics
 

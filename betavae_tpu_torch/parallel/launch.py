@@ -165,17 +165,9 @@ def param_checksum(model: torch.nn.Module) -> str:
 def kernel_launches() -> dict:
     """This process's launch counts of the hand-written kernels (a spawned
     rank's count is its run's), the head's and the upsample's by path."""
-    from ..ops.elbo import fused_reparam_kl, reparam_kl_backward
-    from ..ops.gn import gn_backward, gn_forward
-    from ..ops.head import head_forward, head_m
-    from ..ops.upsample import upsample2x_backward, upsample2x_forward
+    from ..ops import kernel_wrappers
 
-    wrappers = {"fused_reparam_kl": fused_reparam_kl,
-                "reparam_kl_backward": reparam_kl_backward,
-                "head_forward": head_forward, "head_m": head_m,
-                "gn_forward": gn_forward, "gn_backward": gn_backward,
-                "upsample_forward": upsample2x_forward,
-                "upsample_backward": upsample2x_backward}
+    wrappers = kernel_wrappers()
     out = {name: w.launches for name, w in wrappers.items()}
     for key, names in (("head_by_path", ("head_forward", "head_m")),
                        ("upsample_by_path", ("upsample_forward",

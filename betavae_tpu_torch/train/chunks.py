@@ -1,0 +1,402 @@
+"""K train steps a dispatch, and a validation pass a dispatch, as replays of
+one captured step.
+
+Counterpart of ``make_train_multi_step`` and ``make_eval_multi_step`` in
+``betavae_tpu/train/loop.py``, where ``lax.scan`` runs K steps (or every
+validation batch) in one XLA program.  On the GPU one host dispatch of many
+steps is a CUDA graph: :class:`TrainChunks` captures one train step that
+reads its inputs from slot ``j`` of static device buffers, ``j`` a device
+counter the step itself advances, and replays it once a step.  For a chunk
+of n ≤ K steps the host
+
+- writes the n steps' batch indices, masks, schedule rows ``(β, C,
+  C-weight, free bits, lr)`` and ε offsets (the step numbers) into one
+  pinned record buffer and uploads it in one copy,
+- draws the n steps' augmentation uniforms on the card, each from the
+  generator seeded from ``(seed, step)`` as the eager step seeds it, into a
+  ``[K, 3, B]`` slot buffer,
+- replays the graph n times, and copies the n rows of metrics it wrote
+  (the 10 scalar metrics of ``step.scalar_metrics`` and the epoch's running
+  sums after the step) to the host in one copy, read once, when the caller
+  drains the chunk.
+
+:class:`EvalChunks` does the same for the validation pass: one captured
+batch, replayed once a batch, and one read of every batch's metrics and μ.
+
+The captured step is the eager step (``make_train_step`` with its slot's
+values as device tensors), so a chunk computes bitwise what the steps one by
+one do.  ``graphs=False`` runs the same slots eagerly, one step after the
+other, with no graph: on the CPU, with ``training.scan_chunk_steps: 1``, and
+on the paths not yet chunked on the card (a data mesh, the host feed).  A
+capture or replay that fails raises: there is no fallback to eager steps.
+
+Capture (:meth:`TrainChunks.prepare`) runs the step a few times on a side
+stream first (cuDNN and cuBLAS handles, the optimizer's state, the kernel
+libraries), then puts back every parameter, buffer, optimizer moment and
+step count, so the warm-up leaves no trace in the training state, and
+captures under the caller's cuDNN setting (``device.deterministic_cudnn``).
+The kernel wrappers count their launches in Python, which a replay does
+not run, and which a capture runs without launching anything: each
+wrapper's count, by path, is read before and after the capture, put back
+to what it was before, and the difference is added at each replay.  The
+warm-up's launches ran on the card and stay counted: a captured run
+launches each kernel ``CAPTURE_WARMUP`` steps' worth more than its steps
+do.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import kernel_wrappers
+from .step import draw_step_augment
+
+SCHED_KEYS = ("beta", "capacity", "capacity_weight", "free_bits", "lr")
+# step.scalar_metrics' keys; the first six are the epoch's running sums
+METRIC_KEYS = ("total", "recon", "recon_base", "recon_lpips", "recon_ffl",
+               "kl_mean", "kl_effective", "kl_per_dim_mean", "mu_mean_batch",
+               "z_std_batch")
+RUNNING_KEYS = METRIC_KEYS[:6]
+# the eager runs of the step before its capture
+CAPTURE_WARMUP = 2
+
+
+def chunk_plan(n_steps: int, k_cfg: int) -> tuple:
+    """``(K, sizes)`` of an epoch of ``n_steps`` steps, as the JAX loop
+    plans it: K = max(1, min(k_cfg, n_steps)), as many chunks of K as fit,
+    and the remainder one step a chunk (the JAX loop's single-step
+    program)."""
+    k = max(1, min(int(k_cfg), int(n_steps)))
+    return k, [k] * (n_steps // k) + [1] * (n_steps % k)
+
+
+def _counts() -> dict:
+    return {name: (w.launches, dict(getattr(w, "launches_by_path", {})))
+            for name, w in kernel_wrappers().items()}
+
+
+def _set_counts(counts: dict) -> None:
+    for name, w in kernel_wrappers().items():
+        w.launches = counts[name][0]
+        if hasattr(w, "launches_by_path"):
+            w.launches_by_path.update(counts[name][1])
+
+
+def _count_delta(before: dict, after: dict) -> dict:
+    return {name: (after[name][0] - before[name][0],
+                   {p: after[name][1][p] - before[name][1].get(p, 0)
+                    for p in after[name][1]})
+            for name in after}
+
+
+def _add_counts(delta: dict, times: int) -> None:
+    for name, w in kernel_wrappers().items():
+        n, paths = delta[name]
+        w.launches += n * times
+        for p, k in paths.items():
+            w.launches_by_path[p] += k * times
+
+
+class _Slots:
+    """``k`` slots of per-step inputs: each slot one record of ``fields``
+    (``(name, dtype, shape)``) in a ``[k, record]`` byte buffer on the
+    device, with a pinned twin on the host, so that the first n slots
+    upload in one copy.  ``self.<name>`` is the device view ``[k, *shape]``
+    of a field, ``self.host[<name>]`` the host view."""
+
+    def __init__(self, k: int, fields, device: torch.device):
+        offsets, at = {}, 0
+        for name, dtype, shape in fields:
+            size = torch.empty((), dtype=dtype).element_size()
+            nbytes = size * int(np.prod(shape, dtype=np.int64))
+            at = -(-at // size) * size
+            offsets[name] = (at, nbytes, dtype, shape)
+            at += nbytes
+        record = -(-at // 8) * 8
+        self.device = device
+        self.buffer = torch.zeros((k, record), dtype=torch.uint8,
+                                  device=device)
+        self.staging = torch.zeros((k, record), dtype=torch.uint8,
+                                   pin_memory=device.type == "cuda")
+        self.host = {}
+        for name, (at, nbytes, dtype, shape) in offsets.items():
+            setattr(self, name, self._view(self.buffer, at, nbytes, dtype,
+                                           shape))
+            self.host[name] = self._view(self.staging, at, nbytes, dtype,
+                                         shape)
+        self._uploaded = None
+
+    @staticmethod
+    def _view(buf, at, nbytes, dtype, shape):
+        return buf[:, at:at + nbytes].view(dtype).view(buf.shape[0], *shape)
+
+    def writable(self) -> dict:
+        """The host views, once the last upload has left the staging
+        buffer."""
+        if self._uploaded is not None:
+            self._uploaded.synchronize()
+            self._uploaded = None
+        return self.host
+
+    def upload(self, n: int) -> None:
+        self.buffer[:n].copy_(self.staging[:n], non_blocking=True)
+        if self.device.type == "cuda":
+            self._uploaded = torch.cuda.Event()
+            self._uploaded.record()
+
+
+class Pending:
+    """A dispatched chunk's rows on their way to the host: :meth:`rows`
+    waits for them (the chunk's end) and returns them as numpy."""
+
+    def __init__(self, rows: torch.Tensor, meta=None):
+        self.meta = meta
+        self._event = None
+        if rows.device.type == "cuda":
+            self._host = torch.empty(rows.shape, dtype=rows.dtype,
+                                     pin_memory=True)
+            self._host.copy_(rows, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = rows.clone()
+
+    def rows(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = None
+        return self._host.numpy()
+
+
+class _Captured:
+    """A graph of one slot's body and what a replay launches."""
+
+    def __init__(self):
+        self.graph = None
+        self.per_replay = None
+        self.seconds = 0.0
+
+    def capture(self, device, body, reset, warmup: int,
+                restore=None) -> None:
+        """Run ``reset()`` and ``body()`` ``warmup`` times on a side stream
+        (each on slot 0), ``restore()`` what they changed, ``reset()`` and
+        capture one ``body()``; the kernel counts keep the warm-up's
+        launches and not the capture's."""
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                reset()
+                body()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        before = _counts()
+        if restore is not None:
+            restore()
+        reset()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            body()
+        self.per_replay = _count_delta(before, _counts())
+        _set_counts(before)
+        reset()
+        torch.cuda.synchronize(device)
+        self.graph = graph
+        self.seconds = time.perf_counter() - t0
+
+    def replay(self, times: int) -> None:
+        for _ in range(times):
+            self.graph.replay()
+        _add_counts(self.per_replay, times)
+
+    def launches(self) -> dict:
+        """Each wrapper's launches a replay."""
+        return {name: n for name, (n, _) in self.per_replay.items()}
+
+
+class _Chunked:
+    """What a chunked train run and a chunked validation pass share: ``k``
+    slots of (batch indices, mask, schedule row, noise offset) uploaded in
+    one copy, a ``[k, width]`` row a slot for the results, the slot
+    counter ``j`` and the captured graph."""
+
+    def __init__(self, k: int, local: int, width: int, device: torch.device,
+                 graphs: bool):
+        if graphs and device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+        self.k, self.device, self.graphs = int(k), device, graphs
+        self.slots = _Slots(self.k, (
+            ("idx", torch.int64, (local,)), ("offset", torch.int64, ()),
+            ("mask", torch.float32, (local,)),
+            ("sched", torch.float32, (len(SCHED_KEYS),))), device)
+        self.out = torch.zeros((self.k, width), device=device)
+        self.j = torch.zeros((), dtype=torch.int64, device=device)
+        self.captured = _Captured()
+
+    def _take(self, j, *more):
+        """Slot ``j``'s ``(idx, mask, sched dict, offset, *more)``: ``j`` a
+        host int (eager), or the device counter (captured)."""
+        s = self.slots
+        tensors = (s.idx, s.mask, s.sched, s.offset, *more)
+        if isinstance(j, int):
+            got = [t[j] for t in tensors]
+        else:
+            got = [t.index_select(0, j.view(1))[0] for t in tensors]
+        got[2] = dict(zip(SCHED_KEYS, got[2].unbind(0)))
+        return got
+
+    def _write(self, j, row: torch.Tensor) -> None:
+        """Slot ``j``'s result row; the device counter moves on."""
+        if isinstance(j, int):
+            self.out[j].copy_(row)
+        else:
+            self.out.index_copy_(0, j.view(1), row[None])
+            j.add_(1)
+
+    def _upload(self, idx: list, mask: list, sched: list,
+                offsets: list) -> int:
+        """Write the first n slots (one entry a slot in each list; ``sched``
+        rows of ``SCHED_KEYS`` floats) and start their one copy."""
+        n = len(idx)
+        if not 0 < n <= self.k:
+            raise ValueError(f"1 to {self.k} slots, got {n}")
+        host = self.slots.writable()
+        host["idx"][:n] = torch.from_numpy(np.stack(idx).astype(np.int64))
+        host["mask"][:n] = torch.from_numpy(
+            np.stack(mask).astype(np.float32))
+        host["sched"][:n] = torch.from_numpy(np.array(sched, np.float32))
+        host["offset"][:n] = torch.tensor([int(o) for o in offsets],
+                                          dtype=torch.int64)
+        self.slots.upload(n)
+        return n
+
+    def _run(self, images, n: int, feed) -> None:
+        """The first n slots: n replays, or n eager bodies (``feed``
+        yielding each one's images where they are not ``images``)."""
+        if self.graphs:
+            self.j.zero_()
+            self.captured.replay(n)
+        else:
+            for i in range(n):
+                self._body(images if feed is None else next(feed), i)
+
+    def _body(self, images, j) -> None:
+        raise NotImplementedError
+
+
+class TrainChunks(_Chunked):
+    """Up to ``k`` train steps a dispatch through ``step``
+    (``make_train_step``'s), over ``model`` and ``optimizer``: replays of
+    one captured step with ``graphs``, else the same slots run eagerly.
+
+    ``rows`` is a data-parallel rank's rows of each global batch of
+    ``batch`` (None: all); ``seed`` and ``aug_kwargs`` are the step's, from
+    which the augmentation uniforms are drawn ahead."""
+
+    def __init__(self, step, model, optimizer, *, k: int, batch: int,
+                 device: torch.device, seed: int, aug_kwargs: dict,
+                 graphs: bool, rows: slice | None = None):
+        local = batch if rows is None else rows.stop - rows.start
+        super().__init__(k, local, len(METRIC_KEYS) + len(RUNNING_KEYS),
+                         device, graphs)
+        self.step, self.model, self.optimizer = step, model, optimizer
+        self.batch, self.seed, self.aug_kwargs = int(batch), seed, aug_kwargs
+        self.draws = torch.zeros((self.k, 3, self.batch), device=device)
+        self.running = torch.zeros(len(RUNNING_KEYS), device=device)
+        self.generator = torch.Generator(device=device)
+
+    def _body(self, images, j) -> None:
+        idx, mask, sched, offset, draws = self._take(j, self.draws)
+        metrics = self.step(images, idx, mask, sched, offset, draws=draws)
+        row = torch.stack([metrics[k].float().reshape(())
+                           for k in METRIC_KEYS])
+        self.running += row[:len(RUNNING_KEYS)]
+        self._write(j, torch.cat([row, self.running]))
+
+    def prepare(self, images: torch.Tensor) -> float:
+        """Capture the step over ``images`` (the resident split) once; a
+        no-op without ``graphs`` or when captured.  Returns the capture's
+        seconds (0.0 when nothing was captured now)."""
+        if not self.graphs or self.captured.graph is not None:
+            return 0.0
+        self.optimizer.bind_state()
+        state = [*self.model.parameters(), *self.model.buffers(),
+                 *self.optimizer.state_tensors(), self.running]
+        saved = [t.detach().clone() for t in state]
+
+        def restore():
+            with torch.no_grad():
+                for t, v in zip(state, saved):
+                    t.copy_(v)
+
+        self.captured.capture(self.device, lambda: self._body(images, self.j),
+                              self.j.zero_, CAPTURE_WARMUP, restore)
+        return self.captured.seconds
+
+    def reset_running(self) -> None:
+        """Start an epoch's running sums."""
+        self.running.zero_()
+
+    def dispatch(self, images, steps: list, feed=None, meta=None) -> Pending:
+        """Run ``steps``, a list of ``(idx, mask, sched, step_index)`` (numpy
+        rows of this rank, a dict of ``SCHED_KEYS`` floats, the step's
+        number), at most ``k``; ``feed`` yields each step's images where
+        they are not ``images`` (the host feed).  Returns the pending rows,
+        ``[n, 16]``: ``METRIC_KEYS`` then the running sums after the
+        step."""
+        if self.graphs and self.captured.graph is None:
+            raise RuntimeError("TrainChunks.prepare() must capture the step "
+                               "before a chunk is dispatched")
+        n = self._upload([s[0] for s in steps], [s[1] for s in steps],
+                         [[s[2][k] for k in SCHED_KEYS] for s in steps],
+                         [s[3] for s in steps])
+        for i, s in enumerate(steps):
+            draw_step_augment(self.generator, self.seed, int(s[3]),
+                              self.batch, self.aug_kwargs, out=self.draws[i])
+        self._run(images, n, feed)
+        return Pending(self.out[:n], meta)
+
+
+class EvalChunks(_Chunked):
+    """A validation pass of ``v`` batches through ``eval_step``
+    (``make_eval_step``'s): replays of one captured batch with ``graphs``,
+    else the same slots eagerly.  :meth:`run` returns the pass's
+    ``[v, 10 + b·latent]`` device rows, each batch's ``METRIC_KEYS`` and its
+    μ, for one read."""
+
+    def __init__(self, eval_step, *, v: int, local_batch: int, latent: int,
+                 device: torch.device, graphs: bool):
+        super().__init__(v, local_batch,
+                         len(METRIC_KEYS) + local_batch * latent, device,
+                         graphs)
+        self.eval_step = eval_step
+
+    def _body(self, images, j) -> None:
+        idx, mask, sched, offset = self._take(j)
+        metrics, mu = self.eval_step(images, idx, mask, sched, offset)
+        self._write(j, torch.cat([
+            torch.stack([metrics[k].float().reshape(())
+                         for k in METRIC_KEYS]),
+            mu.float().reshape(-1)]))
+
+    def run(self, images, batches: list, sched: dict, offsets: list,
+            feed=None) -> torch.Tensor:
+        """The pass over ``batches`` (``(idx, mask)`` numpy rows of this
+        rank, all ``v``), batch j's noise at ``offsets[j]``; captures the
+        batch first when ``graphs`` and not yet captured."""
+        if len(batches) != self.k:
+            raise ValueError(f"a pass of {self.k} batches, got "
+                             f"{len(batches)}")
+        row = [float(sched[k]) for k in SCHED_KEYS]
+        n = self._upload([b[0] for b in batches], [b[1] for b in batches],
+                         [row] * len(batches), offsets)
+        if self.graphs and self.captured.graph is None:
+            self.captured.capture(self.device,
+                                  lambda: self._body(images, self.j),
+                                  self.j.zero_, CAPTURE_WARMUP)
+        self._run(images, n, feed)
+        return self.out[:n]

@@ -8,11 +8,17 @@ validation with latent collection and probe metrics, ``latest`` / ``best``
 sharded checkpoints, a deterministic reconstruction panel, early stopping
 and ``resume="best"|"latest"``, with ``training.async_checkpoint`` writing
 the checkpoints on a background thread and SIGTERM draining it
-(``training.graceful_shutdown``).  It carries the JAX loop's semantics, not
-its XLA mechanism: steps run one by one, with no scan chunks, no epoch
-rotation and no background panel writer (``training.scan_chunk_steps`` and
-``epoch_rotation`` name that mechanism and are ignored), and the host reads
-the card once per log step and once per validation pass.  The LPIPS term
+(``training.graceful_shutdown``).  Its dispatch is the JAX loop's: each
+epoch runs in chunks of K = max(1, min(``training.scan_chunk_steps``,
+steps)) steps (default 192), the remainder one step a chunk, and on the
+card a chunk is K replays of one CUDA graph of the train step, with one
+upload of the chunk's inputs before it and one read of its metrics after
+it; the validation pass is one replay of a captured batch per batch and one
+read (``train/chunks.py``).  ``scan_chunk_steps: 1`` steps eagerly, one
+launch after the other; so do the CPU and, in this port, a data mesh and a
+split fed from the host, for which the CONFIG line's ``step_dispatch``
+says so by name.  Not ported: epoch rotation (``training.epoch_rotation``
+is ignored) and the background panel writer.  The LPIPS term
 (``loss.use_lpips``) runs under the JAX loop's gate: random-init features
 only with ``loss.lpips_allow_random: true``, and the CONFIG line names the
 weight source.  A split over ``training.max_device_dataset_mb`` stays in
@@ -42,6 +48,7 @@ resume in either mode.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import signal
@@ -66,15 +73,18 @@ from ..ops.lpips import build_lpips_fn, resolve_weight_source
 from ..parallel.reduce import gather_rows
 from ..utils.profiling import StepProfiler
 from .callbacks import CheckpointManager, EarlyStopping, restore_training_state
+from .chunks import (METRIC_KEYS, RUNNING_KEYS, EvalChunks, TrainChunks,
+                     chunk_plan)
 from .optim import build_optimizer
 from .schedules import lr_at, resolve_total_epochs, schedules_from_config
 from .step import make_eval_step, make_train_step
 
-RUNNING_KEYS = ("total", "recon", "recon_base", "recon_lpips", "recon_ffl",
-                "kl_mean")
-# steps left out of the timed window: the first ones pay for cuDNN's
-# algorithm choice, the allocator's growth and the kernel library's load
+# steps left out of the timed window of eager steps: the first ones pay for
+# cuDNN's algorithm choice, the allocator's growth and the kernel library's
+# load (a captured step pays them in its capture, before the window)
 WARMUP_STEPS = 5
+# training.scan_chunk_steps' default, the JAX loop's
+SCAN_CHUNK_STEPS = 192
 # the noise of validation batch j of epoch e is the Philox stream at offset
 # VAL_OFFSET + e·100 000 + j, the JAX package's val keys
 # (fold_in(root, 2³¹ + e·100 000 + j)): far above any train step's offset
@@ -214,6 +224,42 @@ class _Run:
         self.profiler = StepProfiler(
             get(cfg.logging, "profile_steps", 0) if self.main else 0,
             os.path.join(cfg.paths.outputs_dir, "profile"), dev)
+        self.k_cfg = int(get(cfg.training, "scan_chunk_steps",
+                             SCAN_CHUNK_STEPS))
+        if self.k_cfg < 1:
+            raise ValueError(f"training.scan_chunk_steps must be >= 1, got "
+                             f"{self.k_cfg}")
+        self.dispatch = self.dispatch_way(self.train_dev)
+        self.graphs = self.dispatch == "cuda_graph"
+        n_steps = len(self.train_batches(1))
+        self.chunks = TrainChunks(
+            self.step, self.model, self.optimizer,
+            k=chunk_plan(max(1, n_steps), self.k_cfg)[0],
+            batch=self.batch_size, device=dev, seed=self.seed,
+            aug_kwargs=augment_config_kwargs(cfg), graphs=self.graphs,
+            rows=self.rows)
+
+    def dispatch_note(self) -> dict:
+        """The CONFIG line's ``{"step_dispatch": ...}`` where the steps run
+        eagerly on the card for want of a port of the chunked path (a data
+        mesh, the host feed), so that the log says so; ``{}`` elsewhere,
+        where the line is the JAX package's."""
+        if self.dev.type == "cuda" and self.dispatch in (
+                "eager: data mesh", "eager: host feed"):
+            return {"step_dispatch": self.dispatch}
+        return {}
+
+    def dispatch_way(self, data: DeviceData) -> str:
+        """``"cuda_graph"``, or why the steps of ``data`` run eagerly."""
+        if self.k_cfg == 1:
+            return "eager: scan_chunk_steps 1"
+        if self.mesh is not None:
+            return "eager: data mesh"
+        if data.host_feed:
+            return "eager: host feed"
+        if self.dev.type != "cuda":
+            return f"eager: {self.dev.type}"
+        return "cuda_graph"
 
     def epoch_schedule(self, epoch: int):
         beta = self.beta_sched.value(epoch - 1)
@@ -236,6 +282,79 @@ class _Run:
 
     def train_batches(self, epoch: int) -> list:
         return list(self.train_plan.batches(epoch))[:self.max_train_batches]
+
+    def run_epoch(self, epoch: int, batches: list, done: int,
+                  on_dispatch=None, cut_at: int | None = None) -> dict:
+        """Train ``batches`` of ``epoch`` after ``done`` steps of the run,
+        in the chunks of :func:`.chunks.chunk_plan` (cut at the profiler
+        window's end and after step ``cut_at``), each dispatched before the
+        previous one is drained, as the JAX loop does.  Logs each log
+        step's train line.  Returns ``{"totals", "last", "running", "lr",
+        "steps"}``: every step's total, the last step's metrics and running
+        sums, and the last step's learning rate.  ``on_dispatch(n)`` runs
+        after each chunk's dispatch, ``n`` the run's steps dispatched."""
+        beta, capacity, free_bits = self.epoch_schedule(epoch)
+        self.chunks.reset_running()
+        feed = None
+        if self.train_dev.host_feed:
+            feed = (x for x, _, _ in self.train_dev.feed(batches, self.rows))
+        out = {"totals": [], "last": {}, "running": {}, "steps": 0,
+               "lr": self.lr(epoch, done)}
+
+        def drain(pending) -> None:
+            lrs, first = pending.meta
+            for t, row in enumerate(pending.rows()):
+                step = first + t
+                out["last"] = dict(zip(METRIC_KEYS, row))
+                out["running"] = dict(zip(RUNNING_KEYS,
+                                          row[len(METRIC_KEYS):]))
+                out["totals"].append(float(row[0]))
+                out["steps"] += 1
+                out["lr"] = lrs[t]
+                if step % self.log_every == 0:
+                    self.train_line(epoch=epoch, beta=beta,
+                                    capacity=capacity,
+                                    running=out["running"],
+                                    denom=out["steps"], last=out["last"],
+                                    lr=lrs[t], step=step)
+
+        sizes = collections.deque(chunk_plan(len(batches), self.k_cfg)[1])
+        at, pending = 0, None
+        while sizes:
+            size = sizes.popleft()
+            first = done + at + 1
+            keep = size
+            if self.profiler.active:
+                keep = min(keep, self.profiler.remaining)
+            if cut_at is not None and first <= cut_at < first + keep - 1:
+                keep = cut_at - first + 1
+            if keep < size:
+                sizes.appendleft(size - keep)
+            steps, lrs = [], []
+            for t in range(keep):
+                idx, mask = batches[at + t]
+                if self.rows is not None:
+                    idx, mask = idx[self.rows], mask[self.rows]
+                if self.train_dev.host_feed:
+                    idx = np.arange(len(idx))
+                lr = self.lr(epoch, first - 1 + t)
+                lrs.append(lr)
+                steps.append((idx, mask,
+                              self.sched(beta, capacity, free_bits, lr),
+                              first + t))
+            new = self.chunks.dispatch(self.train_dev.images, steps,
+                                       feed=feed, meta=(lrs, first))
+            at += keep
+            for t in range(keep):
+                self.profiler.after_step(first + t)
+            if on_dispatch is not None:
+                on_dispatch(done + at)
+            if pending is not None:
+                drain(pending)
+            pending = new
+        if pending is not None:
+            drain(pending)
+        return out
 
     def log(self, metrics: dict, **kw) -> None:
         """A ``METRICS`` line, from rank 0 alone."""
@@ -288,11 +407,16 @@ def train_steps(config_path: str, max_steps: int,
                 device: str | torch.device = "cuda", mesh=None) -> dict:
     """Train for at most ``max_steps`` steps from the config at
     ``config_path``.  Returns ``{"steps", "totals", "timed_steps",
-    "timed_seconds", "batch_size", "traces", "model"}``: the per-step total
-    losses, the wall time of the steps after the warm-up, ended by a device
-    sync, the paths of the ``logging.profile_steps`` traces and the trained
-    model.  With ``mesh``, this rank's part of a data-parallel run (the
-    module docstring).  cuDNN runs its deterministic algorithms meanwhile
+    "timed_seconds", "batch_size", "traces", "model", "dispatch",
+    "chunk_k", "capture_seconds", "launches_per_replay"}``: the per-step
+    total losses, the wall time of the steps after the warm-up (none for
+    captured steps: the capture is their warm-up, before the window), ended
+    by a device sync, the paths of the ``logging.profile_steps`` traces,
+    the trained model, how the steps ran (``"cuda_graph"`` or ``"eager:
+    <why>"``), the chunk's slots K, the capture's seconds and each
+    kernel's launches a replay (None without a graph).  With ``mesh``,
+    this rank's part of a data-parallel run (the module docstring).  cuDNN
+    runs its deterministic algorithms meanwhile
     (:func:`..device.deterministic_cudnn`), so the run replays in fp32
     too."""
     with deterministic_cudnn():
@@ -304,41 +428,35 @@ def _train_steps(config_path: str, max_steps: int, device, mesh) -> dict:
     cfg = get_config(config_path)
     main = mesh is None or mesh.is_main
     extras = _lpips_config_extras(cfg, warn=main)
-    if main:
-        log_config(extras or None)
     run = _Run(cfg, dev, with_test=False, mesh=mesh)
-    warmup = min(WARMUP_STEPS, max_steps // 2)
+    if main:
+        log_config({**extras, **run.dispatch_note()})
+    # a captured step pays its warm-up in the capture
+    warmup = 0 if run.graphs else min(WARMUP_STEPS, max_steps // 2)
+    capture_seconds = run.chunks.prepare(run.train_dev.images)
+    _sync(dev)
 
     totals = []
     total_steps = 0
     t_warm = time.perf_counter()
+
+    def on_dispatch(dispatched: int) -> None:
+        nonlocal t_warm
+        if dispatched == warmup:
+            _sync(dev)
+            t_warm = time.perf_counter()
+
     try:
         for epoch in range(1, run.epochs + 1):
             if total_steps >= max_steps:
                 break
-            beta, capacity, free_bits = run.epoch_schedule(epoch)
-            running = {k: torch.zeros((), device=dev) for k in RUNNING_KEYS}
-            denom = 0
             batches = run.train_batches(epoch)[:max_steps - total_steps]
             run.profiler.maybe_start(total_steps + 1)
-            for images, idx, mask in run.train_dev.feed(batches, run.rows):
-                lr = run.lr(epoch, total_steps)
-                last = run.step(images, idx, mask,
-                                run.sched(beta, capacity, free_bits, lr),
-                                total_steps + 1)
-                for k in RUNNING_KEYS:
-                    running[k] += last[k]
-                totals.append(last["total"])
-                denom += 1
-                total_steps += 1
-                run.profiler.after_step(total_steps)
-                if total_steps == warmup:
-                    _sync(dev)
-                    t_warm = time.perf_counter()
-                if total_steps % run.log_every == 0:
-                    run.train_line(epoch=epoch, beta=beta, capacity=capacity,
-                                   running=running, denom=denom, last=last,
-                                   lr=lr, step=total_steps)
+            out = run.run_epoch(epoch, batches, total_steps,
+                                on_dispatch=on_dispatch,
+                                cut_at=warmup or None)
+            totals += out["totals"]
+            total_steps += out["steps"]
             run.profiler.stop()
         _sync(dev)
     finally:
@@ -346,12 +464,17 @@ def _train_steps(config_path: str, max_steps: int, device, mesh) -> dict:
     timed_seconds = time.perf_counter() - t_warm
     return {
         "steps": total_steps,
-        "totals": torch.stack(totals).cpu().tolist() if totals else [],
+        "totals": totals,
         "timed_steps": total_steps - warmup,
         "timed_seconds": timed_seconds,
         "batch_size": run.batch_size,
         "traces": run.profiler.paths,
         "model": run.model,
+        "dispatch": run.dispatch,
+        "chunk_k": run.chunks.k,
+        "capture_seconds": capture_seconds,
+        "launches_per_replay": (run.chunks.captured.launches()
+                                if run.graphs else None),
     }
 
 
@@ -494,13 +617,14 @@ def _train(config_path, resume: str, device, mesh) -> dict:
     group = None if mesh is None else mesh.group
     ensure_dirs()
     extras = _lpips_config_extras(cfg, warn=main)
-    if main:
-        log_config(extras or None)
     run = _Run(cfg, dev, with_test=True, mesh=mesh)
+    if main:
+        log_config({**extras, **run.dispatch_note()})
     model, optimizer = run.model, run.optimizer
     eval_step = make_eval_step(model, run.spec, use_capacity=run.use_capacity,
                                seed=run.seed, lpips_fn=run.lpips_fn,
                                mesh=mesh)
+    eval_chunks = None
     test_plan = BatchPlan(len(run.test_ds), run.batch_size, shuffle=False,
                           seed=run.seed)
     early = EarlyStopping(
@@ -537,34 +661,18 @@ def _train(config_path, resume: str, device, mesh) -> dict:
     old_sigterm = _install_sigterm(cfg)
     run_error = None
     try:
+        # after the resume: the capture's warm-up is put back to this state
+        run.chunks.prepare(run.train_dev.images)
         for epoch in range(start_epoch, run.epochs + 1):
             beta, capacity, free_bits = run.epoch_schedule(epoch)
-            running = {k: torch.zeros((), device=dev) for k in RUNNING_KEYS}
-            totals = []
-            last = {}
-            denom = 0
-            lr = run.lr(epoch, total_steps)
             epoch_t0 = time.perf_counter()
             run.profiler.maybe_start(total_steps + 1)
-            for images, idx, mask in run.train_dev.feed(
-                    run.train_batches(epoch), run.rows):
-                lr = run.lr(epoch, total_steps)
-                last = run.step(images, idx, mask,
-                                run.sched(beta, capacity, free_bits, lr),
-                                total_steps + 1)
-                for k in RUNNING_KEYS:
-                    running[k] += last[k]
-                totals.append(last["total"])
-                denom += 1
-                total_steps += 1
-                run.profiler.after_step(total_steps)
-                if total_steps % run.log_every == 0:
-                    run.train_line(epoch=epoch, beta=beta, capacity=capacity,
-                                   running=running, denom=denom, last=last,
-                                   lr=lr, step=total_steps)
+            out = run.run_epoch(epoch, run.train_batches(epoch), total_steps)
             run.profiler.stop()
+            totals, denom, lr = out["totals"], out["steps"], out["lr"]
+            total_steps += denom
             if totals and run.detect_anomalies:
-                finite = torch.isfinite(torch.stack(totals)).cpu().numpy()
+                finite = np.isfinite(np.asarray(totals))
                 if not finite.all():
                     j = int(np.argmin(finite))
                     run.check_finite(float(totals[j]),
@@ -572,19 +680,37 @@ def _train(config_path, resume: str, device, mesh) -> dict:
             _sync(dev)
             epoch_seconds = time.perf_counter() - epoch_t0
             train_drain_mono = epoch_t0 + epoch_seconds
-            final_train_kl_mean = float(running["kl_mean"]) / max(1, denom)
-            final_train_kl_effective = float(last.get("kl_effective", 0.0))
+            final_train_kl_mean = (float(out["running"].get("kl_mean", 0.0))
+                                   / max(1, denom))
+            final_train_kl_effective = float(out["last"].get("kl_effective",
+                                                             0.0))
 
-            # ---- validation: enqueue every batch, then read once ------------
+            # ---- validation: replay every batch, then read once -----------
             tail_t0 = time.perf_counter()
             sched_v = run.sched(beta, capacity, free_bits, lr)
             vbatches = list(test_plan.batches(epoch))[:run.max_val_batches]
-            val_out = []
-            for j, (images, idx, mask) in enumerate(
-                    run.test_dev.feed(vbatches, run.rows)):
-                val_out.append(eval_step(
-                    images, idx, mask, sched_v,
-                    VAL_OFFSET + epoch * 100_000 + j))
+            val_rows = None
+            if vbatches:
+                local = [(idx, mask) if run.rows is None
+                         else (idx[run.rows], mask[run.rows])
+                         for idx, mask in vbatches]
+                vfeed = None
+                if run.test_dev.host_feed:
+                    vfeed = (x for x, _, _ in run.test_dev.feed(vbatches,
+                                                                run.rows))
+                    local = [(np.arange(len(idx)), mask)
+                             for idx, mask in local]
+                if eval_chunks is None:
+                    eval_chunks = EvalChunks(
+                        eval_step, v=len(vbatches),
+                        local_batch=len(local[0][0]),
+                        latent=model.latent_dim, device=dev,
+                        graphs=run.dispatch_way(run.test_dev)
+                        == "cuda_graph")
+                val_rows = eval_chunks.run(
+                    run.test_dev.images, local, sched_v,
+                    [VAL_OFFSET + epoch * 100_000 + j
+                     for j in range(len(vbatches))], feed=vfeed)
             panel = _panel_images(cfg, run, vbatches) if main else None
             recon_dev = None
             if panel is not None:
@@ -599,16 +725,17 @@ def _train(config_path, resume: str, device, mesh) -> dict:
             val_sums = {k: 0.0 for k in RUNNING_KEYS}
             val_kl_per_dim_mean = 0.0
             val_latents, val_labels = [], []
-            if val_out:
-                names = sorted(val_out[0][0])
-                stacked = torch.stack([
-                    torch.stack([m[k].float() for k in names])
-                    for m, _ in val_out]).cpu().numpy()
-                mk = {k: stacked[:, i] for i, k in enumerate(names)}
+            if val_rows is not None:
+                nm = len(METRIC_KEYS)
                 # [batches, rows, latent]: the ranks' rows back in row order
-                mu_all = gather_rows(torch.stack(
-                    [mu for _, mu in val_out]).transpose(0, 1),
-                    group).transpose(0, 1).cpu().numpy()
+                mu = val_rows[:, nm:].reshape(val_batches, -1,
+                                              model.latent_dim)
+                mu = gather_rows(mu.transpose(0, 1), group).transpose(0, 1)
+                host = torch.cat([val_rows[:, :nm].reshape(-1),
+                                  mu.reshape(-1)]).cpu().numpy()
+                stacked = host[:val_batches * nm].reshape(val_batches, nm)
+                mu_all = host[val_batches * nm:].reshape(mu.shape)
+                mk = {k: stacked[:, i] for i, k in enumerate(METRIC_KEYS)}
                 if run.detect_anomalies:
                     for k in RUNNING_KEYS:
                         finite = np.isfinite(mk[k])

@@ -11,8 +11,9 @@ the card until a caller reads them.
 Every random draw of step ``n`` is a function of ``(seed, n)``, as the
 JAX step's key ``fold_in(root_key, n)`` is: the noise is the kernel's
 Philox stream at ``(seed, n)`` and the augmentation's generator is seeded
-from ``(seed, n)`` at the start of the step, so a resumed run replays the
-uninterrupted one.
+from ``(seed, n)``, its uniforms drawn ahead of the step
+(:func:`draw_step_augment`), so a resumed run replays the uninterrupted
+one.
 
 With a data mesh (:mod:`..parallel.mesh`) each rank runs the step on its
 rows of the global batch and computes what the single process computes:
@@ -31,7 +32,7 @@ import warnings
 import torch
 from torch import nn
 
-from ..data.augment import augment_batch
+from ..data.augment import apply_augment, draw_augment
 from ..data.pipeline import gather_batch
 from ..models.beta_vae import BetaVAEModule, FlaxBatchNorm2d
 from ..models.losses import LossSpec, compute_loss
@@ -81,7 +82,7 @@ def augment_seed(seed: int, step_index: int) -> int:
 
 
 def _forward_losses(model, x, mask, sched: dict, *, spec: LossSpec,
-                    use_capacity: bool, seed: int, offset: int,
+                    use_capacity: bool, seed: int, offset,
                     lpips_fn=None, row0: int = 0, group=None) -> dict:
     """The loss of ``x``, which is rows ``row0…`` of the batch whose noise
     the step draws, and of ``group``'s batch when ``group`` is given."""
@@ -110,7 +111,7 @@ class _Objective(nn.Module):
         self.model = model
         self.loss_kwargs = loss_kwargs
 
-    def forward(self, x, mask, sched: dict, offset: int, row0: int):
+    def forward(self, x, mask, sched: dict, offset, row0: int):
         return _forward_losses(self.model, x, mask, sched, offset=offset,
                                row0=row0, **self.loss_kwargs)
 
@@ -135,13 +136,20 @@ def _rows(mesh, local_batch: int):
 def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
                     spec: LossSpec, *, aug_kwargs: dict, use_capacity: bool,
                     seed: int, lpips_fn=None, mesh=None):
-    """Build ``step(images, idx, mask, sched, step_index) -> metrics``.
+    """Build ``step(images, idx, mask, sched, step_index, draws) ->
+    metrics``.
 
     ``images`` is the device-resident uint8 split, ``idx`` (B,) int64 and
-    ``mask`` (B,) float tensors on the same device, ``sched`` the floats
+    ``mask`` (B,) float tensors on the same device, ``sched`` the values
     ``{beta, capacity, capacity_weight, free_bits, lr}``.  The noise of step
     ``step_index`` is the kernel's Philox stream at ``(seed, step_index)``;
-    its augmentation draws from a generator seeded from the same pair.
+    ``draws`` are its augmentation's ``[3, B]`` uniforms, which
+    :func:`draw_step_augment` draws from a generator seeded from the same
+    pair.
+
+    A captured step (``train/chunks.py``) reads no host value: it passes
+    ``sched`` as 0-d fp32 tensors and ``step_index`` as a 0-d int64 tensor
+    on the device.  Floats and an int compute bitwise the same step.
     ``lpips_fn`` is the perceptual distance the loss adds when the spec
     turns LPIPS on (:func:`..ops.lpips.build_lpips_fn`).
 
@@ -154,7 +162,6 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
     looks for unused parameters there, and only there.
     """
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device)
     group = None if mesh is None else mesh.group
     objective = _Objective(model, spec=spec, use_capacity=use_capacity,
                            seed=seed, lpips_fn=lpips_fn, group=group)
@@ -172,12 +179,11 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
                 broadcast_buffers=False, gradient_as_bucket_view=True,
                 find_unused_parameters=spec.deterministic)
 
-    def step(images, idx, mask, sched: dict, step_index: int) -> dict:
+    def step(images, idx, mask, sched: dict, step_index, draws) -> dict:
         model.train()
-        rows, batch = _rows(mesh, len(idx))
-        generator.manual_seed(augment_seed(seed, step_index))
-        x = augment_batch(gather_batch(images, idx), generator, rows=rows,
-                          global_batch=batch, **aug_kwargs)
+        rows, _ = _rows(mesh, len(idx))
+        x = apply_augment(gather_batch(images, idx), draws, rows=rows,
+                          **aug_kwargs)
         optimizer.zero_grad()
         losses = objective(x, mask, sched, step_index,
                            0 if rows is None else rows.start)
@@ -188,17 +194,29 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
     return step
 
 
+def draw_step_augment(generator: torch.Generator, seed: int,
+                      step_index: int, batch: int, aug_kwargs: dict,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """The ``[3, batch]`` augmentation uniforms of step ``step_index`` of a
+    global batch of ``batch``: ``generator`` seeded from ``(seed,
+    step_index)``, drawn in ``data.augment.augment_batch``'s order, so that
+    applying them is bitwise ``augment_batch`` with that generator."""
+    generator.manual_seed(augment_seed(seed, step_index))
+    return draw_augment(generator, batch, out=out, **aug_kwargs)
+
+
 def make_eval_step(model: BetaVAEModule, spec: LossSpec, *,
                    use_capacity: bool, seed: int, lpips_fn=None, mesh=None):
     """Build ``eval_step(images, idx, mask, sched, offset) -> (metrics,
     mu)``: one stochastic validation batch in eval mode without autograd,
-    its noise the kernel's Philox stream at ``(seed, offset)``.  With a
+    its noise the kernel's Philox stream at ``(seed, offset)`` (an int, or
+    a 0-d int64 tensor on the device in a captured pass).  With a
     ``mesh``, ``idx`` and ``mask`` are this rank's rows, the metrics the
     global batch's and ``mu`` this rank's rows."""
     group = None if mesh is None else mesh.group
 
     @torch.no_grad()
-    def eval_step(images, idx, mask, sched: dict, offset: int):
+    def eval_step(images, idx, mask, sched: dict, offset):
         model.eval()
         rows, _ = _rows(mesh, len(idx))
         losses = _forward_losses(model, gather_batch(images, idx), mask,

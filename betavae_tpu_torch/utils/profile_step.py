@@ -36,14 +36,15 @@ def _capture(cfg, steps: int, logdir: str, device: str) -> str:
     from ..models.beta_vae import model_from_config
     from ..models.losses import loss_spec_from_config
     from ..train.optim import build_optimizer
-    from ..train.step import make_train_step
+    from ..train.step import draw_step_augment, make_train_step
 
     dev = resolve_device(device)
     model = model_from_config(cfg, device=dev)
     optimizer = build_optimizer(model.parameters(), cfg)
+    aug, seed = augment_config_kwargs(cfg), int(cfg.data.seed)
     step = make_train_step(model, optimizer, loss_spec_from_config(cfg),
-                           aug_kwargs=augment_config_kwargs(cfg),
-                           use_capacity=True, seed=int(cfg.data.seed))
+                           aug_kwargs=aug, use_capacity=True, seed=seed)
+    generator = torch.Generator(device=dev)
     b, size = int(cfg.training.batch_size), int(cfg.data.image_size)
     n = max(4 * b, 256)
     rng = np.random.default_rng(0)
@@ -58,7 +59,8 @@ def _capture(cfg, steps: int, logdir: str, device: str) -> str:
             start = counter[0] * b % (n - b)
             idx = torch.arange(start, start + b, device=dev)
             counter[0] += 1
-            step(images, idx, mask, SCHED, counter[0])
+            step(images, idx, mask, SCHED, counter[0], draw_step_augment(
+                generator, seed, counter[0], b, aug))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 

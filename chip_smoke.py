@@ -16,18 +16,23 @@ Phases, each printing one line (any failure exits non-zero at once):
    one PyTorch call computes the same function) that call's: the reparam+KL
    forward and backward kernels at the training path's shape, the
    evaluation path's smaller ones, the demo notebook's [16, 16] and a
-   large one (ε bitwise the plain Philox stream, noise moments, seed
-   behaviour;
+   large one, each with its offset as a 0-d int64 tensor on the card (the
+   trainers' slot) and as an int, bitwise alike (ε bitwise the plain
+   Philox stream, noise moments, seed behaviour;
    a data-parallel rank's launch at [16, 64] with ``start`` 16·64 bitwise
-   rows 16–31 of the [32, 64] launch;
+   rows 16–31 of the [32, 64] launch, both offset kinds;
    the backward also with capacity mode's broadcast g_kl; the forward with
    programmatic dependent launch off and on in turns, alone and chained
    behind the logvar clamp, eager and replayed from a CUDA graph; the
    backward beside the plain closed form's time and kernel count), a race
-   check of the forward behind a kernel writing its inputs (1000 times),
-   where a reparam+KL call's host time goes, the graph-replayed chain for
-   two variants of the forward's source (noise drawn after the wait; no
-   ``launch_dependents``), the SE-gate∘head-conv forward
+   check of the forward behind kernels writing its inputs and its offset
+   (1000 times), where a reparam+KL call's host time goes, the
+   graph-replayed chain for a variant of the forward's source (no
+   ``launch_dependents``); the forward captured once in a CUDA graph and
+   replayed at 3 offsets written to its slot, ε bitwise the plain Philox
+   stream at each, and the clamp → forward chain in a graph with
+   programmatic dependent launch off and on in turns
+   (``elbo_device_offset``), the SE-gate∘head-conv forward
    and M kernels at the flagship's y in bf16 and fp32, at the evaluation
    path's bf16 decodes of 1, 2, 7 and 8 rows and at a ragged shape
    (each with the path it took, TMA or generic, its profiler device time,
@@ -56,7 +61,17 @@ Phases, each printing one line (any failure exits non-zero at once):
    (``configs/beta_vae_se.yaml`` at full width, demo data), with the
    default head and with the fused head; replay: those 20 steps twice from
    one seed with each head, and in fp32 with the default head, every
-   total bitwise the first run's;
+   total bitwise the first run's; scan_chunks: the flagship's 20 steps of
+   one epoch at ``training.scan_chunk_steps`` K = 1 (eager), 8 (two
+   chunks of 8 CUDA-graph replays and 4 single steps) and 20 (one chunk),
+   bf16 with each head (the default head's in turns, K = 1, 8, 20, 20, 8,
+   1) and fp32 with the default head: every total bitwise across K, each
+   kernel's launches as derived and a replay's one step's, step ms,
+   capture seconds and peak memory, the device time a step and busy share
+   at K = 1 and 20; then ``train()`` 2 epochs with validation at K = 3
+   against K = 1, every METRICS number bitwise but the wall times (the
+   trainers run K-step chunks of replays wherever the main path below runs
+   them: every phase's default K is 192);
    ``configs/beta_vae_se_tpu_scaled.yaml`` at full width (256 px, 5
    blocks, latent 128, global batch 256) through the training CLI with
    ``--data-parallel -1``, 2 epochs of 2 steps over seeded 256 px demo
@@ -399,14 +414,16 @@ def graph_ms(fn, reps: int) -> float:
 
 def elbo_race_check(iters: int = 1000) -> dict:
     """Programmatic dependent launch must not let the forward read before
-    the kernel that writes its inputs has finished: ``iters`` times, μ and
-    logσ² are written in place (logσ² by a reduction, the forward's
-    immediate predecessor, as the logvar clamp is in the model), the
-    forward follows, and copies of μ and logσ² taken after it must give
-    the kernel's z and kl through the plain version."""
+    the kernels that write its inputs have finished: ``iters`` times, μ,
+    the offset's slot and logσ² are written in place (logσ² by a
+    reduction, the forward's immediate predecessor, as the logvar clamp is
+    in the model), the forward follows with the attribute on, and copies
+    of μ and logσ² taken after it must give the kernel's z and kl through
+    the plain version, and its ε the plain Philox stream at the offset
+    written."""
     import torch
 
-    from betavae_tpu_torch.ops.elbo import (reparam_kl_forward,
+    from betavae_tpu_torch.ops.elbo import (_launch, philox_normal,
                                             reparam_kl_reference)
 
     shape = ELBO_SHAPES[0]
@@ -415,11 +432,14 @@ def elbo_race_check(iters: int = 1000) -> dict:
     lv_src = 0.1 * torch.randn((iters, 16, *shape), generator=g, device="cuda")
     mu = torch.empty(shape, device="cuda")
     logvar = torch.empty(shape, device="cuda")
+    offsets = torch.arange(iters, dtype=torch.int64, device="cuda")
+    slot = torch.zeros((), dtype=torch.int64, device="cuda")
     outs, seen = [], []
     for i in range(iters):
         torch.neg(mu_src[i], out=mu)
+        slot.copy_(offsets[i])
         torch.sum(lv_src[i], dim=0, out=logvar)
-        outs.append(reparam_kl_forward(mu, logvar, 5, i))
+        outs.append(_launch(mu, logvar, 5, slot, True))
         seen.append((mu.clone(), logvar.clone()))
     torch.cuda.synchronize()
     z, kl, eps = (torch.stack([o[k] for o in outs]) for k in range(3))
@@ -427,6 +447,11 @@ def elbo_race_check(iters: int = 1000) -> dict:
     lvs = torch.stack([lv for _, lv in seen])
     if not torch.equal(mus, -mu_src):
         fail("elbo race check: the copies of mu are not the written values")
+    wrong = [i for i in range(iters) if not torch.equal(
+        eps[i], philox_normal(shape, 5, i, device="cuda"))]
+    if wrong:
+        fail(f"elbo race check: eps not the plain stream at the offset "
+             f"written, at iterations {wrong[:10]}")
     z_ref, kl_ref = reparam_kl_reference(mus, lvs, eps)
     torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(kl, kl_ref, rtol=1e-5, atol=1e-6)
@@ -437,10 +462,14 @@ def elbo_race_check(iters: int = 1000) -> dict:
 
 def check_elbo(shape, check_moments: bool) -> dict:
     """fused_reparam_kl's forward and backward kernels on the card against
-    their plain versions, and times: the forward with programmatic
-    dependent launch on and off in turns (off, on, on, off), alone and
-    chained behind the logvar clamp it follows in the model; the backward
-    beside the plain closed form it replaces."""
+    their plain versions, the offset given both ways a caller gives it: a
+    0-d int64 tensor on the card (the trainers' slot) and an int (written
+    to one by the wrapper), z, KL and ε bitwise alike and ε bitwise the
+    plain Philox stream; and times: the forward with the tensor offset and
+    with the int (its fill included), with programmatic dependent launch on
+    and off in turns (off, on, on, off), alone and chained behind the
+    logvar clamp it follows in the model; the backward beside the plain
+    closed form it replaces."""
     import torch
 
     from betavae_tpu_torch.ops.elbo import (_launch, _launch_backward,
@@ -454,9 +483,15 @@ def check_elbo(shape, check_moments: bool) -> dict:
     mu = torch.randn(shape, generator=g, device="cuda")
     logvar = torch.randn(shape, generator=g, device="cuda").clamp(-10.0, 5.0)
     seed, offset = 115, 7
+    slot = torch.full((), offset, dtype=torch.int64, device="cuda")
+    offsets = {"tensor": slot, "int": offset}
 
-    z, kl, eps = reparam_kl_forward(mu, logvar, seed, offset)
+    z, kl, eps = reparam_kl_forward(mu, logvar, seed, slot)
+    by_int = reparam_kl_forward(mu, logvar, seed, offset)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((z, kl, eps), by_int)):
+        fail(f"elbo {shape}: the int offset's z, kl and eps differ from the "
+             f"tensor offset's")
     z_ref, kl_ref = reparam_kl_reference(mu, logvar, eps)
     # same eps, same order of fp32 operations, and only exp differing by
     # at most an ulp or so between the kernel and torch: 1e-5 relative
@@ -488,30 +523,45 @@ def check_elbo(shape, check_moments: bool) -> dict:
         backward_err[name] = max(float((a - b).abs().max())
                                  for a, b in zip(got, want))
 
-    # gradients through the autograd Function (both kernels) against
-    # autograd through the plain version with the kernel's eps; the closed
-    # form and autograd round in another order, so 1e-5 relative of the
-    # gradient's scale
-    mu_k, lv_k = mu.clone().requires_grad_(), logvar.clone().requires_grad_()
-    zk, klk = fused_reparam_kl(mu_k, lv_k, seed, offset)
-    ((zk * g_z).sum() + (klk * g_kl).sum()).backward()
+    # gradients through the autograd Function (both kernels), with each
+    # kind of offset, against autograd through the plain version with the
+    # kernel's eps; the closed form and autograd round in another order, so
+    # 1e-5 relative of the gradient's scale; the two kinds' bitwise alike
     mu_p, lv_p = mu.clone().requires_grad_(), logvar.clone().requires_grad_()
     zp, klp = reparam_kl_reference(mu_p, lv_p, eps)
     ((zp * g_z).sum() + (klp * g_kl).sum()).backward()
-    for got, want in ((mu_k.grad, mu_p.grad), (lv_k.grad, lv_p.grad)):
-        scale = max(1.0, float(want.abs().max()))
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    grads = {}
+    for kind, off in offsets.items():
+        mu_k = mu.clone().requires_grad_()
+        lv_k = logvar.clone().requires_grad_()
+        zk, klk = fused_reparam_kl(mu_k, lv_k, seed, off)
+        ((zk * g_z).sum() + (klk * g_kl).sum()).backward()
+        for got, want in ((mu_k.grad, mu_p.grad), (lv_k.grad, lv_p.grad)):
+            scale = max(1.0, float(want.abs().max()))
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * scale)
+        grads[kind] = (zk, klk, mu_k.grad, lv_k.grad)
+    if not all(torch.equal(a, b)
+               for a, b in zip(grads["tensor"], grads["int"])):
+        fail(f"elbo {shape}: the autograd Function's z, kl or gradients "
+             f"differ between the tensor and the int offset")
 
-    _, _, eps_same = reparam_kl_forward(mu, logvar, seed, offset)
-    _, _, eps_seed = reparam_kl_forward(mu, logvar, seed + 1, offset)
+    for kind, off in offsets.items():
+        _, _, eps_same = reparam_kl_forward(mu, logvar, seed, off)
+        _, _, eps_seed = reparam_kl_forward(mu, logvar, seed + 1, off)
+        if not torch.equal(eps, eps_same):
+            fail(f"elbo {shape}: the same (seed, offset) gave another eps "
+                 f"({kind} offset)")
+        if torch.equal(eps, eps_seed):
+            fail(f"elbo {shape}: another seed gave the same eps ({kind} "
+                 f"offset)")
     _, _, eps_off = reparam_kl_forward(mu, logvar, seed, offset + 1)
-    if not torch.equal(eps, eps_same):
-        fail(f"elbo {shape}: the same (seed, offset) gave another eps")
-    if torch.equal(eps, eps_seed) or torch.equal(eps, eps_off):
-        fail(f"elbo {shape}: another seed or offset gave the same eps")
+    if torch.equal(eps, eps_off):
+        fail(f"elbo {shape}: another offset gave the same eps")
 
     out = {"shape": list(shape), "max_abs_err": max_abs_err,
            "eps_bitwise_vs_plain": True,
+           "int_offset_bitwise_tensor_offset": True,
            "backward_max_abs_err": backward_err}
     if check_moments:
         mean = float(eps.mean())
@@ -526,9 +576,14 @@ def check_elbo(shape, check_moments: bool) -> dict:
     n = mu.numel()
     small = n < 100_000
     iters = 2000 if small else 200
-    out["ms"] = cuda_ms(lambda: reparam_kl_forward(mu, logvar, seed, offset),
+    out["ms"] = cuda_ms(lambda: reparam_kl_forward(mu, logvar, seed, slot),
                         iters)
     out["host_us"] = host_us_per_call(
+        lambda: reparam_kl_forward(mu, logvar, seed, slot), iters)
+    # an int offset: the fill that writes it to the card, then the kernel
+    out["int_offset_ms"] = cuda_ms(
+        lambda: reparam_kl_forward(mu, logvar, seed, offset), iters)
+    out["int_offset_host_us"] = host_us_per_call(
         lambda: reparam_kl_forward(mu, logvar, seed, offset), iters)
 
     def plain():
@@ -550,10 +605,10 @@ def check_elbo(shape, check_moments: bool) -> dict:
     pre = 4.0 * torch.randn(shape, generator=g, device="cuda")
 
     def alone(pdl):
-        return lambda: _launch(mu, logvar, seed, offset, pdl)
+        return lambda: _launch(mu, logvar, seed, slot, pdl)
 
     def chained(pdl):
-        return lambda: _launch(mu, pre.clamp(-10.0, 5.0), seed, offset, pdl)
+        return lambda: _launch(mu, pre.clamp(-10.0, 5.0), seed, slot, pdl)
 
     pdl = {f"{k}_{side}": [] for k in ("ms", "host_us", "device_ms",
                                        "chained_ms", "chained_graph_ms",
@@ -608,7 +663,8 @@ def check_elbo_start() -> dict:
     with ``start = 16·64`` must give rows 16–31 of the [32, 64] launch
     bitwise (ε, z and KL) and match its plain version (ε bitwise the plain
     Philox stream from ``start``, z and KL 1e-5 relative); ``start = 0`` is
-    the launch without it, bitwise."""
+    the launch without it, bitwise.  Each with the offset a 0-d int64
+    tensor on the card (the trainers' slot) and an int, bitwise alike."""
     import torch
 
     from betavae_tpu_torch.ops.elbo import (philox_normal,
@@ -618,36 +674,113 @@ def check_elbo_start() -> dict:
     g = torch.Generator(device="cuda").manual_seed(9)
     mu = torch.randn((32, 64), generator=g, device="cuda")
     logvar = torch.randn((32, 64), generator=g, device="cuda").clamp(-10, 5)
-    full = reparam_kl_forward(mu, logvar, 115, 7)
-    zero = reparam_kl_forward(mu, logvar, 115, 7, 0)
-    part = reparam_kl_forward(mu[16:], logvar[16:], 115, 7, 16 * 64)
-    torch.cuda.synchronize()
+    eps_plain = philox_normal((16, 64), 115, 7, device="cuda", start=16 * 64)
     names = ("z", "kl", "eps")
-    bitwise = {n: bool(torch.equal(a, b[16:]))
-               for n, a, b in zip(names, part, full)}
-    start_zero = all(torch.equal(a, b) for a, b in zip(full, zero))
-    eps_plain = bool(torch.equal(part[2], philox_normal(
-        (16, 64), 115, 7, device="cuda", start=16 * 64)))
-    z_ref, kl_ref = reparam_kl_reference(mu[16:], logvar[16:], part[2])
-    torch.testing.assert_close(part[0], z_ref, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(part[1], kl_ref, rtol=1e-5, atol=1e-6)
-    if not (all(bitwise.values()) and start_zero and eps_plain):
-        fail(f"elbo start: rows 16-31 bitwise {bitwise}, start 0 unchanged "
-             f"{start_zero}, eps the plain stream {eps_plain}")
+    out, parts = {}, {}
+    for kind, off in (("tensor", torch.full((), 7, dtype=torch.int64,
+                                            device="cuda")), ("int", 7)):
+        full = reparam_kl_forward(mu, logvar, 115, off)
+        zero = reparam_kl_forward(mu, logvar, 115, off, 0)
+        part = reparam_kl_forward(mu[16:], logvar[16:], 115, off, 16 * 64)
+        torch.cuda.synchronize()
+        bitwise = {n: bool(torch.equal(a, b[16:]))
+                   for n, a, b in zip(names, part, full)}
+        start_zero = all(torch.equal(a, b) for a, b in zip(full, zero))
+        plain = bool(torch.equal(part[2], eps_plain))
+        z_ref, kl_ref = reparam_kl_reference(mu[16:], logvar[16:], part[2])
+        torch.testing.assert_close(part[0], z_ref, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(part[1], kl_ref, rtol=1e-5, atol=1e-6)
+        if not (all(bitwise.values()) and start_zero and plain):
+            fail(f"elbo start ({kind} offset): rows 16-31 bitwise {bitwise}, "
+                 f"start 0 unchanged {start_zero}, eps the plain stream "
+                 f"{plain}")
+        parts[kind] = part
+        out[kind] = {"rows_bitwise": bitwise, "start_0_bitwise": start_zero,
+                     "eps_bitwise_vs_plain": plain,
+                     "max_abs_err": max(float((part[0] - z_ref).abs().max()),
+                                        float((part[1] - kl_ref).abs().max()))}
+    if not all(torch.equal(a, b) for a, b in zip(parts["tensor"],
+                                                  parts["int"])):
+        fail("elbo start: the int offset's rows differ from the tensor "
+             "offset's")
     return {"shape": [16, 64], "start": 16 * 64, "of": [32, 64],
-            "rows_bitwise": bitwise, "start_0_bitwise": start_zero,
-            "eps_bitwise_vs_plain": eps_plain,
-            "max_abs_err": max(float((part[0] - z_ref).abs().max()),
-                               float((part[1] - kl_ref).abs().max()))}
+            "int_offset_bitwise_tensor_offset": True, "by_offset": out,
+            "max_abs_err": max(o["max_abs_err"] for o in out.values())}
+
+
+def check_elbo_device_offset() -> dict:
+    """The forward, its offset in device memory, as a captured step replays
+    it, at the flagship's [32, 64]: one launch captured in a CUDA graph,
+    replayed with 3 offsets written to its slot, ε bitwise the plain
+    Philox stream at each and z and KL within 1e-5 relative of the plain
+    version, with programmatic dependent launch on and off; then the clamp
+    → forward chain replayed from a graph (2000 repetitions) with the
+    attribute off and on, in turns (off, on, on, off), beside the chain
+    with an int offset (its fill captured too).  ``default_pdl`` is the
+    wrapper's choice."""
+    import torch
+
+    from betavae_tpu_torch.ops import elbo
+    from betavae_tpu_torch.ops.elbo import (_launch, philox_normal,
+                                            reparam_kl_reference)
+
+    shape = ELBO_SHAPES[0]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    mu = torch.randn(shape, generator=g, device="cuda")
+    logvar = torch.randn(shape, generator=g, device="cuda").clamp(-10, 5)
+    pre = 4.0 * torch.randn(shape, generator=g, device="cuda")
+    offsets = (7, 2**31 + 100_000 + 3, 2**40 + 5)
+    replays, errs = {}, []
+    for pdl in (False, True):
+        slot = torch.zeros((), dtype=torch.int64, device="cuda")
+        _launch(mu, logvar, 115, slot, pdl)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            z, kl, eps = _launch(mu, logvar, 115, slot, pdl)
+        bitwise = []
+        for off in offsets:
+            slot.fill_(off)
+            graph.replay()
+            torch.cuda.synchronize()
+            bitwise.append(bool(torch.equal(
+                eps, philox_normal(shape, 115, off, device="cuda"))))
+            z_ref, kl_ref = reparam_kl_reference(mu, logvar, eps)
+            torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(kl, kl_ref, rtol=1e-5, atol=1e-6)
+            errs.append(max(float((z - z_ref).abs().max()),
+                            float((kl - kl_ref).abs().max())))
+        if not all(bitwise):
+            fail(f"elbo device offset (pdl {pdl}): eps the plain stream at "
+                 f"offsets {offsets}: {bitwise}")
+        replays["pdl_on" if pdl else "pdl_off"] = bitwise
+        del graph
+    slot = torch.full((), 7, dtype=torch.int64, device="cuda")
+    cases = {"device_pdl_off": lambda: _launch(
+                 mu, pre.clamp(-10.0, 5.0), 115, slot, False),
+             "device_pdl_on": lambda: _launch(
+                 mu, pre.clamp(-10.0, 5.0), 115, slot, True),
+             "int_offset_default": lambda: _launch(
+                 mu, pre.clamp(-10.0, 5.0), 115, 7)}
+    times = {name: [] for name in cases}
+    for name in ("device_pdl_off", "device_pdl_on", "int_offset_default",
+                 "int_offset_default", "device_pdl_on", "device_pdl_off"):
+        times[name].append(graph_ms(cases[name], 2000))
+    on, off = (statistics.mean(times[f"device_pdl_{k}"])
+               for k in ("on", "off"))
+    return {"shape": list(shape), "offsets": list(offsets),
+            "eps_bitwise_at_each_replayed_offset": replays,
+            "max_abs_err": max(errs), "chained_graph_ms": times,
+            "faster": "pdl_on" if on < off else "pdl_off",
+            "default_pdl": elbo.FORWARD_PDL}
 
 
 def elbo_pdl_trial() -> dict:
     """Where the cost of programmatic dependent launch in a CUDA graph comes
     from: the clamp → forward chain at [32, 64] replayed from a graph (2000
     repetitions), in turns, for the forward as built with the attribute off
-    and on, two variants of its source built here with the attribute on
-    (``wait_first``: the noise drawn after the wait, nothing started early;
-    ``no_trigger``: no ``launch_dependents``), and the clamp alone."""
+    and on, a variant of its source built here with the attribute on
+    (``no_trigger``: no ``launch_dependents``), and the clamp alone."""
     import ctypes
 
     import torch
@@ -657,16 +790,10 @@ def elbo_pdl_trial() -> dict:
     from betavae_tpu_torch.ops.elbo import _launch
 
     src = (_build.SRC_DIR / "elbo.cu").read_text()
-    early = ("  float e = i < n ? normal_at(start + i, key, offset) : 0.0f;\n"
-             "  wait_for_previous_grid();\n")
     trigger = "    if (first) allow_next_grid();\n"
-    if early not in src or trigger not in src:
-        fail("elbo pdl trial: the source no longer has the lines it varies")
-    texts = {"wait_first": src.replace(early, (
-                 "  wait_for_previous_grid();\n"
-                 "  float e = i < n ? normal_at(start + i, key, offset) "
-                 ": 0.0f;\n")),
-             "no_trigger": src.replace(trigger, "", 1)}
+    if trigger not in src:
+        fail("elbo pdl trial: the source no longer has the line it varies")
+    texts = {"no_trigger": src.replace(trigger, "", 1)}
     procs = {}
     for name, text in texts.items():
         cu = _build.BUILD_DIR / f"elbo_trial_{name}.cu"
@@ -682,7 +809,7 @@ def elbo_pdl_trial() -> dict:
             fail(f"elbo pdl trial: the {name} variant did not build:\n{log}")
         fn = ctypes.CDLL(str(so)).betavae_reparam_kl
         fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int64, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
         entries[name] = fn
@@ -691,20 +818,23 @@ def elbo_pdl_trial() -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
     mu = torch.randn(shape, generator=g, device="cuda")
     pre = 4.0 * torch.randn(shape, generator=g, device="cuda")
+    slot = torch.full((), 2, dtype=torch.int64, device="cuda")
 
     def variant(name):
         def chain():
             lv = pre.clamp(-10.0, 5.0)
             out = mu.new_empty((3, *shape))
             if entries[name](mu.data_ptr(), lv.data_ptr(), out.data_ptr(),
-                             mu.numel(), 1, 2, 0, raw_stream(mu.device), 1):
+                             mu.numel(), 1, slot.data_ptr(), 0,
+                             raw_stream(mu.device), 1):
                 fail(f"elbo pdl trial: the {name} variant did not launch")
             return out
         return chain
 
-    cases = {"pdl_off": lambda: _launch(mu, pre.clamp(-10.0, 5.0), 1, 2, False),
-             "pdl_on": lambda: _launch(mu, pre.clamp(-10.0, 5.0), 1, 2, True),
-             "wait_first_pdl_on": variant("wait_first"),
+    cases = {"pdl_off": lambda: _launch(mu, pre.clamp(-10.0, 5.0), 1, slot,
+                                        False),
+             "pdl_on": lambda: _launch(mu, pre.clamp(-10.0, 5.0), 1, slot,
+                                       True),
              "no_trigger_pdl_on": variant("no_trigger"),
              "clamp_alone": lambda: pre.clamp(-10.0, 5.0)}
     times = {name: [] for name in cases}
@@ -735,10 +865,16 @@ def elbo_host_split() -> dict:
     out2 = mu.new_empty((2, *shape))
     n = mu.numel()
     stream = raw_stream(mu.device)
+    slot = torch.full((), 7, dtype=torch.int64, device="cuda")
     pieces = {
-        "forward_call": lambda: elbo.reparam_kl_forward(mu, logvar, 115, 7),
+        "forward_call": lambda: elbo.reparam_kl_forward(mu, logvar, 115,
+                                                        slot),
+        "forward_call_int_offset": lambda: elbo.reparam_kl_forward(
+            mu, logvar, 115, 7),
+        "offset_fill": lambda: torch.full((), 7, dtype=torch.int64,
+                                          device="cuda"),
         "function_call_with_grad": lambda: elbo.fused_reparam_kl(
-            mu_g, lv_g, 115, 7),
+            mu_g, lv_g, 115, slot),
         "backward_call": lambda: elbo.reparam_kl_backward(mu, logvar, eps,
                                                           g_z, g_kl),
         "checks_forward": lambda: (elbo._fp32(mu), elbo._fp32(logvar),
@@ -749,8 +885,8 @@ def elbo_host_split() -> dict:
         "data_ptr_x3": lambda: (mu.data_ptr(), logvar.data_ptr(),
                                 out3.data_ptr()),
         "ctypes_forward_launch": lambda: forward(
-            mu.data_ptr(), logvar.data_ptr(), out3.data_ptr(), n, 115, 7, 0,
-            stream, 1),
+            mu.data_ptr(), logvar.data_ptr(), out3.data_ptr(), n, 115,
+            slot.data_ptr(), 0, stream, 0),
         "ctypes_backward_launch": lambda: backward(
             mu.data_ptr(), logvar.data_ptr(), eps.data_ptr(), g_z.data_ptr(),
             64, 1, g_kl.data_ptr(), 64, 1, out2.data_ptr(), n, 64, stream, 1),
@@ -1439,6 +1575,31 @@ def launches_per_step(kernels: dict, fused_head: bool, steps: int,
     return {name: steps * per_step.get(name, 0) for name in kernels}
 
 
+def capture_warmup(kernels: dict, fused_head: bool, train: int = 1,
+                   val: int = 0, blocks: int = FLAGSHIP_BLOCKS,
+                   recompute: bool = False) -> dict:
+    """Launches of the runs before each capture (``train/chunks.py``),
+    which ran on the card and count: CAPTURE_WARMUP train steps for each of
+    ``train`` captured train steps, CAPTURE_WARMUP validation batches for
+    each of ``val`` captured validation batches (a batch: the reparam+KL
+    forward, the head forward with the fused head, the upsample forward a
+    decoder block)."""
+    from betavae_tpu_torch.train.chunks import CAPTURE_WARMUP
+
+    out = launches_per_step(kernels, fused_head, CAPTURE_WARMUP * train,
+                            blocks=blocks, recompute=recompute)
+    batches = CAPTURE_WARMUP * val
+    out["fused_reparam_kl"] += batches
+    out["head_forward"] += batches * int(fused_head)
+    out["upsample_forward"] += batches * blocks
+    return out
+
+
+def plus(a: dict, b: dict) -> dict:
+    """``a`` + ``b``, key by key (``a``'s keys)."""
+    return {k: v + b.get(k, 0) for k, v in a.items()}
+
+
 def upsample_launches(decodes: int, backward_steps: int = 0,
                       blocks: int = FLAGSHIP_BLOCKS) -> dict:
     """The upsample kernels' launches of ``decodes`` decoder forwards, of
@@ -1483,7 +1644,10 @@ def check_small_slice(tmp: str, kernels: dict, fused_head: bool) -> dict:
         reset_logger()
     finally:
         torch.backends.cudnn.allow_tf32 = True
-    want = launches_per_step(kernels, fused_head, 3, blocks=SMALL_BLOCKS)
+    # 2 steps an epoch (16 images, batch 8): K = 2, one capture
+    want = plus(launches_per_step(kernels, fused_head, 3,
+                                  blocks=SMALL_BLOCKS),
+                capture_warmup(kernels, fused_head, blocks=SMALL_BLOCKS))
     # fp32 on both sides, summed in other orders; Adam carries the
     # difference into the next step: 1e-3 relative over three steps
     rel = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(gpu, cpu))
@@ -1535,12 +1699,19 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool,
     totals = out["totals"]
     if len(totals) != FLAGSHIP_STEPS or not all(map(math.isfinite, totals)):
         fail(f"flagship: expected {FLAGSHIP_STEPS} finite losses, got {totals}")
-    want = launches_per_step(
-        kernels, fused_head, FLAGSHIP_STEPS,
-        recompute=overrides.get("training.remat", False) is not False)
-    if launches != want:
-        fail(f"flagship (fused_head {fused_head}): kernel launches "
-             f"{launches} in {FLAGSHIP_STEPS} steps, want {want}")
+    recompute = overrides.get("training.remat", False) is not False
+    want = launches_per_step(kernels, fused_head, FLAGSHIP_STEPS,
+                             recompute=recompute)
+    # a host-fed split steps eagerly; the resident one captures its step
+    host_fed = overrides.get("training.max_device_dataset_mb") == 0
+    if not host_fed:
+        want = plus(want, capture_warmup(kernels, fused_head,
+                                         recompute=recompute))
+    if out["dispatch"] != ("eager: host feed" if host_fed
+                           else "cuda_graph") or launches != want:
+        fail(f"flagship (fused_head {fused_head}, {overrides}): dispatch "
+             f"{out['dispatch']}, kernel launches {launches} in "
+             f"{FLAGSHIP_STEPS} steps, want {want}")
     step_ms = out["timed_seconds"] / out["timed_steps"] * 1e3
     return {"phase": "flagship", "fused_head": fused_head,
             "overrides": overrides, "totals": totals,
@@ -1577,6 +1748,173 @@ def run_replay(tmp: str, kernels: dict) -> dict:
             "step_ms": [r["step_ms"] for r in runs],
             "launches": runs[0]["launches"]}
     return {"phase": "replay", **out}
+
+
+# the scan_chunks phase: FLAGSHIP_STEPS steps of one epoch (640 train
+# images, 20 batches of 32) at each K; K = 8 is 2 chunks and 4 single steps
+SCAN_KS = (1, 8, 20)
+SCAN_TRAIN_PER_CLASS, SCAN_TEST_PER_CLASS = 160, 16
+
+
+def scan_config(tmp: str, fused_head: bool, k: int, **overrides) -> str:
+    """The flagship at full width (``flagship_config``'s) with
+    ``training.scan_chunk_steps`` ``k`` over seeded 128 px demo data of
+    SCAN_TRAIN_PER_CLASS train images a class (an epoch of FLAGSHIP_STEPS
+    steps) and SCAN_TEST_PER_CLASS test images (2 validation batches)."""
+    from betavae_tpu_torch.data.demo import generate_demo_data
+
+    root = os.path.join(tmp, "scan_chunks")
+    name = f"k{k}_fused" if fused_head else f"k{k}"
+    name += "".join(f"_{key.split('.')[1]}-{v}"
+                    for key, v in overrides.items())
+    cfg = write_config("configs/beta_vae_se.yaml", root, name + ".yaml",
+                       **{"training.fused_head": fused_head,
+                          "training.scan_chunk_steps": k,
+                          "logging.log_every_n_steps": 1, **overrides})
+    if not os.path.isdir(os.path.join(root, "processed")):
+        generate_demo_data(os.path.join(root, "processed"),
+                           train_per_class=SCAN_TRAIN_PER_CLASS,
+                           test_per_class=SCAN_TEST_PER_CLASS, size=128)
+    return cfg
+
+
+def scan_run(tmp: str, kernels: dict, fused_head: bool, k: int,
+             **overrides) -> dict:
+    """FLAGSHIP_STEPS steps of ``train_steps`` at K = ``k``: finite totals,
+    the dispatch the trainer named (eager at K = 1, else CUDA graphs with
+    chunks of ``k``), each kernel's launches the derived count, and a
+    replay's launches one step's; step ms, capture seconds, peak memory."""
+    import gc
+
+    import torch
+
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.loop import train_steps
+
+    cfg = scan_config(tmp, fused_head, k, **overrides)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    out = train_steps(cfg, FLAGSHIP_STEPS)
+    launches = read_counts(kernels)
+    paths = head_paths(kernels)
+    reset_logger()
+    totals = out["totals"]
+    want_dispatch = "eager: scan_chunk_steps 1" if k == 1 else "cuda_graph"
+    want = launches_per_step(kernels, fused_head, FLAGSHIP_STEPS)
+    if k > 1:
+        want = plus(want, capture_warmup(kernels, fused_head))
+    per_replay = out["launches_per_replay"]
+    if (len(totals) != FLAGSHIP_STEPS or not all(map(math.isfinite, totals))
+            or out["dispatch"] != want_dispatch or out["chunk_k"] != k
+            or launches != want
+            or (k > 1 and per_replay != launches_per_step(
+                kernels, fused_head, 1))):
+        fail(f"scan_chunks (K {k}, fused_head {fused_head}, {overrides}): "
+             f"totals {totals}, dispatch {out['dispatch']} chunk K "
+             f"{out['chunk_k']}, launches {launches} (want {want}), a "
+             f"replay's {per_replay}")
+    step_ms = out["timed_seconds"] / out["timed_steps"] * 1e3
+    return {"k": k, "totals": totals, "step_ms": step_ms,
+            "timed_steps": out["timed_steps"],
+            "capture_seconds": out["capture_seconds"],
+            "launches": launches, "launches_per_replay": per_replay,
+            "head_launches_by_path": paths,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def run_scan_chunks(tmp: str, kernels: dict) -> dict:
+    """The JAX trainer's K-step dispatch on the card: FLAGSHIP_STEPS
+    flagship steps (one epoch) at K = 1 (eager), 8 (2 chunks of 8 replays
+    and 4 single steps) and 20 (one chunk), in bf16 with the default head
+    (K = 1, 8, 20, 20, 8, 1: the step ms in turns) and the fused head, and
+    in fp32 with the default head (``scan_run``): every total bitwise across
+    K; the device time a step (profiled, the capture not in the window) and
+    busy share at K = 1 and 20; then ``train()`` for 2 epochs with
+    validation at K = 3 (6 chunks and 2 single steps an epoch, the
+    validation pass replayed) against K = 1: every METRICS number bitwise
+    but the wall times, the same lines."""
+    out = {}
+    for tag, fused, overrides, order in (
+            ("default_head", False, {}, SCAN_KS + SCAN_KS[::-1]),
+            ("fused_head", True, {}, SCAN_KS),
+            ("default_head_fp32", False,
+             {"training.mixed_precision": False}, SCAN_KS)):
+        runs = [scan_run(tmp, kernels, fused, k, **overrides) for k in order]
+        first = runs[0]["totals"]
+        parted = {r["k"]: [i + 1 for i, (a, b) in
+                           enumerate(zip(first, r["totals"])) if a != b]
+                  for r in runs[1:]}
+        if any(parted.values()):
+            fail(f"scan_chunks ({tag}): totals part from K = 1's at steps "
+                 f"{parted}: {[r['totals'] for r in runs]}")
+        by_k = {k: [r for r in runs if r["k"] == k] for k in SCAN_KS}
+        out[tag] = {
+            "totals_bitwise_across_k": True, "totals": first,
+            "step_ms_in_turns": [[r["k"], r["step_ms"]] for r in runs],
+            "step_ms": {k: [r["step_ms"] for r in rs]
+                        for k, rs in by_k.items()},
+            "capture_seconds": {k: [r["capture_seconds"] for r in rs]
+                                for k, rs in by_k.items() if k > 1},
+            "peak_mem_gib": {k: max(r["peak_mem_gib"] for r in rs)
+                             for k, rs in by_k.items()},
+            "launches": {k: rs[0]["launches"] for k, rs in by_k.items()},
+            "launches_per_replay": {k: rs[0]["launches_per_replay"]
+                                    for k, rs in by_k.items() if k > 1}}
+    busy = {}
+    for k in (1, SCAN_KS[-1]):
+        step_ms = statistics.mean(out["default_head"]["step_ms"][k])
+        prof = profile_config(scan_config(tmp, False, k), step_ms,
+                              steps=FLAGSHIP_STEPS)
+        busy[k] = {key: prof[key] for key in (
+            "device_ms_per_step", "device_busy_share", "kernels_per_step",
+            "elbo_kernel_device_ms_per_step",
+            "elbo_backward_kernel_device_ms_per_step")}
+        busy[k]["top_kernels_ms_per_step"] = \
+            prof["top_kernels_ms_per_step"][:6]
+        # the launches counted a replay (K > 1) or a step (K = 1) against
+        # the kernels the profiler saw a step
+        counted = (out["default_head"]["launches_per_replay"][k] if k > 1
+                   else launches_per_step(kernels, False, 1))
+        seen = prof["launches_per_step_by_kernel"]
+        if any(seen[name] != counted[name] for name in seen):
+            fail(f"scan_chunks: K {k}: kernels a step in the profile {seen}, "
+                 f"counted {counted}")
+        busy[k]["launches_per_step_by_kernel"] = seen
+    out["profile_default_head"] = busy
+
+    lines = {}
+    for k in (1, 3):
+        cfg = scan_config(tmp, True, k, **{"training.epochs": 2,
+                                           "paths.run_id": f"train_k{k}"})
+        zero_counts(kernels)
+        trained, metrics = _train_lines(cfg)
+        lines[k] = {"launches": read_counts(kernels),
+                    "lines": [{key: v for key, v in m.items()
+                               if key not in SCAN_WALL_KEYS}
+                              for m in metrics if m["phase"] != "epoch_end"],
+                    "phases": [m["phase"] for m in metrics],
+                    "epochs": trained["epoch"],
+                    "total_steps": trained["total_steps"]}
+    # K = 3 captures its train step and its validation batch once each
+    if not (lines[1]["lines"] == lines[3]["lines"]
+            and lines[1]["phases"] == lines[3]["phases"]
+            and lines[1]["phases"].count("train") == 2 * FLAGSHIP_STEPS
+            and lines[3]["launches"] == plus(
+                lines[1]["launches"],
+                capture_warmup(kernels, True, train=1, val=1))):
+        fail(f"scan_chunks: train() at K = 3 against K = 1: {lines}")
+    out["train_k3_vs_k1"] = {
+        "lines_bitwise": True, "lines": len(lines[1]["lines"]),
+        "phases": lines[1]["phases"], "launches": lines[3]["launches"],
+        "total_steps": lines[3]["total_steps"]}
+    return {"phase": "scan_chunks", **out}
+
+
+# the METRICS keys that are wall times
+SCAN_WALL_KEYS = ("epoch_seconds", "train_steps_per_sec",
+                  "train_images_per_sec")
 
 
 # the scaled config's run: 2 train steps an epoch (2 × 256 images), one
@@ -1680,15 +2018,36 @@ def profile_config(cfg: str, step_ms: float, steps: int = 8,
     steps of ``train_steps`` on the config at ``cfg`` (on ``mesh`` when
     given); its busy share is the device time per step over ``step_ms``,
     an unprofiled run's step time.  ``collective_kernels_per_step`` counts
-    NCCL's kernels."""
+    NCCL's kernels, ``launches_per_step_by_kernel`` the hand-written
+    kernels' (``PROFILED_KERNELS``' names).  The profiler starts once the
+    trainer has captured its step (``TrainChunks.prepare``), so the
+    capture's warm-up steps are not counted: the window holds the ``steps``
+    steps alone, replayed or eager."""
+    import re
+    from unittest import mock
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train import chunks
     from betavae_tpu_torch.train.loop import train_steps
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_steps(cfg, steps, mesh=mesh)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prepare = chunks.TrainChunks.prepare
+
+    def prepare_then_profile(self, images):
+        seconds = prepare(self, images)
+        torch.cuda.synchronize()
+        prof.start()
+        return seconds
+
+    try:
+        with mock.patch.object(chunks.TrainChunks, "prepare",
+                               prepare_then_profile):
+            train_steps(cfg, steps, mesh=mesh)
+    finally:
+        prof.stop()
     reset_logger()
     # device activity only: kernels, copies and fills, not the ranges that
     # annotations such as Optimizer.step project onto the device track
@@ -1723,6 +2082,10 @@ def profile_config(cfg: str, step_ms: float, steps: int = 8,
             "kernels_per_step": len(work) / steps,
             "collective_kernels_per_step": sum(
                 "nccl" in e.name.lower() for e in work) / steps,
+            "launches_per_step_by_kernel": {
+                name: sum(re.search(pattern, e.name) is not None
+                          for e in work) / steps
+                for name, (pattern, _) in PROFILED_KERNELS.items()},
             "collective_device_ms_per_step": sum(
                 ms for name, ms in per_kernel.items()
                 if "nccl" in name.lower()),
@@ -1865,6 +2228,9 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
             "reparam_kl_backward": train_steps,
             "gn_forward": 0, "gn_backward": 0,
             **upsample_launches(decodes, train_steps)}
+    # the two train() calls each capture a train step and a validation
+    # batch
+    want = plus(want, capture_warmup(kernels, True, train=2, val=2))
     if launches != want:
         fail(f"epochs: kernel launches {launches}, want {want}")
     return {"phase": "epochs", "epochs": EPOCHS_TOTAL,
@@ -2026,10 +2392,11 @@ def run_reference_ckpt(tmp: str, kernels: dict) -> dict:
              for tag, r in runs.items()}
     steps = runs["reference"]["out"]["total_steps"] - first["reference"][
         "step"] + 1
-    want = {"head_forward": steps + 1 + 1, "head_m": steps,
-            "fused_reparam_kl": steps + 1, "reparam_kl_backward": steps,
-            "gn_forward": 0, "gn_backward": 0,
-            **upsample_launches(steps + 1 + 1, steps)}
+    want = plus({"head_forward": steps + 1 + 1, "head_m": steps,
+                 "fused_reparam_kl": steps + 1, "reparam_kl_backward": steps,
+                 "gn_forward": 0, "gn_backward": 0,
+                 **upsample_launches(steps + 1 + 1, steps)},
+                capture_warmup(kernels, True, train=1, val=1))
     total_rel = _rel(first["reference"]["train_total_loss"],
                      first["native"]["train_total_loss"])
     if not (first["reference"]["epoch"] == EPOCHS_TOTAL + 1
@@ -2304,9 +2671,13 @@ def run_host_feed(tmp: str, kernels: dict) -> dict:
     rel = {tag: [_rel(a, b) for a, b in zip(r["totals"], dev)]
            for tag, r in runs.items() if tag != "device"}
     host = runs["host"]
+    # the device-fed runs capture a train step and a validation batch, the
+    # host-fed one steps eagerly
     if not (len(host["totals"]) == len(dev) > 1
             and host["totals"] == dev == runs["device_rerun"]["totals"]
-            and host["launches"] == runs["device"]["launches"]):
+            and runs["device"]["launches"] == plus(
+                host["launches"],
+                capture_warmup(kernels, True, train=1, val=1))):
         fail(f"host_feed: totals {host['totals']} vs device {dev}, launches "
              f"{host['launches']} vs {runs['device']['launches']}")
     ds = e2e_train_split(tmp)
@@ -3167,6 +3538,8 @@ def run_debug_config(tmp: str, kernels: dict) -> dict:
             # the train steps, validation batches and an epoch's panel
             **upsample_launches(steps + out["epoch"] * (val_batches + 1),
                                 steps)}
+    # one captured train step and validation batch
+    want = plus(want, capture_warmup(kernels, False, train=1, val=1))
     got = {name: launches[name] for name in want}
     if (out["epoch"], steps) != (int(debug["epochs"]), int(debug["epochs"])
                                  * int(debug["max_train_batches"])) \
@@ -3269,8 +3642,11 @@ def run_demo_notebook(tmp: str, kernels: dict) -> dict:
                 "fused_reparam_kl": fwd, "reparam_kl_backward": bwd,
                 **upsample_launches(decodes, bwd, blocks=DEMO_BLOCKS)}
 
-    want = {"train": cell(steps + epochs * val_batches, steps,
-                          steps + epochs * (val_batches + 1)),
+    # train() captures one train step and one validation batch
+    want = {"train": plus(cell(steps + epochs * val_batches, steps,
+                               steps + epochs * (val_batches + 1)),
+                          capture_warmup(kernels, False, train=1, val=1,
+                                         blocks=DEMO_BLOCKS)),
             "evaluate_full": cell(test_batches + 1, 0, test_batches + 2),
             "reconstructions": cell(0, 0, 1)}
     got, prev = {}, {name: 0 for name in kernels}
@@ -3597,7 +3973,8 @@ def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
 
     # (c) the bench's --data-parallel line over one NCCL rank
     zero_counts(kernels)
-    line = bench.main(["--data-parallel", "1", "--skip-e2e", "--steps", "96",
+    line = bench.main(["--data-parallel", "1", "--skip-e2e",
+                       "--scan-chunk", "32", "--steps", "96",
                        "--warmup", "32"])
     bench_launches = read_counts(kernels)
     n_params = sum(p.numel() for p in bench.flagship_model(
@@ -3679,12 +4056,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False")
     # the port itself: absent when this script stands alone
     from betavae_tpu_torch import _build
-    from betavae_tpu_torch.ops.elbo import (fused_reparam_kl,
-                                            reparam_kl_backward)
-    from betavae_tpu_torch.ops.gn import gn_backward, gn_forward
-    from betavae_tpu_torch.ops.head import head_forward, head_m
-    from betavae_tpu_torch.ops.upsample import (upsample2x_backward,
-                                                upsample2x_forward)
+    from betavae_tpu_torch.ops import kernel_wrappers
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3721,6 +4093,9 @@ def main() -> None:
           "shape": list(ELBO_SHAPES[0]), "host_us": elbo_host_split()})
     emit({"phase": "kernel", "name": "elbo_pdl_trial", "card": card,
           **elbo_pdl_trial()})
+    elbo_device = check_elbo_device_offset()
+    emit({"phase": "kernel", "name": "elbo_device_offset", "card": card,
+          **elbo_device})
     heads = [check_head(shape, dtype) for shape, dtype in HEAD_CASES]
     emit({"phase": "kernel", "name": "fused_se_conv_head", "card": card,
           "cases": heads})
@@ -3735,16 +4110,10 @@ def main() -> None:
     ups = [check_upsample(shape, dtype) for shape, dtype in UPSAMPLE_CASES]
     emit({"phase": "kernel", "name": "upsample2x", "card": card,
           "cases": ups})
+    kernels = kernel_wrappers()
     # the path totals count the main paths' launches from here on
-    for wrapper in (upsample2x_forward, upsample2x_backward):
-        wrapper.launches_by_path.update(vector=0, generic=0)
-
-    kernels = {"fused_reparam_kl": fused_reparam_kl,
-               "reparam_kl_backward": reparam_kl_backward,
-               "head_forward": head_forward, "head_m": head_m,
-               "gn_forward": gn_forward, "gn_backward": gn_backward,
-               "upsample_forward": upsample2x_forward,
-               "upsample_backward": upsample2x_backward}
+    for name in UPSAMPLE_PATH_TOTALS:
+        kernels[name].launches_by_path.update(vector=0, generic=0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         emit(check_small_slice(tmp, kernels, fused_head=False))
         emit(check_small_slice(tmp, kernels, fused_head=True))
@@ -3757,6 +4126,9 @@ def main() -> None:
         replay = run_replay(tmp, kernels)
         replay["card"] = card
         emit(replay)
+        scan = run_scan_chunks(tmp, kernels)
+        scan["card"] = card
+        emit(scan)
         scaled = run_scaled(tmp, kernels)
         scaled["card"] = card
         emit(scaled)
@@ -3858,6 +4230,12 @@ def main() -> None:
                 "scripts": scripts["launches"][name],
                 **{f"replay_{head}": r["launches"][name]
                    for head, r in replay.items() if isinstance(r, dict)},
+                **{f"scan_chunks_{head}_k{k}": launches[name]
+                   for head in ("default_head", "fused_head",
+                                "default_head_fp32")
+                   for k, launches in scan[head]["launches"].items()},
+                "scan_chunks_train_k3": scan["train_k3_vs_k1"]["launches"][
+                    name],
                 "scaled": scaled["launches"][name]}
 
     emit({"kernels": [{
@@ -3873,12 +4251,18 @@ def main() -> None:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": None,
+        # an int offset: the wrapper writes it to the card first (a fill)
+        "int_offset_ms": row["int_offset_ms"],
         # the kernel alone on the device in the flagship steps (profiler),
         # where "ms" above is a launch through the wrapper, host included
         "device_ms": profiled["elbo_kernel_device_ms_per_step"],
         "check": "ok",
         "card": card,
         "start_check": elbo_start,
+        # the trainers' entry: the offset read from device memory, one
+        # capture replayed at 3 offsets, and the clamp → forward chain in a
+        # graph with programmatic dependent launch off and on
+        "device_offset": elbo_device,
         "shapes": {k: {f: v for f, v in c.items() if f != "backward"}
                    for k, c in elbo.items()},
     }, {

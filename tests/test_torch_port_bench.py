@@ -103,9 +103,11 @@ def test_headline_fields_match_jax_bench(e2e, vs):
 @pytest.mark.parametrize("size,batch,steps,warmup", [
     (128, 32, 384, 192), (32, 4, 1, 1), (64, 8, 2, 2), (48, 16, 100, 1)])
 def test_cpu_derating_matches_jax_bench(size, batch, steps, warmup):
-    fields = ("image_size", "batch_size", "steps", "warmup", "skip_e2e")
+    fields = ("image_size", "batch_size", "steps", "warmup", "scan_chunk",
+              "skip_e2e")
     port = argparse.Namespace(image_size=size, batch_size=batch,
-                              steps=steps, warmup=warmup, skip_e2e=False)
+                              steps=steps, warmup=warmup, scan_chunk=192,
+                              skip_e2e=False)
     ref = argparse.Namespace(image_size=size, batch_size=batch, steps=steps,
                              warmup=warmup, skip_e2e=False, scan_chunk=192,
                              data_parallel=0)
@@ -202,3 +204,22 @@ def test_prng_check_and_canary_skip_on_the_cpu():
     cpu = torch.device("cpu")
     assert bench._prng_self_check(cpu) == "skipped (cpu)"
     assert bench._kernel_canary(cpu) == "skipped (cpu)"
+
+
+@pytest.mark.parametrize("argv,parsed,derated", [
+    ([], 192, 2), (["--scan-chunk", "16"], 16, 2),
+    (["--scan-chunk", "1"], 1, 1)])
+def test_scan_chunk_parses_and_is_lowered_to_2_on_the_cpu(argv, parsed,
+                                                          derated):
+    """``--scan-chunk K``: the JAX flag's default (192) and meaning, K
+    steps a dispatch; the CPU's derated check lowers it to 2, as the JAX
+    bench's ``_derate_args_for_cpu`` does, and keeps a smaller K."""
+    args = bench.parse_args(argv)
+    assert args.scan_chunk == parsed
+    ref = argparse.Namespace(image_size=args.image_size,
+                             batch_size=args.batch_size, steps=args.steps,
+                             warmup=args.warmup, skip_e2e=False,
+                             scan_chunk=parsed, data_parallel=0)
+    bench._derate_args_for_cpu(args)
+    jax_bench._derate_args_for_cpu(ref)
+    assert args.scan_chunk == ref.scan_chunk == derated

@@ -35,6 +35,7 @@ from betavae_tpu_torch.ops.upsample import (bilinear_upsample_x2,
                                             upsample2x_forward,
                                             upsample2x_reference,
                                             upsample_path)
+from betavae_tpu_torch.train.chunks import CAPTURE_WARMUP
 
 
 @pytest.fixture
@@ -192,8 +193,9 @@ def test_forward_waits_for_the_kernel_that_writes_its_inputs(cuda_device):
 def test_one_forward_and_one_backward_launch_per_train_step(cuda_device,
                                                             tmp_path):
     """Three steps of a small flagship-shaped config (capacity objective,
-    FFL) through ``train_steps``: each launches the forward kernel once and
-    the backward kernel once."""
+    FFL) through ``train_steps``, replays of a captured step: each launches
+    the forward kernel once and the backward kernel once, and so does each
+    of the warm-up steps run before the capture."""
     from betavae_tpu_torch.config import reset_config_cache
     from betavae_tpu_torch.data.demo import generate_demo_data
     from betavae_tpu_torch.logging_utils import reset_logger
@@ -219,8 +221,11 @@ def test_one_forward_and_one_backward_launch_per_train_step(cuda_device,
     finally:
         reset_logger()
         reset_config_cache()
-    assert out["steps"] == 3
-    assert (fused_reparam_kl.launches, reparam_kl_backward.launches) == (3, 3)
+    assert out["steps"] == 3 and out["dispatch"] == "cuda_graph"
+    assert out["launches_per_replay"]["fused_reparam_kl"] == out[
+        "launches_per_replay"]["reparam_kl_backward"] == 1
+    assert (fused_reparam_kl.launches, reparam_kl_backward.launches) == (
+        3 + CAPTURE_WARMUP, 3 + CAPTURE_WARMUP)
 
 
 def _head_inputs(shape, dtype, device, seed=0):
@@ -641,7 +646,8 @@ def test_remat_on_the_card_under_bf16(cuda_device, tmp_path, mode):
     """``training.remat`` with bf16 autocast and the fused head on the
     card: the first total bitwise the no-remat one (the forward does not
     change) and the launches of a step unchanged (reparam+KL forward and
-    backward, head forward and M, once each)."""
+    backward, head forward and M, once each, in the 4 steps and in the
+    warm-up steps before the capture)."""
     wrappers = (fused_reparam_kl, reparam_kl_backward, head_forward, head_m)
     runs = []
     for remat in (False, mode):
@@ -649,7 +655,7 @@ def test_remat_on_the_card_under_bf16(cuda_device, tmp_path, mode):
             w.launches = 0
         runs.append(_few_steps(_small_flagship(
             tmp_path, mixed_precision=True, remat=remat), 4))
-        assert [w.launches for w in wrappers] == [4, 4, 4, 4]
+        assert [w.launches for w in wrappers] == [4 + CAPTURE_WARMUP] * 4
     assert runs[1][0] == runs[0][0]
 
 
@@ -810,14 +816,16 @@ def test_upsample_kernels_refuse_other_dtypes(cuda_device):
 def test_train_steps_replay_bitwise_on_the_card(cuda_device, tmp_path):
     """Four bf16 steps of the small flagship-shaped config with the fused
     head, twice from the same seed: every total bitwise equal, and the
-    upsample kernels launched once a decoder block a step each way."""
+    upsample kernels launched once a decoder block a step each way (the
+    warm-up steps before the capture too)."""
     path = _small_flagship(tmp_path, mixed_precision=True)
     runs = []
     for _ in range(2):
         upsample2x_forward.launches = upsample2x_backward.launches = 0
         runs.append(_few_steps(path, 4))
         assert (upsample2x_forward.launches,
-                upsample2x_backward.launches) == (2 * 4, 2 * 4)
+                upsample2x_backward.launches) == (
+                    2 * (4 + CAPTURE_WARMUP), 2 * (4 + CAPTURE_WARMUP))
     assert runs[0] == runs[1]
 
 
@@ -839,3 +847,103 @@ def test_fp32_train_steps_replay_bitwise_on_the_card(cuda_device, tmp_path):
     finally:
         cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags[3:]
     assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_device_offset_kernel_replayed_in_a_graph_draws_each_offset(
+        cuda_device):
+    """The forward, its offset in device memory, captured once in a CUDA
+    graph and replayed with 3 offsets written there: each replay's ε is
+    bitwise the plain Philox stream at its offset (an offset fixed at the
+    capture would repeat the capture's), z and KL within 1e-5 of the plain
+    version given that ε, with and without programmatic dependent launch;
+    an int offset, written to device memory by the wrapper, draws bitwise
+    the same as the tensor."""
+    from betavae_tpu_torch.ops.elbo import _launch
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    mu = torch.randn((32, 64), generator=g, device=cuda_device)
+    logvar = torch.randn((32, 64), generator=g,
+                         device=cuda_device).clamp(-10, 5)
+    for pdl in (True, False):
+        offset = torch.zeros((), dtype=torch.int64, device=cuda_device)
+        _launch(mu, logvar, 115, offset, pdl)          # load the module
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            z, kl, eps = _launch(mu, logvar, 115, offset, pdl)
+        for off in (3, 2**31 + 7, 2**40 + 1):
+            offset.fill_(off)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(eps, philox_normal((32, 64), 115, off,
+                                                  device=cuda_device))
+            z_ref, kl_ref = reparam_kl_reference(mu, logvar, eps)
+            torch.testing.assert_close(z, z_ref, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(kl, kl_ref, rtol=1e-5, atol=1e-6)
+            for got, want in zip(_launch(mu, logvar, 115, off, pdl),
+                                 (z, kl, eps)):
+                assert torch.equal(got, want)
+
+
+def _chunk_flagship(tmp_path, k: int) -> str:
+    """``_small_flagship`` with 8 steps an epoch (64 train images) and
+    ``scan_chunk_steps`` ``k``, under ``tmp_path/k<k>``."""
+    from betavae_tpu_torch.data.demo import generate_demo_data
+
+    data = tmp_path / "chunk_data"
+    if not data.exists():
+        generate_demo_data(data, train_per_class=16, test_per_class=1,
+                           size=32)
+    (tmp_path / f"k{k}").mkdir(exist_ok=True)
+    path = Path(_small_flagship(tmp_path / f"k{k}", scan_chunk_steps=k))
+    cfg = yaml.safe_load(path.read_text())
+    cfg["paths"]["processed_dir"] = str(data)
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+@pytest.mark.cuda
+def test_captured_step_replayed_8_times_is_8_eager_steps(cuda_device,
+                                                         tmp_path):
+    """``train_steps`` of the small fused flagship (bf16, capacity, FFL,
+    augmentation), 8 steps: one chunk of 8 replays of the captured step
+    against ``scan_chunk_steps: 1`` (eager), from one seed: every total
+    and every final weight bitwise; each kernel's launches a replay are
+    the eager step's (reparam+KL forward and backward once, the head's
+    two once, the upsample's twice each), and the counts the eager run's
+    plus the capture's warm-up steps (8 + 2 of each)."""
+    from betavae_tpu_torch.config import reset_config_cache
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.ops import kernel_wrappers
+    from betavae_tpu_torch.train.loop import train_steps
+
+    runs = {}
+    for k in (1, 8):
+        for w in kernel_wrappers().values():
+            w.launches = 0
+        reset_config_cache()
+        reset_logger()
+        try:
+            out = train_steps(_chunk_flagship(tmp_path, k), 8, device="cuda")
+        finally:
+            reset_logger()
+            reset_config_cache()
+        runs[k] = (out, {n: w.launches for n, w in kernel_wrappers().items()})
+    (eager, eager_n), (graph, graph_n) = runs[1], runs[8]
+    assert eager["dispatch"] == "eager: scan_chunk_steps 1"
+    assert graph["dispatch"] == "cuda_graph"
+    assert graph["chunk_k"] == 8 and graph["capture_seconds"] > 0
+    assert graph["totals"] == eager["totals"] and len(eager["totals"]) == 8
+    for (name, a), b in zip(eager["model"].state_dict().items(),
+                            graph["model"].state_dict().values()):
+        assert torch.equal(a, b), name
+    per_replay = graph["launches_per_replay"]
+    assert per_replay["fused_reparam_kl"] == per_replay[
+        "reparam_kl_backward"] == 1
+    assert per_replay["head_forward"] == per_replay["head_m"] == 1
+    assert per_replay["upsample_forward"] == per_replay[
+        "upsample_backward"] == 2
+    assert graph_n == {name: n + CAPTURE_WARMUP * per_replay[name]
+                       for name, n in eager_n.items()}
+    assert eager_n["fused_reparam_kl"] == eager_n["head_m"] == 8
+    assert graph_n["fused_reparam_kl"] == 8 + CAPTURE_WARMUP

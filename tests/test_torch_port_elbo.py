@@ -190,3 +190,46 @@ def test_start_draws_the_rows_of_the_whole_batch(rows, world):
         assert torch.equal(zf, z_full[sl]) and torch.equal(klf, kl_full[sl])
     with pytest.raises(ValueError, match="start"):
         philox_normal((2, 64), 115, 7, start=-1)
+
+
+@pytest.mark.parametrize("offset", [7, 2**31 + 100_000 + 3, 2**40 + 5],
+                         ids=["step", "val", "high-word"])
+@pytest.mark.parametrize("rows,world", [(8, 1), (16, 2), (1, 32)])
+def test_device_offset_is_the_int_offset_bitwise(offset, rows, world):
+    """The offset as a 0-d int64 tensor (a captured step's slot) gives
+    bitwise the int offset's ε, z and KL, at every rank's ``start``, in the
+    plain Philox, ``reparam_kl_forward`` and the autograd wrapper, whose
+    gradients are bitwise too; KL matches the JAX kernel's (interpreter)
+    and z the JAX formula on this ε, at the tolerance above (1e-5 relative,
+    atol 1e-6)."""
+    shape = (rows * world, 64)
+    dev_offset = torch.tensor(offset, dtype=torch.int64)
+    mu_np, logvar_np = _inputs(6, shape)
+    mu, logvar = torch.from_numpy(mu_np), torch.from_numpy(logvar_np)
+    for r in range(world):
+        sl, start = slice(r * rows, (r + 1) * rows), r * rows * 64
+        assert torch.equal(
+            philox_normal((rows, 64), 115, dev_offset, start=start),
+            philox_normal((rows, 64), 115, offset, start=start))
+        want = reparam_kl_forward(mu[sl], logvar[sl], 115, offset, start)
+        got = reparam_kl_forward(mu[sl], logvar[sl], 115, dev_offset, start)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        grads = []
+        for off in (offset, dev_offset):
+            m = mu[sl].clone().requires_grad_()
+            lv = logvar[sl].clone().requires_grad_()
+            z, kl = fused_reparam_kl(m, lv, 115, off, start)
+            ((z * 3.0).sum() + kl.sum()).backward()
+            grads.append((z.detach(), kl.detach(), m.grad, lv.grad))
+        for g, w in zip(*grads):
+            assert torch.equal(g, w)
+    _, kl_jax, _ = _jax_interpret(mu_np, logvar_np)
+    z, kl, eps = reparam_kl_forward(mu, logvar, 115, dev_offset)
+    np.testing.assert_allclose(kl.numpy(), kl_jax, rtol=1e-5, atol=1e-6)
+    z_jax = jnp.asarray(mu_np) + jnp.asarray(eps.numpy()) * jnp.exp(
+        0.5 * jnp.asarray(logvar_np))
+    np.testing.assert_allclose(z.numpy(), np.asarray(z_jax), rtol=1e-5,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="0-d int64"):
+        reparam_kl_forward(mu, logvar, 115, dev_offset.to(torch.int32))

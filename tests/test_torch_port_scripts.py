@@ -629,10 +629,8 @@ RENAMED = {"betavae_tpu/io/torch_compat.py": "betavae_tpu_torch/io/weights.py",
               for k in ("elbo", "gn", "head")}}
 JAX_MODULES = sorted(str(p.relative_to(ROOT))
                      for p in (ROOT / "betavae_tpu").rglob("*.py"))
-FLAGS_BY_DESIGN = {
-    ("bench.py", "--scan-chunk"): "it sets K, the train steps a lax.scan "
-                                  "dispatch runs; the port launches each "
-                                  "step from the host"}
+# none: bench.py's --scan-chunk, the last, sets the port's K too
+FLAGS_BY_DESIGN: dict = {}
 # the JAX scripts that take positional arguments from sys.argv, as the
 # port's counterparts do
 POSITIONAL_ONLY = {"scripts/fix_steps.py"}

@@ -32,6 +32,7 @@ from betavae_tpu.train.optim import build_optimizer as jax_build_optimizer
 
 from betavae_tpu_torch.config import Frozen, get_config, reset_config_cache
 from betavae_tpu_torch.data import augment
+from betavae_tpu_torch.data.pipeline import gather_batch
 from betavae_tpu_torch.io.weights import params_from_jax
 from betavae_tpu_torch.models.beta_vae import model_from_config
 from betavae_tpu_torch.models.losses import loss_spec_from_config
@@ -291,7 +292,11 @@ def test_three_steps_match_jax_make_train_step(norm, lpips, demo_config_factory,
                             jnp.asarray(mask), jax.random.fold_in(root, j),
                             {k: jnp.float32(v) for k, v in sched.items()})
         got = pstep(torch.from_numpy(images), torch.from_numpy(idx).long(),
-                    torch.from_numpy(mask), sched, j)
+                    torch.from_numpy(mask), sched, j,
+                    step_module.draw_step_augment(
+                        torch.Generator(), 0, j, B,
+                        {"use_flip": False, "degrees": 0.0,
+                         "brightness_range": 0.0}))
         assert set(got) == set(want)
         for k in want:
             assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-4,
@@ -317,3 +322,112 @@ def test_three_steps_match_jax_make_train_step(norm, lpips, demo_config_factory,
             continue
         np.testing.assert_allclose(ours[k].numpy(), v.numpy(), rtol=1e-4,
                                    atol=2e-6, err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# the captured step's form: a slot's tensors and pre-drawn augmentation
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("capacity", [True, False], ids=["capacity", "beta"])
+def test_slot_step_with_predrawn_augmentation_is_the_step_bitwise(
+        capacity, demo_config_factory):
+    """The step as a captured chunk calls it (the schedule as 0-d fp32
+    tensors, the step index as a 0-d int64 tensor) against the step called
+    with floats and an int, on two copies of one model over four steps
+    (flip, 10° rotation, brightness; FFL; free bits in beta mode): every
+    metric, parameter, buffer and moment bitwise.  The augmentation's
+    uniforms, drawn ahead by ``draw_step_augment``, applied to the step's
+    batch give bitwise ``augment_batch`` with a generator seeded from
+    ``(seed, step)``, the step's augmentation when it drew its own."""
+    path = demo_config_factory(
+        image_size=16, latent_dim=6, base_channels=4, num_blocks=2,
+        batch_size=B, **{"loss.use_ffl": True, "loss.ffl_weight": 0.5,
+                         "loss.free_bits": 0.05, "optimization.lr": 1e-3})
+    cfg = get_config(path)
+    aug = {"use_flip": True, "degrees": 10.0, "brightness_range": 0.2}
+    runs = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        model = model_from_config(cfg, device="cpu")
+        opt = build_optimizer(model.parameters(), cfg)
+        runs.append((model, opt, make_train_step(
+            model, opt, loss_spec_from_config(cfg), aug_kwargs=aug,
+            use_capacity=capacity, seed=3)))
+    runs[1][0].load_state_dict(runs[0][0].state_dict())
+    rng = np.random.default_rng(8)
+    images = torch.from_numpy(rng.integers(0, 256, (N, 16, 16, 1),
+                                           dtype=np.uint8))
+    gen = torch.Generator()
+    for j in range(1, 5):
+        idx = torch.from_numpy(rng.permutation(N)[:B]).long()
+        mask = torch.tensor([1.0, 1.0, 1.0, 0.0 if j == 4 else 1.0])
+        sched = {"beta": 0.3 * j, "capacity": 2.5 * j,
+                 "capacity_weight": 1.5, "free_bits": 0.05,
+                 "lr": 1e-3 / j}
+        draws = step_module.draw_step_augment(gen, 3, j, B, aug)
+        x = gather_batch(images, idx)
+        seeded = torch.Generator().manual_seed(step_module.augment_seed(3, j))
+        assert torch.equal(augment.apply_augment(x, draws, **aug),
+                           augment.augment_batch(x, seeded, **aug))
+        want = runs[0][2](images, idx, mask, sched, j, draws.clone())
+        got = runs[1][2](images, idx, mask,
+                         {k: torch.tensor(v, dtype=torch.float32)
+                          for k, v in sched.items()},
+                         torch.tensor(j, dtype=torch.int64), draws=draws)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), (j, k)
+    for a, b in zip(runs[0][0].state_dict().values(),
+                    runs[1][0].state_dict().values()):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[0][1].state_tensors(), runs[1][1].state_tensors()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.1], ids=["no-decay", "decay"])
+@pytest.mark.parametrize("optimizer", ["adam", "adamw", "sgd"])
+def test_device_update_matches_optax_over_five_steps(optimizer, wd):
+    """Five updates with the learning rate a 0-d tensor and changed each
+    step, after the clip: the parameters, and for adam/adamw the moments
+    and the step count that sets both bias corrections (1 − 0.9ᵗ,
+    1 − 0.999ᵗ), against optax's state; 1e-5 relative (atol 1e-7), the
+    update test's tolerance above.  The count is one tensor that every
+    parameter's ``step`` shares."""
+    raw = {"optimization": {"optimizer": optimizer, "lr": 1e-2,
+                            "weight_decay": wd},
+           "training": {"grad_clip": 2.0}}
+    params = _grads(11)
+    tx = jax_build_optimizer(JaxFrozen(raw))
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    chain = build_optimizer([tp["a"], tp["b"]], Frozen(raw))
+    for i, lr in enumerate((1e-2, 7e-3, 5e-3, 2e-3, 1e-3)):
+        g = _grads(30 + i)
+        state.hyperparams["learning_rate"] = jnp.asarray(lr)
+        upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
+                               state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for k in tp:
+            tp[k].grad = torch.from_numpy(g[k].copy())
+        chain.step(torch.tensor(lr, dtype=torch.float32))
+    for k in tp:
+        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
+                                   rtol=1e-5, atol=1e-7)
+    if optimizer == "sgd":
+        return
+    is_adam = lambda s: isinstance(s, optax.ScaleByAdamState)  # noqa: E731
+    adam = next(s for s in jax.tree_util.tree_leaves(
+        state.inner_state, is_leaf=is_adam) if is_adam(s))
+    assert int(adam.count) == 5
+    st = chain.optimizer.state
+    assert all(st[p]["step"] is st[tp["a"]]["step"] for p in tp.values())
+    assert float(st[tp["a"]]["step"]) == 5.0
+    for k, p in tp.items():
+        np.testing.assert_allclose(st[p]["exp_avg"].numpy(),
+                                   np.asarray(adam.mu[k]), rtol=1e-5,
+                                   atol=1e-7)
+        np.testing.assert_allclose(st[p]["exp_avg_sq"].numpy(),
+                                   np.asarray(adam.nu[k]), rtol=1e-5,
+                                   atol=1e-9)

@@ -53,6 +53,7 @@ from betavae_tpu_torch.ops.elbo import fused_reparam_kl
 from betavae_tpu_torch.ops.head import head_forward, head_m
 from betavae_tpu_torch.train.__main__ import main
 from betavae_tpu_torch.train.callbacks import CheckpointManager, EarlyStopping
+from betavae_tpu_torch.train.chunks import chunk_plan
 from betavae_tpu_torch.io.weights import params_from_jax
 from betavae_tpu_torch.train.loop import train
 from betavae_tpu_torch.utils import profile_step
@@ -666,8 +667,8 @@ def _recording_steps(monkeypatch, module, raises: bool) -> list:
 
 
 def _bench_steady(path) -> None:
-    """The bench's steady loop over a tiny model, one warm-up and 3 × 1
-    timed steps."""
+    """The bench's steady loop over a tiny model, one warm-up chunk and
+    3 × 1 timed chunks of 2 steps."""
     from types import SimpleNamespace
 
     from betavae_tpu_torch.bench import _steady_state
@@ -676,7 +677,7 @@ def _bench_steady(path) -> None:
     model = BetaVAEModule(image_size=16, in_channels=1, latent_dim=4,
                           base_channels=4, num_blocks=2)
     _steady_state(model, SimpleNamespace(batch_size=4, image_size=16,
-                                         steps=1, warmup=1),
+                                         steps=1, warmup=1, scan_chunk=2),
                   torch.device("cpu"))
 
 
@@ -716,3 +717,124 @@ def test_trainer_runs_under_deterministic_cudnn_and_restores_the_flags(
     assert seen and all(flags == (True, False, before[2]) for flags in seen)
     assert len(seen) == 1 if raises else len(seen) > 1
     assert _cudnn_flags() == before
+
+
+# ---------------------------------------------------------------------------
+# training.scan_chunk_steps: K steps a dispatch
+# ---------------------------------------------------------------------------
+
+# 6 steps an epoch (12 train images in batches of 2), 2 validation batches,
+# a line every step, augmentation on
+_CHUNK_CFG = {"training.batch_size": 2, "debug.max_train_batches": 6,
+              "augmentation.use_augmentations": True,
+              "logging.log_every_n_steps": 1}
+
+
+def _steps_lines(path, max_steps: int) -> tuple:
+    from betavae_tpu_torch.train.loop import train_steps
+
+    reset_config_cache()
+    reset_logger()
+    try:
+        out = train_steps(path, max_steps, device="cpu")
+    finally:
+        reset_logger()
+        reset_config_cache()
+    return out, _numbers(path)
+
+
+@pytest.fixture(scope="module")
+def eager_chunks(tmp_path_factory):
+    """``train()`` (2 epochs with validation) and ``train_steps`` (10 steps
+    over 2 epochs) at ``scan_chunk_steps: 1``."""
+    root = tmp_path_factory.mktemp("eager_chunks")
+    path = _config(root / "train", **_CHUNK_CFG,
+                   **{"training.scan_chunk_steps": 1})
+    out = _port_train(path)
+    few_path = _config(root / "steps", **_CHUNK_CFG, **{
+        "training.scan_chunk_steps": 1,
+        "paths.processed_dir": str(root / "train" / "processed")})
+    few, few_lines = _steps_lines(few_path, 10)
+    return root, _model_state(out), _numbers(path), few["totals"], few_lines
+
+
+@pytest.mark.parametrize("k", [3, 4, 192])
+def test_scan_chunks_give_the_eager_lines_bitwise(eager_chunks, tmp_path, k):
+    """``train()`` and ``train_steps`` at ``scan_chunk_steps`` 3 (two
+    chunks an epoch), 4 (a chunk and two single steps, the remainder) and
+    192 (K lowered to the epoch's 6 steps) against 1: the same METRICS
+    lines, steps and keys, with every number but the wall times bitwise,
+    the same per-step totals and final weights; the CONFIG line is the
+    JAX package's (no ``step_dispatch`` note: the CPU's eager steps are
+    by design)."""
+    root, state, lines, totals, few_lines = eager_chunks
+    data = {"paths.processed_dir": str(root / "train" / "processed")}
+    path = _config(tmp_path / "train", **_CHUNK_CFG, **data,
+                   **{"training.scan_chunk_steps": k})
+    out = _port_train(path)
+    assert _numbers(path) == lines
+    assert [m["phase"] for m in lines].count("train") == 12
+    got = _model_state(out)
+    for name, value in state.items():
+        assert torch.equal(got[name], value), name
+    assert "step_dispatch" not in _config_line(path)
+
+    few_path = _config(tmp_path / "steps", **_CHUNK_CFG, **data,
+                       **{"training.scan_chunk_steps": k})
+    few, got_lines = _steps_lines(few_path, 10)
+    assert few["steps"] == 10 and few["totals"] == totals
+    assert got_lines == few_lines
+    assert (few["dispatch"], few["launches_per_replay"]) == ("eager: cpu",
+                                                             None)
+
+
+@pytest.mark.parametrize("n_steps,k_cfg,k,sizes", [
+    (6, 192, 6, [6]), (6, 3, 3, [3, 3]), (6, 4, 4, [4, 1, 1]),
+    (182, 192, 182, [182]), (182, 16, 16, [16] * 11 + [1] * 6),
+    (5, 1, 1, [1] * 5), (1, 192, 1, [1]), (0, 192, 1, [])])
+def test_chunk_plan_is_the_jax_loops(n_steps, k_cfg, k, sizes):
+    """K = max(1, min(K_cfg, n_steps)) chunks of K, the remainder one step
+    a chunk (the JAX loop's single-step program): every step once, in
+    order."""
+    assert chunk_plan(n_steps, k_cfg) == (k, sizes)
+    assert sum(sizes) == n_steps
+
+
+@pytest.mark.parametrize("k", [1, 3, 192])
+def test_scan_chunks_match_jax_train_at_the_same_k(tmp_path, capsys, k):
+    """The reference shards (epoch 1, 3 Adam steps) resumed by the JAX
+    ``train()`` and the port's for one more epoch of 6 steps at
+    ``scan_chunk_steps`` K (the JAX loop scans K steps a dispatch; the port
+    runs K-step chunks), z = μ and augmentation off so both take the same
+    steps: every logged loss within 1e-4 relative (atol 1e-6), the
+    tolerance of the resume test above."""
+    common = {"model.deterministic_overfit": True,
+              "augmentation.use_augmentations": False,
+              "optimization.scheduler": "none", "training.batch_size": 2,
+              "debug.max_train_batches": 6,
+              "training.scan_chunk_steps": k}
+    jax_path = _config(tmp_path / "jax", **common)
+    port_path = _config(tmp_path / "port", **common, **{
+        "paths.processed_dir": str(tmp_path / "jax" / "processed")})
+    for path in (jax_path, port_path):
+        _reference_shards(path, steps=3)
+    jax_reset_config()
+    jax_reset_logger()
+    try:
+        jax_get_config(jax_path)
+        jax_train(resume="latest")
+    finally:
+        jax_reset_logger()
+        jax_reset_config()
+    out = _port_train(port_path, resume="latest")
+    assert out["total_steps"] == 9
+    jax_log, port_log = _log(jax_path), _log(port_path)
+    assert [(m["phase"], m["step"]) for m in port_log] == \
+        [(m["phase"], m["step"]) for m in jax_log]
+    assert [m["phase"] for m in port_log].count("train") == 6
+    for want, got in zip(jax_log, port_log):
+        for key in ("train_total_loss", "train_recon_loss", "val_total_loss",
+                    "val_recon_loss", "train_kl_mean", "mu_mean_batch"):
+            if key in want:
+                assert got[key] == pytest.approx(want[key], rel=1e-4,
+                                                 abs=1e-6), (want["step"], key)

@@ -19,7 +19,7 @@ from betavae_tpu_torch.train import step as step_module
 @contextlib.contextmanager
 def _recording(record: dict):
     """Keep the first step's augmented images and ε in ``record``."""
-    augment, fused = step_module.augment_batch, step_module.fused_reparam_kl
+    augment, fused = step_module.apply_augment, step_module.fused_reparam_kl
 
     def augment_rec(*args, **kw):
         x = augment(*args, **kw)
@@ -33,7 +33,7 @@ def _recording(record: dict):
                 .cpu().numpy()
         return fused(mu, logvar, seed, offset, start)
 
-    with mock.patch.object(step_module, "augment_batch", augment_rec), \
+    with mock.patch.object(step_module, "apply_augment", augment_rec), \
             mock.patch.object(step_module, "fused_reparam_kl", fused_rec):
         yield
 
