@@ -37,11 +37,16 @@ fallback.
 ``--data-parallel N`` runs the steady-state step over an N-rank data mesh
 instead (the global batch unchanged, split over the ranks: the first N
 CUDA devices over NCCL, or N CPU ranks over gloo with ``--device cpu``;
-its steps run eagerly in K-step chunks, as ``train()`` runs them under a
-mesh) and prints the JAX bench's mesh line, ``train_images_per_sec_dp{N}_
-{px}px_bs{B}`` with ``mesh_devices``, and nothing else; ``--verbose``
-adds the analytic 8-GPU prediction of ``utils/flops.py::
-data_parallel_scaling`` to its breakdown.
+over NCCL a chunk replays the captured step, its collectives inside the
+graph, as ``train()`` runs it under a mesh; gloo steps eagerly) and
+prints the JAX bench's mesh line, ``train_images_per_sec_dp{N}_
+{px}px_bs{B}`` with ``mesh_devices`` and ``dispatch``, and nothing else;
+``--verbose`` adds the analytic 8-GPU prediction of ``utils/flops.py::
+data_parallel_scaling`` to its breakdown.  Each line names the dispatch
+of the rates it reports: ``dispatch`` for the steady state,
+``e2e_epoch_breakdown.dispatch`` and ``rotated_epochs`` for the e2e run
+(``train()`` rotates its epochs, as the flagship config does by
+default).
 
 ``--device cpu`` runs a derated check on the CPU (at most 64 px, batch 8,
 2 steps, chunks of at most 2, no e2e); the PRNG check and the canary then read
@@ -77,7 +82,7 @@ from .ops.elbo import fused_reparam_kl
 from .ops.gn import fused_gn_relu_pool, gn_forward, gn_relu_pool_reference
 from .ops.head import head_conv_reference, head_forward
 from .train.chunks import TrainChunks
-from .train.loop import train
+from .train.loop import dispatch_way, train
 from .train.optim import build_optimizer
 from .train.step import make_train_step
 from .utils.flops import (data_parallel_scaling, speed_of_light_ms,
@@ -107,13 +112,14 @@ def flagship_model(image_size: int = 128, mixed_precision: bool = True,
     return model.to(device)
 
 
-def _steady_state(model, args, dev: torch.device, mesh=None) -> float:
-    """Seconds per step of the fused train step, best of 3 timed passes of
-    max(1, ``args.steps`` // K) chunks of K = ``args.scan_chunk`` steps
-    after max(1, ``args.warmup`` // K), each pass ended by reading the last
-    total; on the card and without a mesh a chunk replays the captured
-    step, captured before the warm-up.  With ``mesh``, this rank's part of
-    the data-parallel step (its rows of each batch), eagerly."""
+def _steady_state(model, args, dev: torch.device, mesh=None) -> tuple:
+    """``(seconds per step, dispatch)`` of the fused train step, best of 3
+    timed passes of max(1, ``args.steps`` // K) chunks of K =
+    ``args.scan_chunk`` steps after max(1, ``args.warmup`` // K), each pass
+    ended by reading the last total; on the card a chunk replays the
+    captured step (``train.loop.dispatch_way``'s rule: not at K = 1 nor
+    over gloo), captured before the warm-up.  With ``mesh``, this rank's
+    part of the data-parallel step (its rows of each batch)."""
     spec = LossSpec(recon_loss_type="mse", use_ffl=True, ffl_weight=0.5,
                     ffl_alpha=1.0)
     optimizer = build_optimizer(model.parameters(),
@@ -131,9 +137,9 @@ def _steady_state(model, args, dev: torch.device, mesh=None) -> float:
     images = torch.from_numpy(
         rng.integers(0, 255, (n, s, s, 1), np.uint8)).to(dev)
     mask = np.ones(rows.stop - rows.start, np.float32)
+    way = dispatch_way(k, dev, mesh)
     chunks = TrainChunks(step, model, optimizer, k=k, batch=b, device=dev,
-                         seed=1, aug_kwargs=aug,
-                         graphs=dev.type == "cuda" and mesh is None and k > 1,
+                         seed=1, aug_kwargs=aug, graphs=way == "cuda_graph",
                          rows=None if mesh is None else rows)
     count = 0
 
@@ -160,7 +166,7 @@ def _steady_state(model, args, dev: torch.device, mesh=None) -> float:
             t0 = time.perf_counter()
             run(n_chunks)
             dt = min(dt, time.perf_counter() - t0)
-    return dt / (n_chunks * k)
+    return dt / (n_chunks * k), way
 
 
 @torch.no_grad()
@@ -227,16 +233,18 @@ def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
                         per_class_test: int = 328, image_size: int = 128,
                         work_dir: str | None = None,
                         device: str | torch.device = "cuda",
-                        host_feed: bool = False):
+                        training: dict | None = None):
     """End-to-end training rate at the reference dataset's scale.
 
     The port's ``train()`` on ``configs/beta_vae_se.yaml`` (validation,
-    panels, probes, background checkpoint writes) over seeded demo data of
-    4 × ``per_class_train`` train images, with ``host_feed`` both splits
-    fed from the host (``training.max_device_dataset_mb: 0``).  The rate
-    pools the epochs' ``t_drain_mono`` stamps: images over (last stamp −
-    first steady stamp), epoch 1 dropped when there are spans to spare (it
-    carries the first calls' set-up).  Returns ``(rate, breakdown)``.
+    panels, probes, background checkpoint writes, epoch rotation) over
+    seeded demo data of 4 × ``per_class_train`` train images, with the
+    config's ``training`` keys overridden by ``training`` (e.g.
+    ``max_device_dataset_mb: 0`` feeds both splits from the host).  The
+    rate pools the epochs' ``t_drain_mono`` stamps: images over (last stamp
+    − first steady stamp), epoch 1 dropped when there are spans to spare
+    (it carries the first calls' set-up).  Returns ``(rate, breakdown)``;
+    the breakdown names the run's dispatch and its rotated epochs.
     """
     # by default under the temporary directory, named apart from the JAX
     # bench's work directory
@@ -266,8 +274,7 @@ def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
         run_id="bench_e2e")
     base["data"]["image_size"] = int(image_size)
     base["training"]["epochs"] = int(epochs)
-    if host_feed:
-        base["training"]["max_device_dataset_mb"] = 0
+    base["training"].update(training or {})
     base["logging"]["log_to_file"] = False
     cfg_path = os.path.join(work, "e2e.yaml")
     with open(cfg_path, "w") as f:
@@ -304,6 +311,13 @@ def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
         for k in ("val_seconds", "probe_seconds", "ckpt_seconds",
                   "panel_seconds", "tail_seconds", "epoch_wall_seconds")
     }
+    breakdown["dispatch"] = dispatch_way(
+        int(base["training"].get("scan_chunk_steps", 192)),
+        torch.device(device))
+    breakdown["rotated_epochs"] = sum(bool(t["rotated"]) for t in tails)
+    # every epoch's: a rotated epoch's tail holds its next chunk's dispatch
+    breakdown["rotate_dispatch_seconds"] = [t["rotate_dispatch_seconds"]
+                                            for t in tails]
     print(json.dumps({"e2e_epoch_breakdown": breakdown}), file=sys.stderr)
     steady = walls[1:]
     n_win = 3 if len(steady) >= 3 else 1
@@ -491,10 +505,10 @@ def _dp_rank(mesh, args) -> dict:
     model = flagship_model(args.image_size, mixed_precision=True,
                            device=mesh.device)
     try:
-        step_s = _steady_state(model, args, mesh.device, mesh)
+        step_s, way = _steady_state(model, args, mesh.device, mesh)
     finally:
         reset_config_cache()
-    return {"step_s": step_s, "backend": mesh.backend,
+    return {"step_s": step_s, "backend": mesh.backend, "dispatch": way,
             "n_params": sum(p.numel() for p in model.parameters())}
 
 
@@ -530,6 +544,7 @@ def _data_parallel_main(args) -> dict:
         "unit": "images/sec",
         "vs_baseline": round(img_per_sec / BASELINE_IMG_PER_SEC, 3),
         "backend": ranks[0]["backend"],
+        "dispatch": ranks[0]["dispatch"],
         "mesh_devices": len(devices),
         "step_ms": round(step_s * 1e3, 3),
         "device": card_name() if on_card else "cpu",
@@ -552,7 +567,7 @@ def main(argv=None) -> dict:
 
     model = flagship_model(args.image_size, mixed_precision=True, device=dev)
     try:
-        step_s = _steady_state(model, args, dev)
+        step_s, way = _steady_state(model, args, dev)
     finally:
         reset_config_cache()
     img_per_sec = args.batch_size / step_s
@@ -615,6 +630,7 @@ def main(argv=None) -> dict:
         "vs_baseline_steady_state": round(
             img_per_sec / BASELINE_IMG_PER_SEC, 3),
         "step_ms": round(step_s * 1e3, 3),
+        "dispatch": way,
         "mfu": util["mfu"] if on_card else NOT_ON_CPU,
         "sol_step_ms": sol["sol_step_ms"],
         "sol_fraction": sol_fraction if on_card else NOT_ON_CPU,

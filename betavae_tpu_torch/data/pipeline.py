@@ -4,20 +4,21 @@ Counterpart of ``betavae_tpu/data/pipeline.py``: the packed uint8 split is
 uploaded to the device once; each step gathers its batch with an on-device
 ``index_select`` and converts it to float [0, 1] NCHW.  A split over the
 device budget (``training.max_device_dataset_mb``) stays in host memory
-instead (``host_feed``): each batch is gathered on the host into a pinned
-staging buffer and copied to the card on a side stream, up to
-``host_feed_chunk_limit`` batches ahead of the step that reads it, and the
-step gathers that batch with ``arange(B)``, so the two modes give the same
+instead (``host_feed``), and is shipped a chunk of steps at a time, as the
+JAX loop ships one ``(K, B, H, W, C)`` payload a dispatch: the chunk's
+batches are gathered on the host into a pinned buffer (one of two, in
+turn) and copied to one static device buffer of ``depth`` batches
+(``host_feed_chunk_limit``) in one copy, and step ``j`` of the chunk
+gathers rows ``j·b … j·b + b − 1`` of it, so the two modes give the same
 numbers.  ``BatchPlan`` gives the seeded per-epoch order and pads the last
 short batch with repeated indices plus a validity mask, as the JAX package
 does.  A data-parallel rank feeds its rows of each batch: with the split
 resident it gathers them from its own whole copy (the JAX mesh replicates
-the split), and fed from the host it stages only those rows.
+the split), and fed from the host it ships only those rows.
 """
 
 from __future__ import annotations
 
-import collections
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -30,8 +31,8 @@ def host_feed_chunk_limit(batch_size: int, image_shape,
                           budget_mb: float) -> int:
     """How many batches of ``image_shape`` uint8 images fit ``budget_mb``
     (``training.host_feed_chunk_mb``), at least 1: the JAX package's
-    largest scan chunk for a host-fed dispatch, and here the depth to which
-    batches are staged ahead of the step.  Neither changes a result."""
+    largest scan chunk for a host-fed dispatch, and here too the most steps
+    (or validation batches) one upload feeds.  It changes no result."""
     bytes_per_step = int(batch_size) * int(np.prod(image_shape))
     return max(1, int(budget_mb * 1024 * 1024) // max(1, bytes_per_step))
 
@@ -41,18 +42,10 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 @dataclass
-class _Slot:
-    """A pinned staging buffer and the event of its last copy to the card."""
-
-    host: torch.Tensor
-    copied: torch.cuda.Event | None = None
-
-
-@dataclass
 class DeviceData:
     """A split for ``device``: uint8 ``(N, H, W, C)`` images resident on it,
-    or, with ``host_feed``, the host array they are fed from ``depth``
-    batches ahead; the labels stay on the host, where only probes read
+    or, with ``host_feed``, the host array they are shipped from, ``depth``
+    batches an upload; the labels stay on the host, where only probes read
     them."""
 
     images: torch.Tensor | np.ndarray
@@ -60,8 +53,8 @@ class DeviceData:
     device: torch.device
     host_feed: bool = False
     depth: int = 1
-    _slots: list = field(default_factory=list, repr=False)
-    _copy_stream: torch.cuda.Stream | None = field(default=None, repr=False)
+    _source: torch.Tensor | None = field(default=None, repr=False)
+    _pinned: list = field(default_factory=list, repr=False)
 
     @classmethod
     def from_dataset(cls, ds: ArrayDataset, device: torch.device,
@@ -75,61 +68,52 @@ class DeviceData:
         return cls(images=_upload(images, device), labels=labels,
                    device=device)
 
-    def feed(self, batches, rows: slice | None = None):
-        """``(images, idx, mask)`` on the device for each ``(idx, mask)``
-        numpy pair of ``batches``, for ``gather_batch(images, idx)``: the
-        resident split and the uploaded indices, or with ``host_feed`` the
-        batch itself and ``arange(B)``.  With ``rows`` (a data-parallel
-        rank's), only those rows of each batch."""
-        if rows is not None:
-            batches = [(idx[rows], mask[rows]) for idx, mask in batches]
+    def source(self, rows: int) -> torch.Tensor:
+        """The tensor the steps gather from: the resident split, or with
+        ``host_feed`` the static device buffer of ``depth`` batches of
+        ``rows`` images (allocated at the first call), which a captured
+        step may hold."""
         if not self.host_feed:
-            for idx, mask in batches:
-                yield (self.images, _upload(idx.astype(np.int64), self.device),
-                       _upload(mask, self.device))
-            return
-        batches = list(batches)
-        depth = min(self.depth, len(batches))
-        staged = collections.deque()
-        ahead = 0
-        for k in range(len(batches)):
-            while ahead < min(len(batches), k + 1 + depth):
-                staged.append(self._stage(*batches[ahead], ring=depth + 1))
-                ahead += 1
-            x, copied, idx, mask = staged.popleft()
-            if copied is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(copied)
-                # the copy stream allocated x: keep its memory from being
-                # reused while this stream's step still reads it
-                x.record_stream(stream)
-            yield x, idx, mask
+            return self.images
+        if self._source is None:
+            shape = (self.depth * int(rows),) + self.images.shape[1:]
+            self._source = torch.empty(shape, dtype=torch.uint8,
+                                       device=self.device)
+            pin = self.device.type == "cuda"
+            self._pinned = [[torch.empty(shape, dtype=torch.uint8,
+                                         pin_memory=pin), None]
+                            for _ in range(2)]
+        return self._source
 
-    def _stage(self, idx: np.ndarray, mask: np.ndarray, ring: int):
-        """Start ``images[idx]``'s trip to the card: ``(x, event or None,
-        arange(B), mask)``.  On a CUDA device the gather lands in the next
-        pinned buffer of a ring of at least ``ring`` (waiting first for that
-        buffer's last copy to leave it) and is copied on a side stream."""
-        arange = _upload(np.arange(len(idx), dtype=np.int64), self.device)
-        mask = _upload(mask, self.device)
-        if self.device.type != "cuda":
-            return torch.from_numpy(self.images[idx]), None, arange, mask
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        while len(self._slots) < ring:
-            self._slots.append(_Slot(torch.empty(
-                (len(idx),) + self.images.shape[1:], dtype=torch.uint8,
-                pin_memory=True)))
-        slot = self._slots.pop(0)
-        self._slots.append(slot)
-        if slot.copied is not None:
-            slot.copied.synchronize()
-        np.take(self.images, idx, axis=0, out=slot.host.numpy())
-        with torch.cuda.stream(self._copy_stream):
-            x = slot.host.to(self.device, non_blocking=True)
-            slot.copied = torch.cuda.Event()
-            slot.copied.record(self._copy_stream)
-        return x, slot.copied, arange, mask
+    def stage(self, idx: list) -> list:
+        """Each step's indices into :meth:`source` for the numpy index rows
+        ``idx`` (one a step, this rank's rows): the rows themselves when
+        the split is resident.  Fed from the host, the steps' images are
+        gathered into the next of two pinned buffers (once its last copy
+        has left it) and copied to the source in one copy, queued on the
+        current stream behind the work already there (the steps that still
+        read the source), and step ``j`` reads rows ``j·b … j·b + b − 1``;
+        at most ``depth`` steps an upload."""
+        if not self.host_feed:
+            return list(idx)
+        b = len(idx[0])
+        if len(idx) > self.depth or any(len(i) != b for i in idx):
+            raise ValueError(f"1 to {self.depth} batches of one size an "
+                             f"upload, got {[len(i) for i in idx]}")
+        source = self.source(b)
+        n = len(idx) * b
+        slot = self._pinned.pop(0)
+        self._pinned.append(slot)
+        buf, copied = slot
+        if copied is not None:
+            copied.synchronize()
+        np.take(self.images, np.concatenate(idx), axis=0,
+                out=buf[:n].numpy())
+        source[:n].copy_(buf[:n], non_blocking=True)
+        if self.device.type == "cuda":
+            slot[1] = torch.cuda.Event()
+            slot[1].record()
+        return [np.arange(j * b, (j + 1) * b) for j in range(len(idx))]
 
 
 def gather_batch(images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -145,8 +145,8 @@ def params_from_jax(flat: dict) -> dict:
 
 def optim_state_tensors(optimizer: torch.optim.Optimizer) -> dict:
     """``{"<param index>/<field>": tensor}`` of the optimizer's state: the
-    live tensors, on their devices, not copies."""
-    return {f"{idx}/{field}": torch.as_tensor(val).detach()
+    live tensors themselves, on their devices, not copies."""
+    return {f"{idx}/{field}": torch.as_tensor(val)
             for idx, fields in optimizer.state_dict()["state"].items()
             for field, val in fields.items()}
 

@@ -17,6 +17,10 @@ a seeded batch (32 images on the card, 2 a rank on the CPU), and
   under bf16: the two sum in another order, and the rank's batch of B / N
   may take other convolution algorithms).
 
+The step runs eagerly, over NCCL too: a run of one step has K = min(K,
+1) = 1 in the trainers' chunk plan, and the JAX dry run's step is one
+call, not a scanned chunk.
+
 It prints one JSON line and exits non-zero on a failed check.  The default
 devices are the first N CUDA devices over NCCL; ``--device cpu`` runs N
 CPU ranks over gloo; ``--devices`` names each rank's device, and ranks

@@ -195,7 +195,8 @@ def train_rank(mesh, config_path: str, resume: str = "none",
             out = train_steps(config_path, max_steps, device=device,
                               mesh=mesh)
             summary = {k: out[k] for k in ("steps", "totals", "timed_steps",
-                                           "timed_seconds", "batch_size")}
+                                           "timed_seconds", "batch_size",
+                                           "dispatch")}
         else:
             out = train(config_path, resume=resume, device=device, mesh=mesh)
             summary = {"epoch": out["epoch"],

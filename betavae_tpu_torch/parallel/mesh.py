@@ -9,9 +9,9 @@ NCCL over one CUDA device a rank, gloo on the CPU, set up through a
 ``FileStore`` (no network).  The rows of the global batch are split as
 ``P("data")`` splits them, contiguously: rank ``r`` of ``W`` holds rows
 ``[r·B/W, (r+1)·B/W)`` (:meth:`DataParallelMesh.rows`).  Parameters and
-optimizer state are replicated; the trainer wraps the model in
-``DistributedDataParallel`` and forms every batch reduction over the
-group (:mod:`.reduce`).
+optimizer state are replicated; the train step forms every batch
+reduction over the group and averages the gradients with one all-reduce
+(:mod:`.reduce`).
 
 Ranks are started by :func:`.launch.launch`, which names each rank and
 its rendezvous; a one-rank mesh is joined in the calling process.

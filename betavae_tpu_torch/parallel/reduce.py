@@ -6,10 +6,13 @@ rank holds its rows, so a reduction is a local sum followed by
 :func:`global_sum`, an all-reduce SUM that autograd differentiates: its
 backward all-reduces the incoming gradient.  When every rank computes the
 same loss ``L = f(Σ_r s_r)`` and runs ``backward()``, rank ``r`` receives
-``W · f′(S) · ∂s_r/∂θ``, and ``DistributedDataParallel``'s mean over the
-``W`` ranks gives exactly the single-process gradient.  That holds only if
-every term of the loss reaches it through :func:`global_sum`: a purely
-local term would come out divided by ``W``.
+``W · f′(S) · ∂s_r/∂θ``, and the mean over the ``W`` ranks
+(:func:`mean_over_ranks_`: one all-reduce SUM of the flat gradient buffer,
+then the division by ``W``) gives exactly the single-process gradient.
+That holds only if every term of the loss reaches it through
+:func:`global_sum`: a purely local term would come out divided by ``W``.
+Every collective here is a device kernel under NCCL, which a CUDA graph
+captures; under gloo it is a host call, which none can.
 
 With ``group=None`` every function is the single-process identity.
 """
@@ -39,6 +42,15 @@ def global_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     if group is None:
         return t
     return _GlobalSum.apply(t, group)
+
+
+def mean_over_ranks_(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` replaced, in place, by its mean over the ranks of ``group``:
+    one all-reduce SUM, then the division by ``W``.  For ``W`` a power of
+    two the division is exact, so this is bitwise the mean
+    ``DistributedDataParallel`` forms by dividing first."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t.div_(world_size(group))
 
 
 def world_size(group=None) -> int:

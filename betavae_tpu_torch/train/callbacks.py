@@ -13,7 +13,12 @@ The port's own copy of ``betavae_tpu/train/callbacks.py``:
   val_total}``; ``restore_best_history`` re-arms ``save_best`` after a
   resume from the best checkpoint's recorded ``val_total``; with
   ``async_io`` the writes run on a background thread, as the JAX
-  package's ``CheckpointManager(async_io=True)`` does (the same files).
+  package's ``CheckpointManager(async_io=True)`` does (the same files);
+  a save writes a :class:`StateSnapshot`, the caller's (as the JAX saves'
+  ``presnapshot`` do) or one it takes,
+- :class:`StateSnapshot`: the training state copied on the device in one
+  multi-tensor copy into buffers allocated once, and copied back in place
+  (the trainer's epoch rotation saves from it and rolls back to it).
 
 :func:`restore_training_state` loads a payload written by either package,
 or the reference's torch pickles, into the port's model and optimizer.
@@ -122,59 +127,131 @@ def restore_training_state(payload: dict, model: torch.nn.Module,
         optim_state_from_flat(optim, optimizer.optimizer)
 
 
-def _snapshot(tensors: dict) -> dict:
-    """Fresh copies of every tensor, made by one multi-tensor copy queued
-    on the current stream: a later in-place update of the originals
-    (the next step's) is queued after it and cannot reach the copies."""
-    keys = list(tensors)
-    src = [tensors[k] for k in keys]
-    dst = [torch.empty_like(t) for t in src]
-    torch._foreach_copy_(dst, src)
-    return dict(zip(keys, dst))
-
-
-def _to_host(tensors: dict) -> dict:
-    return {k: v.cpu().numpy() for k, v in tensors.items()}
-
-
-def _pull(snap: dict, ready) -> dict:
-    """The snapshot's sections as numpy arrays.  Device tensors are copied
-    on a side stream that waits for ``ready`` only, into pinned buffers,
-    with one sync at the end: the copies neither queue behind the steps
-    launched since the save nor hold up the steps launched after it."""
-    if ready is None:
-        return {sec: _to_host(t) for sec, t in snap.items()}
-    device = next(v.device for t in snap.values() for v in t.values()
-                  if v.is_cuda)
-    stream = torch.cuda.Stream(device=device)
-    host = {}
-    with torch.cuda.stream(stream):
-        stream.wait_event(ready)
-        for sec, t in snap.items():
-            host[sec] = {}
-            for k, v in t.items():
-                if v.is_cuda:
-                    buf = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                    v = buf.copy_(v, non_blocking=True)
-                host[sec][k] = v
-    stream.synchronize()
+def _pull_finish(host: dict, done) -> dict:
+    """:meth:`StateSnapshot.pull`'s copies as numpy arrays, once they
+    landed."""
+    if done is not None:
+        done.synchronize()
     return {sec: {k: v.numpy() for k, v in t.items()}
             for sec, t in host.items()}
+
+
+def _live_sections(model, optimizer) -> dict:
+    """The tensors a checkpoint saves, by section and name: the model's
+    state and the optimizer's, the live tensors themselves."""
+    return {"model_state": dict(model.state_dict(keep_vars=True)),
+            "optim_state": optim_state_tensors(optimizer.optimizer)}
+
+
+class StateSnapshot:
+    """The training state of ``model`` and ``optimizer`` (every parameter,
+    buffer, optimizer moment and the step count) and the tensors of
+    ``extra``, copied on the device by :meth:`take` in one multi-tensor
+    copy into one flat buffer allocated once, and copied back in place by
+    :meth:`restore`: the live tensors are never rebound, so a captured
+    CUDA graph that holds their addresses replays on the restored values.
+
+    ``sections`` holds the copies under a checkpoint's section and key
+    names.  :meth:`pull` starts their trip to the host, one copy of the
+    flat buffer a snapshot (:meth:`CheckpointManager.save_latest` and
+    ``save_best`` share it); the next :meth:`take` waits for it on the
+    device, as it would otherwise overwrite what is read."""
+
+    def __init__(self, model, optimizer, extra=()):
+        optimizer.bind_state()
+        live = _live_sections(model, optimizer)
+        tensors = {}
+        for t in [*model.parameters(), *model.buffers(),
+                  *(v for sec in live.values() for v in sec.values()),
+                  *optimizer.state_tensors(), *extra]:
+            tensors.setdefault(id(t), t)
+        self._live = list(tensors.values())
+        self._layout, at = [], 0
+        for t in self._live:
+            at = -(-at // 16) * 16
+            self._layout.append((at, t.numel() * t.element_size()))
+            at += t.numel() * t.element_size()
+        self._flat = torch.empty(at, dtype=torch.uint8,
+                                 device=self._live[0].device)
+        self._copies = self._views(self._flat)
+        index = {key: i for i, key in enumerate(tensors)}
+        self._index = {sec: {name: index[id(t)] for name, t in part.items()}
+                       for sec, part in live.items()}
+        self.sections = self._sections(self._copies)
+        self.ready = None
+        self._pulled = None
+
+    def _views(self, flat: torch.Tensor) -> list:
+        """Each live tensor's place in ``flat`` (a buffer of the layout)."""
+        return [flat[at:at + n].view(t.dtype).view(t.shape)
+                for (at, n), t in zip(self._layout, self._live)]
+
+    def _sections(self, views: list) -> dict:
+        return {sec: {name: views[i] for name, i in part.items()}
+                for sec, part in self._index.items()}
+
+    @torch.no_grad()
+    def take(self) -> None:
+        """Copy the live state into the buffer, behind the work queued on
+        the current stream and behind the last pull."""
+        if self._pulled is not None and self._pulled[1] is not None:
+            torch.cuda.current_stream(self._flat.device).wait_event(
+                self._pulled[1])
+        self._pulled = None
+        torch._foreach_copy_(self._copies, self._live)
+        if self._flat.is_cuda:
+            self.ready = torch.cuda.Event()
+            self.ready.record()
+
+    @torch.no_grad()
+    def restore(self) -> None:
+        """Copy the buffer back into the live tensors, in place."""
+        torch._foreach_copy_(self._live, self._copies)
+
+    def pull(self) -> tuple:
+        """``(host, done)``: the copies of the last :meth:`take` on the host,
+        by section and name, and the event recorded behind their copy (None
+        on the CPU).  One copy of the flat buffer into pinned memory on a
+        side stream that waits for the take alone, so it neither queues
+        behind the steps launched since nor holds up those launched after
+        (a copy at once on the CPU); started at the first call after a
+        take."""
+        if self._pulled is None:
+            done = None
+            if self._flat.is_cuda:
+                stream = torch.cuda.Stream(device=self._flat.device)
+                with torch.cuda.stream(stream):
+                    stream.wait_event(self.ready)
+                    host = torch.empty(self._flat.shape, dtype=torch.uint8,
+                                       pin_memory=True)
+                    host.copy_(self._flat, non_blocking=True)
+                    # the buffer may be freed before the copy has run
+                    self._flat.record_stream(stream)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+            else:
+                host = self._flat.clone()
+            self._pulled = (self._sections(self._views(host)), done)
+        return self._pulled
 
 
 class CheckpointManager:
     """``<models_dir>/<run_id>_{latest,best}.pt`` as NUM_SHARDS shards.
 
+    A save writes a :class:`StateSnapshot`: the caller's ``snapshot=``
+    (taken before the steps dispatched since, which may already be changing
+    the live tensors), else one taken at the save.  Its pull to pinned host
+    memory (:meth:`StateSnapshot.pull`, one pull for ``latest`` and
+    ``best``) is the save's only copy.
+
     ``async_io=True`` (``training.async_checkpoint``) takes the writes off
-    the training thread, as the JAX package's writer does: at save time
-    every tensor of the model's state and the optimizer's state is copied
-    on the device, and the copies are queued per tag, depth 1, latest wins
-    (a queued snapshot is replaced, and counted in ``coalesced``).  A daemon
-    thread writes ``best`` before ``latest``: it waits for the copies, pulls
-    them to the host and calls ``save_sharded_checkpoint``, so the files are
-    those of a synchronous save.  A failed write is raised at the next save
-    and at :meth:`drain`, which the trainer calls when it ends, however it
-    ends.  ``writes`` counts the checkpoints written.
+    the training thread, as the JAX package's writer does: the pulls are
+    queued per tag, depth 1, latest wins (a queued one is replaced, and
+    counted in ``coalesced``).  A daemon thread writes ``best`` before
+    ``latest``: it waits for the pull and calls ``save_sharded_checkpoint``,
+    so the files are those of a synchronous save.  A failed write is raised
+    at the next save and at :meth:`drain`, which the trainer calls when it
+    ends, however it ends.  ``writes`` counts the checkpoints written.
     """
 
     def __init__(self, async_io: bool = False):
@@ -183,37 +260,31 @@ class CheckpointManager:
         self.writes = 0
         self.coalesced = 0
         self._lock = threading.Lock()
-        self._queue = {}          # tag -> (path, scalars, tensors, ready)
+        self._queue = {}          # tag -> (path, scalars, host, done)
         self._worker = None
         self._pending_error = None
 
     def _save(self, tag: str, model, optimizer, epoch: int, total_steps: int,
-              extra: dict):
+              extra: dict, snapshot: StateSnapshot | None = None):
         path = model_checkpoint_path(tag)
         scalars = {"epoch": int(epoch), "total_steps": int(total_steps),
                    **{k: float(v) for k, v in extra.items()}}
-        tensors = {
-            "model_state": {k: v.detach()
-                            for k, v in model.state_dict().items()},
-            "optim_state": optim_state_tensors(optimizer.optimizer)}
+        if self.async_io:
+            self._raise_pending()
+        if snapshot is None:
+            snapshot = StateSnapshot(model, optimizer)
+            snapshot.take()
+        host, done = snapshot.pull()
         if not self.async_io:
             paths = save_sharded_checkpoint(
-                path, {**scalars, **{sec: _to_host(t)
-                                     for sec, t in tensors.items()}},
+                path, {**scalars, **_pull_finish(host, done)},
                 num_shards=NUM_SHARDS)
             self.writes += 1
             return paths
-        self._raise_pending()
-        snap = {sec: _snapshot(t) for sec, t in tensors.items()}
-        ready = None
-        if torch.cuda.is_available() and any(
-                v.is_cuda for t in snap.values() for v in t.values()):
-            ready = torch.cuda.Event()
-            ready.record()
         with self._lock:
             if tag in self._queue:
                 self.coalesced += 1
-            self._queue[tag] = (path, scalars, snap, ready)
+            self._queue[tag] = (path, scalars, host, done)
             if self._worker is None:
                 self._worker = threading.Thread(
                     target=self._run_worker, daemon=True,
@@ -235,9 +306,10 @@ class CheckpointManager:
                     return
                 # best before latest: the rarer and more valuable file
                 tag = "best" if "best" in self._queue else next(iter(self._queue))
-                path, scalars, snap, ready = self._queue.pop(tag)
+                path, scalars, host, done = self._queue.pop(tag)
             try:
-                save_sharded_checkpoint(path, {**scalars, **_pull(snap, ready)},
+                save_sharded_checkpoint(path,
+                                        {**scalars, **_pull_finish(host, done)},
                                         num_shards=NUM_SHARDS)
                 self.writes += 1
             except Exception as err:  # raised at the next save or drain()
@@ -257,9 +329,9 @@ class CheckpointManager:
         self._raise_pending()
 
     def save_latest(self, model, optimizer, epoch: int, total_steps: int,
-                    extra: dict):
+                    extra: dict, snapshot: StateSnapshot | None = None):
         return self._save("latest", model, optimizer, epoch, total_steps,
-                          extra)
+                          extra, snapshot)
 
     def restore_best_history(self) -> None:
         """Re-arm ``save_best`` with the best checkpoint's ``val_total``
@@ -273,7 +345,8 @@ class CheckpointManager:
             self.best_value = float(meta["val_total"])
 
     def save_best(self, model, optimizer, epoch: int, total_steps: int,
-                  extra: dict, monitor_value: float):
+                  extra: dict, monitor_value: float,
+                  snapshot: StateSnapshot | None = None):
         if not math.isfinite(monitor_value):
             logging.getLogger("beta_vae_se_torch").warning(
                 "save_best: non-finite monitor %r at epoch %d — skipping "
@@ -283,5 +356,5 @@ class CheckpointManager:
             self.best_value = monitor_value
             # a queued best is only ever replaced by a strictly better one
             return self._save("best", model, optimizer, epoch, total_steps,
-                              extra)
+                              extra, snapshot)
         return None

@@ -25,16 +25,21 @@ batch, replayed once a batch, and one read of every batch's metrics and μ.
 
 The captured step is the eager step (``make_train_step`` with its slot's
 values as device tensors), so a chunk computes bitwise what the steps one by
-one do.  ``graphs=False`` runs the same slots eagerly, one step after the
-other, with no graph: on the CPU, with ``training.scan_chunk_steps: 1``, and
-on the paths not yet chunked on the card (a data mesh, the host feed).  A
-capture or replay that fails raises: there is no fallback to eager steps.
+one do.  It gathers its images from one tensor, the resident split or, fed
+from the host, the static buffer each chunk's batches are uploaded to
+(``data/pipeline.py``); over an NCCL mesh its collectives (the gradient
+all-reduce, the global sums) are kernels inside the graph.
+``graphs=False`` runs the same slots eagerly, one step after the other,
+with no graph: on the CPU, with ``training.scan_chunk_steps: 1``, and over
+a gloo mesh, whose collectives are host calls.  A capture or replay that
+fails raises: there is no fallback to eager steps.
 
 Capture (:meth:`TrainChunks.prepare`) runs the step a few times on a side
 stream first (cuDNN and cuBLAS handles, the optimizer's state, the kernel
-libraries), then puts back every parameter, buffer, optimizer moment and
-step count, so the warm-up leaves no trace in the training state, and
-captures under the caller's cuDNN setting (``device.deterministic_cudnn``).
+libraries, NCCL's communicator), then puts back every parameter, buffer,
+optimizer moment and step count from :attr:`TrainChunks.snapshot`, so the
+warm-up leaves no trace in the training state, and captures under the
+caller's cuDNN setting (``device.deterministic_cudnn``).
 The kernel wrappers count their launches in Python, which a replay does
 not run, and which a capture runs without launching anything: each
 wrapper's count, by path, is read before and after the capture, put back
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from ..ops import kernel_wrappers
+from .callbacks import StateSnapshot
 from .step import draw_step_augment
 
 SCHED_KEYS = ("beta", "capacity", "capacity_weight", "free_bits", "lr")
@@ -149,8 +155,10 @@ class _Slots:
 
 
 class Pending:
-    """A dispatched chunk's rows on their way to the host: :meth:`rows`
-    waits for them (the chunk's end) and returns them as numpy."""
+    """Device rows on their way to the host (a dispatched chunk's metrics,
+    a validation pass, a panel): copied into pinned memory behind the work
+    queued so far, with an event; :meth:`rows` waits for that event alone
+    and returns them as numpy."""
 
     def __init__(self, rows: torch.Tensor, meta=None):
         self.meta = meta
@@ -274,15 +282,14 @@ class _Chunked:
         self.slots.upload(n)
         return n
 
-    def _run(self, images, n: int, feed) -> None:
-        """The first n slots: n replays, or n eager bodies (``feed``
-        yielding each one's images where they are not ``images``)."""
+    def _run(self, images, n: int) -> None:
+        """The first n slots: n replays, or n eager bodies."""
         if self.graphs:
             self.j.zero_()
             self.captured.replay(n)
         else:
             for i in range(n):
-                self._body(images if feed is None else next(feed), i)
+                self._body(images, i)
 
     def _body(self, images, j) -> None:
         raise NotImplementedError
@@ -308,6 +315,17 @@ class TrainChunks(_Chunked):
         self.draws = torch.zeros((self.k, 3, self.batch), device=device)
         self.running = torch.zeros(len(RUNNING_KEYS), device=device)
         self.generator = torch.Generator(device=device)
+        self._snapshot = None
+
+    @property
+    def snapshot(self) -> StateSnapshot:
+        """The training state's snapshot (``callbacks.StateSnapshot``:
+        model, optimizer and the running sums), made at first use, once the
+        optimizer's state is the run's (after a resume)."""
+        if self._snapshot is None:
+            self._snapshot = StateSnapshot(self.model, self.optimizer,
+                                           extra=[self.running])
+        return self._snapshot
 
     def _body(self, images, j) -> None:
         idx, mask, sched, offset, draws = self._take(j, self.draws)
@@ -318,34 +336,25 @@ class TrainChunks(_Chunked):
         self._write(j, torch.cat([row, self.running]))
 
     def prepare(self, images: torch.Tensor) -> float:
-        """Capture the step over ``images`` (the resident split) once; a
-        no-op without ``graphs`` or when captured.  Returns the capture's
-        seconds (0.0 when nothing was captured now)."""
+        """Capture the step over ``images`` (the tensor every step gathers
+        from) once; a no-op without ``graphs`` or when captured.  Returns
+        the capture's seconds (0.0 when nothing was captured now)."""
         if not self.graphs or self.captured.graph is not None:
             return 0.0
-        self.optimizer.bind_state()
-        state = [*self.model.parameters(), *self.model.buffers(),
-                 *self.optimizer.state_tensors(), self.running]
-        saved = [t.detach().clone() for t in state]
-
-        def restore():
-            with torch.no_grad():
-                for t, v in zip(state, saved):
-                    t.copy_(v)
-
+        snapshot = self.snapshot
+        snapshot.take()
         self.captured.capture(self.device, lambda: self._body(images, self.j),
-                              self.j.zero_, CAPTURE_WARMUP, restore)
+                              self.j.zero_, CAPTURE_WARMUP, snapshot.restore)
         return self.captured.seconds
 
     def reset_running(self) -> None:
         """Start an epoch's running sums."""
         self.running.zero_()
 
-    def dispatch(self, images, steps: list, feed=None, meta=None) -> Pending:
+    def dispatch(self, images, steps: list, meta=None) -> Pending:
         """Run ``steps``, a list of ``(idx, mask, sched, step_index)`` (numpy
-        rows of this rank, a dict of ``SCHED_KEYS`` floats, the step's
-        number), at most ``k``; ``feed`` yields each step's images where
-        they are not ``images`` (the host feed).  Returns the pending rows,
+        rows of this rank into ``images``, a dict of ``SCHED_KEYS`` floats,
+        the step's number), at most ``k``.  Returns the pending rows,
         ``[n, 16]``: ``METRIC_KEYS`` then the running sums after the
         step."""
         if self.graphs and self.captured.graph is None:
@@ -357,16 +366,16 @@ class TrainChunks(_Chunked):
         for i, s in enumerate(steps):
             draw_step_augment(self.generator, self.seed, int(s[3]),
                               self.batch, self.aug_kwargs, out=self.draws[i])
-        self._run(images, n, feed)
+        self._run(images, n)
         return Pending(self.out[:n], meta)
 
 
 class EvalChunks(_Chunked):
-    """A validation pass of ``v`` batches through ``eval_step``
+    """Up to ``v`` validation batches a dispatch through ``eval_step``
     (``make_eval_step``'s): replays of one captured batch with ``graphs``,
-    else the same slots eagerly.  :meth:`run` returns the pass's
-    ``[v, 10 + b·latent]`` device rows, each batch's ``METRIC_KEYS`` and its
-    μ, for one read."""
+    else the same slots eagerly.  :meth:`run` returns the batches' ``[n,
+    10 + b·latent]`` device rows, each batch's ``METRIC_KEYS`` and its μ,
+    for one read: a whole pass, or, fed from the host, a chunk of it."""
 
     def __init__(self, eval_step, *, v: int, local_batch: int, latent: int,
                  device: torch.device, graphs: bool):
@@ -383,14 +392,12 @@ class EvalChunks(_Chunked):
                          for k in METRIC_KEYS]),
             mu.float().reshape(-1)]))
 
-    def run(self, images, batches: list, sched: dict, offsets: list,
-            feed=None) -> torch.Tensor:
-        """The pass over ``batches`` (``(idx, mask)`` numpy rows of this
-        rank, all ``v``), batch j's noise at ``offsets[j]``; captures the
-        batch first when ``graphs`` and not yet captured."""
-        if len(batches) != self.k:
-            raise ValueError(f"a pass of {self.k} batches, got "
-                             f"{len(batches)}")
+    def run(self, images, batches: list, sched: dict,
+            offsets: list) -> torch.Tensor:
+        """``batches`` (``(idx, mask)`` numpy rows of this rank into
+        ``images``, at most ``v``), batch j's noise at ``offsets[j]``;
+        captures the batch first when ``graphs`` and not yet captured.  The
+        rows returned are overwritten by the next call."""
         row = [float(sched[k]) for k in SCHED_KEYS]
         n = self._upload([b[0] for b in batches], [b[1] for b in batches],
                          [row] * len(batches), offsets)
@@ -398,5 +405,5 @@ class EvalChunks(_Chunked):
             self.captured.capture(self.device,
                                   lambda: self._body(images, self.j),
                                   self.j.zero_, CAPTURE_WARMUP)
-        self._run(images, n, feed)
+        self._run(images, n)
         return self.out[:n]

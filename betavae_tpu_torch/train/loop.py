@@ -10,20 +10,26 @@ and ``resume="best"|"latest"``, with ``training.async_checkpoint`` writing
 the checkpoints on a background thread and SIGTERM draining it
 (``training.graceful_shutdown``).  Its dispatch is the JAX loop's: each
 epoch runs in chunks of K = max(1, min(``training.scan_chunk_steps``,
-steps)) steps (default 192), the remainder one step a chunk, and on the
-card a chunk is K replays of one CUDA graph of the train step, with one
-upload of the chunk's inputs before it and one read of its metrics after
-it; the validation pass is one replay of a captured batch per batch and one
-read (``train/chunks.py``).  ``scan_chunk_steps: 1`` steps eagerly, one
-launch after the other; so do the CPU and, in this port, a data mesh and a
-split fed from the host, for which the CONFIG line's ``step_dispatch``
-says so by name.  Not ported: epoch rotation (``training.epoch_rotation``
-is ignored) and the background panel writer.  The LPIPS term
-(``loss.use_lpips``) runs under the JAX loop's gate: random-init features
-only with ``loss.lpips_allow_random: true``, and the CONFIG line names the
-weight source.  A split over ``training.max_device_dataset_mb`` stays in
-host memory and is fed to the card batch by batch, staged up to
-``training.host_feed_chunk_mb`` worth of batches ahead
+steps)) steps (default 192; fed from the host, at most
+``host_feed_chunk_limit`` steps), the remainder one step a chunk, and on
+the card a chunk is K replays of one CUDA graph of the train step, with
+one upload of the chunk's inputs before it and one read of its metrics
+after it; the validation pass is one replay of a captured batch per batch
+and one read (``train/chunks.py``).  ``scan_chunk_steps: 1`` steps
+eagerly, one launch after the other; so do the CPU and a gloo mesh, whose
+collectives are host calls (the CONFIG line's ``step_dispatch`` says so).
+With ``training.epoch_rotation`` (default true, as in JAX) the next
+epoch's first chunk is dispatched from the current epoch's tail, after
+the validation pass, the panel forward, their copies to the host and a
+device snapshot of the training state are queued and before the host
+waits for the validation metrics; the checkpoints are written from that
+snapshot, and an early stop restores it, so the speculative chunk is
+discarded.  The epoch's reconstruction panel is written on a background
+thread, joined before the next one and when the trainer ends.  The LPIPS
+term (``loss.use_lpips``) runs under the JAX loop's gate: random-init
+features only with ``loss.lpips_allow_random: true``, and the CONFIG line
+names the weight source.  A split over ``training.max_device_dataset_mb``
+stays in host memory and is shipped to the card a chunk at a time
 (``data/pipeline.py``), with the same numbers as a resident split; and
 ``logging.profile_steps`` > 0 writes a ``torch.profiler`` trace of the
 first train steps to ``<outputs_dir>/profile/`` (``utils/profiling.py``),
@@ -35,7 +41,7 @@ after a warm-up, and no validation, checkpoints or panels.
 
 Both take ``mesh=`` (:func:`..parallel.mesh.data_parallel_mesh`), as the
 JAX ``train(mesh=...)`` does: each rank of the mesh calls the trainer in
-its own process, holds the whole split (or, fed from the host, stages its
+its own process, holds the whole split (or, fed from the host, ships its
 rows only), runs its rows of every global batch of
 ``training.batch_size`` (which must divide evenly over the ranks) and
 validates its rows of every validation batch.  Every loss, metric and
@@ -73,8 +79,8 @@ from ..ops.lpips import build_lpips_fn, resolve_weight_source
 from ..parallel.reduce import gather_rows
 from ..utils.profiling import StepProfiler
 from .callbacks import CheckpointManager, EarlyStopping, restore_training_state
-from .chunks import (METRIC_KEYS, RUNNING_KEYS, EvalChunks, TrainChunks,
-                     chunk_plan)
+from .chunks import (METRIC_KEYS, RUNNING_KEYS, EvalChunks, Pending,
+                     TrainChunks, chunk_plan)
 from .optim import build_optimizer
 from .schedules import lr_at, resolve_total_epochs, schedules_from_config
 from .step import make_eval_step, make_train_step
@@ -144,9 +150,9 @@ def _lpips_config_extras(cfg, warn: bool = True) -> dict:
 def _device_data(cfg, ds, split: str, dev: torch.device,
                  say: bool = True) -> DeviceData:
     """``split`` on ``dev``, or fed from the host when its uint8 images
-    exceed ``training.max_device_dataset_mb``, staged ahead by
-    ``host_feed_chunk_limit`` batches of ``training.host_feed_chunk_mb``
-    (counted at the global batch, as the JAX package counts them)."""
+    exceed ``training.max_device_dataset_mb``, ``host_feed_chunk_limit``
+    batches of ``training.host_feed_chunk_mb`` an upload (counted at the
+    global batch, as the JAX package counts them)."""
     budget_mb = int(get(cfg.training, "max_device_dataset_mb",
                         MAX_DEVICE_DATASET_MB))
     depth = host_feed_chunk_limit(
@@ -160,6 +166,31 @@ def _device_data(cfg, ds, split: str, dev: torch.device,
               f"training.max_device_dataset_mb={budget_mb}: fed from the "
               f"host, up to {depth} batch(es) ahead")
     return data
+
+
+def dispatch_way(k_cfg: int, device: torch.device, mesh=None) -> str:
+    """``"cuda_graph"``, or why the steps run eagerly: ``scan_chunk_steps:
+    1`` (the yardstick), a device other than CUDA, or a gloo mesh, whose
+    collectives are host calls that a CUDA graph cannot hold (an NCCL
+    mesh's are kernels, captured with the step; over one H100 and over
+    four of one host its replays are bitwise its eager steps)."""
+    if k_cfg == 1:
+        return "eager: scan_chunk_steps 1"
+    if device.type != "cuda":
+        return f"eager: {device.type}"
+    if mesh is not None and mesh.backend == "gloo":
+        return "eager: gloo"
+    return "cuda_graph"
+
+
+def dispatch_note(way: str, device: torch.device) -> dict:
+    """The CONFIG line's ``{"step_dispatch": way}`` where the steps run
+    eagerly on the card for a reason the JAX package does not have (a gloo
+    mesh), so that the log says so; ``{}`` elsewhere, where the line is the
+    JAX package's."""
+    if device.type == "cuda" and way == "eager: gloo":
+        return {"step_dispatch": way}
+    return {}
 
 
 class _Run:
@@ -229,37 +260,23 @@ class _Run:
         if self.k_cfg < 1:
             raise ValueError(f"training.scan_chunk_steps must be >= 1, got "
                              f"{self.k_cfg}")
-        self.dispatch = self.dispatch_way(self.train_dev)
+        # the largest chunk: fed from the host, what one upload holds, as
+        # the JAX loop lowers K to host_feed_chunk_limit
+        self.k_max = (min(self.k_cfg, self.train_dev.depth)
+                      if self.train_dev.host_feed else self.k_cfg)
+        self.rotate = bool(get(cfg.training, "epoch_rotation", True))
+        self.dispatch = dispatch_way(self.k_cfg, dev, mesh)
         self.graphs = self.dispatch == "cuda_graph"
         n_steps = len(self.train_batches(1))
+        self.local_batch = (self.batch_size if self.rows is None
+                            else self.rows.stop - self.rows.start)
+        self.train_source = self.train_dev.source(self.local_batch)
         self.chunks = TrainChunks(
             self.step, self.model, self.optimizer,
-            k=chunk_plan(max(1, n_steps), self.k_cfg)[0],
+            k=chunk_plan(max(1, n_steps), self.k_max)[0],
             batch=self.batch_size, device=dev, seed=self.seed,
             aug_kwargs=augment_config_kwargs(cfg), graphs=self.graphs,
             rows=self.rows)
-
-    def dispatch_note(self) -> dict:
-        """The CONFIG line's ``{"step_dispatch": ...}`` where the steps run
-        eagerly on the card for want of a port of the chunked path (a data
-        mesh, the host feed), so that the log says so; ``{}`` elsewhere,
-        where the line is the JAX package's."""
-        if self.dev.type == "cuda" and self.dispatch in (
-                "eager: data mesh", "eager: host feed"):
-            return {"step_dispatch": self.dispatch}
-        return {}
-
-    def dispatch_way(self, data: DeviceData) -> str:
-        """``"cuda_graph"``, or why the steps of ``data`` run eagerly."""
-        if self.k_cfg == 1:
-            return "eager: scan_chunk_steps 1"
-        if self.mesh is not None:
-            return "eager: data mesh"
-        if data.host_feed:
-            return "eager: host feed"
-        if self.dev.type != "cuda":
-            return f"eager: {self.dev.type}"
-        return "cuda_graph"
 
     def epoch_schedule(self, epoch: int):
         beta = self.beta_sched.value(epoch - 1)
@@ -282,79 +299,6 @@ class _Run:
 
     def train_batches(self, epoch: int) -> list:
         return list(self.train_plan.batches(epoch))[:self.max_train_batches]
-
-    def run_epoch(self, epoch: int, batches: list, done: int,
-                  on_dispatch=None, cut_at: int | None = None) -> dict:
-        """Train ``batches`` of ``epoch`` after ``done`` steps of the run,
-        in the chunks of :func:`.chunks.chunk_plan` (cut at the profiler
-        window's end and after step ``cut_at``), each dispatched before the
-        previous one is drained, as the JAX loop does.  Logs each log
-        step's train line.  Returns ``{"totals", "last", "running", "lr",
-        "steps"}``: every step's total, the last step's metrics and running
-        sums, and the last step's learning rate.  ``on_dispatch(n)`` runs
-        after each chunk's dispatch, ``n`` the run's steps dispatched."""
-        beta, capacity, free_bits = self.epoch_schedule(epoch)
-        self.chunks.reset_running()
-        feed = None
-        if self.train_dev.host_feed:
-            feed = (x for x, _, _ in self.train_dev.feed(batches, self.rows))
-        out = {"totals": [], "last": {}, "running": {}, "steps": 0,
-               "lr": self.lr(epoch, done)}
-
-        def drain(pending) -> None:
-            lrs, first = pending.meta
-            for t, row in enumerate(pending.rows()):
-                step = first + t
-                out["last"] = dict(zip(METRIC_KEYS, row))
-                out["running"] = dict(zip(RUNNING_KEYS,
-                                          row[len(METRIC_KEYS):]))
-                out["totals"].append(float(row[0]))
-                out["steps"] += 1
-                out["lr"] = lrs[t]
-                if step % self.log_every == 0:
-                    self.train_line(epoch=epoch, beta=beta,
-                                    capacity=capacity,
-                                    running=out["running"],
-                                    denom=out["steps"], last=out["last"],
-                                    lr=lrs[t], step=step)
-
-        sizes = collections.deque(chunk_plan(len(batches), self.k_cfg)[1])
-        at, pending = 0, None
-        while sizes:
-            size = sizes.popleft()
-            first = done + at + 1
-            keep = size
-            if self.profiler.active:
-                keep = min(keep, self.profiler.remaining)
-            if cut_at is not None and first <= cut_at < first + keep - 1:
-                keep = cut_at - first + 1
-            if keep < size:
-                sizes.appendleft(size - keep)
-            steps, lrs = [], []
-            for t in range(keep):
-                idx, mask = batches[at + t]
-                if self.rows is not None:
-                    idx, mask = idx[self.rows], mask[self.rows]
-                if self.train_dev.host_feed:
-                    idx = np.arange(len(idx))
-                lr = self.lr(epoch, first - 1 + t)
-                lrs.append(lr)
-                steps.append((idx, mask,
-                              self.sched(beta, capacity, free_bits, lr),
-                              first + t))
-            new = self.chunks.dispatch(self.train_dev.images, steps,
-                                       feed=feed, meta=(lrs, first))
-            at += keep
-            for t in range(keep):
-                self.profiler.after_step(first + t)
-            if on_dispatch is not None:
-                on_dispatch(done + at)
-            if pending is not None:
-                drain(pending)
-            pending = new
-        if pending is not None:
-            drain(pending)
-        return out
 
     def log(self, metrics: dict, **kw) -> None:
         """A ``METRICS`` line, from rank 0 alone."""
@@ -390,6 +334,91 @@ class _Run:
             "z_std_batch": float(last["z_std_batch"]),
             "lr": lr,
         }, step=step, phase="train")
+
+
+class _Epoch:
+    """An epoch's train steps: ``batches`` of ``epoch`` after ``done`` steps
+    of the run, in the chunks of :func:`.chunks.chunk_plan` (cut at the
+    profiler window's end and after step ``cut_at``), each dispatched
+    before the previous one is drained, as the JAX loop does.  Made, it has
+    reset the running sums; :meth:`dispatch` sends the next chunk (the
+    profiler window opens at a chunk's first step where one is due), and
+    epoch rotation sends the first from the previous epoch's tail;
+    :meth:`run` sends the rest and drains them all, logging each log
+    step's train line.  ``on_dispatch(n)`` runs after each chunk's
+    dispatch, ``n`` the run's steps dispatched."""
+
+    def __init__(self, run: _Run, epoch: int, batches: list, done: int,
+                 on_dispatch=None, cut_at: int | None = None):
+        self.run_, self.epoch, self.batches, self.done = (run, epoch, batches,
+                                                          done)
+        self.on_dispatch, self.cut_at = on_dispatch, cut_at
+        self.beta, self.capacity, self.free_bits = run.epoch_schedule(epoch)
+        run.chunks.reset_running()
+        self.sizes = collections.deque(chunk_plan(len(batches),
+                                                  run.k_max)[1])
+        self.at, self.pending = 0, None
+        self.out = {"totals": [], "last": {}, "running": {}, "steps": 0,
+                    "lr": run.lr(epoch, done)}
+
+    def dispatch(self) -> None:
+        """Dispatch the next chunk, then drain the one before it."""
+        run = self.run_
+        size = self.sizes.popleft()
+        first = self.done + self.at + 1
+        run.profiler.maybe_start(first)
+        keep = size
+        if run.profiler.active:
+            keep = min(keep, run.profiler.remaining)
+        if self.cut_at is not None and first <= self.cut_at < first + keep - 1:
+            keep = self.cut_at - first + 1
+        if keep < size:
+            self.sizes.appendleft(size - keep)
+        local = self.batches[self.at:self.at + keep]
+        if run.rows is not None:
+            local = [(idx[run.rows], mask[run.rows]) for idx, mask in local]
+        idx = run.train_dev.stage([i for i, _ in local])
+        lrs = [run.lr(self.epoch, first - 1 + t) for t in range(keep)]
+        steps = [(idx[t], local[t][1],
+                  run.sched(self.beta, self.capacity, self.free_bits, lrs[t]),
+                  first + t) for t in range(keep)]
+        new = run.chunks.dispatch(run.train_source, steps, meta=(lrs, first))
+        self.at += keep
+        for t in range(keep):
+            run.profiler.after_step(first + t)
+        if self.on_dispatch is not None:
+            self.on_dispatch(self.done + self.at)
+        if self.pending is not None:
+            self.drain(self.pending)
+        self.pending = new
+
+    def drain(self, pending: Pending) -> None:
+        run, out = self.run_, self.out
+        lrs, first = pending.meta
+        for t, row in enumerate(pending.rows()):
+            step = first + t
+            out["last"] = dict(zip(METRIC_KEYS, row))
+            out["running"] = dict(zip(RUNNING_KEYS, row[len(METRIC_KEYS):]))
+            out["totals"].append(float(row[0]))
+            out["steps"] += 1
+            out["lr"] = lrs[t]
+            if step % run.log_every == 0:
+                run.train_line(epoch=self.epoch, beta=self.beta,
+                               capacity=self.capacity,
+                               running=out["running"], denom=out["steps"],
+                               last=out["last"], lr=lrs[t], step=step)
+
+    def run(self) -> dict:
+        """Dispatch and drain the epoch's remaining chunks.  Returns
+        ``{"totals", "last", "running", "lr", "steps"}``: every step's
+        total, the last step's metrics and running sums, and the last
+        step's learning rate."""
+        while self.sizes:
+            self.dispatch()
+        if self.pending is not None:
+            self.drain(self.pending)
+            self.pending = None
+        return self.out
 
 
 def _rank_device(device, mesh) -> torch.device:
@@ -430,10 +459,10 @@ def _train_steps(config_path: str, max_steps: int, device, mesh) -> dict:
     extras = _lpips_config_extras(cfg, warn=main)
     run = _Run(cfg, dev, with_test=False, mesh=mesh)
     if main:
-        log_config({**extras, **run.dispatch_note()})
+        log_config({**extras, **dispatch_note(run.dispatch, dev)})
     # a captured step pays its warm-up in the capture
     warmup = 0 if run.graphs else min(WARMUP_STEPS, max_steps // 2)
-    capture_seconds = run.chunks.prepare(run.train_dev.images)
+    capture_seconds = run.chunks.prepare(run.train_source)
     _sync(dev)
 
     totals = []
@@ -451,10 +480,9 @@ def _train_steps(config_path: str, max_steps: int, device, mesh) -> dict:
             if total_steps >= max_steps:
                 break
             batches = run.train_batches(epoch)[:max_steps - total_steps]
-            run.profiler.maybe_start(total_steps + 1)
-            out = run.run_epoch(epoch, batches, total_steps,
-                                on_dispatch=on_dispatch,
-                                cut_at=warmup or None)
+            out = _Epoch(run, epoch, batches, total_steps,
+                         on_dispatch=on_dispatch,
+                         cut_at=warmup or None).run()
             totals += out["totals"]
             total_steps += out["steps"]
             run.profiler.stop()
@@ -540,6 +568,45 @@ def _panel_images(cfg, run: _Run, vbatches: list):
             [run.test_ds.paths[k] for k in idx0])
 
 
+class _PanelWriter:
+    """The JAX loop's deferred panel writer: an epoch's panel is written by
+    one daemon thread, which waits for the reconstruction's copy to the
+    host and calls :func:`sample_reconstructions`.  The previous panel is
+    joined before the next one starts, and a failure is raised at the next
+    join."""
+
+    def __init__(self):
+        self._thread = None
+        self._error = None
+
+    def join(self) -> None:
+        if self._thread is None:
+            return
+        self._thread.join()
+        self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def start(self, images: np.ndarray, recon: Pending, out_dir: str,
+              epoch: int, names) -> None:
+        """Write ``epoch``'s panel of ``images`` and ``recon`` (NCHW, on its
+        way to the host) in the background."""
+        self.join()
+
+        def work():
+            try:
+                sample_reconstructions(images,
+                                       recon.rows().transpose(0, 2, 3, 1),
+                                       out_dir, epoch, filenames=names)
+            except Exception as err:  # raised at the next join
+                self._error = err
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name="betavae-panel-writer")
+        self._thread.start()
+
+
 # ---------------------------------------------------------------------------
 # the epoch loop
 # ---------------------------------------------------------------------------
@@ -562,17 +629,29 @@ def _install_sigterm(cfg):
     return signal.signal(signal.SIGTERM, on_sigterm)
 
 
-def _finish(ckpt: CheckpointManager, run_error, old_sigterm) -> None:
-    """The trainer's exit, however it ends: every queued checkpoint lands
-    (a failed write is raised, unless the loop already raised), and the
-    SIGTERM handler is put back."""
+def _finish(ckpt: CheckpointManager, panels: _PanelWriter, run_error,
+            old_sigterm) -> None:
+    """The trainer's exit, however it ends: the last panel and every queued
+    checkpoint land (a failed write is raised, unless the loop already
+    raised, and a failed panel does not keep the checkpoints from
+    landing), and the SIGTERM handler is put back."""
     try:
         try:
-            ckpt.drain()
-        except Exception as drain_err:
-            if run_error is None:
-                raise
-            print(f"[CKPT] background writer also failed: {drain_err!r}")
+            try:
+                panels.join()
+            except Exception as panel_err:
+                if run_error is None:
+                    raise
+                print(f"[PANEL] background writer also failed: "
+                      f"{panel_err!r}")
+        finally:
+            try:
+                ckpt.drain()
+            except Exception as drain_err:
+                if run_error is None:
+                    raise
+                print(f"[CKPT] background writer also failed: "
+                      f"{drain_err!r}")
     finally:
         if old_sigterm is not None:
             signal.signal(signal.SIGTERM, old_sigterm)
@@ -597,11 +676,12 @@ def train(config_path: str | None = None, resume: str = "none",
     ``logging.profile_steps`` traces and ``checkpoint_writes`` the
     checkpoints this process wrote (none on a rank other than 0).
 
-    The ``epoch_end`` line has the JAX keys; three name the JAX dispatch
-    mechanism and mean here: ``rotated`` is always ``False`` (no epoch
-    rotation), ``rotate_dispatch_seconds`` is 0.0, and
-    ``val_dispatch_seconds`` is the host time to enqueue the validation
-    batches and the panel forward before the one read of their results.
+    The ``epoch_end`` line has the JAX keys: ``rotated`` says whether the
+    next epoch's first chunk was dispatched from this epoch's tail,
+    ``rotate_dispatch_seconds`` is the host time of the snapshot and that
+    dispatch, and ``val_dispatch_seconds`` the host time to enqueue the
+    validation batches, the panel forward and their copies to the host
+    before the one read of the validation results.
 
     cuDNN runs its deterministic algorithms meanwhile
     (:func:`..device.deterministic_cudnn`), so the run replays in fp32 too.
@@ -619,7 +699,7 @@ def _train(config_path, resume: str, device, mesh) -> dict:
     extras = _lpips_config_extras(cfg, warn=main)
     run = _Run(cfg, dev, with_test=True, mesh=mesh)
     if main:
-        log_config({**extras, **run.dispatch_note()})
+        log_config({**extras, **dispatch_note(run.dispatch, dev)})
     model, optimizer = run.model, run.optimizer
     eval_step = make_eval_step(model, run.spec, use_capacity=run.use_capacity,
                                seed=run.seed, lpips_fn=run.lpips_fn,
@@ -658,16 +738,23 @@ def _train(config_path, resume: str, device, mesh) -> dict:
 
     no_val_warned = False
     epoch = start_epoch - 1
+    panels = _PanelWriter()
+    prefetch = None     # the next epoch, its first chunk dispatched
+    nm = len(METRIC_KEYS)
     old_sigterm = _install_sigterm(cfg)
     run_error = None
     try:
         # after the resume: the capture's warm-up is put back to this state
-        run.chunks.prepare(run.train_dev.images)
+        run.chunks.prepare(run.train_source)
         for epoch in range(start_epoch, run.epochs + 1):
-            beta, capacity, free_bits = run.epoch_schedule(epoch)
+            current, prefetch = prefetch, None
+            if current is None:
+                current = _Epoch(run, epoch, run.train_batches(epoch),
+                                 total_steps)
+            beta, capacity, free_bits = (current.beta, current.capacity,
+                                         current.free_bits)
             epoch_t0 = time.perf_counter()
-            run.profiler.maybe_start(total_steps + 1)
-            out = run.run_epoch(epoch, run.train_batches(epoch), total_steps)
+            out = current.run()
             run.profiler.stop()
             totals, denom, lr = out["totals"], out["steps"], out["lr"]
             total_steps += denom
@@ -685,56 +772,79 @@ def _train(config_path, resume: str, device, mesh) -> dict:
             final_train_kl_effective = float(out["last"].get("kl_effective",
                                                              0.0))
 
-            # ---- validation: replay every batch, then read once -----------
+            # ---- the tail, in stream order: the validation replays, the
+            # panel forward, their copies to the host, the state's snapshot,
+            # the next epoch's first chunk; only then a wait, for the
+            # validation copy (nothing the chunk overwrites is read after)
             tail_t0 = time.perf_counter()
             sched_v = run.sched(beta, capacity, free_bits, lr)
             vbatches = list(test_plan.batches(epoch))[:run.max_val_batches]
-            val_rows = None
+            val_pending = None
             if vbatches:
                 local = [(idx, mask) if run.rows is None
                          else (idx[run.rows], mask[run.rows])
                          for idx, mask in vbatches]
-                vfeed = None
-                if run.test_dev.host_feed:
-                    vfeed = (x for x, _, _ in run.test_dev.feed(vbatches,
-                                                                run.rows))
-                    local = [(np.arange(len(idx)), mask)
-                             for idx, mask in local]
+                vsource = run.test_dev.source(len(local[0][0]))
+                # fed from the host, the pass runs in uploads of at most
+                # host_feed_chunk_limit batches, as the JAX loop's does
+                kv = (min(len(local), run.test_dev.depth)
+                      if run.test_dev.host_feed else len(local))
                 if eval_chunks is None:
                     eval_chunks = EvalChunks(
-                        eval_step, v=len(vbatches),
-                        local_batch=len(local[0][0]),
+                        eval_step, v=kv, local_batch=len(local[0][0]),
                         latent=model.latent_dim, device=dev,
-                        graphs=run.dispatch_way(run.test_dev)
-                        == "cuda_graph")
-                val_rows = eval_chunks.run(
-                    run.test_dev.images, local, sched_v,
-                    [VAL_OFFSET + epoch * 100_000 + j
-                     for j in range(len(vbatches))], feed=vfeed)
+                        graphs=run.graphs)
+                parts = []
+                for at in range(0, len(local), kv):
+                    part = local[at:at + kv]
+                    idx = run.test_dev.stage([i for i, _ in part])
+                    rows = eval_chunks.run(
+                        vsource, [(i, m) for i, (_, m) in zip(idx, part)],
+                        sched_v, [VAL_OFFSET + epoch * 100_000 + j
+                                  for j in range(at, at + len(part))])
+                    # the next upload's replays overwrite these rows
+                    parts.append(rows if kv == len(local) else rows.clone())
+                val_rows = torch.cat(parts) if len(parts) > 1 else parts[0]
+                # [batches, rows, latent]: the ranks' rows back in row order
+                mu = val_rows[:, nm:].reshape(len(vbatches), -1,
+                                              model.latent_dim)
+                mu = gather_rows(mu.transpose(0, 1), group).transpose(0, 1)
+                val_pending = Pending(torch.cat([val_rows[:, :nm].reshape(-1),
+                                                 mu.reshape(-1)]),
+                                      meta=mu.shape)
             panel = _panel_images(cfg, run, vbatches) if main else None
-            recon_dev = None
+            recon_pending = None
             if panel is not None:
                 model.eval()
                 with torch.no_grad():
                     x_panel = torch.from_numpy(np.ascontiguousarray(
                         panel[0].transpose(0, 3, 1, 2))).to(dev)
-                    recon_dev = model(x_panel, deterministic=True)[0]
+                    recon_pending = Pending(
+                        model(x_panel, deterministic=True)[0].float())
             val_dispatch_seconds = time.perf_counter() - tail_t0
+
+            # epoch rotation: the checkpoints and an early stop read the
+            # snapshot, taken before the next epoch's chunk is dispatched
+            snapshot = run.chunks.snapshot
+            snapshot.take()
+            next_batches = run.train_batches(epoch + 1)
+            # JAX's condition: its "n_steps >= K" holds for any epoch that
+            # has a step, K being at most n_steps
+            rotated = run.rotate and epoch < run.epochs and bool(next_batches)
+            if rotated:
+                prefetch = _Epoch(run, epoch + 1, next_batches, total_steps)
+                prefetch.dispatch()
+            rotate_dispatch_seconds = (time.perf_counter() - tail_t0
+                                       - val_dispatch_seconds)
 
             val_batches = len(vbatches)
             val_sums = {k: 0.0 for k in RUNNING_KEYS}
             val_kl_per_dim_mean = 0.0
             val_latents, val_labels = [], []
-            if val_rows is not None:
-                nm = len(METRIC_KEYS)
-                # [batches, rows, latent]: the ranks' rows back in row order
-                mu = val_rows[:, nm:].reshape(val_batches, -1,
-                                              model.latent_dim)
-                mu = gather_rows(mu.transpose(0, 1), group).transpose(0, 1)
-                host = torch.cat([val_rows[:, :nm].reshape(-1),
-                                  mu.reshape(-1)]).cpu().numpy()
+            if val_pending is not None:
+                host = val_pending.rows()
                 stacked = host[:val_batches * nm].reshape(val_batches, nm)
-                mu_all = host[val_batches * nm:].reshape(mu.shape)
+                mu_all = host[val_batches * nm:].reshape(val_pending.meta)
                 mk = {k: stacked[:, i] for i, k in enumerate(METRIC_KEYS)}
                 if run.detect_anomalies:
                     for k in RUNNING_KEYS:
@@ -795,10 +905,11 @@ def _train(config_path, resume: str, device, mesh) -> dict:
             if main:
                 if saved_latest:
                     ckpt.save_latest(model, optimizer, epoch, total_steps,
-                                     extra)
+                                     extra, snapshot=snapshot)
                 if have_val:
                     ckpt.save_best(model, optimizer, epoch, total_steps,
-                                   extra, monitor_value=val_total)
+                                   extra, monitor_value=val_total,
+                                   snapshot=snapshot)
                 elif not no_val_warned:
                     no_val_warned = True
                     print("[VAL] no validation batches this run — "
@@ -806,12 +917,12 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                           "disabled")
             ckpt_seconds = time.perf_counter() - t_ckpt
 
+            # the panel: to the background writer, once the last one landed
             t_panel = time.perf_counter()
-            if panel is not None:
-                sample_reconstructions(
-                    panel[0],
-                    recon_dev.float().cpu().numpy().transpose(0, 2, 3, 1),
-                    figures_dir, epoch, filenames=panel[1])
+            panels.join()
+            if recon_pending is not None:
+                panels.start(panel[0], recon_pending, figures_dir, epoch,
+                             panel[1])
             panel_seconds = time.perf_counter() - t_panel
 
             tail_seconds = time.perf_counter() - tail_t0
@@ -819,8 +930,8 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                 "epoch": epoch,
                 "val_seconds": round(val_seconds, 3),
                 "val_dispatch_seconds": round(val_dispatch_seconds, 3),
-                "rotate_dispatch_seconds": 0.0,
-                "rotated": False,
+                "rotate_dispatch_seconds": round(rotate_dispatch_seconds, 3),
+                "rotated": rotated,
                 "probe_seconds": round(probe_seconds, 3),
                 "ckpt_seconds": round(ckpt_seconds, 3),
                 "panel_seconds": round(panel_seconds, 3),
@@ -837,14 +948,20 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                     # the run ends here: without this save '--resume latest'
                     # would replay up to checkpoint_every_epochs − 1 epochs
                     ckpt.save_latest(model, optimizer, epoch, total_steps,
-                                     extra)
+                                     extra, snapshot=snapshot)
+                if prefetch is not None:
+                    # the next epoch's chunk is discarded, never drained
+                    # or logged (its launches ran, and stay counted): the
+                    # state goes back to the checkpoints'
+                    snapshot.restore()
+                    prefetch = None
                 break
     except BaseException as err:
         run_error = err
         raise
     finally:
         run.profiler.stop()
-        _finish(ckpt, run_error, old_sigterm)
+        _finish(ckpt, panels, run_error, old_sigterm)
     return {"model": model, "optimizer": optimizer, "epoch": epoch,
             "total_steps": total_steps, "traces": run.profiler.paths,
             "checkpoint_writes": ckpt.writes}

@@ -57,9 +57,41 @@ class OptimizerChain:
                        for p in group["params"]]
         self._bound_to = None
         self._lr = None
+        self.flat_grad = None
+        self._grad_views = []
+
+    def flatten_grads(self) -> torch.Tensor:
+        """Make every parameter's gradient a view of one flat buffer,
+        allocated once, and return it: one all-reduce of it syncs a data
+        mesh's gradients.  From then on :meth:`zero_grad` zeros the buffer
+        in place and keeps the views (``backward()`` accumulates into
+        them), so a captured CUDA graph's all-reduce reads where the
+        gradients are."""
+        if self.flat_grad is not None:
+            return self.flat_grad
+        kinds = {(p.dtype, p.device) for p in self.params}
+        if len(kinds) != 1:
+            raise ValueError(f"one flat gradient buffer needs parameters of "
+                             f"one dtype and device, got {sorted(map(str, kinds))}")
+        self.flat_grad = torch.zeros(sum(p.numel() for p in self.params),
+                                     dtype=self.params[0].dtype,
+                                     device=self.params[0].device)
+        at = 0
+        for p in self.params:
+            self._grad_views.append(self.flat_grad[at:at + p.numel()]
+                                    .view_as(p))
+            at += p.numel()
+        self.zero_grad()
+        return self.flat_grad
 
     def zero_grad(self) -> None:
-        self.optimizer.zero_grad(set_to_none=True)
+        if self.flat_grad is None:
+            self.optimizer.zero_grad(set_to_none=True)
+            return
+        self.flat_grad.zero_()
+        for p, view in zip(self.params, self._grad_views):
+            if p.grad is not view:
+                p.grad = view
 
     def bind_state(self) -> None:
         """Point the update at the tensors of ``self.optimizer.state``,

@@ -20,17 +20,16 @@ rows of the global batch and computes what the single process computes:
 its augmentation draws and its ε are its rows of the whole batch's (the
 kernel's counter starts at the rank's first row), every batch reduction of
 the loss and the metrics is over the group (:mod:`..parallel.reduce`), and
-the model runs inside ``DistributedDataParallel``, whose gradient mean
-then equals the single-process gradient; the clip and the update follow
-the sync, identically on every rank.
+after ``backward()`` the gradients, views of one flat buffer, are averaged
+over the ranks by one all-reduce, which gives the single-process gradient;
+the clip and the update follow the sync, identically on every rank.  The
+step is one path, eager and captured in a CUDA graph (NCCL's collectives
+run inside the graph).
 """
 
 from __future__ import annotations
 
-import warnings
-
 import torch
-from torch import nn
 
 from ..data.augment import apply_augment, draw_augment
 from ..data.pipeline import gather_batch
@@ -38,7 +37,7 @@ from ..models.beta_vae import BetaVAEModule, FlaxBatchNorm2d
 from ..models.losses import LossSpec, compute_loss
 from ..ops.elbo import fused_reparam_kl
 from ..ops.reparam import reparameterize_and_kl
-from ..parallel.reduce import global_sum
+from ..parallel.reduce import global_sum, mean_over_ranks_
 from .optim import OptimizerChain
 
 
@@ -101,21 +100,6 @@ def _forward_losses(model, x, mask, sched: dict, *, spec: LossSpec,
         group=group)
 
 
-class _Objective(nn.Module):
-    """The model and its loss as one module: ``DistributedDataParallel``
-    prepares its gradient sync in the forward of the module it wraps, so
-    that forward must be the whole loss (encode, reparam+KL, decode)."""
-
-    def __init__(self, model: BetaVAEModule, **loss_kwargs):
-        super().__init__()
-        self.model = model
-        self.loss_kwargs = loss_kwargs
-
-    def forward(self, x, mask, sched: dict, offset, row0: int):
-        return _forward_losses(self.model, x, mask, sched, offset=offset,
-                               row0=row0, **self.loss_kwargs)
-
-
 def _join_mesh(model: BetaVAEModule, mesh) -> None:
     """Point ``model``'s BatchNorms at ``mesh``'s group, so that their
     batch statistics are the global batch's."""
@@ -154,30 +138,20 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
     turns LPIPS on (:func:`..ops.lpips.build_lpips_fn`).
 
     With a ``mesh`` (:func:`..parallel.mesh.data_parallel_mesh`), ``idx``
-    and ``mask`` are this rank's rows of the global batch, the model runs
-    inside ``DistributedDataParallel`` (its gradients are averaged over the
-    ranks in ``backward()``, in place in its buckets: the gradients are
-    views of them) and the metrics are the global batch's.  Under
-    ``model.deterministic_overfit`` ``fc_logvar`` gets no gradient, so DDP
-    looks for unused parameters there, and only there.
+    and ``mask`` are this rank's rows of the global batch, the metrics are
+    the global batch's, and the gradients are views of one flat buffer
+    (:meth:`.optim.OptimizerChain.flatten_grads`) that one all-reduce
+    averages over the ranks after ``backward()``
+    (:func:`..parallel.reduce.mean_over_ranks_`).  Under
+    ``model.deterministic_overfit`` ``fc_logvar`` gets no gradient: its
+    view stays zero, and the update moves it as the single process's does.
     """
-    device = next(model.parameters()).device
     group = None if mesh is None else mesh.group
-    objective = _Objective(model, spec=spec, use_capacity=use_capacity,
-                           seed=seed, lpips_fn=lpips_fn, group=group)
     if mesh is not None:
         _join_mesh(model, mesh)
-        with warnings.catch_warnings():
-            # newer torch marks broadcast_buffers deprecated and advises
-            # keeping it False where buffers must not be synced: BatchNorm's
-            # running statistics move identically on every rank already
-            warnings.filterwarnings("ignore", "`broadcast_buffers`",
-                                    FutureWarning)
-            objective = nn.parallel.DistributedDataParallel(
-                objective,
-                device_ids=[device.index] if device.type == "cuda" else None,
-                broadcast_buffers=False, gradient_as_bucket_view=True,
-                find_unused_parameters=spec.deterministic)
+        optimizer.flatten_grads()
+    loss_kwargs = dict(spec=spec, use_capacity=use_capacity, seed=seed,
+                       lpips_fn=lpips_fn, group=group)
 
     def step(images, idx, mask, sched: dict, step_index, draws) -> dict:
         model.train()
@@ -185,9 +159,12 @@ def make_train_step(model: BetaVAEModule, optimizer: OptimizerChain,
         x = apply_augment(gather_batch(images, idx), draws, rows=rows,
                           **aug_kwargs)
         optimizer.zero_grad()
-        losses = objective(x, mask, sched, step_index,
-                           0 if rows is None else rows.start)
+        losses = _forward_losses(model, x, mask, sched, offset=step_index,
+                                 row0=0 if rows is None else rows.start,
+                                 **loss_kwargs)
         losses["total"].backward()
+        if group is not None:
+            mean_over_ranks_(optimizer.flat_grad, group)
         optimizer.step(sched["lr"])
         return scalar_metrics(losses, mask, group)
 

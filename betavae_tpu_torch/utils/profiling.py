@@ -38,12 +38,15 @@ class StepProfiler:
 
     def maybe_start(self, next_step: int) -> None:
         """Start a window whose first step is ``next_step``, if steps are
-        left to trace; raises ``RuntimeError`` if the profiler cannot."""
+        left to trace; raises ``RuntimeError`` if the profiler cannot.  The
+        work queued on the device before it is waited for first, so the
+        window's device events are its steps' (and what follows them)."""
         if self.remaining <= 0 or self.active:
             return
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize(self.device)
         os.makedirs(self.out_dir, exist_ok=True)
         prof = profile(activities=activities)
         try:

@@ -71,17 +71,28 @@ Phases, each printing one line (any failure exits non-zero at once):
    at K = 1 and 20; then ``train()`` 2 epochs with validation at K = 3
    against K = 1, every METRICS number bitwise but the wall times (the
    trainers run K-step chunks of replays wherever the main path below runs
-   them: every phase's default K is 192);
+   them, under a one-rank NCCL mesh and fed from the host too: every
+   phase's default K is 192, and ``train()`` rotates its epochs);
    ``configs/beta_vae_se_tpu_scaled.yaml`` at full width (256 px, 5
    blocks, latent 128, global batch 256) through the training CLI with
    ``--data-parallel -1``, 2 epochs of 2 steps over seeded 256 px demo
-   data (finite lines, each kernel's launches, step ms, peak memory); the
+   data, at the config's ``scan_chunk_steps: 16`` (replays, NCCL inside
+   the graph) and at 1 (finite lines, bitwise between the two but the
+   wall times, each kernel's launches, no CONFIG note, step ms, peak
+   memory); the
    packed-dataset decoder (g++ and the libpng/libjpeg headers on this
    host, the decoder ``load_split`` took on the bench's e2e data, its
    seconds native and with PIL); the epoch trainer ``train()`` on
    the flagship with the fused head for 2 epochs and then ``resume
    latest`` for a third, its checkpoints written by the background writer
-   (``training.async_checkpoint`` of the flagship config); the
+   (``training.async_checkpoint`` of the flagship config); epoch rotation
+   and the background panel writer (phase ``rotation``): ``train()`` on
+   that config for 3 epochs with ``training.epoch_rotation`` on and off in
+   turns (every METRICS line but the host times, ``latest`` and ``best``
+   bitwise, ``rotated`` on epochs 1–2 only, launches as derived, every
+   panel there when ``train()`` returns), then an early stop at epoch 2
+   under rotation (the returned model and optimizer bitwise ``latest``,
+   the discarded chunk's launches counted); the
    evaluation's sampling forward and latents of a small fp32 checkpoint on
    the card against the CPU (1e-3 relative, probe metrics 0.05);
    ``train()`` on ``configs/beta_vae_se_debug.yaml`` as it is (its
@@ -99,17 +110,22 @@ Phases, each printing one line (any failure exits non-zero at once):
    bench (``python -m betavae_tpu_torch.bench`` in-process at ``--steps 96
    --warmup 32 --e2e-epochs 3``: steady state, e2e epochs at the reference
    dataset's scale, encode latencies, PRNG check and the kernel canary,
-   which is the GN kernels' path); the data-parallel path on the fused
+   which is the GN kernels' path), and then the bench's e2e estimator for
+   3 epochs with rotation on and off in turns (phase ``rotation_e2e``:
+   pooled rate, tail seconds); the data-parallel path on the fused
    flagship at full width (global batch 32; ``betavae_tpu_torch/
-   parallel/``): one NCCL rank in this process (20 steps of
-   ``train_steps``: first total bitwise the single process's, one fp32
-   backward's gradients within 1e-5, step ms, busy share and NCCL kernels
-   a step), two ranks sharing the card over gloo in their own processes
-   (10 steps, 16 rows each: first total 1e-3 relative, one fp32
+   parallel/``): one NCCL rank in this process (an epoch of 20 steps of
+   ``train_steps`` as one chunk of replays, in turns with the single
+   process: every total bitwise, launches a replay's one step and the
+   warm-up, the gradient all-reduce among the collectives captured, no
+   CONFIG note; one fp32 backward's gradients within 1e-5, step ms, busy
+   share and NCCL kernels a step), two ranks sharing the card over gloo in
+   their own processes (10 eager steps, 16 rows each, the CONFIG line's
+   ``step_dispatch`` ``eager: gloo``: first total 1e-3 relative, one fp32
    backward's gradients 1e-4, both ranks' parameters bitwise equal, each
    kernel once a step a rank), the dry run on those two ranks and the
-   bench's ``--data-parallel 1`` line beside its steady line, with the
-   analytic 8-GPU prediction; the evaluation and inference CLIs in
+   bench's ``--data-parallel 1`` line (replayed) beside its steady line,
+   with the analytic 8-GPU prediction; the evaluation and inference CLIs in
    process on the epoch trainer's ``best`` checkpoint (``latent_analysis``,
    ``run_evaluation``, ``encode``, ``generate --seed 3``, over the bench's
    e2e data, 4 × 1456 train and 4 × 328 test images at 128 px: every
@@ -147,10 +163,12 @@ Phases, each printing one line (any failure exits non-zero at once):
    beside a copy of the native checkpoint (first total within 1e-5
    relative, the loaded moments bitwise, ``infer.encode`` latents within
    1e-5 relative; the export's and the load's seconds); ``train()`` with
-   both splits fed from the host against the same run with them on the
-   device (every logged total bitwise, and a device-fed rerun's, the
-   same launches), every host-fed batch of an e2e epoch bitwise the
-   resident gather, then host feed and device feed one after the other:
+   both splits fed from the host (chunks of replays, a chunk's batches
+   one upload) against the same run with them on the device (every
+   logged total bitwise, and a device-fed rerun's, the same launches, the
+   capture's warm-up included), every host-fed batch of an e2e epoch
+   bitwise the resident gather, then host feed and device feed one after
+   the other:
    the e2e rate over the bench's data (2 epochs each), the fused
    flagship step's ms, device ms and busy share; ``train()`` with
    ``logging.profile_steps: 5``,
@@ -1700,15 +1718,11 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool,
     if len(totals) != FLAGSHIP_STEPS or not all(map(math.isfinite, totals)):
         fail(f"flagship: expected {FLAGSHIP_STEPS} finite losses, got {totals}")
     recompute = overrides.get("training.remat", False) is not False
-    want = launches_per_step(kernels, fused_head, FLAGSHIP_STEPS,
-                             recompute=recompute)
-    # a host-fed split steps eagerly; the resident one captures its step
-    host_fed = overrides.get("training.max_device_dataset_mb") == 0
-    if not host_fed:
-        want = plus(want, capture_warmup(kernels, fused_head,
-                                         recompute=recompute))
-    if out["dispatch"] != ("eager: host feed" if host_fed
-                           else "cuda_graph") or launches != want:
+    # resident or fed from the host, the trainer captures its step
+    want = plus(launches_per_step(kernels, fused_head, FLAGSHIP_STEPS,
+                                  recompute=recompute),
+                capture_warmup(kernels, fused_head, recompute=recompute))
+    if out["dispatch"] != "cuda_graph" or launches != want:
         fail(f"flagship (fused_head {fused_head}, {overrides}): dispatch "
              f"{out['dispatch']}, kernel launches {launches} in "
              f"{FLAGSHIP_STEPS} steps, want {want}")
@@ -1922,33 +1936,25 @@ SCAN_WALL_KEYS = ("epoch_seconds", "train_steps_per_sec",
 SCALED_TRAIN_PER_CLASS, SCALED_TEST_PER_CLASS, SCALED_EPOCHS = 128, 32, 2
 
 
-def run_scaled(tmp: str, kernels: dict) -> dict:
-    """``configs/beta_vae_se_tpu_scaled.yaml`` at full width (256 px, 5
-    blocks, base 64, latent 128, global batch 256, bf16, the background
-    writer) through the training CLI with ``--data-parallel -1`` (every
-    visible card: one rank here), over seeded 256 px demo data, for
-    SCALED_EPOCHS epochs of 2 steps: every logged number finite, the
-    reparam+KL forward once a train step and validation batch and its
-    backward once a train step, the upsample forward 5 times a decode
-    (train steps, validation batches, an epoch's panel) and its backward 5
-    times a train step, nothing else; step ms (the trainer's images/s of
-    the second epoch), epoch wall and peak memory; then the device time a
-    step by kernel over 4 profiled steps of ``train_steps``."""
+def scaled_run(tmp: str, kernels: dict, k: int) -> dict:
+    """One run of the scaled config through the training CLI with
+    ``--data-parallel -1`` at ``training.scan_chunk_steps`` ``k``: its
+    lines (every number finite), launches, seconds and peak memory."""
     import gc
 
     import torch
 
-    from betavae_tpu_torch.data.demo import generate_demo_data
     from betavae_tpu_torch.logging_utils import reset_logger
     from betavae_tpu_torch.train.__main__ import main as train_cli
 
-    root = os.path.join(tmp, "scaled")
+    root = os.path.join(tmp, "scaled", f"k{k}")
     cfg = write_config("configs/beta_vae_se_tpu_scaled.yaml", root,
-                       "scaled.yaml", **{"training.epochs": SCALED_EPOCHS,
-                                         "logging.log_every_n_steps": 1})
-    generate_demo_data(os.path.join(root, "processed"),
-                       train_per_class=SCALED_TRAIN_PER_CLASS,
-                       test_per_class=SCALED_TEST_PER_CLASS, size=256)
+                       "scaled.yaml", **{
+                           "training.epochs": SCALED_EPOCHS,
+                           "training.scan_chunk_steps": k,
+                           "logging.log_every_n_steps": 1,
+                           "paths.processed_dir": os.path.join(
+                               tmp, "scaled", "processed")})
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1962,10 +1968,45 @@ def run_scaled(tmp: str, kernels: dict) -> dict:
     lines = metrics_lines(os.path.join(root, "outputs", "logs",
                                        "beta_vae_se_tpu_scaled.log"))
     for m in lines:
-        bad = [k for k, v in m.items()
+        bad = [key for key, v in m.items()
                if isinstance(v, float) and not math.isfinite(v)]
         if bad:
-            fail(f"scaled: non-finite {bad} in {m}")
+            fail(f"scaled (K {k}): non-finite {bad} in {m}")
+    return {"cfg": cfg, "lines": lines, "launches": launches,
+            "seconds": seconds, "peak_mem_gib": peak,
+            "notes": config_notes(cfg)}
+
+
+def run_scaled(tmp: str, kernels: dict) -> dict:
+    """``configs/beta_vae_se_tpu_scaled.yaml`` at full width (256 px, 5
+    blocks, base 64, latent 128, global batch 256, bf16, the background
+    writer, epoch rotation) through the training CLI with
+    ``--data-parallel -1`` (every visible card: one NCCL rank here), over
+    seeded 256 px demo data, for SCALED_EPOCHS epochs of 2 steps, at the
+    config's ``scan_chunk_steps: 16`` (K = 2: CUDA-graph replays, NCCL
+    inside) and at 1 (eager): every logged number finite and, but the wall
+    times, bitwise between the two; the reparam+KL forward once a train
+    step and validation batch and its backward once a train step, the
+    upsample forward 5 times a decode (train steps, validation batches, an
+    epoch's panel) and its backward 5 times a train step, nothing else,
+    and at K 16 the capture's warm-up besides; no CONFIG note; the step ms
+    of 4 steps of ``train_steps``, epoch wall and peak memory at each K;
+    then the device time a step by kernel over 4 profiled steps at K 16."""
+    from betavae_tpu_torch.data.demo import generate_demo_data
+    from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.loop import train_steps
+
+    generate_demo_data(os.path.join(tmp, "scaled", "processed"),
+                       train_per_class=SCALED_TRAIN_PER_CLASS,
+                       test_per_class=SCALED_TEST_PER_CLASS, size=256)
+    runs = {k: scaled_run(tmp, kernels, k) for k in (16, 1)}
+    numbers = {k: [{key: v for key, v in m.items()
+                    if key not in SCAN_WALL_KEYS}
+                   for m in r["lines"] if m["phase"] != "epoch_end"]
+               for k, r in runs.items()}
+    if numbers[16] != numbers[1]:
+        fail(f"scaled: K 16 against K 1, the lines part: {numbers}")
+    lines = runs[16]["lines"]
     train_lines = [m for m in lines if m["phase"] == "train"]
     val_lines = [m for m in lines if m["phase"] == "val"]
     steps = max(m["step"] for m in train_lines)
@@ -1979,27 +2020,198 @@ def run_scaled(tmp: str, kernels: dict) -> dict:
     want.update(fused_reparam_kl=steps + SCALED_EPOCHS * val_batches,
                 reparam_kl_backward=steps,
                 **upsample_launches(decodes, steps, blocks=SCALED_BLOCKS))
-    if launches != want:
-        fail(f"scaled: kernel launches {launches}, want {want}")
-    rate = val_lines[-1]["train_images_per_sec"]
+    want16 = plus(want, capture_warmup(kernels, False, train=1, val=1,
+                                       blocks=SCALED_BLOCKS))
+    if (runs[1]["launches"], runs[16]["launches"]) != (want, want16) or \
+            any(r["notes"] != [None] for r in runs.values()):
+        fail(f"scaled: kernel launches K 1 {runs[1]['launches']} (want "
+             f"{want}), K 16 {runs[16]['launches']} (want {want16}), CONFIG "
+             f"notes {[r['notes'] for r in runs.values()]}")
+    by_k = {}
+    for k, r in runs.items():
+        # the step's time from 4 steps of train_steps: under rotation an
+        # epoch of 2 steps runs in the last epoch's tail, and its own
+        # train_images_per_sec times what is left of it
+        steps_out = train_steps(r["cfg"], 4)
+        reset_logger()
+        by_k[k] = {"seconds": r["seconds"], "peak_mem_gib": r["peak_mem_gib"],
+                   "train_images_per_sec": [m["train_images_per_sec"]
+                                            for m in r["lines"]
+                                            if m["phase"] == "val"],
+                   "step_ms": steps_out["timed_seconds"]
+                   / steps_out["timed_steps"] * 1e3,
+                   "step_dispatch": steps_out["dispatch"],
+                   "epoch_wall_seconds": [m["epoch_wall_seconds"]
+                                          for m in r["lines"]
+                                          if m["phase"] == "epoch_end"],
+                   "rotated": [m["rotated"] for m in r["lines"]
+                               if m["phase"] == "epoch_end"]}
     # the device's share of a step: 4 steps of the same config profiled
-    prof = profile_config(cfg, batch / rate * 1e3, steps=4)
+    prof = profile_config(runs[16]["cfg"], by_k[16]["step_ms"], steps=4)
     return {"phase": "scaled", "config": "configs/beta_vae_se_tpu_scaled.yaml",
             "data_parallel": -1, "train_steps": steps,
             "val_batches_per_epoch": val_batches,
+            "lines_bitwise_k16_vs_k1": True,
             "totals": [m["train_total_loss"] for m in train_lines],
             "val_total_loss": [m["val_total_loss"] for m in val_lines],
-            "launches": launches, "seconds": seconds,
-            "train_images_per_sec": [m["train_images_per_sec"]
-                                     for m in val_lines],
-            "step_ms": batch / rate * 1e3,
-            "epoch_wall_seconds": [m["epoch_wall_seconds"] for m in lines
-                                   if m["phase"] == "epoch_end"],
-            "peak_mem_gib": peak,
-            "profiled": {k: prof[k] for k in (
+            "launches": runs[16]["launches"], "launches_k1": want,
+            "by_k": by_k, "step_ms": by_k[16]["step_ms"],
+            "peak_mem_gib": by_k[16]["peak_mem_gib"],
+            "profiled": {key: prof[key] for key in (
                 "steps", "device_ms_per_step", "forward_upsample_ms",
                 "backward_upsample_ms", "device_busy_share",
                 "kernels_per_step", "top_kernels_ms_per_step")}}
+
+
+# --mesh: the scaled config over every visible card, 8 steps an epoch
+MESH_TRAIN_PER_CLASS, MESH_TEST_PER_CLASS, MESH_EPOCHS = 512, 32, 3
+
+
+def mesh_scaled_run(tmp: str, kernels: dict, devices: list, k: int,
+                    src: str = "configs/beta_vae_se_tpu_scaled.yaml",
+                    blocks: int = SCALED_BLOCKS, **overrides) -> dict:
+    """``train()`` of ``src`` over ``devices`` (one spawned rank each, as
+    the training CLI's ``--data-parallel`` runs it) at
+    ``training.scan_chunk_steps`` ``k`` over the demo data under
+    ``<tmp>/mesh/processed``: rank 0's lines (every number finite), every
+    rank's checksum and launches, the latest and best checkpoints, the
+    CONFIG notes and the wall seconds; every rank must have launched each
+    kernel as derived (the capture's warm-up besides at ``k`` > 1; the
+    panel's decode on rank 0 alone)."""
+    import yaml
+
+    from betavae_tpu_torch.parallel.launch import launch, train_rank
+
+    root = os.path.join(tmp, "mesh", f"k{k}")
+    cfg = write_config(src, root, "mesh.yaml", **{
+        "training.epochs": MESH_EPOCHS, "training.scan_chunk_steps": k,
+        "logging.log_every_n_steps": 1, "logging.log_to_file": True,
+        "paths.processed_dir": os.path.join(tmp, "mesh", "processed"),
+        **overrides})
+    with open(cfg) as f:
+        raw = yaml.safe_load(f)
+    device = "cpu" if devices[0] == "cpu" else "cuda"
+    t0 = time.perf_counter()
+    ranks = launch(train_rank, devices, (cfg, "none", device, None))
+    seconds = time.perf_counter() - t0
+    lines = metrics_lines(os.path.join(root, "outputs", "logs",
+                                       f"{raw['paths']['run_id']}.log"))
+    for m in lines:
+        bad = [key for key, v in m.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            fail(f"mesh (K {k}): non-finite {bad} in {m}")
+    steps = max(m["step"] for m in lines if m["phase"] == "train")
+    batch = int(raw["training"]["batch_size"])
+    val_batches = -(-4 * MESH_TEST_PER_CLASS // batch)
+    want = []
+    for rank in range(len(devices) if kernels else 0):  # none counted on CPU
+        # rank 0 alone decodes the epoch's panel
+        decodes = steps + MESH_EPOCHS * (val_batches + (rank == 0))
+        w = {name: 0 for name in kernels}
+        w.update(fused_reparam_kl=steps + MESH_EPOCHS * val_batches,
+                 reparam_kl_backward=steps,
+                 **upsample_launches(decodes, steps, blocks=blocks))
+        if k > 1:
+            w = plus(w, capture_warmup(kernels, False, train=1, val=1,
+                                       blocks=blocks))
+        want.append(w)
+    launches = [{name: r["launches"][name] for name in kernels}
+                for r in ranks]
+    if kernels and launches != want:
+        fail(f"mesh (K {k}): launches {launches}, want {want}")
+    return {"cfg": cfg, "lines": lines, "seconds": seconds, "steps": steps,
+            "val_batches": val_batches, "launches": launches,
+            "checksums": [r["checksum"] for r in ranks],
+            "notes": config_notes(cfg),
+            "latest": checkpoint_arrays(cfg, "latest"),
+            "best": checkpoint_arrays(cfg, "best")}
+
+
+def mesh_scaled(tmp: str, kernels: dict, devices: list, **kw) -> dict:
+    """The scaled config's ``train()`` over the mesh at its
+    ``scan_chunk_steps: 16`` (CUDA-graph replays, the collectives inside
+    the graph) and at 1 (eager): rank 0's lines, but the wall times and
+    the epoch_end lines, bitwise between the two; the latest and best
+    checkpoints bitwise; every rank's parameters bitwise alike and alike
+    across K; no CONFIG note; each kernel's launches as derived on every
+    rank."""
+    runs = {k: mesh_scaled_run(tmp, kernels, devices, k, **kw)
+            for k in (16, 1)}
+    numbers = {k: [{key: v for key, v in m.items()
+                    if key not in SCAN_WALL_KEYS}
+                   for m in r["lines"] if m["phase"] != "epoch_end"]
+               for k, r in runs.items()}
+    if numbers[16] != numbers[1]:
+        fail(f"mesh: K 16 against K 1, the lines part: {numbers}")
+    for tag in ("latest", "best"):
+        if not same_checkpoint(runs[16][tag], runs[1][tag]):
+            fail(f"mesh: the {tag} checkpoints of K 16 and K 1 differ")
+    sums = {s for r in runs.values() for s in r["checksums"]}
+    notes = [r["notes"] for r in runs.values()]
+    if len(sums) != 1 or notes != [[None], [None]]:
+        fail(f"mesh: checksums {[r['checksums'] for r in runs.values()]}, "
+             f"CONFIG notes {notes}")
+    lines = runs[16]["lines"]
+    return {"ranks": len(devices), "steps": runs[16]["steps"],
+            "val_batches_per_epoch": runs[16]["val_batches"],
+            "lines_bitwise_k16_vs_k1": True,
+            "checkpoints_bitwise_k16_vs_k1": True,
+            "replicas_bitwise_equal": True,
+            "totals": [m["train_total_loss"] for m in lines
+                       if m["phase"] == "train"],
+            "val_total_loss": [m["val_total_loss"] for m in lines
+                               if m["phase"] == "val"],
+            "launches_by_rank": {k: r["launches"] for k, r in runs.items()},
+            "by_k": {k: {"seconds": r["seconds"],
+                         "train_images_per_sec": [
+                             m["train_images_per_sec"] for m in r["lines"]
+                             if m["phase"] == "val"],
+                         "epoch_wall_seconds": [
+                             m["epoch_wall_seconds"] for m in r["lines"]
+                             if m["phase"] == "epoch_end"],
+                         "rotated": [m["rotated"] for m in r["lines"]
+                                     if m["phase"] == "epoch_end"]}
+                     for k, r in runs.items()}}
+
+
+def run_mesh(tmp: str, kernels: dict) -> dict:
+    """``--mesh``: every visible card (at least 2) as one NCCL mesh, the
+    path the scaled config's ``--data-parallel -1`` deployment runs: (a)
+    :func:`mesh_scaled` over seeded 256 px demo data (MESH_EPOCHS epochs
+    of 8 steps at the global batch 256, 64 rows a rank); (b) the dry run
+    (one eager step, replicas bitwise, the loss within 2e-3 of one
+    process's); (c) the bench's ``--data-parallel`` over every card and
+    over one, in turns (N, 1, 1, N), each replayed over NCCL."""
+    from betavae_tpu_torch import bench
+    from betavae_tpu_torch.data.demo import generate_demo_data
+    from betavae_tpu_torch.parallel.dryrun import dryrun
+    from betavae_tpu_torch.parallel.mesh import mesh_devices
+
+    devices = mesh_devices(-1, "cuda")
+    if len(devices) < 2:
+        fail(f"--mesh needs at least 2 cards, sees {devices}")
+    t0 = time.perf_counter()
+    generate_demo_data(os.path.join(tmp, "mesh", "processed"),
+                       train_per_class=MESH_TRAIN_PER_CLASS,
+                       test_per_class=MESH_TEST_PER_CLASS, size=256)
+    scaled = mesh_scaled(tmp, kernels, devices)
+    dry = dryrun(devices)
+    turns = []
+    for n in (len(devices), 1, 1, len(devices)):
+        line = bench.main(["--data-parallel", str(n), "--skip-e2e",
+                           "--scan-chunk", "32", "--steps", "96",
+                           "--warmup", "32"])
+        if not (line["backend"] == "nccl" and line["dispatch"] == "cuda_graph"
+                and line["mesh_devices"] == n
+                and math.isfinite(line["value"])):
+            fail(f"mesh (c): bench line {line}")
+        turns.append([n, line["value"], line["step_ms"]])
+    return {"phase": "mesh", "devices": devices,
+            "seconds": time.perf_counter() - t0, "scaled": scaled,
+            "dryrun": dry,
+            "bench_in_turns": {"ranks_images_per_sec_step_ms": turns,
+                               "scan_chunk": 32, "global_batch": 32}}
 
 
 def profile_flagship(tmp: str, step_ms: float, fused_head: bool,
@@ -2252,6 +2464,212 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
             "ckpt_seconds": [m["ckpt_seconds"] for m in lines
                              if m["phase"] == "epoch_end"],
             "peak_mem_gib": peak}
+
+
+# the rotation phase: train() on the epochs config for ROTATION_EPOCHS
+# epochs (3 steps and 1 validation batch an epoch), rotation on and off in
+# turns; then an early stop at epoch 2 of ROTATION_STOP_EPOCHS
+ROTATION_EPOCHS, ROTATION_STOP_EPOCHS = 3, 6
+# the epoch_end keys that are host times and stamps (``rotated`` is not)
+TAIL_TIME_KEYS = ("val_seconds", "val_dispatch_seconds",
+                  "rotate_dispatch_seconds", "probe_seconds", "ckpt_seconds",
+                  "panel_seconds", "tail_seconds", "epoch_wall_seconds",
+                  "t_mono", "t_drain_mono")
+
+
+def pooled_rate(tails: list, images: int) -> float:
+    """Images a second over the run's ``t_drain_mono`` stamps (the bench's
+    pooled e2e rate, every span)."""
+    stamps = [t["t_drain_mono"] for t in tails]
+    return images * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+
+
+def checkpoint_arrays(cfg: str, tag: str) -> dict:
+    """``<run_id>_<tag>.pt`` of ``cfg``'s run, loaded."""
+    import yaml
+
+    from betavae_tpu_torch.io.checkpoint import load_sharded_checkpoint
+
+    with open(cfg) as f:
+        raw = yaml.safe_load(f)
+    return load_sharded_checkpoint(os.path.join(
+        raw["paths"]["models_dir"], f"{raw['paths']['run_id']}_{tag}.pt"))
+
+
+def same_checkpoint(a: dict, b: dict) -> bool:
+    """Two loaded checkpoints with the same scalars and, bit for bit, the
+    same tensors under the same keys."""
+    import numpy as np
+
+    return (all(a[k] == b[k] for k in ("epoch", "total_steps", "val_total"))
+            and all(sorted(a[sec]) == sorted(b[sec])
+                    and all(np.array_equal(np.asarray(a[sec][k]),
+                                           np.asarray(b[sec][k]))
+                            for k in a[sec])
+                    for sec in ("model_state", "optim_state")))
+
+
+def epochs_launches(kernels: dict, train_steps: int, epochs: int) -> dict:
+    """The fused flagship's launches in a ``train()`` of ``epochs`` epochs
+    of the ``epochs`` config (one validation batch and a panel an epoch)
+    with ``train_steps`` train steps run, and its one capture's warm-up."""
+    decodes = train_steps + epochs * 2
+    return plus({"head_forward": decodes, "head_m": train_steps,
+                 "fused_reparam_kl": train_steps + epochs,
+                 "reparam_kl_backward": train_steps,
+                 "gn_forward": 0, "gn_backward": 0,
+                 **upsample_launches(decodes, train_steps)},
+                capture_warmup(kernels, True, train=1, val=1))
+
+
+def run_rotation(tmp: str, kernels: dict) -> dict:
+    """Epoch rotation and the background panel writer in ``train()`` on the
+    ``epochs`` config (the fused flagship at full width, the background
+    checkpoint writer), ROTATION_EPOCHS epochs with
+    ``training.epoch_rotation`` true and false in turns (on, off, off, on):
+    every METRICS line bitwise but the wall times (the epoch_end lines: but
+    the host times and stamps), ``latest`` and ``best`` bitwise, ``rotated``
+    true on epochs 1 … E − 1 and false on E (false throughout with it off),
+    the launches as derived and equal, every panel's files there when
+    ``train()`` returns (after the ``epochs`` phase, whose data it reads).
+    Then an early stop at epoch 2 of ROTATION_STOP_EPOCHS with rotation
+    on: ``latest`` says epoch 2, the returned model and optimizer state
+    are bitwise its tensors, and the discarded epoch-3 chunk's launches are
+    counted.  Reports each run's pooled rate over its drain stamps and its
+    tail seconds."""
+    from unittest import mock
+
+    import torch
+
+    from betavae_tpu_torch.io.weights import optim_state_tensors
+    from betavae_tpu_torch.train import loop
+
+    runs = []
+    for n, rotate in enumerate((True, False, False, True)):
+        cfg = epochs_config(tmp, os.path.join(tmp, "rotation", f"run{n}"),
+                            "config.yaml", **{
+                                "training.epochs": ROTATION_EPOCHS,
+                                "training.epoch_rotation": rotate})
+        zero_counts(kernels)
+        out, lines = _train_lines(cfg)
+        launches = read_counts(kernels)
+        figures = os.path.join(tmp, "rotation", f"run{n}", "outputs",
+                               "figures")
+        panels = sorted(f for f in os.listdir(figures)
+                        if f.startswith("recon_epoch"))
+        tails = [m for m in lines if m["phase"] == "epoch_end"]
+        runs.append({
+            "rotate": rotate, "out": out, "launches": launches,
+            "panels": panels, "tails": tails,
+            "numbers": [{k: v for k, v in m.items()
+                         if k not in SCAN_WALL_KEYS + TAIL_TIME_KEYS
+                         + ("rotated",)} for m in lines],
+            "checkpoints": {tag: checkpoint_arrays(cfg, tag)
+                            for tag in ("latest", "best")}})
+    steps = runs[0]["out"]["total_steps"]
+    want = epochs_launches(kernels, steps, ROTATION_EPOCHS)
+    want_panels = sorted(f"recon_epoch{e}{suffix}"
+                         for e in range(1, ROTATION_EPOCHS + 1)
+                         for suffix in (".png", "_diff.png", "_stats.json"))
+    for r in runs:
+        want_rotated = ([True] * (ROTATION_EPOCHS - 1) + [False]
+                        if r["rotate"] else [False] * ROTATION_EPOCHS)
+        same_lines = r["numbers"] == runs[0]["numbers"]
+        if (not same_lines
+                or [t["rotated"] for t in r["tails"]] != want_rotated
+                or r["launches"] != want or r["panels"] != want_panels
+                or not all(same_checkpoint(r["checkpoints"][tag],
+                                           runs[0]["checkpoints"][tag])
+                           for tag in ("latest", "best"))):
+            fail(f"rotation (epoch_rotation {r['rotate']}): rotated "
+                 f"{[t['rotated'] for t in r['tails']]} (want "
+                 f"{want_rotated}), launches {r['launches']} (want {want}), "
+                 f"panels {r['panels']}, lines equal {same_lines}, "
+                 f"checkpoints equal "
+                 f"{[same_checkpoint(r['checkpoints'][t], runs[0]['checkpoints'][t]) for t in ('latest', 'best')]}")
+
+    class StopAtTwo:
+        def __init__(self, *args, **kwargs):
+            self.calls = 0
+            self.should_stop = False
+
+        def update(self, value):
+            self.calls += 1
+            self.should_stop = self.calls >= 2
+
+    cfg = epochs_config(tmp, os.path.join(tmp, "rotation", "early"),
+                        "config.yaml", **{
+                            "training.epochs": ROTATION_STOP_EPOCHS,
+                            "training.epoch_rotation": True})
+    zero_counts(kernels)
+    with mock.patch.object(loop, "EarlyStopping", StopAtTwo):
+        out, lines = _train_lines(cfg)
+    launches = read_counts(kernels)
+    latest = checkpoint_arrays(cfg, "latest")
+    per_epoch = steps // ROTATION_EPOCHS
+    live = {"model_state": out["model"].state_dict(),
+            "optim_state": optim_state_tensors(out["optimizer"].optimizer)}
+    mismatched = [f"{sec}/{k}" for sec, part in live.items()
+                  for k, v in part.items()
+                  if not torch.equal(v.detach().cpu(),
+                                     torch.as_tensor(latest[sec][k]))]
+    # epochs 1 and 2 ran and were drained; epoch 3's one chunk ran and was
+    # discarded; the validation passes and panels of epochs 1 and 2
+    want_early = epochs_launches(kernels, 3 * per_epoch, 2)
+    rotated = [m["rotated"] for m in lines if m["phase"] == "epoch_end"]
+    if (latest["epoch"], out["epoch"], out["total_steps"]) != (
+            2, 2, 2 * per_epoch) or mismatched or set(latest["model_state"]) \
+            != set(live["model_state"]) or launches != want_early \
+            or rotated != [True, True]:
+        fail(f"rotation (early stop): latest epoch {latest['epoch']}, "
+             f"returned epoch {out['epoch']} / {out['total_steps']} steps, "
+             f"mismatched {mismatched}, launches {launches} (want "
+             f"{want_early}), rotated {rotated}")
+    images = steps // ROTATION_EPOCHS * 32
+    return {"phase": "rotation", "epochs": ROTATION_EPOCHS,
+            "lines_bitwise": True, "checkpoints_bitwise": True,
+            "launches": runs[0]["launches"],
+            "runs": [{"epoch_rotation": r["rotate"],
+                      "rotated": [t["rotated"] for t in r["tails"]],
+                      "pooled_images_per_sec": pooled_rate(r["tails"], images),
+                      "tail_seconds": [t["tail_seconds"] for t in r["tails"]],
+                      "rotate_dispatch_seconds": [
+                          t["rotate_dispatch_seconds"] for t in r["tails"]],
+                      "panel_seconds": [t["panel_seconds"]
+                                        for t in r["tails"]]}
+                     for r in runs],
+            "early_stop": {"latest_epoch": latest["epoch"],
+                           "returned_bitwise_latest": True,
+                           "launches": launches,
+                           "discarded_chunk_steps": per_epoch}}
+
+
+def rotation_e2e_in_turns(tmp: str) -> dict:
+    """The bench's e2e estimator (``train()`` over the bench's e2e data,
+    182 steps an epoch: one chunk) for 3 epochs with
+    ``training.epoch_rotation`` true and false in turns (on, off, off,
+    on): the pooled rate (one span, epoch 2's tail and epoch 3), the
+    steady epochs' tail by part and each epoch's rotated dispatch
+    seconds (the host blocked while the chunk's replays fill the launch
+    queue)."""
+    from betavae_tpu_torch import bench
+
+    turns = []
+    for rotate in (True, False, False, True):
+        with contextlib.redirect_stdout(sys.stderr):
+            rate, breakdown = bench._e2e_images_per_sec(
+                epochs=3, work_dir=os.path.join(tmp, "bench_e2e"),
+                training={"epoch_rotation": rotate})
+        if not math.isfinite(rate) or breakdown["rotated_epochs"] != (
+                2 if rotate else 0):
+            fail(f"rotation e2e (epoch_rotation {rotate}): rate {rate}, "
+                 f"breakdown {breakdown}")
+        turns.append({"epoch_rotation": rotate, "e2e_images_per_sec": rate,
+                      **{key: breakdown[key] for key in (
+                          "val_seconds", "probe_seconds", "ckpt_seconds",
+                          "tail_seconds", "epoch_wall_seconds",
+                          "rotate_dispatch_seconds", "dispatch")}})
+    return {"phase": "rotation_e2e", "turns": turns}
 
 
 def _train_lines(cfg_path: str, resume: str = "none") -> tuple:
@@ -2611,9 +3029,11 @@ def e2e_train_split(tmp: str):
 
 
 def host_fed_batches(ds, depth: int) -> dict:
-    """Every batch of one epoch of ``ds`` through a host-fed split (pinned
-    staging buffers, copies on a side stream, ``depth`` batches ahead) must
-    be bitwise the batch the resident split gathers."""
+    """Every batch of one epoch of ``ds`` through a host-fed split (``depth``
+    batches an upload: gathered into a pinned buffer, one of two in turn,
+    and copied to the static device buffer in one copy) must be bitwise
+    the batch the resident split gathers."""
+    import numpy as np
     import torch
 
     from betavae_tpu_torch.data.pipeline import (BatchPlan, DeviceData,
@@ -2622,13 +3042,23 @@ def host_fed_batches(ds, depth: int) -> dict:
     dev = torch.device("cuda")
     host = DeviceData.from_dataset(ds, dev, max_device_bytes=0, depth=depth)
     resident = DeviceData.from_dataset(ds, dev)
-    plan = list(BatchPlan(len(ds), 32, shuffle=True, seed=0).batches(1))
+    plan = [idx for idx, _ in BatchPlan(len(ds), 32, shuffle=True,
+                                        seed=0).batches(1)]
+    source = host.source(32)
+
+    def on_card(idx):
+        return torch.from_numpy(np.asarray(idx, np.int64)).to(dev)
+
     t0 = time.perf_counter()
-    # counted on the device, read once: the host runs ahead, refilling each
-    # staging buffer as soon as its last copy has left it
+    # counted on the device, read once: each upload is queued behind the
+    # gathers of the last one, and the host refills a pinned buffer once its
+    # last copy has left it
     equal = torch.zeros((), dtype=torch.int64, device=dev)
-    for (x, i, _), (y, j, _) in zip(host.feed(plan), resident.feed(plan)):
-        equal += (gather_batch(x, i) == gather_batch(y, j)).all()
+    for at in range(0, len(plan), depth):
+        part = plan[at:at + depth]
+        for i, j in zip(host.stage(part), part):
+            equal += (gather_batch(source, on_card(i))
+                      == gather_batch(resident.images, on_card(j))).all()
     same = int(equal)
     seconds = time.perf_counter() - t0
     if same != len(plan) or not host.host_feed:
@@ -2640,17 +3070,20 @@ def host_fed_batches(ds, depth: int) -> dict:
 
 def run_host_feed(tmp: str, kernels: dict) -> dict:
     """``train()`` on the ``epochs`` config fed from the host
-    (``training.max_device_dataset_mb: 0``) against the same with the
-    splits on the device, and the device-fed run again: every logged
-    total of both bitwise the device-fed run's (the step replays), and the
-    same kernel launches.
+    (``training.max_device_dataset_mb: 0``: chunks of replays, the chunk's
+    batches uploaded in one copy) against the same with the splits on the
+    device, and the device-fed run again: every logged total of both
+    bitwise the device-fed run's, and the same kernel launches, the
+    capture's warm-up included (both capture a train step and a
+    validation batch).
     Every batch of an epoch of the bench's e2e data through the host feed
-    (16 and 1 batches ahead) is held bitwise to the resident gather
+    (16 and 1 batches an upload) is held bitwise to the resident gather
     (:func:`host_fed_batches`).  Then host feed, then device feed, one
     after the other (host speed drifts within a call): the bench's e2e
     img/s estimator over the bench's e2e data (4 × 1456 train images at
-    128 px, 2 epochs, one span), and the fused flagship step (20 steps,
-    then 8 profiled: step ms, device ms and busy share)."""
+    128 px, 2 epochs, one span; host-fed chunks of 16 steps), and the fused
+    flagship step (20 steps, then 8 profiled: step ms, device ms and busy
+    share)."""
     import contextlib
 
     from betavae_tpu_torch import bench
@@ -2671,13 +3104,9 @@ def run_host_feed(tmp: str, kernels: dict) -> dict:
     rel = {tag: [_rel(a, b) for a, b in zip(r["totals"], dev)]
            for tag, r in runs.items() if tag != "device"}
     host = runs["host"]
-    # the device-fed runs capture a train step and a validation batch, the
-    # host-fed one steps eagerly
     if not (len(host["totals"]) == len(dev) > 1
             and host["totals"] == dev == runs["device_rerun"]["totals"]
-            and runs["device"]["launches"] == plus(
-                host["launches"],
-                capture_warmup(kernels, True, train=1, val=1))):
+            and runs["device"]["launches"] == host["launches"]):
         fail(f"host_feed: totals {host['totals']} vs device {dev}, launches "
              f"{host['launches']} vs {runs['device']['launches']}")
     ds = e2e_train_split(tmp)
@@ -2689,7 +3118,7 @@ def run_host_feed(tmp: str, kernels: dict) -> dict:
         with contextlib.redirect_stdout(sys.stderr):
             rate, breakdown = bench._e2e_images_per_sec(
                 epochs=2, work_dir=os.path.join(tmp, "bench_e2e"),
-                host_feed=host_feed)
+                training={"max_device_dataset_mb": 0} if host_feed else None)
         e2e_launches = read_counts(kernels)
         if not (math.isfinite(rate) and e2e_launches["fused_reparam_kl"] > 0):
             fail(f"host_feed: {tag}-fed e2e rate {rate}, launches "
@@ -3803,123 +4232,151 @@ def grad_rel(got: dict, want: dict) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-DP_MODES = ("single", "ddp_only", "sums_only", "nccl_1rank")
+def flagship_parameters() -> list:
+    """The flagship's parameters (on the CPU)."""
+    from betavae_tpu_torch.bench import flagship_model
+
+    return list(flagship_model(device="cpu").parameters())
 
 
-@contextlib.contextmanager
-def dp_mode(mesh, mode: str):
-    """``mesh`` as the trainer gets it in ``mode``, for finding where the
-    one-rank mesh's time goes: ``single`` none; ``nccl_1rank`` the mesh;
-    ``ddp_only`` the mesh without its group for the batch reductions (DDP
-    syncs the gradients, every sum stays local); ``sums_only`` the mesh
-    with DDP's wrapper taken out (every sum through the group, no gradient
-    sync).  On one rank all four compute the same numbers."""
-    import dataclasses
+def config_notes(cfg: str) -> list:
+    """The ``step_dispatch`` notes of the CONFIG lines in ``cfg``'s log
+    (``logging.log_to_file``), one a trainer run."""
+    import yaml
+
+    with open(cfg) as f:
+        raw = yaml.safe_load(f)
+    log = os.path.join(raw["paths"]["outputs_dir"], "logs",
+                       f"{raw['paths']['run_id']}.log")
+    with open(log) as f:
+        return [json.loads(line.split("| CONFIG ", 1)[1]).get("step_dispatch")
+                for line in f if "| CONFIG " in line]
+
+
+def dp_in_turns(tmp: str, kernels: dict, mesh) -> dict:
+    """One epoch of DP_STEPS flagship steps (fused head) through
+    ``train_steps`` at K = DP_STEPS (one chunk of replays), the single
+    process and the one-rank NCCL mesh in turns (single, mesh, mesh,
+    single): every total of each run bitwise the first's, each run's
+    dispatch a CUDA graph with no CONFIG note, its launches DP_STEPS steps'
+    and the capture's warm-up; step ms, capture seconds, a replay's
+    launches."""
     from unittest import mock
 
     import torch
 
-    if mode == "single":
-        yield None
-    elif mode == "nccl_1rank":
-        yield mesh
-    elif mode == "ddp_only":
-        yield dataclasses.replace(mesh, group=None)
-    else:
-        with mock.patch.object(torch.nn.parallel, "DistributedDataParallel",
-                               lambda module, **kw: module):
-            yield mesh
-
-
-def dp_cost_in_turns(mesh, cfg: str) -> dict:
-    """DDP's and the global sums' cost on one rank: DP_STEPS steps in each
-    of DP_MODES and back in reverse order, their step ms and first totals
-    (host-timed steps drift within a call, so only turns compare)."""
     from betavae_tpu_torch.logging_utils import reset_logger
     from betavae_tpu_torch.train.loop import train_steps
 
-    ab = {mode: [] for mode in DP_MODES}
-    firsts = []
-    for mode in DP_MODES + DP_MODES[::-1]:
-        with dp_mode(mesh, mode) as m:
-            run = train_steps(cfg, DP_STEPS, mesh=m)
+    runs = []
+    want = plus(launches_per_step(kernels, True, DP_STEPS),
+                capture_warmup(kernels, True))
+    all_reduce = torch.distributed.all_reduce
+    for n, mode in enumerate(("single", "mesh", "mesh", "single")):
+        cfg = scan_config(tmp, True, DP_STEPS, **{
+            "paths.run_id": f"dp_{n}_{mode}"})
+        captured = []
+
+        def counting(tensor, *args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                captured.append(tensor.numel())
+            return all_reduce(tensor, *args, **kwargs)
+
+        zero_counts(kernels)
+        with mock.patch.object(torch.distributed, "all_reduce", counting):
+            out = train_steps(cfg, DP_STEPS,
+                              mesh=mesh if mode == "mesh" else None)
+        launches = read_counts(kernels)
         reset_logger()
-        ab[mode].append(run["timed_seconds"] / run["timed_steps"] * 1e3)
-        firsts.append(run["totals"][0])
-    return {"step_ms_in_turns": ab, "first_totals": firsts}
+        runs.append({"mode": mode, "totals": out["totals"],
+                     "captured_all_reduces": captured,
+                     "dispatch": out["dispatch"], "chunk_k": out["chunk_k"],
+                     "notes": config_notes(cfg), "launches": launches,
+                     "capture_seconds": out["capture_seconds"],
+                     "launches_per_replay": out["launches_per_replay"],
+                     "step_ms": out["timed_seconds"] / out["timed_steps"]
+                     * 1e3})
+    # the mesh's graph holds its collectives: the global sums and the
+    # gradient all-reduce, one flat buffer of every parameter (NCCL
+    # launches no kernel for a one-rank in-place all-reduce, so the
+    # profiler cannot show them)
+    n_params = sum(p.numel() for p in flagship_parameters())
+    bad = [r for r in runs if r["totals"] != runs[0]["totals"]
+           or len(r["totals"]) != DP_STEPS
+           or not all(map(math.isfinite, r["totals"]))
+           or (r["dispatch"], r["chunk_k"], r["notes"]) != (
+               "cuda_graph", DP_STEPS, [None]) or r["launches"] != want
+           or r["launches_per_replay"] != launches_per_step(kernels, True, 1)
+           or (r["mode"] == "mesh") != (n_params in r["captured_all_reduces"])
+           or (r["mode"] == "single") != (not r["captured_all_reduces"])]
+    if bad:
+        fail(f"data_parallel (a): runs in turns {bad} against the first "
+             f"{runs[0]} (want launches {want}, a captured all-reduce of "
+             f"{n_params} gradients on the mesh)")
+    captured = runs[1]["captured_all_reduces"]
+    return {"totals_bitwise": True, "totals": runs[0]["totals"],
+            "dispatch": "cuda_graph", "chunk_k": DP_STEPS,
+            "captured_all_reduces": {"calls": len(captured),
+                                     "gradient_elements": n_params,
+                                     "scalars": captured.count(1)},
+            "launches": runs[1]["launches"],
+            "launches_per_replay": runs[1]["launches_per_replay"],
+            "step_ms_in_turns": [[r["mode"], r["step_ms"]] for r in runs],
+            "capture_seconds_in_turns": [[r["mode"], r["capture_seconds"]]
+                                         for r in runs]}
 
 
 def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
                       card: str) -> dict:
     """The fused flagship at full width (bf16, global batch 32) through the
-    data-parallel path: (a) one NCCL rank on cuda:0 in this process: the
-    single process, DDP alone, the global sums alone and the mesh in turns
-    (:func:`dp_cost_in_turns`), every first total bitwise the same,
-    ``train_steps`` for DP_STEPS steps
-    (launches, step ms, busy share and NCCL kernels a step), and one fp32
-    backward's gradients within 1e-5 (norm) of the single process's; (b)
-    two ranks sharing the card over gloo, 16 rows each, DP_GLOO_STEPS
-    steps: first total
-    1e-3 relative, one fp32 backward 1e-4 (norm), both ranks' parameters
-    bitwise equal after the last step, each kernel once a step a rank (the
-    head on the TMA path); then the dry run on those two ranks; (c) the
-    port's bench with ``--data-parallel 1 --skip-e2e`` over NCCL beside
-    the bench phase's steady line, and the analytic 8-GPU prediction.
-    Nothing falls back: a failed rank fails the run."""
-    import torch
-
+    data-parallel path: (a) one NCCL rank on cuda:0 in this process: one
+    epoch of DP_STEPS steps as one chunk of CUDA-graph replays (the
+    gradient all-reduce and the global sums as NCCL kernels inside the
+    graph), in turns with the single process (:func:`dp_in_turns`: every
+    total bitwise, launches a replay's one step plus the warm-up, no
+    CONFIG note), the profiler's kernels a step (NCCL's among them) and
+    busy share, and one fp32 backward's gradients within 1e-5 (norm) of
+    the single process's; (b) two ranks sharing the card over gloo, 16 rows
+    each, DP_GLOO_STEPS steps, eagerly (the CONFIG line's ``step_dispatch``
+    says ``eager: gloo``): first total 1e-3 relative, one fp32 backward
+    1e-4 (norm), both ranks' parameters bitwise equal after the last step,
+    each kernel once a step a rank (the head on the TMA path); then the dry
+    run on those two ranks; (c) the port's bench with ``--data-parallel 1
+    --skip-e2e`` over NCCL (replayed) beside the bench phase's steady line,
+    and the analytic 8-GPU prediction.  Nothing falls back: a failed rank
+    fails the run."""
     from betavae_tpu_torch import bench
     from betavae_tpu_torch.logging_utils import reset_logger
     from betavae_tpu_torch.parallel.dryrun import dryrun_case, dryrun_check
     from betavae_tpu_torch.parallel.launch import launch
     from betavae_tpu_torch.parallel.mesh import data_parallel_mesh
-    from betavae_tpu_torch.train.loop import train_steps
     from betavae_tpu_torch.utils.flops import data_parallel_scaling
 
     t_phase = time.perf_counter()
-    cfg = flagship_config(tmp, True)
+    # (b)'s ranks train on (a)'s data, whose single process is their yardstick
+    cfg = scan_config(tmp, True, DP_STEPS, **{"paths.run_id": "dp_gloo"})
 
-    # (a) one NCCL rank, in this process; the single process's first total
-    # (in turns with the mesh's) is the reference of (a) and (b)
+    # (a) one NCCL rank, in this process
     mesh = data_parallel_mesh(devices=["cuda:0"])
     try:
         if mesh.backend != "nccl":
             fail(f"data_parallel (a): backend {mesh.backend}, want nccl")
-        turns = dp_cost_in_turns(mesh, cfg)
-        firsts = turns["first_totals"]
-        single_first = firsts[0]
-        if len(set(firsts)) != 1:
-            fail(f"data_parallel (a): first totals in turns {firsts}, want "
-                 f"one value (bitwise)")
-        zero_counts(kernels)
-        out = train_steps(cfg, DP_STEPS, mesh=mesh)
-        launches = read_counts(kernels)
-        paths = head_paths(kernels)
-        reset_logger()
-        step_ms = out["timed_seconds"] / out["timed_steps"] * 1e3
-        prof = profile_flagship(tmp, step_ms, fused_head=True, mesh=mesh)
+        turns = dp_in_turns(tmp, kernels, mesh)
+        single_first = turns["totals"][0]
+        step_ms = statistics.mean(ms for mode, ms in turns["step_ms_in_turns"]
+                                  if mode == "mesh")
+        prof = profile_config(scan_config(tmp, True, DP_STEPS), step_ms,
+                              steps=DP_STEPS, mesh=mesh)
         reset_logger()
         case = dp_fp32_case(tmp)
         single_grads = fp32_grads(None, case)
         rel_a = grad_rel(fp32_grads(mesh, case), single_grads)
     finally:
         mesh.close()
-    totals = out["totals"]
-    want = launches_per_step(kernels, True, DP_STEPS)
-    if not (len(totals) == DP_STEPS and all(map(math.isfinite, totals))
-            and totals[0] == single_first and launches == want):
-        fail(f"data_parallel (a): first total {totals[:1]} vs single "
-             f"{single_first} (bitwise), launches {launches} (want {want}), "
-             f"totals {totals}")
     if rel_a > 1e-5:
         fail(f"data_parallel (a): one fp32 backward, gradients rel {rel_a}")
-    part_a = {"backend": "nccl", "steps": DP_STEPS, "totals": totals,
-              "first_total": totals[0], "single_first_total": single_first,
-              "first_totals_in_turns": firsts,
-              "first_total_bitwise": True, "fp32_grad_rel": rel_a,
-              "step_ms": step_ms,
-              "step_ms_in_turns": turns["step_ms_in_turns"],
-              "launches": launches, "head_launches_by_path": paths,
+    part_a = {"backend": "nccl", "steps": DP_STEPS, **turns,
+              "fp32_grad_rel": rel_a, "step_ms": step_ms,
               "profile": {k: prof[k] for k in (
                   "device_ms_per_step", "device_busy_share",
                   "kernels_per_step", "collective_kernels_per_step",
@@ -3940,8 +4397,11 @@ def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
     rank_launches = [{k: t["launches"][k] for k in want_b} for t in trained]
     head_by_path = [t["launches"]["head_by_path"] for t in trained]
     upsample_by_path = [t["launches"]["upsample_by_path"] for t in trained]
+    notes = config_notes(cfg)
     ok_b = (all(len(t["totals"]) == DP_GLOO_STEPS
-                and all(map(math.isfinite, t["totals"])) for t in trained)
+                and all(map(math.isfinite, t["totals"]))
+                and t["dispatch"] == "eager: gloo" for t in trained)
+            and notes == ["eager: gloo"]
             and trained[0]["totals"] == trained[1]["totals"]
             and max(first_rel) <= 1e-3 and max(rel_b) <= 1e-4
             and trained[0]["checksum"] == trained[1]["checksum"]
@@ -3952,13 +4412,15 @@ def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
     if not ok_b:
         fail(f"data_parallel (b): first totals rel {first_rel}, fp32 grads "
              f"rel {rel_b}, checksums {[t['checksum'] for t in trained]}, "
-             f"launches {rank_launches} (want {want_b}), head paths "
+             f"dispatch {[t['dispatch'] for t in trained]}, CONFIG notes "
+             f"{notes}, launches {rank_launches} (want {want_b}), head paths "
              f"{head_by_path}, upsample paths {upsample_by_path}, totals "
              f"{[t['totals'] for t in trained]}")
     t0 = time.perf_counter()
     dry = dryrun_check([r[2] for r in ranks], dry_case, shared, "gloo")
     part_b = {"backend": "gloo", "devices": shared, "rows_per_rank": 16,
-              "steps": DP_GLOO_STEPS,
+              "steps": DP_GLOO_STEPS, "dispatch": trained[0]["dispatch"],
+              "config_notes": notes,
               "totals": trained[0]["totals"],
               "first_total_rel": first_rel, "fp32_grad_rel": rel_b,
               "replicas_bitwise_equal": True,
@@ -3977,12 +4439,12 @@ def run_data_parallel(tmp: str, kernels: dict, bench_run: dict,
                        "--scan-chunk", "32", "--steps", "96",
                        "--warmup", "32"])
     bench_launches = read_counts(kernels)
-    n_params = sum(p.numel() for p in bench.flagship_model(
-        device="cpu").parameters())
+    n_params = sum(p.numel() for p in flagship_parameters())
     steady = bench_run["line"]["steady_state_images_per_sec"]
     pred = data_parallel_scaling(line["step_ms"], n_params, 8)
     if not (line["metric"] == "train_images_per_sec_dp1_128px_bs32"
-            and line["backend"] == "nccl" and math.isfinite(line["value"])
+            and line["backend"] == "nccl" and line["dispatch"] == "cuda_graph"
+            and math.isfinite(line["value"])
             and bench_launches["fused_reparam_kl"] > 0):
         fail(f"data_parallel (c): bench line {line}, launches "
              f"{bench_launches}")
@@ -4029,7 +4491,10 @@ def run_bench(tmp: str, kernels: dict) -> dict:
              f"{line['prng_check']!r}")
     numbers = {k: v for k, v in line.items()
                if k not in ("metric", "unit", "prng_check", "kernel_canary",
-                            "device")}
+                            "device", "dispatch", "e2e_epoch_breakdown")}
+    numbers["e2e_epoch_breakdown"] = {
+        k: v for k, v in line["e2e_epoch_breakdown"].items()
+        if k != "dispatch"}
     if not all_finite(numbers):
         fail(f"bench: a number is missing or not finite: {line}")
     missing = [name for name in ("gn_forward", "gn_backward", "head_forward",
@@ -4052,6 +4517,9 @@ def run_bench(tmp: str, kernels: dict) -> dict:
 def main() -> None:
     import torch
 
+    mesh_only = sys.argv[1:] == ["--mesh"]
+    if sys.argv[1:] and not mesh_only:
+        fail(f"unknown arguments {sys.argv[1:]} (only --mesh)")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     # the port itself: absent when this script stands alone
@@ -4079,6 +4547,14 @@ def main() -> None:
                     for name in per_kernel},
           "ptxas_by_kernel": {name: ptxas_by_kernel(_build.build_log(name))
                               for name in per_kernel}})
+    if mesh_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            mesh = run_mesh(tmp, kernel_wrappers())
+        mesh["cards"] = smi.stdout.strip().splitlines()
+        emit(mesh)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return
 
     elbo = {f"{s[0]}x{s[1]}": check_elbo(s, check_moments=s[0] >= 65536)
             for s in ELBO_SHAPES}
@@ -4141,6 +4617,9 @@ def main() -> None:
         epochs = run_epochs(tmp, kernels)
         epochs["card"] = card
         emit(epochs)
+        rotation = run_rotation(tmp, kernels)
+        rotation["card"] = card
+        emit(rotation)
         # after the epochs run, whose latest it exports
         reference = run_reference_ckpt(tmp, kernels)
         reference["card"] = card
@@ -4157,6 +4636,10 @@ def main() -> None:
         bench_run = run_bench(tmp, kernels)
         bench_run["card"] = card
         emit(bench_run)
+        # after the bench, whose e2e data it reads
+        rotation_e2e = rotation_e2e_in_turns(tmp)
+        rotation_e2e["card"] = card
+        emit(rotation_e2e)
         # after the bench, whose steady line it is set beside
         dp = run_data_parallel(tmp, kernels, bench_run, card)
         emit(dp)
@@ -4236,7 +4719,11 @@ def main() -> None:
                    for k, launches in scan[head]["launches"].items()},
                 "scan_chunks_train_k3": scan["train_k3_vs_k1"]["launches"][
                     name],
-                "scaled": scaled["launches"][name]}
+                "scaled": scaled["launches"][name],
+                "scaled_k1": scaled["launches_k1"][name],
+                "rotation": rotation["launches"][name],
+                "rotation_early_stop": rotation["early_stop"]["launches"][
+                    name]}
 
     emit({"kernels": [{
         "name": "fused_reparam_kl",

@@ -36,7 +36,7 @@ GEOMETRIES = [(128, 1, 64, 64, 4, 32), (64, 1, 32, 16, 3, 8),
               (256, 1, 128, 64, 5, 256)]
 LINE_KEYS = {
     "metric", "value", "unit", "vs_baseline", "steady_state_images_per_sec",
-    "vs_baseline_steady_state", "step_ms", "mfu", "sol_step_ms",
+    "vs_baseline_steady_state", "step_ms", "dispatch", "mfu", "sol_step_ms",
     "sol_fraction", "e2e_images_per_sec", "vs_baseline_e2e",
     "e2e_epoch_breakdown", "encode_p50_ms_bs1", "encode_device_ms_bs1",
     "prng_check", "kernel_canary", "device"}
@@ -130,6 +130,7 @@ def test_cpu_run_prints_one_json_line(capsys):
     assert line["prng_check"] == line["kernel_canary"] == "skipped (cpu)"
     assert line["mfu"] == line["sol_fraction"] == "not measured (cpu)"
     assert line["e2e_images_per_sec"] == "skipped"
+    assert line["dispatch"] == "eager: cpu"
     assert line["device"] == "cpu" and "not a GPU number" in line["backend"]
 
 
@@ -152,8 +153,13 @@ def test_tiny_e2e_gives_a_finite_pooled_rate(tmp_path):
                               "panel_seconds", "tail_seconds",
                               "epoch_wall_seconds",
                               "span_rates_hostjitter",
-                              "walls_rate_images_per_sec"}
+                              "walls_rate_images_per_sec", "dispatch",
+                              "rotated_epochs", "rotate_dispatch_seconds"}
     assert breakdown["walls_rate_images_per_sec"] > 0
+    # epochs 1 and 2 dispatch the next epoch's first step from their tail
+    assert (breakdown["dispatch"], breakdown["rotated_epochs"]) == (
+        "eager: cpu", 2)
+    assert len(breakdown["rotate_dispatch_seconds"]) == 3
     assert all(r > 0 for r in breakdown["span_rates_hostjitter"])
     models = tmp_path / "outputs" / "models"
     assert {"bench_e2e_latest_shard0.pt", "bench_e2e_best_shard1.pt"} <= \

@@ -511,22 +511,23 @@ def test_gn_gradients_match_plain_autograd(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_checkpoint_pull_holds_the_state_at_save_time(cuda_device):
-    """The background writer's pull of a device snapshot (a side stream
-    into pinned buffers) gives the values at save time, though the
-    training stream changes the originals in place right after the save."""
-    from betavae_tpu_torch.train.callbacks import _pull, _snapshot
+    """A snapshot's pull to the host (a side stream into pinned memory),
+    started after the training stream has queued in-place changes to the
+    originals, gives the values at the snapshot's take."""
+    from betavae_tpu_torch.train.callbacks import StateSnapshot, _pull_finish
+    from betavae_tpu_torch.train.optim import build_optimizer
 
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    state = {"w": torch.randn(4096, 1024, generator=g, device=cuda_device),
-             "b": torch.randn(7, generator=g, device=cuda_device)}
-    want = {k: v.cpu() for k, v in state.items()}
-    snap = {"model_state": _snapshot(state)}
-    ready = torch.cuda.Event()
-    ready.record()
-    for _ in range(20):                   # queued after the snapshot
-        for v in state.values():
-            v.mul_(-3.0).add_(1.0)
-    got = _pull(snap, ready)["model_state"]
+    torch.manual_seed(0)
+    model = torch.nn.Linear(1024, 4096).to(cuda_device)
+    optimizer = build_optimizer(model.parameters())
+    want = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    snap = StateSnapshot(model, optimizer)
+    snap.take()
+    with torch.no_grad():
+        for _ in range(20):               # queued after the take
+            for p in model.parameters():
+                p.mul_(-3.0).add_(1.0)
+    got = _pull_finish(*snap.pull())["model_state"]
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         assert torch.equal(torch.from_numpy(got[k]), v), k
@@ -605,12 +606,15 @@ def _few_steps(path: str, steps: int) -> list:
 @pytest.mark.parametrize("depth", [16, 1])
 def test_host_feed_on_the_card_gives_the_resident_batches(cuda_device,
                                                           tmp_path, depth):
-    """A split fed from the host (pinned staging buffers, copies on a side
-    stream, ``depth`` batches ahead, the host never waiting on a batch):
-    every batch of an epoch bitwise the one the resident split gathers;
-    and a few steps of the trainer fed so: the first step's total bitwise
-    the resident split's.  (A rerun's later steps are held by
-    ``test_train_steps_replay_bitwise_on_the_card``.)"""
+    """A split fed from the host (``depth`` batches an upload, gathered
+    into one of two pinned buffers and copied to the static device buffer
+    in one copy, queued behind the gathers of the last upload): every
+    batch of two epochs bitwise the one the resident split gathers; and a
+    few steps of the trainer fed so (replays of the captured step): the
+    first step's total bitwise the resident split's.  (A rerun's later
+    steps are held by ``test_train_steps_replay_bitwise_on_the_card``.)"""
+    import numpy as np
+
     from betavae_tpu_torch.config import get_config, reset_config_cache
     from betavae_tpu_torch.data.dataset import load_split
     from betavae_tpu_torch.data.pipeline import (BatchPlan, DeviceData,
@@ -626,11 +630,19 @@ def test_host_feed_on_the_card_gives_the_resident_batches(cuda_device,
     host = DeviceData.from_dataset(ds, cuda_device, max_device_bytes=0,
                                    depth=depth)
     resident = DeviceData.from_dataset(ds, cuda_device)
-    plan = [b for epoch in (1, 2) for b in
+    plan = [idx for epoch in (1, 2) for idx, _ in
             BatchPlan(len(ds), 4, shuffle=True, seed=0).batches(epoch)]
+    source = host.source(4)
+
+    def on_card(idx):
+        return torch.from_numpy(np.asarray(idx, np.int64)).to(cuda_device)
+
     equal = torch.zeros((), dtype=torch.int64, device=cuda_device)
-    for (x, i, _), (y, j, _) in zip(host.feed(plan), resident.feed(plan)):
-        equal += (gather_batch(x, i) == gather_batch(y, j)).all()
+    for at in range(0, len(plan), depth):
+        part = plan[at:at + depth]
+        for i, j in zip(host.stage(part), part):
+            equal += (gather_batch(source, on_card(i))
+                      == gather_batch(resident.images, on_card(j))).all()
     assert host.host_feed and int(equal) == len(plan)
 
     device_fed = _few_steps(path, 2)

@@ -21,7 +21,9 @@ or 32 px with LPIPS, 2 blocks, a global batch of 4: 2 rows a rank).
   within 1e-5 relative, every gradient within 1e-5 of its tensor's
   largest value (the BatchNorm running statistics too); the ranks' ε and
   augmented rows together bitwise the single process's.  After 3 steps
-  the replicas are bitwise equal.
+  the replicas are bitwise equal.  On a one-rank gloo mesh in this
+  process the mesh's step (the gradients as views of one flat buffer,
+  averaged by one all-reduce) is bitwise the single process's.
 - The JAX mesh tests' other cases: the divisibility error, the device
   count over what is visible, remat with host feed, a resume, rank 0 as
   the one writer, SIGTERM to a ``--data-parallel 2`` launch draining rank
@@ -210,8 +212,9 @@ def test_train_on_two_ranks_matches_jax_train_on_a_two_device_mesh(dp_runs):
     resumed for one more epoch by the JAX ``train(mesh=data_parallel_mesh(
     2))`` and by the port's ``train(mesh=…)`` on two ranks, z = μ
     (``model.deterministic_overfit``, under which ``fc_logvar`` gets no
-    gradient and DDP must look for unused parameters) and augmentation
-    off: final parameters at ``test_mesh_train.py``'s bounds."""
+    gradient: its view of the flat gradient buffer stays zero) and
+    augmentation off: final parameters at ``test_mesh_train.py``'s
+    bounds."""
     jax_reset_config()
     jax_reset_logger()
     try:
@@ -241,8 +244,8 @@ ONE_STEP_CASES = ("capacity_ffl", "free_bits", "batch_norm", "lpips",
 @pytest.mark.parametrize("name", ONE_STEP_CASES)
 def test_one_step_on_two_ranks_equals_one_process(dp_runs, name):
     """Loss and metrics 1e-5 relative (atol 1e-6); each gradient, after
-    DDP's mean and before the clip, within 1e-5 relative plus 1e-5 of its
-    tensor's largest value (under BatchNorm, the conv biases before it,
+    the ranks' mean and before the clip, within 1e-5 relative plus 1e-5 of
+    its tensor's largest value (under BatchNorm, the conv biases before it,
     whose gradient is rounding noise, within 1e-5 of the largest gradient
     anywhere), and the same on both ranks, bitwise; the BatchNorm running
     statistics 1e-5 relative (atol 1e-6); the ranks' ε and augmented
@@ -293,6 +296,42 @@ def test_replicas_are_bitwise_equal_after_three_steps(dp_runs):
         assert np.array_equal(value, ranks[1]["state"][key]), key
     np.testing.assert_allclose(ranks[0]["totals"], single["totals"],
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("overfit", [False, True],
+                         ids=["capacity_ffl", "deterministic_overfit"])
+def test_one_rank_mesh_step_is_the_single_process_step_bitwise(tmp_path,
+                                                              overfit):
+    """The mesh's step (global sums, the gradients as views of one flat
+    buffer averaged by one all-reduce) on a one-rank gloo mesh in this
+    process: the first total, every gradient after the sync and the
+    parameters and buffers after the update bitwise the single process's.
+    Under ``model.deterministic_overfit`` ``fc_logvar`` gets no gradient
+    (its view stays zero where the single process holds none) and the
+    update moves it as the single process's does."""
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (12, 16, 16, 1), dtype=np.uint8)
+    case = Case(images, [(np.array([7, 2, 9, 4], np.int32),
+                          np.ones(B, np.float32))], [SCHED_CAPACITY],
+                config=_case_config(tmp_path, "case", **CAPACITY, **{
+                    "model.deterministic_overfit": overfit}))
+    single = record_steps(None, case)
+    mesh = data_parallel_mesh(devices=["cpu"])
+    try:
+        one = record_steps(mesh, case)
+    finally:
+        mesh.close()
+    assert one["totals"] == single["totals"]
+    unused = set(one["grads"]) - set(single["grads"])
+    assert unused == ({"fc_logvar.weight", "fc_logvar.bias"} if overfit
+                      else set())
+    for key in unused:
+        assert not one["grads"][key].any(), key
+    for key, want in single["grads"].items():
+        assert np.array_equal(one["grads"][key], want), key
+    assert set(one["state"]) == set(single["state"])
+    for key, want in single["state"].items():
+        assert np.array_equal(one["state"][key], want), key
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,12 @@ port's ``train()`` matches the JAX ``train()`` resumed from the same shards;
 a split fed from the host trains bitwise as a resident one, however many
 batches are staged ahead; ``logging.profile_steps`` writes traces that
 ``utils/trace.py`` parses, and the parser holds to a hand-written trace.
+Epoch rotation is bitwise the unrotated run (every line, every checkpoint
+written, the returned state) and an early stop under it restores the
+epoch-N state; the background panel writer's files land before
+``train()`` returns and its failures surface as the JAX loop's do; host-fed
+chunks of ``host_feed_chunk_limit`` steps are bitwise the device-fed run;
+and the dispatch table says which paths replay a CUDA graph.
 """
 
 import gzip
@@ -47,15 +53,18 @@ from betavae_tpu_torch.config import reset_config_cache
 from betavae_tpu_torch.data.demo import generate_demo_data
 from betavae_tpu_torch.data.pipeline import host_feed_chunk_limit
 from betavae_tpu_torch.eval.probes import compute_probe_metrics
-from betavae_tpu_torch.io.checkpoint import discover_shards, read_checkpoint_meta
+from betavae_tpu_torch.io.checkpoint import (discover_shards,
+                                             load_sharded_checkpoint,
+                                             read_checkpoint_meta)
 from betavae_tpu_torch.logging_utils import reset_logger
 from betavae_tpu_torch.ops.elbo import fused_reparam_kl
 from betavae_tpu_torch.ops.head import head_forward, head_m
 from betavae_tpu_torch.train.__main__ import main
 from betavae_tpu_torch.train.callbacks import CheckpointManager, EarlyStopping
 from betavae_tpu_torch.train.chunks import chunk_plan
-from betavae_tpu_torch.io.weights import params_from_jax
-from betavae_tpu_torch.train.loop import train
+from betavae_tpu_torch.io.weights import optim_state_tensors, params_from_jax
+from betavae_tpu_torch.train import loop
+from betavae_tpu_torch.train.loop import dispatch_way, dispatch_note, train
 from betavae_tpu_torch.utils import profile_step
 from betavae_tpu_torch.utils.trace import find_traces, parse_trace
 
@@ -132,6 +141,11 @@ def test_train_lines_match_jax_train(jax_lines, tmp_path):
     for phase in ("train", "val", "epoch_end"):
         keys = {tuple(m) for m in port_lines if m["phase"] == phase}
         assert keys == {tuple(m) for m in jax_lines if m["phase"] == phase}
+    # epoch rotation (on by default in both): epoch 1 dispatches epoch 2's
+    # first chunk from its tail, the last epoch has none to dispatch
+    rotated = [[m["rotated"] for m in lines if m["phase"] == "epoch_end"]
+               for lines in (port_lines, jax_lines)]
+    assert rotated[0] == rotated[1] == [True, False]
     assert out["epoch"] == 2 and out["total_steps"] == 6
     for m in port_lines:
         if m["phase"] != "epoch_end":
@@ -838,3 +852,289 @@ def test_scan_chunks_match_jax_train_at_the_same_k(tmp_path, capsys, k):
             if key in want:
                 assert got[key] == pytest.approx(want[key], rel=1e-4,
                                                  abs=1e-6), (want["step"], key)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the JAX loop's dispatch: epoch rotation, the background panel
+# writer, host-fed chunks, the dispatch table
+# ---------------------------------------------------------------------------
+
+# the JAX rotation test's shape (tests/test_epoch_rotation.py): 5 train
+# batches an epoch in chunks of K = 2 (2, 2, 1), 2 validation batches,
+# 3 epochs
+_ROTATION_CFG = {"debug.max_train_batches": 5, "debug.epochs": 3,
+                 "training.scan_chunk_steps": 2,
+                 "optimization.scheduler": "none",
+                 "logging.log_every_n_steps": 1}
+# the epoch_end keys that are host times and stamps
+_TAIL_TIMES = {"val_seconds", "val_dispatch_seconds",
+               "rotate_dispatch_seconds", "probe_seconds", "ckpt_seconds",
+               "panel_seconds", "tail_seconds", "epoch_wall_seconds",
+               "t_mono", "t_drain_mono"}
+
+
+def _rotation_config(root: Path, data: Path | None = None,
+                     **overrides) -> str:
+    """:data:`_ROTATION_CFG` over 20 train and 8 test images at 16 px
+    (under ``data``, made there when missing, else under ``root``)."""
+    data = data or root / "processed"
+    if not data.exists():
+        generate_demo_data(data, train_per_class=5, test_per_class=2,
+                           size=16)
+    return _config(root, **{**_ROTATION_CFG, "paths.processed_dir":
+                            str(data), **overrides})
+
+
+def _lines_but_times(path) -> list:
+    """Every METRICS line but its wall times and ``rotated``."""
+    return [{k: v for k, v in m.items()
+             if k not in _TIMES | _TAIL_TIMES | {"rotated"}}
+            for m in _log(path)]
+
+
+def _rotated(path) -> list:
+    return [m["rotated"] for m in _log(path) if m["phase"] == "epoch_end"]
+
+
+def _checkpoint(path, tag: str) -> dict:
+    cfg = yaml.safe_load(open(path))
+    return load_sharded_checkpoint(os.path.join(cfg["paths"]["models_dir"],
+                                                f"run_{tag}.pt"))
+
+
+def _state(out) -> dict:
+    """The returned model's and optimizer's tensors, by checkpoint key."""
+    return {"model_state": _model_state(out),
+            "optim_state": {k: v.detach().clone() for k, v in
+                            optim_state_tensors(out["optimizer"].optimizer)
+                            .items()}}
+
+
+def _assert_checkpoints_equal(a: dict, b: dict) -> None:
+    for key in ("epoch", "total_steps", "val_total"):
+        assert a[key] == b[key], key
+    for sec in ("model_state", "optim_state"):
+        assert sorted(a[sec]) == sorted(b[sec]), sec
+        for k in a[sec]:
+            assert np.array_equal(a[sec][k], b[sec][k]), f"{sec}/{k}"
+
+
+def _train_saving(path) -> tuple:
+    """``train()`` of ``path`` → (its output, every checkpoint it wrote, in
+    order: ``(file name, payload)``)."""
+    from unittest import mock
+
+    from betavae_tpu_torch.train import callbacks
+
+    saves = []
+    real = callbacks.save_sharded_checkpoint
+
+    def recording(ckpt_path, payload, num_shards=2):
+        saves.append((os.path.basename(ckpt_path), {
+            k: ({n: np.array(a) for n, a in v.items()}
+                if isinstance(v, dict) else v) for k, v in payload.items()}))
+        return real(ckpt_path, payload, num_shards=num_shards)
+
+    with mock.patch.object(callbacks, "save_sharded_checkpoint", recording):
+        out = _port_train(path)
+    return out, saves
+
+
+def _assert_saves_equal(got: list, want: list) -> None:
+    assert [(name, p["epoch"]) for name, p in got] == \
+        [(name, p["epoch"]) for name, p in want]
+    for (_, a), (_, b) in zip(got, want):
+        _assert_checkpoints_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def unrotated(tmp_path_factory):
+    """:data:`_ROTATION_CFG`'s ``train()`` with ``epoch_rotation: false``:
+    ``(data dir, its lines but times, every checkpoint it wrote, its
+    state)``."""
+    root = tmp_path_factory.mktemp("unrotated")
+    path = _rotation_config(root, **{"training.epoch_rotation": False})
+    out, saves = _train_saving(path)
+    assert _rotated(path) == [False] * 3
+    return root / "processed", _lines_but_times(path), saves, _state(out)
+
+
+def test_epoch_rotation_is_bitwise_the_unrotated_run(unrotated, tmp_path):
+    """``epoch_rotation: true`` dispatches the next epoch's first chunk
+    from the tail of epochs 1 and 2 (``rotated``), before the validation
+    metrics are read; every METRICS line but the wall times, both
+    checkpoints and the returned model and optimizer are bitwise the
+    unrotated run's, and so is every checkpoint written on the way (each
+    epoch's ``latest`` and each ``best``).  On the CPU the rotated chunk
+    runs at once, so a save that read the live tensors would hold epoch
+    N+1's first steps.  Every panel's files are there when ``train()``
+    returns (the background writer is joined)."""
+    data, lines, saves, state = unrotated
+    path = _rotation_config(tmp_path, data, **{"training.epoch_rotation":
+                                               True})
+    out, got_saves = _train_saving(path)
+    assert _rotated(path) == [True, True, False]
+    assert _lines_but_times(path) == lines
+    assert [m["phase"] for m in _log(path)].count("train") == 15
+    _assert_saves_equal(got_saves, saves)
+    assert [name for name, _ in saves].count("run_latest.pt") == 3
+    got = _state(out)
+    for sec, part in state.items():
+        assert sorted(got[sec]) == sorted(part)
+        for k, v in part.items():
+            assert torch.equal(got[sec][k], v), f"{sec}/{k}"
+    figures = sorted(os.listdir(tmp_path / "outputs" / "figures"))
+    assert figures == sorted(f"recon_epoch{e}{suffix}" for e in (1, 2, 3)
+                             for suffix in (".png", "_diff.png",
+                                            "_stats.json"))
+
+
+def test_early_stop_discards_the_rotated_epoch(unrotated, tmp_path,
+                                               monkeypatch):
+    """An early stop at epoch 2 of 6 with rotation on (the counterpart of
+    ``tests/test_epoch_rotation.py::test_early_stop_discards_inflight_
+    epoch``): epoch 3's first chunk, dispatched from epoch 2's tail, is
+    discarded; ``latest`` says epoch 2 and holds bitwise the returned
+    model's and optimizer's tensors, which are those after epoch 2 of the
+    unrotated run's lines."""
+
+    class StopAfterTwo:
+        def __init__(self, *args, **kwargs):
+            self.calls = 0
+            self.should_stop = False
+
+        def update(self, value):
+            self.calls += 1
+            self.should_stop = self.calls >= 2
+
+    data, lines, _, _ = unrotated
+    monkeypatch.setattr(loop, "EarlyStopping", StopAfterTwo)
+    path = _rotation_config(tmp_path, data, **{"debug.epochs": 6})
+    out = _port_train(path)
+    assert (out["epoch"], out["total_steps"]) == (2, 10)
+    assert _rotated(path) == [True, True]
+    latest = _checkpoint(path, "latest")
+    assert (latest["epoch"], latest["total_steps"]) == (2, 10)
+    got = _state(out)
+    for sec in ("model_state", "optim_state"):
+        assert sorted(got[sec]) == sorted(latest[sec])
+        for k, v in got[sec].items():
+            assert np.array_equal(v.numpy(), latest[sec][k]), f"{sec}/{k}"
+    # epochs 1 and 2 as the unrotated run logged them, nothing of epoch 3
+    assert _lines_but_times(path) == [m for m in lines if m["epoch"] <= 2]
+
+
+def test_panel_writer_failure_is_raised_from_train(tmp_path, monkeypatch):
+    """A failure of the background panel writer is raised from ``train()``
+    (at the next join, here the trainer's exit), as the JAX loop's is
+    (``tests/test_panel_writer.py``)."""
+
+    def boom(*args, **kwargs):
+        raise RuntimeError("panel writer exploded")
+
+    monkeypatch.setattr(loop, "sample_reconstructions", boom)
+    path = _config(tmp_path, **{"debug.epochs": 1})
+    with pytest.raises(RuntimeError, match="panel writer exploded"):
+        _port_train(path)
+
+
+def test_panel_writer_failure_does_not_mask_a_loop_error(tmp_path,
+                                                         monkeypatch, capsys):
+    """Epoch 1's panel fails on its thread, then epoch 2's probes raise:
+    ``train()`` raises the loop's error, prints the writer's, and the
+    checkpoints still land."""
+    def boom(*args, **kwargs):
+        raise RuntimeError("panel writer exploded")
+
+    calls = []
+    probes = loop.compute_probe_metrics
+
+    def failing_probes(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            raise ValueError("probe failure in epoch 2")
+        return probes(*args, **kwargs)
+
+    monkeypatch.setattr(loop, "sample_reconstructions", boom)
+    monkeypatch.setattr(loop, "compute_probe_metrics", failing_probes)
+    path = _config(tmp_path)
+    with pytest.raises(ValueError, match="probe failure in epoch 2"):
+        _port_train(path)
+    out = capsys.readouterr().out
+    assert "[PANEL] background writer also failed" in out
+    assert "panel writer exploded" in out
+    assert read_checkpoint_meta(str(tmp_path / "outputs" / "models" /
+                                    "run_latest.pt"))["epoch"] == 1
+
+
+@pytest.mark.parametrize("chunk_mb,k,train_uploads,val_uploads", [
+    (1e-9, 1, [1] * 5, [1, 1]), (0.002, 2, [2, 2, 1], [2])],
+    ids=["one-batch", "two-batches"])
+def test_host_fed_chunks_are_the_device_fed_run(unrotated, tmp_path,
+                                                monkeypatch, chunk_mb, k,
+                                                train_uploads, val_uploads):
+    """Both splits fed from the host at ``scan_chunk_steps: 4``: K =
+    min(4, 5 steps, ``host_feed_chunk_limit``) = 1 (one batch in the
+    budget) or 2, each chunk's batches one upload (the train epoch in 5 or
+    3 uploads, the validation pass in 2 or 1), with rotation on; every
+    METRICS line but the wall times, the checkpoints and the returned
+    state bitwise the device-fed run's."""
+    from betavae_tpu_torch.data.pipeline import DeviceData
+
+    data, lines, saves, state = unrotated
+    assert host_feed_chunk_limit(4, (16, 16, 1), chunk_mb) == k
+    uploads, chunk_k = [], []
+    stage = DeviceData.stage
+
+    def recording_stage(self, idx):
+        uploads.append(len(idx))
+        return stage(self, idx)
+
+    class RecordingChunks(loop.TrainChunks):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            chunk_k.append(self.k)
+
+    monkeypatch.setattr(DeviceData, "stage", recording_stage)
+    monkeypatch.setattr(loop, "TrainChunks", RecordingChunks)
+    path = _rotation_config(tmp_path, data, **{
+        "training.scan_chunk_steps": 4,
+        "training.max_device_dataset_mb": 0,
+        "training.host_feed_chunk_mb": chunk_mb})
+    out, got_saves = _train_saving(path)
+    assert chunk_k == [k]
+    assert uploads == (train_uploads + val_uploads) * 3
+    assert _lines_but_times(path) == lines
+    _assert_saves_equal(got_saves, saves)
+    got = _state(out)
+    for sec, part in state.items():
+        for key, v in part.items():
+            assert torch.equal(got[sec][key], v), f"{sec}/{key}"
+
+
+class _Mesh:
+    """A stand-in for a mesh: only its backend is read."""
+
+    def __init__(self, backend):
+        self.backend = backend
+
+
+@pytest.mark.parametrize("k,device,mesh,way", [
+    (192, "cuda", None, "cuda_graph"),
+    (192, "cuda", "nccl", "cuda_graph"),
+    (192, "cuda", "gloo", "eager: gloo"),
+    (1, "cuda", "nccl", "eager: scan_chunk_steps 1"),
+    (192, "cpu", "gloo", "eager: cpu"),
+    (192, "cpu", None, "eager: cpu")],
+    ids=["one-process", "nccl", "gloo", "k1", "cpu-gloo", "cpu"])
+def test_dispatch_way_replays_all_but_gloo_on_the_card(k, device, mesh, way):
+    """The trainers' dispatch: on the card the steps replay a CUDA graph in
+    one process, resident or fed from the host (the split plays no part),
+    and over an NCCL mesh; a gloo mesh steps eagerly, and the CONFIG line
+    says so by ``step_dispatch``; ``scan_chunk_steps: 1`` and the CPU step
+    eagerly by design, with the JAX package's CONFIG line."""
+    dev = torch.device(device)
+    got = dispatch_way(k, dev, None if mesh is None else _Mesh(mesh))
+    assert got == way
+    assert dispatch_note(got, dev) == (
+        {"step_dispatch": "eager: gloo"} if way == "eager: gloo" else {})
