@@ -27,6 +27,9 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a source's own flags after the source: graph_launch.cu launches a graph
+# from a kernel, which takes relocatable device code and the device runtime
+NVCC_EXTRA = {"graph_launch": ("-rdc=true", "-lcudadevrt")}
 
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 GXX_LIBS = ("-lpng", "-ljpeg", "-pthread")
@@ -45,8 +48,12 @@ def _digest_path(src: Path, flags) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 
+def _nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + NVCC_EXTRA.get(name, ())
+
+
 def library_path(name: str) -> Path:
-    return _digest_path(SRC_DIR / f"{name}.cu", NVCC_FLAGS)
+    return _digest_path(SRC_DIR / f"{name}.cu", _nvcc_flags(name))
 
 
 def host_library_path(name: str) -> Path:
@@ -77,7 +84,8 @@ def build(names: list[str] | None = None) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(SRC_DIR / f"{name}.cu"), *NVCC_EXTRA.get(name, ())]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, out, time.perf_counter())

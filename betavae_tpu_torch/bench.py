@@ -46,7 +46,8 @@ data_parallel_scaling`` to its breakdown.  Each line names the dispatch
 of the rates it reports: ``dispatch`` for the steady state,
 ``e2e_epoch_breakdown.dispatch`` and ``rotated_epochs`` for the e2e run
 (``train()`` rotates its epochs, as the flagship config does by
-default).
+default); the breakdown also holds every epoch's ``rotated`` flag,
+``rotate_dispatch_seconds``, ``tail_seconds`` and train images/s.
 
 ``--device cpu`` runs a derated check on the CPU (at most 64 px, batch 8,
 2 steps, chunks of at most 2, no e2e); the PRNG check and the canary then read
@@ -280,7 +281,7 @@ def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
     with open(cfg_path, "w") as f:
         yaml.safe_dump(base, f)
 
-    tails = []
+    tails, vals = [], []
 
     class Capture(logging.Handler):
         def emit(self, record):
@@ -289,6 +290,8 @@ def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
                 d = json.loads(msg[len("METRICS "):])
                 if d.get("phase") == "epoch_end":
                     tails.append(d)
+                elif d.get("phase") == "val":
+                    vals.append(d)
 
     reset_config_cache()
     reset_logger()
@@ -318,6 +321,10 @@ def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
     # every epoch's: a rotated epoch's tail holds its next chunk's dispatch
     breakdown["rotate_dispatch_seconds"] = [t["rotate_dispatch_seconds"]
                                             for t in tails]
+    breakdown["rotated_by_epoch"] = [t["rotated"] for t in tails]
+    breakdown["tail_seconds_by_epoch"] = [t["tail_seconds"] for t in tails]
+    breakdown["train_images_per_sec_by_epoch"] = [
+        v["train_images_per_sec"] for v in vals]
     print(json.dumps({"e2e_epoch_breakdown": breakdown}), file=sys.stderr)
     steady = walls[1:]
     n_win = 3 if len(steady) >= 3 else 1

@@ -1,27 +1,41 @@
-"""K train steps a dispatch, and a validation pass a dispatch, as replays of
-one captured step.
+"""K train steps a dispatch, and a validation pass a dispatch, as launches
+of one captured step that return at once.
 
 Counterpart of ``make_train_multi_step`` and ``make_eval_multi_step`` in
 ``betavae_tpu/train/loop.py``, where ``lax.scan`` runs K steps (or every
-validation batch) in one XLA program.  On the GPU one host dispatch of many
-steps is a CUDA graph: :class:`TrainChunks` captures one train step that
-reads its inputs from slot ``j`` of static device buffers, ``j`` a device
-counter the step itself advances, and replays it once a step.  For a chunk
-of n ≤ K steps the host
+validation batch) in one XLA program and ``dispatch_chunk`` launches it as
+one asynchronous call.  On the GPU one host dispatch of many steps is a
+CUDA graph: :class:`TrainChunks` captures one train step that reads its
+inputs from slot ``j`` of static device buffers, ``j`` a device counter the
+step itself advances, and launches it once a step.  For a chunk of n ≤ K
+steps the host
 
 - writes the n steps' batch indices, masks, schedule rows ``(β, C,
   C-weight, free bits, lr)`` and ε offsets (the step numbers) into one
   pinned record buffer and uploads it in one copy,
 - draws the n steps' augmentation uniforms on the card, each from the
   generator seeded from ``(seed, step)`` as the eager step seeds it, into a
-  ``[K, 3, B]`` slot buffer,
-- replays the graph n times, and copies the n rows of metrics it wrote
+  ``[K, 3, B]`` slot buffer (a graph replays one seed and offset of a
+  generator, so these small launches go ahead of the steps),
+- launches the graph n times, and copies the n rows of metrics it wrote
   (the 10 scalar metrics of ``step.scalar_metrics`` and the epoch's running
   sums after the step) to the host in one copy, read once, when the caller
   drains the chunk.
 
+None of these waits for the card, so a chunk's dispatch returns while the
+chunks before it run, as the JAX loop's does.  For that the graph is
+launched from the device (:class:`DeviceLaunched`,
+``csrc/graph_launch.cu``): a host launch of a graph of ~820 kernels waits
+for room in the launch queue once the queue is full (behind a running
+chunk, 182 host launches of the step hold the host until the device has
+run most of them: ``chip_smoke.py``'s ``one_launch``), where the one-kernel
+graph that tail-launches it is queued at once.  A process that is one of
+several ranks launches from the host (:func:`_several_ranks`): its step
+holds NCCL's kernels, which a graph instantiated for device launch
+refuses, so its dispatch waits for room in the launch queue.
+
 :class:`EvalChunks` does the same for the validation pass: one captured
-batch, replayed once a batch, and one read of every batch's metrics and μ.
+batch, launched once a batch, and one read of every batch's metrics and μ.
 
 The captured step is the eager step (``make_train_step`` with its slot's
 values as device tensors), so a chunk computes bitwise what the steps one by
@@ -31,31 +45,37 @@ from the host, the static buffer each chunk's batches are uploaded to
 all-reduce, the global sums) are kernels inside the graph.
 ``graphs=False`` runs the same slots eagerly, one step after the other,
 with no graph: on the CPU, with ``training.scan_chunk_steps: 1``, and over
-a gloo mesh, whose collectives are host calls.  A capture or replay that
+a gloo mesh, whose collectives are host calls.  A capture or launch that
 fails raises: there is no fallback to eager steps.
 
-Capture (:meth:`TrainChunks.prepare`) runs the step a few times on a side
-stream first (cuDNN and cuBLAS handles, the optimizer's state, the kernel
-libraries, NCCL's communicator), then puts back every parameter, buffer,
-optimizer moment and step count from :attr:`TrainChunks.snapshot`, so the
-warm-up leaves no trace in the training state, and captures under the
-caller's cuDNN setting (``device.deterministic_cudnn``).
-The kernel wrappers count their launches in Python, which a replay does
-not run, and which a capture runs without launching anything: each
-wrapper's count, by path, is read before and after the capture, put back
-to what it was before, and the difference is added at each replay.  The
-warm-up's launches ran on the card and stay counted: a captured run
+Capture (:meth:`TrainChunks.prepare`, :meth:`EvalChunks.prepare`) runs the
+body a few times on a side stream first (cuDNN and cuBLAS handles, the
+optimizer's state, the kernel libraries, NCCL's communicator), then puts
+back every parameter, buffer, optimizer moment and step count from
+:attr:`TrainChunks.snapshot`, so the warm-up leaves no trace in the
+training state, and captures under the caller's cuDNN setting
+(``device.deterministic_cudnn``).
+The kernel wrappers count their launches in Python, which a launch of the
+graph does not run, and which a capture runs without launching anything:
+each wrapper's count, by path, is read before and after the capture, put
+back to what it was before, and the difference is added at each launch.
+The warm-up's launches ran on the card and stay counted: a captured run
 launches each kernel ``CAPTURE_WARMUP`` steps' worth more than its steps
 do.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from .. import _build
+from ..device import raw_stream
 from ..ops import kernel_wrappers
 from .callbacks import StateSnapshot
 from .step import draw_step_augment
@@ -179,42 +199,193 @@ class Pending:
         return self._host.numpy()
 
 
-class _Captured:
-    """A graph of one slot's body and what a replay launches."""
+def _graph_library():
+    """The C entries of ``csrc/graph_launch.cu``, with their argtypes."""
+    lib = _build.load("graph_launch")
+    ptr = ctypes.c_void_p
+    lib.betavae_graph_device_instantiate.argtypes = [
+        ptr, ctypes.POINTER(ptr), ctypes.POINTER(ptr)]
+    lib.betavae_graph_launch.argtypes = [ptr, ptr]
+    lib.betavae_graph_destroy.argtypes = [ptr, ptr]
+    return lib
 
-    def __init__(self):
-        self.graph = None
-        self.per_replay = None
-        self.seconds = 0.0
 
-    def capture(self, device, body, reset, warmup: int,
-                restore=None) -> None:
-        """Run ``reset()`` and ``body()`` ``warmup`` times on a side stream
-        (each on slot 0), ``restore()`` what they changed, ``reset()`` and
-        capture one ``body()``; the kernel counts keep the warm-up's
-        launches and not the capture's."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                reset()
-                body()
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        before = _counts()
-        if restore is not None:
-            restore()
-        reset()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+def _destroy(device: torch.device, target, launcher) -> None:
+    with torch.cuda.device(device):
+        rc = _graph_library().betavae_graph_destroy(target, launcher)
+    if rc != 0:
+        raise RuntimeError(f"destroying a device-launched graph failed "
+                           f"with code {rc}")
+
+
+class _Tracing:
+    """``torch.profiler``'s sessions in this process, as
+    :class:`DeviceLaunched` follows them (:func:`_watch_profiler`):
+    ``generation`` counts each session's preparation and its end, ``open``
+    holds from the one to the other."""
+
+    watched = False
+    generation = 0
+    open = False
+
+
+def _watch_profiler() -> None:
+    """Follow every ``torch.profiler`` session in :class:`_Tracing`, once a
+    process: wrap ``torch.autograd.profiler``'s calls that prepare a
+    session (its CUDA tracing attaches to the process there, before the
+    session records anything: a ``schedule``'s warm-up steps) and end it.
+    Every profiler of PyTorch that traces the card goes through them."""
+    if _Tracing.watched:
+        return
+    from torch.autograd import profiler as autograd_profiler
+
+    prepare = autograd_profiler._prepare_profiler
+    disable = autograd_profiler._disable_profiler
+
+    def prepared(*args, **kwargs):
+        _Tracing.generation += 1
+        _Tracing.open = True
+        return prepare(*args, **kwargs)
+
+    def ended(*args, **kwargs):
+        try:
+            return disable(*args, **kwargs)
+        finally:
+            _Tracing.generation += 1
+            _Tracing.open = False
+
+    autograd_profiler._prepare_profiler = prepared
+    autograd_profiler._disable_profiler = ended
+    _Tracing.watched = True
+
+
+class DeviceLaunched:
+    """A captured graph launched from the device (``csrc/graph_launch.cu``):
+    :meth:`replay` is one host launch of a one-kernel graph that
+    tail-launches ``graph``, so it returns at once however full the launch
+    queue is, and the stream's next work waits for ``graph`` to run.
+    ``graph`` (``keep_graph=True``, captured) keeps the memory pool its
+    nodes use.  ``DeviceLaunched.launches`` counts the launches from the
+    device, as the kernel wrappers count theirs.
+
+    ``torch.profiler`` records no kernel of a graph launched from the
+    device, and its CUDA tracing, once attached, fails a launch from the
+    device of a graph instantiated before it (the context's next
+    synchronising call reports an unspecified launch failure).  So while a
+    session is open, from its preparation to its end (:class:`_Tracing`),
+    :meth:`replay` launches ``graph`` from the host (PyTorch's ``replay``,
+    instantiated at its first call): the same kernels in the same order;
+    and after a session, each graph is instantiated for device launch
+    again before its next launch from the device
+    (``DeviceLaunched.reinstantiations`` and ``reinstantiate_seconds``
+    count them)."""
+
+    launches = 0
+    reinstantiations = 0
+    reinstantiate_seconds = 0.0
+
+    def __init__(self, graph, device: torch.device):
+        _watch_profiler()
+        self.graph, self.device = graph, device
+        self._finalizer = None
+        self._instantiate()
+
+    def _instantiate(self) -> None:
+        if self._finalizer is not None:
+            self._finalizer()
+        target, launcher = ctypes.c_void_p(), ctypes.c_void_p()
+        self._generation = _Tracing.generation
+        with torch.cuda.device(self.device):
+            rc = _graph_library().betavae_graph_device_instantiate(
+                ctypes.c_void_p(self.graph.raw_cuda_graph()),
+                ctypes.byref(target), ctypes.byref(launcher))
+        if rc != 0:
+            raise RuntimeError(f"instantiating a graph for device launch "
+                               f"failed with code {rc}")
+        self._launcher = launcher
+        self._finalizer = weakref.finalize(self, _destroy, self.device,
+                                           target, launcher)
+
+    def replay(self) -> None:
+        if _Tracing.open or torch._C._autograd._profiler_enabled():
+            self.graph.replay()
+            return
+        if self._generation != _Tracing.generation:
+            t0 = time.perf_counter()
+            self._instantiate()
+            DeviceLaunched.reinstantiations += 1
+            DeviceLaunched.reinstantiate_seconds += time.perf_counter() - t0
+        rc = _graph_library().betavae_graph_launch(
+            self._launcher, ctypes.c_void_p(raw_stream(self.device)))
+        if rc != 0:
+            raise RuntimeError(f"launching a device-launched graph failed "
+                               f"with code {rc}")
+        DeviceLaunched.launches += 1
+
+
+@functools.cache
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one stream of ``device`` that every warm-up and capture runs on:
+    each stream that runs a cuBLAS call gets a workspace of its own, which
+    PyTorch keeps for the life of the process, so a new stream a trainer
+    left memory allocated behind each captured run."""
+    return torch.cuda.Stream(device)
+
+
+def _several_ranks() -> bool:
+    """Whether this process is one of several ranks of a data mesh.  Its
+    captured step then holds NCCL's kernels between the ranks (a gloo mesh
+    captures nothing), and instantiating such a graph for device launch
+    fails (``cudaErrorInvalidValue`` on four H100s, ``chip_smoke.py
+    --mesh``), so it is launched from the host."""
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+class CudaGraphs:
+    """The CUDA graph calls of a chunked run on ``device``: a body run on a
+    side stream, a body captured into a graph launched from the device
+    (:class:`DeviceLaunched`) or, in one of several ranks, from the host
+    (PyTorch's graph; ``replay()`` launches either), the device
+    synchronised.  The CPU tests put a stand-in in its place."""
+
+    def __init__(self, device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+        # the index the launches' stream is looked up by
+        self.device = torch.device("cuda", torch.cuda.current_device()
+                                   if device.index is None else device.index)
+        self.side = _side_stream(self.device)
+
+    def warm_up(self, run) -> None:
+        """``run()`` on the side stream, then a device sync."""
+        self.side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.side):
+            run()
+        torch.cuda.current_stream(self.device).wait_stream(self.side)
+        self.synchronize()
+
+    def capture(self, body):
+        """A graph of one ``body()``, captured on the side stream."""
+        from_host = _several_ranks()
+        graph = torch.cuda.CUDAGraph(keep_graph=not from_host)
+        with torch.cuda.graph(graph, stream=self.side,
+                              capture_error_mode="thread_local"):
             body()
-        self.per_replay = _count_delta(before, _counts())
-        _set_counts(before)
-        reset()
-        torch.cuda.synchronize(device)
-        self.graph = graph
-        self.seconds = time.perf_counter() - t0
+        return graph if from_host else DeviceLaunched(graph, self.device)
+
+    def synchronize(self) -> None:
+        torch.cuda.synchronize(self.device)
+
+
+class _Captured:
+    """A captured graph, each wrapper's launches a replay of it, and the
+    seconds its capture took."""
+
+    def __init__(self, graph, per_replay: dict, seconds: float):
+        self.graph, self.per_replay, self.seconds = graph, per_replay, seconds
 
     def replay(self, times: int) -> None:
         for _ in range(times):
@@ -230,20 +401,52 @@ class _Chunked:
     """What a chunked train run and a chunked validation pass share: ``k``
     slots of (batch indices, mask, schedule row, noise offset) uploaded in
     one copy, a ``[k, width]`` row a slot for the results, the slot
-    counter ``j`` and the captured graph."""
+    counter ``j``, and with ``graphs`` the captured body (``captured``,
+    None until :meth:`_capture`)."""
 
     def __init__(self, k: int, local: int, width: int, device: torch.device,
                  graphs: bool):
-        if graphs and device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
-        self.k, self.device, self.graphs = int(k), device, graphs
+        self.cuda = CudaGraphs(device) if graphs else None
+        self.k, self.device = int(k), device
         self.slots = _Slots(self.k, (
             ("idx", torch.int64, (local,)), ("offset", torch.int64, ()),
             ("mask", torch.float32, (local,)),
             ("sched", torch.float32, (len(SCHED_KEYS),))), device)
         self.out = torch.zeros((self.k, width), device=device)
         self.j = torch.zeros((), dtype=torch.int64, device=device)
-        self.captured = _Captured()
+        self.captured = None
+
+    @property
+    def graphs(self) -> bool:
+        return self.cuda is not None
+
+    def _capture(self, images, restore=None) -> float:
+        """Run ``CAPTURE_WARMUP`` bodies over ``images`` on the side stream
+        (each on slot 0), capture one body and ``restore()`` the state the
+        warm-up changed; the kernel counts keep the warm-up's launches and
+        not the capture's.  Returns the seconds it all took."""
+        t0 = time.perf_counter()
+
+        def body():
+            self._body(images, self.j)
+
+        def warm_up():
+            for _ in range(CAPTURE_WARMUP):
+                self.j.zero_()
+                body()
+
+        self.cuda.warm_up(warm_up)
+        before = _counts()
+        self.j.zero_()
+        graph = self.cuda.capture(body)
+        per_replay = _count_delta(before, _counts())
+        _set_counts(before)
+        if restore is not None:
+            restore()
+        self.j.zero_()
+        self.cuda.synchronize()
+        self.captured = _Captured(graph, per_replay, time.perf_counter() - t0)
+        return self.captured.seconds
 
     def _take(self, j, *more):
         """Slot ``j``'s ``(idx, mask, sched dict, offset, *more)``: ``j`` a
@@ -283,7 +486,8 @@ class _Chunked:
         return n
 
     def _run(self, images, n: int) -> None:
-        """The first n slots: n replays, or n eager bodies."""
+        """The first n slots: n launches of the graph, or n eager
+        bodies."""
         if self.graphs:
             self.j.zero_()
             self.captured.replay(n)
@@ -297,7 +501,7 @@ class _Chunked:
 
 class TrainChunks(_Chunked):
     """Up to ``k`` train steps a dispatch through ``step``
-    (``make_train_step``'s), over ``model`` and ``optimizer``: replays of
+    (``make_train_step``'s), over ``model`` and ``optimizer``: launches of
     one captured step with ``graphs``, else the same slots run eagerly.
 
     ``rows`` is a data-parallel rank's rows of each global batch of
@@ -338,14 +542,13 @@ class TrainChunks(_Chunked):
     def prepare(self, images: torch.Tensor) -> float:
         """Capture the step over ``images`` (the tensor every step gathers
         from) once; a no-op without ``graphs`` or when captured.  Returns
-        the capture's seconds (0.0 when nothing was captured now)."""
-        if not self.graphs or self.captured.graph is not None:
+        the seconds of the warm-up and the capture (0.0 when nothing was
+        captured now)."""
+        if not self.graphs or self.captured is not None:
             return 0.0
         snapshot = self.snapshot
         snapshot.take()
-        self.captured.capture(self.device, lambda: self._body(images, self.j),
-                              self.j.zero_, CAPTURE_WARMUP, snapshot.restore)
-        return self.captured.seconds
+        return self._capture(images, snapshot.restore)
 
     def reset_running(self) -> None:
         """Start an epoch's running sums."""
@@ -357,7 +560,7 @@ class TrainChunks(_Chunked):
         the step's number), at most ``k``.  Returns the pending rows,
         ``[n, 16]``: ``METRIC_KEYS`` then the running sums after the
         step."""
-        if self.graphs and self.captured.graph is None:
+        if self.graphs and self.captured is None:
             raise RuntimeError("TrainChunks.prepare() must capture the step "
                                "before a chunk is dispatched")
         n = self._upload([s[0] for s in steps], [s[1] for s in steps],
@@ -372,7 +575,7 @@ class TrainChunks(_Chunked):
 
 class EvalChunks(_Chunked):
     """Up to ``v`` validation batches a dispatch through ``eval_step``
-    (``make_eval_step``'s): replays of one captured batch with ``graphs``,
+    (``make_eval_step``'s): launches of one captured batch with ``graphs``,
     else the same slots eagerly.  :meth:`run` returns the batches' ``[n,
     10 + b·latent]`` device rows, each batch's ``METRIC_KEYS`` and its μ,
     for one read: a whole pass, or, fed from the host, a chunk of it."""
@@ -392,18 +595,25 @@ class EvalChunks(_Chunked):
                          for k in METRIC_KEYS]),
             mu.float().reshape(-1)]))
 
+    def prepare(self, images: torch.Tensor) -> float:
+        """Capture the batch over ``images`` (the tensor every batch
+        gathers from) once; a no-op without ``graphs`` or when captured.
+        Returns the seconds of the warm-up and the capture (0.0 when
+        nothing was captured now)."""
+        if not self.graphs or self.captured is not None:
+            return 0.0
+        return self._capture(images)
+
     def run(self, images, batches: list, sched: dict,
             offsets: list) -> torch.Tensor:
         """``batches`` (``(idx, mask)`` numpy rows of this rank into
-        ``images``, at most ``v``), batch j's noise at ``offsets[j]``;
-        captures the batch first when ``graphs`` and not yet captured.  The
+        ``images``, at most ``v``), batch j's noise at ``offsets[j]``.  The
         rows returned are overwritten by the next call."""
+        if self.graphs and self.captured is None:
+            raise RuntimeError("EvalChunks.prepare() must capture the batch "
+                               "before a pass is run")
         row = [float(sched[k]) for k in SCHED_KEYS]
         n = self._upload([b[0] for b in batches], [b[1] for b in batches],
                          [row] * len(batches), offsets)
-        if self.graphs and self.captured.graph is None:
-            self.captured.capture(self.device,
-                                  lambda: self._body(images, self.j),
-                                  self.j.zero_, CAPTURE_WARMUP)
         self._run(images, n)
         return self.out[:n]

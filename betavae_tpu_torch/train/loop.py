@@ -12,12 +12,17 @@ the checkpoints on a background thread and SIGTERM draining it
 epoch runs in chunks of K = max(1, min(``training.scan_chunk_steps``,
 steps)) steps (default 192; fed from the host, at most
 ``host_feed_chunk_limit`` steps), the remainder one step a chunk, and on
-the card a chunk is K replays of one CUDA graph of the train step, with
-one upload of the chunk's inputs before it and one read of its metrics
-after it; the validation pass is one replay of a captured batch per batch
-and one read (``train/chunks.py``).  ``scan_chunk_steps: 1`` steps
-eagerly, one launch after the other; so do the CPU and a gloo mesh, whose
-collectives are host calls (the CONFIG line's ``step_dispatch`` says so).
+the card a chunk is K launches of one CUDA graph of the train step, each
+from the device, with one upload of the chunk's inputs before them and
+one read of its metrics after them; the validation pass is a launch of a
+captured batch a batch and one read (``train/chunks.py``), both captured
+before the first epoch.  No launch waits for the card, so a chunk's
+dispatch returns at once, as the JAX loop's does, and the epoch keys time
+what the JAX loop's time (in one of several NCCL ranks the graphs launch
+from the host, and a dispatch waits for room in the launch queue).
+``scan_chunk_steps: 1`` steps eagerly, one launch after the other; so do
+the CPU and a gloo mesh, whose collectives are host calls (the CONFIG
+line's ``step_dispatch`` says so).
 With ``training.epoch_rotation`` (default true, as in JAX) the next
 epoch's first chunk is dispatched from the current epoch's tail, after
 the validation pass, the panel forward, their copies to the host and a
@@ -172,8 +177,10 @@ def dispatch_way(k_cfg: int, device: torch.device, mesh=None) -> str:
     """``"cuda_graph"``, or why the steps run eagerly: ``scan_chunk_steps:
     1`` (the yardstick), a device other than CUDA, or a gloo mesh, whose
     collectives are host calls that a CUDA graph cannot hold (an NCCL
-    mesh's are kernels, captured with the step; over one H100 and over
-    four of one host its replays are bitwise its eager steps)."""
+    mesh's are kernels, captured with the step; over one H100 its replays
+    are bitwise its eager steps; over several cards, whose graphs are
+    launched from the host (``chunks._several_ranks``), its check,
+    ``chip_smoke.py --mesh`` on four, has not run on this code)."""
     if k_cfg == 1:
         return "eager: scan_chunk_steps 1"
     if device.type != "cuda":
@@ -746,6 +753,19 @@ def _train(config_path, resume: str, device, mesh) -> dict:
     try:
         # after the resume: the capture's warm-up is put back to this state
         run.chunks.prepare(run.train_source)
+        # the validation batch too, before the first epoch's timed spans
+        vplan = list(test_plan.batches(start_epoch))[:run.max_val_batches]
+        if vplan:
+            vrows = len(vplan[0][0] if run.rows is None
+                        else vplan[0][0][run.rows])
+            # fed from the host, the pass runs in uploads of at most
+            # host_feed_chunk_limit batches, as the JAX loop's does
+            kv = (min(len(vplan), run.test_dev.depth)
+                  if run.test_dev.host_feed else len(vplan))
+            eval_chunks = EvalChunks(eval_step, v=kv, local_batch=vrows,
+                                     latent=model.latent_dim, device=dev,
+                                     graphs=run.graphs)
+            eval_chunks.prepare(run.test_dev.source(vrows))
         for epoch in range(start_epoch, run.epochs + 1):
             current, prefetch = prefetch, None
             if current is None:
@@ -772,7 +792,7 @@ def _train(config_path, resume: str, device, mesh) -> dict:
             final_train_kl_effective = float(out["last"].get("kl_effective",
                                                              0.0))
 
-            # ---- the tail, in stream order: the validation replays, the
+            # ---- the tail, in stream order: the validation pass, the
             # panel forward, their copies to the host, the state's snapshot,
             # the next epoch's first chunk; only then a wait, for the
             # validation copy (nothing the chunk overwrites is read after)
@@ -785,15 +805,7 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                          else (idx[run.rows], mask[run.rows])
                          for idx, mask in vbatches]
                 vsource = run.test_dev.source(len(local[0][0]))
-                # fed from the host, the pass runs in uploads of at most
-                # host_feed_chunk_limit batches, as the JAX loop's does
-                kv = (min(len(local), run.test_dev.depth)
-                      if run.test_dev.host_feed else len(local))
-                if eval_chunks is None:
-                    eval_chunks = EvalChunks(
-                        eval_step, v=kv, local_batch=len(local[0][0]),
-                        latent=model.latent_dim, device=dev,
-                        graphs=run.graphs)
+                kv = eval_chunks.k
                 parts = []
                 for at in range(0, len(local), kv):
                     part = local[at:at + kv]

@@ -35,13 +35,13 @@ Phases, each printing one line (any failure exits non-zero at once):
    (``elbo_device_offset``), the SE-gate∘head-conv forward
    and M kernels at the flagship's y in bf16 and fp32, at the evaluation
    path's bf16 decodes of 1, 2, 7 and 8 rows and at a ragged shape
-   (each with the path it took, TMA or generic, its profiler device time,
-   and two launches held bitwise equal), the GroupNorm(1)+ReLU+pool
+   (each with the path it took, TMA or generic, its device time, and two
+   launches held bitwise equal), the GroupNorm(1)+ReLU+pool
    forward and backward kernels at the flagship's eight block
    shapes in bf16, its largest in fp32, a ragged shape and the bench
    canary's (each with its path, cluster or generic, one launch a call,
-   its profiler device time back to back and after clean and dirty L2
-   flushes, the host's microseconds a call, and two launches held bitwise
+   its device time back to back and after clean and dirty L2 flushes, the
+   host's microseconds a call, and two launches held bitwise
    equal; every block but dec3, and the canary, must take the cluster
    path), each beside ``F.group_norm`` and the unfused sequence the port's
    blocks run; where a GN call's host time goes at the canary; dec3's
@@ -54,7 +54,11 @@ Phases, each printing one line (any failure exits non-zero at once):
    generic), each bitwise its plain version, two launches bitwise equal,
    both paths' device times in turns (generic, vector, vector, generic)
    beside the bound, the plain version and ``F.interpolate``'s forward
-   and autograd backward,
+   and autograd backward; a kernel's device time is CUDA events around a
+   CUDA graph of calls (every kernel a call launches: the
+   ``timed_calls`` line counts them), a call that launches no kernel of
+   its wrapper fails, and ``torch.profiler`` only confirms the kernels (a
+   window that misses them is retried, then reported there),
 4. slice: 3 fp32 steps of a small config on the card against the same steps
    on the CPU (the kernels' plain versions), with the default head and with
    ``training.fused_head: true``; 20 training steps of the flagship config
@@ -62,14 +66,19 @@ Phases, each printing one line (any failure exits non-zero at once):
    default head and with the fused head; replay: those 20 steps twice from
    one seed with each head, and in fp32 with the default head, every
    total bitwise the first run's; scan_chunks: the flagship's 20 steps of
-   one epoch at ``training.scan_chunk_steps`` K = 1 (eager), 8 (two
-   chunks of 8 CUDA-graph replays and 4 single steps) and 20 (one chunk),
+   one epoch at ``training.scan_chunk_steps`` K = 1 (eager), 8 and 20 (a
+   launch of the captured step's CUDA graph from the device a step),
    bf16 with each head (the default head's in turns, K = 1, 8, 20, 20, 8,
    1) and fp32 with the default head: every total bitwise across K, each
-   kernel's launches as derived and a replay's one step's, step ms,
+   kernel's launches as derived and a replay's one step's, one launch
+   from the device a step, step ms, each chunk's dispatch host seconds,
    capture seconds and peak memory, the device time a step and busy share
    at K = 1 and 20; then ``train()`` 2 epochs with validation at K = 3
-   against K = 1, every METRICS number bitwise but the wall times (the
+   against K = 1, every METRICS number bitwise but the wall times; then
+   whether 182 launches of the step from the device return at once behind
+   a running chunk, against 182 launches of the same graph from the host
+   (host seconds of each, of a chunk's draws and of its dispatch; capture
+   seconds, peak memory; the rows bitwise both ways) (the
    trainers run K-step chunks of replays wherever the main path below runs
    them, under a one-rank NCCL mesh and fed from the host too: every
    phase's default K is 192, and ``train()`` rotates its epochs);
@@ -112,10 +121,13 @@ Phases, each printing one line (any failure exits non-zero at once):
    dataset's scale, encode latencies, PRNG check and the kernel canary,
    which is the GN kernels' path), and then the bench's e2e estimator for
    3 epochs with rotation on and off in turns (phase ``rotation_e2e``:
-   pooled rate, tail seconds); the data-parallel path on the fused
+   pooled rate, tail seconds and train images/s an epoch against the
+   unrotated runs', each chunk's dispatch seconds, capture seconds, peak
+   memory; a rotated epoch's ``rotate_dispatch_seconds`` over 0.05 s
+   fails); the data-parallel path on the fused
    flagship at full width (global batch 32; ``betavae_tpu_torch/
    parallel/``): one NCCL rank in this process (an epoch of 20 steps of
-   ``train_steps`` as one chunk of replays, in turns with the single
+   ``train_steps`` as one chunk of 20 replays, in turns with the single
    process: every total bitwise, launches a replay's one step and the
    warm-up, the gradient all-reduce among the collectives captured, no
    CONFIG note; one fp32 backward's gradients within 1e-5, step ms, busy
@@ -190,6 +202,7 @@ Phases, each printing one line (any failure exits non-zero at once):
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -271,6 +284,8 @@ UPSAMPLE_FWD_OPS, UPSAMPLE_BWD_OPS = 30, 35
 FLAGSHIP_BLOCKS, SMALL_BLOCKS, SCALED_BLOCKS, DEMO_BLOCKS = 4, 2, 5, 3
 EPOCHS_FIRST, EPOCHS_TOTAL = 2, 3
 BENCH_ARGS = ["--steps", "96", "--warmup", "32", "--e2e-epochs", "3"]
+# calls a graph of ``device_ms_per_call`` holds
+GRAPH_CALLS = 20
 
 
 def fail(msg: str) -> None:
@@ -305,20 +320,18 @@ def cuda_ms(fn, iters: int, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_events(fn, calls: int, before=None) -> list:
+def device_events(fn, calls: int) -> list:
     """The device events (kernels, copies, fills) of ``calls`` calls of
-    ``fn`` (``torch.profiler``), ``before`` running ahead of each.  The
-    calls run twice, as the profiler's warm-up step and then as its active
-    step, and only the active step's events count: device tracing is
-    running when they start, where a window of a fraction of a millisecond
-    straight after the profiler starts can record no device event at all."""
+    ``fn`` (``torch.profiler``).  The calls run twice, as the profiler's
+    warm-up step and then as its active step, and only the active step's
+    events count: device tracing is running when they start, where a
+    window of a fraction of a millisecond straight after the profiler
+    starts can record no device event at all."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     def run():
         for _ in range(calls):
-            if before is not None:
-                before()
             fn()
         torch.cuda.synchronize()
 
@@ -335,27 +348,79 @@ def device_events(fn, calls: int, before=None) -> list:
             and not e.is_user_annotation]
 
 
-def device_ms_per_call(fn, case: str, calls: int = 5, before=None,
-                       only: str = "", per_call: int | None = None) -> float:
-    """The device time of the kernels ``fn`` launches, per call
-    (``torch.profiler``): the kernels alone, without the host's share of a
-    call, which ``cuda_ms`` includes once calls are too short to queue up.
-    ``before`` runs ahead of each call, and only kernels whose name holds
-    ``only`` are counted.  A window that records no such kernel (or, with
-    ``per_call``, not ``per_call`` of them a call) is taken again with four
-    times the calls, up to four times (a window can miss its events as a
-    whole: GN enc3 and enc0 once each, in two runs; or some of them: an
-    upsample case once read a fifth of its kernels' time); if none
-    records them, the run fails, naming ``case``."""
-    tries = (calls,) + (4 * calls,) * (4 if per_call else 2)
+# the profiler windows that recorded none of a timed call's kernels, or
+# not as many as it launches, in every try: reported in the kernel phase's
+# lines, not failed on (the kernels' launches are counted by their
+# wrappers, and their times come from CUDA events)
+PROFILER_MISSES = []
+# every device kernel a timed call launches, by case (the profiler's count;
+# None where it missed): a call's device time holds all of them
+KERNELS_PER_TIMED_CALL = {}
+
+
+def confirm_kernels(fn, case: str, calls: int = 5, only: str = "",
+                    per_call: int | None = None) -> float | None:
+    """Device kernels a call of ``fn`` that the profiler records (every
+    one), once a window of ``calls`` calls holds kernels whose name holds
+    ``only`` (``per_call`` of them a call, where given).  A window can miss
+    its events, as a whole (GN enc3 and enc0 once each, in two runs; the
+    head forward once) or in part (an upsample case once read a fifth of
+    its kernels): it is taken again with four times the calls, up
+    to four times, and a case that misses in every window is appended to
+    PROFILER_MISSES and gives None."""
+    tries = (calls,) + (4 * calls,) * 4
     for n in tries:
-        events = [e for e in device_events(fn, n, before) if only in e.name]
-        if events and (per_call is None or len(events) == per_call * n):
-            return sum(e.device_time_total for e in events) / 1e3 / n
-    fail(f"{case}: the profiler recorded no device event"
-         f"{f' of a kernel named *{only}*' if only else ''}"
-         f"{f' ({per_call} a call)' if per_call else ''} in windows of "
-         f"{tries} calls")
+        events = device_events(fn, n)
+        mine = [e for e in events if only in e.name]
+        if mine and (per_call is None or len(mine) == per_call * n):
+            return len(events) / n
+    PROFILER_MISSES.append({"case": case, "only": only,
+                            "per_call": per_call, "windows": list(tries)})
+    print(f"chip_smoke: {case}: the profiler recorded no device event"
+          f"{f' of a kernel named *{only}*' if only else ''}"
+          f"{f' ({per_call} a call)' if per_call else ''} in windows of "
+          f"{tries} calls (reported, not failed on)", file=sys.stderr,
+          flush=True)
+    return None
+
+
+def check_launches(fn, case: str, kernel: str) -> None:
+    """Fail unless a call of ``fn`` launches the kernel of the wrapper
+    named ``kernel`` (``ops.kernel_wrappers``): its count must grow."""
+    import torch
+
+    from betavae_tpu_torch.ops import kernel_wrappers
+
+    wrapper = kernel_wrappers()[kernel]
+    before = wrapper.launches
+    fn()
+    torch.cuda.synchronize()
+    if wrapper.launches <= before:
+        fail(f"{case}: a call launched no {kernel} kernel")
+
+
+def device_ms_per_call(fn, case: str, calls: int = 5, before=None,
+                       only: str = "", per_call: int | None = None,
+                       kernel: str | None = None) -> float:
+    """The device time of a call of ``fn``: CUDA events around a CUDA graph
+    of GRAPH_CALLS calls (``graph_ms``), less a graph of ``before`` alone
+    where ``before`` runs ahead of each call, so the host's share of a call
+    is not in it; every kernel and copy the call launches counts, and the
+    gaps between them in a graph.  ``kernel`` names the wrapper whose
+    kernel a call must launch (``check_launches``: a call that launches
+    none fails the run); the profiler confirms the kernels' names and
+    count (``confirm_kernels``: a miss is reported, not failed on).  A
+    ``fn`` that runs autograd's backward needs its forward run on
+    ``timing_stream()``, where the graph is captured: autograd runs a
+    backward op on its forward's stream."""
+    if kernel is not None:
+        check_launches(fn, case, kernel)
+    KERNELS_PER_TIMED_CALL[case] = confirm_kernels(fn, case, calls, only,
+                                                   per_call)
+    if before is None:
+        return graph_ms(fn, GRAPH_CALLS)
+    return (graph_ms(lambda: (before(), fn()), GRAPH_CALLS)
+            - graph_ms(before, GRAPH_CALLS))
 
 
 def host_us_per_call(fn, calls: int) -> float:
@@ -387,35 +452,43 @@ def ptxas_by_kernel(log: str) -> dict:
     return out
 
 
-def profiled_kernels(fn, case: str, only: str, calls: int = 20) -> dict:
-    """Device ms and device kernels per call of ``fn`` (``torch.profiler``),
-    counting only kernels whose name holds ``only`` for the time and every
-    device kernel for the count; one retry as in ``device_ms_per_call``."""
-    for n in (calls, 4 * calls):
-        events = device_events(fn, n)
-        mine = [e for e in events if only in e.name]
-        if mine:
-            return {"device_ms": sum(e.device_time_total
-                                     for e in mine) / 1e3 / n,
-                    "kernels_per_call": len(events) / n}
-    fail(f"{case}: the profiler recorded no device event of a kernel "
-         f"named *{only}* in {calls} and {4 * calls} calls")
+def profiled_kernels(fn, case: str, only: str, calls: int = 20,
+                     kernel: str | None = None) -> dict:
+    """Device ms a call of ``fn`` (``device_ms_per_call``: CUDA events
+    around a graph of calls) and device kernels a call (the profiler,
+    every kernel; None where every window missed them)."""
+    if kernel is not None:
+        check_launches(fn, case, kernel)
+    KERNELS_PER_TIMED_CALL[case] = confirm_kernels(fn, case, calls, only)
+    return {"device_ms": graph_ms(fn, GRAPH_CALLS),
+            "kernels_per_call": KERNELS_PER_TIMED_CALL[case]}
+
+
+@functools.cache
+def timing_stream():
+    """The one stream every ``graph_ms`` warm-up and capture runs on: each
+    new stream that runs a cuBLAS call gets a workspace PyTorch never
+    frees, which a stream a call would pile up."""
+    import torch
+
+    return torch.cuda.Stream()
 
 
 def graph_ms(fn, reps: int) -> float:
     """Milliseconds per repetition of ``fn`` captured ``reps`` times into one
     CUDA graph and replayed (CUDA events): the device's time for the chain,
-    the gaps between its kernels included and the host's launches not."""
+    the gaps between its kernels included and the host's launches not.
+    The warm-up calls and the capture run on ``timing_stream()``."""
     import torch
 
-    stream = torch.cuda.Stream()
+    stream = timing_stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -616,10 +689,9 @@ def check_elbo(shape, check_moments: bool) -> dict:
 
     # programmatic dependent launch off and on, in turns: the forward alone
     # (a call with many queued; the host's µs a call; the kernel's device
-    # time), and chained behind the clamp that writes logvar in the model,
-    # eager (host included) and replayed from a CUDA graph (the device's
-    # time for clamp + forward, gaps included), and the forward's own
-    # device time there, which may grow as it starts early and waits
+    # time, in a graph), and chained behind the clamp that writes logvar in
+    # the model, eager (host included) and replayed from a CUDA graph (the
+    # device's time for clamp + forward, gaps included)
     pre = 4.0 * torch.randn(shape, generator=g, device="cuda")
 
     def alone(pdl):
@@ -629,8 +701,7 @@ def check_elbo(shape, check_moments: bool) -> dict:
         return lambda: _launch(mu, pre.clamp(-10.0, 5.0), seed, slot, pdl)
 
     pdl = {f"{k}_{side}": [] for k in ("ms", "host_us", "device_ms",
-                                       "chained_ms", "chained_graph_ms",
-                                       "chained_device_ms")
+                                       "chained_ms", "chained_graph_ms")
            for side in ("off", "on")}
     for on in (False, True, True, False):
         side = "on" if on else "off"
@@ -638,13 +709,10 @@ def check_elbo(shape, check_moments: bool) -> dict:
         pdl[f"host_us_{side}"].append(host_us_per_call(alone(on), iters))
         pdl[f"device_ms_{side}"].append(device_ms_per_call(
             alone(on), f"elbo {shape} pdl {side}", calls=20,
-            only="reparam_kl_kernel"))
+            only="reparam_kl_kernel", kernel="fused_reparam_kl"))
         pdl[f"chained_ms_{side}"].append(cuda_ms(chained(on), iters))
         pdl[f"chained_graph_ms_{side}"].append(graph_ms(
             chained(on), 2000 if small else 100))
-        pdl[f"chained_device_ms_{side}"].append(device_ms_per_call(
-            chained(on), f"elbo {shape} chained pdl {side}", calls=20,
-            only="reparam_kl_kernel"))
     out["pdl"] = pdl
 
     # the backward: the kernel a call, its device time and the plain closed
@@ -657,7 +725,8 @@ def check_elbo(shape, check_moments: bool) -> dict:
         return reparam_kl_backward_reference(mu, logvar, eps, g_z, g_kl)
 
     kern = profiled_kernels(kernel_bwd, f"elbo {shape} backward",
-                            "reparam_kl_backward")
+                            "reparam_kl_backward",
+                            kernel="reparam_kl_backward")
     plain_prof = profiled_kernels(plain_bwd, f"elbo {shape} plain backward",
                                   "")
     bwd = {"ms": cuda_ms(kernel_bwd, iters),
@@ -1003,26 +1072,28 @@ def check_head(shape, dtype_name: str) -> dict:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     l2 = {}
     case = f"head {shape} {dtype_name}"
-    for kind, fn in (("head_fwd_", lambda: head_forward(y, s, k)),
-                     ("head_m_", lambda: head_m(y, dy))):
+    for kind, fn, kernel in (
+            ("head_fwd_", lambda: head_forward(y, s, k), "head_forward"),
+            ("head_m_", lambda: head_m(y, dy), "head_m")):
         l2[kind] = {
             "device_ms_after_l2_read": device_ms_per_call(
                 fn, f"{case} {kind} after an L2 read", before=flush.max,
-                only=kind),
+                only=kind, kernel=kernel),
             "device_ms_after_l2_write": device_ms_per_call(
                 fn, f"{case} {kind} after an L2 write", before=flush.zero_,
-                only=kind)}
+                only=kind, kernel=kernel)}
     del flush
     fwd = {"path": paths["forward"][0],
            "ms": cuda_ms(lambda: head_forward(y, s, k), iters),
            "device_ms": device_ms_per_call(lambda: head_forward(y, s, k),
-                                           f"{case} forward"),
+                                           f"{case} forward",
+                                           kernel="head_forward"),
            "plain_ms": cuda_ms(lambda: head_conv_reference(y, s, k),
                                plain_iters)}
     mk = {"path": paths["m"][0],
           "ms": cuda_ms(lambda: head_m(y, dy), iters),
           "device_ms": device_ms_per_call(lambda: head_m(y, dy),
-                                          f"{case} M"),
+                                          f"{case} M", kernel="head_m"),
           "plain_ms": cuda_ms(lambda: head_m_reference(y, dy), plain_iters)}
     fwd.update(l2["head_fwd_"])
     mk.update(l2["head_m_"])
@@ -1048,10 +1119,18 @@ def check_head(shape, dtype_name: str) -> dict:
     fwd["library_ms"] = cuda_ms(lambda: F.conv2d(y_gated, w4, padding=1),
                                 iters)
     # whole backward of the head: the unfused gate + conv through autograd
-    # against the fused Function (M kernel + dk, ds, dy_y in torch ops)
+    # against the fused Function (M kernel + dk, ds, dy_y in torch ops);
+    # the forwards run on the stream their backwards are captured on, as
+    # autograd runs a backward op on its forward's stream
     g_out = dy[:, None].to(y.dtype)
     yr, sr, wr = (t.clone().requires_grad_() for t in (y, s, w4))
-    unfused = F.conv2d(yr * sr[:, :, None, None], wr, padding=1)
+    kr = k.clone().requires_grad_()
+    backward_stream = timing_stream()
+    backward_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(backward_stream):
+        unfused = F.conv2d(yr * sr[:, :, None, None], wr, padding=1)
+        fused = fused_se_conv_head(yr, sr, kr)
+    torch.cuda.current_stream().wait_stream(backward_stream)
 
     def unfused_backward():
         return torch.autograd.grad(unfused, (yr, sr, wr), g_out,
@@ -1060,15 +1139,13 @@ def check_head(shape, dtype_name: str) -> dict:
     mk["unfused_head_backward_ms"] = cuda_ms(unfused_backward, plain_iters)
     mk["unfused_head_backward_device_ms"] = device_ms_per_call(
         unfused_backward, f"{case} unfused backward")
-    kr = k.clone().requires_grad_()
-    fused = fused_se_conv_head(yr, sr, kr)
 
     def fused_backward():
         return torch.autograd.grad(fused, (yr, sr, kr), dy, retain_graph=True)
 
     mk["fused_head_backward_ms"] = cuda_ms(fused_backward, plain_iters)
     mk["fused_head_backward_device_ms"] = device_ms_per_call(
-        fused_backward, f"{case} fused backward")
+        fused_backward, f"{case} fused backward", kernel="head_m")
     # of which dy_y: the torch ops of head_dx (pad, 9 shifts, bmm, cast)
     mk["head_dx_ms"] = cuda_ms(lambda: head_dx(dy, s, k, y.dtype),
                                plain_iters)
@@ -1187,7 +1264,8 @@ def check_upsample(shape, dtype_name: str) -> dict:
                 return upsample._launch(src, bwd, p)
             turns[p]["ms"].append(cuda_ms(kernel, iters))
             turns[p]["device_ms"].append(device_ms_per_call(
-                kernel, f"{case} {name} {p}", only=only, per_call=1))
+                kernel, f"{case} {name} {p}", only=only, per_call=1,
+                kernel=f"upsample_{name}"))
         bytes_ms = (x.numel() + y.numel()) * x.element_size() \
             / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_OPS_PER_S * 1e3
@@ -1293,12 +1371,12 @@ def check_gn(shape, dtype_name: str) -> dict:
     iters, plain_iters = (50, 10) if big else (200, 20)
     fwd = {"ms": cuda_ms(call_fwd, iters),
            "device_ms": device_ms_per_call(call_fwd, f"{case} forward",
-                                           only="gn_"),
+                                           only="gn_", kernel="gn_forward"),
            "plain_ms": cuda_ms(lambda: gn_forward_reference(x, gamma, beta),
                                plain_iters)}
     bwd = {"ms": cuda_ms(call_bwd, iters),
            "device_ms": device_ms_per_call(call_bwd, f"{case} backward",
-                                           only="gn_"),
+                                           only="gn_", kernel="gn_backward"),
            "plain_ms": cuda_ms(lambda: gn_backward_reference(
                x, gamma, beta, m, rstd, gy, gp), plain_iters)}
     # each direction with L2 emptied before every call, by reading 256 MB
@@ -1309,10 +1387,10 @@ def check_gn(shape, dtype_name: str) -> dict:
                           (bwd, call_bwd, "backward")):
         row["device_ms_after_l2_read"] = device_ms_per_call(
             fn, f"{case} {part} after an L2 read", before=flush.max,
-            only="gn_")
+            only="gn_", kernel=f"gn_{part}")
         row["device_ms_after_l2_write"] = device_ms_per_call(
             fn, f"{case} {part} after an L2 write", before=flush.zero_,
-            only="gn_")
+            only="gn_", kernel=f"gn_{part}")
         # calls queued with no synchronise: the host's share of a call
         row["host_us"] = host_us_per_call(fn, 200 if big else 2000)
     del flush
@@ -1497,10 +1575,10 @@ def gn_cluster16_trial() -> dict:
         path = paths[name]
         times[f"forward_{name}"].append(device_ms_per_call(
             lambda: fwd(path), f"dec3 cluster trial forward {name}",
-            only="gn_"))
+            only="gn_", kernel="gn_forward"))
         times[f"backward_{name}"].append(device_ms_per_call(
             lambda: bwd(path, m, rstd), f"dec3 cluster trial backward {name}",
-            only="gn_"))
+            only="gn_", kernel="gn_backward"))
     out.update(max_abs_err=err, device_ms=times,
                faster={part: max(times[f"{part}_cluster16"])
                        < min(times[f"{part}_generic"])
@@ -1768,6 +1846,162 @@ def run_replay(tmp: str, kernels: dict) -> dict:
 # images, 20 batches of 32) at each K; K = 8 is 2 chunks and 4 single steps
 SCAN_KS = (1, 8, 20)
 SCAN_TRAIN_PER_CLASS, SCAN_TEST_PER_CLASS = 160, 16
+# the e2e epoch's one chunk: 4 × 1456 images in batches of 32
+LAUNCH_CHECK_STEPS = 4 * REF_TRAIN_PER_CLASS // 32
+
+
+@contextlib.contextmanager
+def timed_dispatches():
+    """``[steps, host seconds]`` of each ``TrainChunks.dispatch`` made in
+    the block, in order."""
+    from betavae_tpu_torch.train.chunks import TrainChunks
+
+    seen = []
+    dispatch = TrainChunks.dispatch
+
+    def timed(self, images, steps, meta=None):
+        t0 = time.perf_counter()
+        pending = dispatch(self, images, steps, meta)
+        seen.append([len(steps), time.perf_counter() - t0])
+        return pending
+
+    TrainChunks.dispatch = timed
+    try:
+        yield seen
+    finally:
+        TrainChunks.dispatch = dispatch
+
+
+@contextlib.contextmanager
+def timed_prepares():
+    """The seconds of each ``TrainChunks.prepare`` that captured in the
+    block (its warm-up and both graphs)."""
+    from betavae_tpu_torch.train.chunks import TrainChunks
+
+    seen = []
+    prepare = TrainChunks.prepare
+
+    def timed(self, images):
+        seconds = prepare(self, images)
+        if seconds:
+            seen.append(seconds)
+        return seconds
+
+    TrainChunks.prepare = timed
+    try:
+        yield seen
+    finally:
+        TrainChunks.prepare = prepare
+
+
+def one_launch_check() -> dict:
+    """Whether a chunk's dispatch returns at once: the fused train step
+    (the bench's steady step) in ``TrainChunks`` at K = LAUNCH_CHECK_STEPS
+    (the e2e epoch's one chunk) over 1024 seeded images on the card.  Host
+    seconds of the first dispatch (upload, draws, K launches) and of a
+    dispatch behind the running chunk; behind a running chunk, of K
+    launches of the captured step from the device (the trainers' way), of
+    K launches of the same graph from the host (PyTorch's ``replay``) and
+    of a chunk's K draws; the device seconds of a chunk; the capture's
+    seconds and PyTorch's host instantiation of the graph, peak memory.
+    Fails unless the chunk's rows are finite and the first K − 1 of them,
+    dispatched again from the same state through host launches of the
+    same graph, are bitwise the ones launched from the device (so the rows
+    read behind a launch from the device are the graph's)."""
+    import numpy as np
+    import torch
+
+    from betavae_tpu_torch.bench import FLAGSHIP_CONFIG, flagship_model
+    from betavae_tpu_torch.config import get_config
+    from betavae_tpu_torch.device import deterministic_cudnn
+    from betavae_tpu_torch.models.losses import LossSpec
+    from betavae_tpu_torch.train.chunks import TrainChunks
+    from betavae_tpu_torch.train.optim import build_optimizer
+    from betavae_tpu_torch.train.step import draw_step_augment, make_train_step
+
+    k, b, n = LAUNCH_CHECK_STEPS, 32, 1024
+    dev = torch.device("cuda")
+    model = flagship_model()
+    optimizer = build_optimizer(model.parameters(),
+                                get_config(str(FLAGSHIP_CONFIG)))
+    aug = {"use_flip": True, "degrees": 10.0, "brightness_range": 0.1}
+    step = make_train_step(
+        model, optimizer, LossSpec(recon_loss_type="mse", use_ffl=True,
+                                   ffl_weight=0.5, ffl_alpha=1.0),
+        aug_kwargs=aug, use_capacity=True, seed=1)
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (n, 128, 128, 1), np.uint8)).to(dev)
+    sched = dict(beta=1.0, capacity=30.0, capacity_weight=1.0,
+                 free_bits=0.0, lr=5e-4)
+    mask = np.ones(b, np.float32)
+    chunks = TrainChunks(step, model, optimizer, k=k, batch=b, device=dev,
+                         seed=1, aug_kwargs=aug, graphs=True)
+
+    def steps(chunk: int) -> list:
+        return [(np.arange(s * b % (n - b), s * b % (n - b) + b), mask,
+                 sched, s + 1) for s in range(chunk * k, (chunk + 1) * k)]
+
+    def host(fn) -> float:
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    def launches(replay) -> None:
+        """A chunk's K launches of the step, j back at slot 0 before."""
+        chunks.j.zero_()
+        for _ in range(k):
+            replay()
+
+    out = {"steps": k}
+    with deterministic_cudnn():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["capture_seconds"] = chunks.prepare(images)
+        launched = chunks.captured.graph
+        # PyTorch's own executable of the same graph, launched from the host
+        out["host_instantiate_seconds"] = host(launched.graph.instantiate)
+        snapshot = chunks.snapshot
+        snapshot.take()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = []
+        out["first_dispatch_host_seconds"] = host(
+            lambda: pending.append(chunks.dispatch(images, steps(0))))
+        out["busy_dispatch_host_seconds"] = host(
+            lambda: pending.append(chunks.dispatch(images, steps(1))))
+        rows = [p.rows().copy() for p in pending]
+        out["two_chunks_seconds"] = time.perf_counter() - t0
+        snapshot.restore()
+        launched.replay = launched.graph.replay
+        try:
+            again = chunks.dispatch(images, steps(0)[:k - 1]).rows()
+        finally:
+            del launched.replay
+        if (not np.isfinite(np.stack(rows)).all()
+                or not np.array_equal(again, rows[0][:k - 1])):
+            fail(f"one_launch_check: the rows launched from the device "
+                 f"(finite {np.isfinite(np.stack(rows)).all()}) are not the "
+                 f"host-launched graph's from the same state")
+        torch.cuda.synchronize()
+        out["chunk_device_seconds"] = host(
+            lambda: (launches(launched.replay), torch.cuda.synchronize()))
+        launches(launched.replay)
+        out["draws_host_seconds"] = host(lambda: [
+            draw_step_augment(chunks.generator, 1, s, b, aug,
+                              out=chunks.draws[i])
+            for i, s in enumerate(range(1, k + 1))])
+        out["device_launches_host_seconds"] = host(
+            lambda: launches(launched.replay))
+        torch.cuda.synchronize()
+        launches(launched.replay)
+        out["host_launches_host_seconds"] = host(
+            lambda: launches(launched.graph.replay))
+        torch.cuda.synchronize()
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    snapshot.restore()
+    del chunks, snapshot, model, optimizer, images, launched
+    torch.cuda.empty_cache()
+    return out
 
 
 def scan_config(tmp: str, fused_head: bool, k: int, **overrides) -> str:
@@ -1796,13 +2030,15 @@ def scan_run(tmp: str, kernels: dict, fused_head: bool, k: int,
              **overrides) -> dict:
     """FLAGSHIP_STEPS steps of ``train_steps`` at K = ``k``: finite totals,
     the dispatch the trainer named (eager at K = 1, else CUDA graphs with
-    chunks of ``k``), each kernel's launches the derived count, and a
-    replay's launches one step's; step ms, capture seconds, peak memory."""
+    chunks of ``k``), each kernel's launches the derived count, a replay's
+    one step's, and one launch from the device a step; step ms, each
+    chunk's dispatch seconds, capture seconds, peak memory."""
     import gc
 
     import torch
 
     from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.train.chunks import DeviceLaunched
     from betavae_tpu_torch.train.loop import train_steps
 
     cfg = scan_config(tmp, fused_head, k, **overrides)
@@ -1810,8 +2046,11 @@ def scan_run(tmp: str, kernels: dict, fused_head: bool, k: int,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
-    out = train_steps(cfg, FLAGSHIP_STEPS)
+    device_launched = DeviceLaunched.launches
+    with timed_dispatches() as dispatches:
+        out = train_steps(cfg, FLAGSHIP_STEPS)
     launches = read_counts(kernels)
+    device_launched = DeviceLaunched.launches - device_launched
     paths = head_paths(kernels)
     reset_logger()
     totals = out["totals"]
@@ -1820,19 +2059,25 @@ def scan_run(tmp: str, kernels: dict, fused_head: bool, k: int,
     if k > 1:
         want = plus(want, capture_warmup(kernels, fused_head))
     per_replay = out["launches_per_replay"]
+    # a launch from the device a step (the eager run launches none)
+    want_device = 0 if k == 1 else sum(n for n, _ in dispatches)
     if (len(totals) != FLAGSHIP_STEPS or not all(map(math.isfinite, totals))
             or out["dispatch"] != want_dispatch or out["chunk_k"] != k
-            or launches != want
+            or launches != want or device_launched != want_device
             or (k > 1 and per_replay != launches_per_step(
                 kernels, fused_head, 1))):
         fail(f"scan_chunks (K {k}, fused_head {fused_head}, {overrides}): "
              f"totals {totals}, dispatch {out['dispatch']} chunk K "
              f"{out['chunk_k']}, launches {launches} (want {want}), a "
-             f"replay's {per_replay}")
+             f"replay's {per_replay}, "
+             f"{device_launched} graph launches from the device (want "
+             f"{want_device})")
     step_ms = out["timed_seconds"] / out["timed_steps"] * 1e3
     return {"k": k, "totals": totals, "step_ms": step_ms,
             "timed_steps": out["timed_steps"],
             "capture_seconds": out["capture_seconds"],
+            "dispatch_host_seconds": dispatches,
+            "device_launched_graphs": device_launched,
             "launches": launches, "launches_per_replay": per_replay,
             "head_launches_by_path": paths,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -1840,15 +2085,16 @@ def scan_run(tmp: str, kernels: dict, fused_head: bool, k: int,
 
 def run_scan_chunks(tmp: str, kernels: dict) -> dict:
     """The JAX trainer's K-step dispatch on the card: FLAGSHIP_STEPS
-    flagship steps (one epoch) at K = 1 (eager), 8 (2 chunks of 8 replays
-    and 4 single steps) and 20 (one chunk), in bf16 with the default head
+    flagship steps (one epoch) at K = 1 (eager), 8 and 20 (a launch of
+    the captured step from the device a step), in bf16 with the default
+    head
     (K = 1, 8, 20, 20, 8, 1: the step ms in turns) and the fused head, and
     in fp32 with the default head (``scan_run``): every total bitwise across
     K; the device time a step (profiled, the capture not in the window) and
     busy share at K = 1 and 20; then ``train()`` for 2 epochs with
-    validation at K = 3 (6 chunks and 2 single steps an epoch, the
-    validation pass replayed) against K = 1: every METRICS number bitwise
-    but the wall times, the same lines."""
+    validation at K = 3 (6 chunks and 2 single steps an epoch) against
+    K = 1: every METRICS number bitwise but the wall times, the same
+    lines; then ``one_launch_check``."""
     out = {}
     for tag, fused, overrides, order in (
             ("default_head", False, {}, SCAN_KS + SCAN_KS[::-1]),
@@ -1871,6 +2117,9 @@ def run_scan_chunks(tmp: str, kernels: dict) -> dict:
                         for k, rs in by_k.items()},
             "capture_seconds": {k: [r["capture_seconds"] for r in rs]
                                 for k, rs in by_k.items() if k > 1},
+            # [steps, host seconds] of each chunk's dispatch, in order
+            "dispatch_host_seconds": {k: rs[-1]["dispatch_host_seconds"]
+                                      for k, rs in by_k.items()},
             "peak_mem_gib": {k: max(r["peak_mem_gib"] for r in rs)
                              for k, rs in by_k.items()},
             "launches": {k: rs[0]["launches"] for k, rs in by_k.items()},
@@ -1923,6 +2172,7 @@ def run_scan_chunks(tmp: str, kernels: dict) -> dict:
         "lines_bitwise": True, "lines": len(lines[1]["lines"]),
         "phases": lines[1]["phases"], "launches": lines[3]["launches"],
         "total_steps": lines[3]["total_steps"]}
+    out["one_launch"] = one_launch_check()
     return {"phase": "scan_chunks", **out}
 
 
@@ -2644,32 +2894,68 @@ def run_rotation(tmp: str, kernels: dict) -> dict:
                            "discarded_chunk_steps": per_epoch}}
 
 
+# a rotated epoch's dispatch of the next epoch's first chunk, at most: host
+# calls that queue the snapshot, the chunk's upload, its draws and a launch
+# from the device a step (1.438–1.457 s, the host blocked, with a host
+# launch a step)
+ROTATE_DISPATCH_LIMIT_S = 0.05
+
+
 def rotation_e2e_in_turns(tmp: str) -> dict:
     """The bench's e2e estimator (``train()`` over the bench's e2e data,
     182 steps an epoch: one chunk) for 3 epochs with
     ``training.epoch_rotation`` true and false in turns (on, off, off,
     on): the pooled rate (one span, epoch 2's tail and epoch 3), the
-    steady epochs' tail by part and each epoch's rotated dispatch
-    seconds (the host blocked while the chunk's replays fill the launch
-    queue)."""
+    steady epochs' tail by part, each epoch's rotated dispatch seconds
+    (fails above ROTATE_DISPATCH_LIMIT_S on a rotated epoch), tail seconds
+    and train images/s, each chunk's dispatch seconds, the capture's
+    seconds and the peak memory; and each rotated run's tails (epochs 1-2)
+    and train images/s (epochs 2-3) over the unrotated runs' mean."""
+    import gc
+
+    import torch
+
     from betavae_tpu_torch import bench
 
     turns = []
     for rotate in (True, False, False, True):
-        with contextlib.redirect_stdout(sys.stderr):
-            rate, breakdown = bench._e2e_images_per_sec(
-                epochs=3, work_dir=os.path.join(tmp, "bench_e2e"),
-                training={"epoch_rotation": rotate})
-        if not math.isfinite(rate) or breakdown["rotated_epochs"] != (
-                2 if rotate else 0):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_dispatches() as dispatches, timed_prepares() as prepares:
+            with contextlib.redirect_stdout(sys.stderr):
+                rate, breakdown = bench._e2e_images_per_sec(
+                    epochs=3, work_dir=os.path.join(tmp, "bench_e2e"),
+                    training={"epoch_rotation": rotate})
+        rotated = [s for s, on in zip(breakdown["rotate_dispatch_seconds"],
+                                      breakdown["rotated_by_epoch"]) if on]
+        if (not math.isfinite(rate) or breakdown["rotated_epochs"] != (
+                2 if rotate else 0)
+                or any(s > ROTATE_DISPATCH_LIMIT_S for s in rotated)):
             fail(f"rotation e2e (epoch_rotation {rotate}): rate {rate}, "
+                 f"a rotated dispatch over {ROTATE_DISPATCH_LIMIT_S} s, or "
                  f"breakdown {breakdown}")
         turns.append({"epoch_rotation": rotate, "e2e_images_per_sec": rate,
                       **{key: breakdown[key] for key in (
                           "val_seconds", "probe_seconds", "ckpt_seconds",
                           "tail_seconds", "epoch_wall_seconds",
-                          "rotate_dispatch_seconds", "dispatch")}})
-    return {"phase": "rotation_e2e", "turns": turns}
+                          "rotate_dispatch_seconds", "tail_seconds_by_epoch",
+                          "train_images_per_sec_by_epoch", "dispatch")},
+                      "dispatch_host_seconds": dispatches,
+                      "capture_seconds": prepares,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated()
+                      / 2**30})
+    off = [t for t in turns if not t["epoch_rotation"]]
+
+    def over_unrotated(key: str, epochs) -> list:
+        return [[t[key][e] / statistics.mean(o[key][e] for o in off)
+                 for e in epochs] for t in turns if t["epoch_rotation"]]
+
+    return {"phase": "rotation_e2e", "turns": turns,
+            "rotated_tail_over_unrotated": over_unrotated(
+                "tail_seconds_by_epoch", (0, 1)),
+            "next_epoch_images_per_sec_over_unrotated": over_unrotated(
+                "train_images_per_sec_by_epoch", (1, 2))}
 
 
 def _train_lines(cfg_path: str, resume: str = "none") -> tuple:
@@ -3158,17 +3444,28 @@ def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
     ``utils/trace.py``, whose rows must hold the reparam+KL forward and
     backward and the head forward and M kernels at 1 a step, and the
     upsample kernels at one a decoder block a step; its device kernels'
-    total per step beside the ``profile`` phase's fused step."""
+    total per step beside the ``profile`` phase's fused step; and the
+    captured graphs instantiated anew for launch from the device after a
+    window (``chunks.DeviceLaunched``: at least once), with their
+    seconds."""
     import re
 
+    from betavae_tpu_torch.train.chunks import DeviceLaunched
     from betavae_tpu_torch.utils.trace import parse_trace
 
     cfg = epochs_config(tmp, os.path.join(tmp, "profile_steps"),
                         "profile.yaml", **{"training.epochs": EPOCHS_FIRST,
                                            "logging.profile_steps": 5})
     zero_counts(kernels)
+    redone = (DeviceLaunched.reinstantiations,
+              DeviceLaunched.reinstantiate_seconds)
     out, _ = _train_lines(cfg)
     launches = read_counts(kernels)
+    redone = (DeviceLaunched.reinstantiations - redone[0],
+              DeviceLaunched.reinstantiate_seconds - redone[1])
+    if redone[0] < 1:
+        fail("profile_steps: no graph was instantiated anew after a "
+             "profiler window")
     names = [os.path.basename(p) for p in out["traces"]]
     if names != ["steps_1-3.trace.json", "steps_4-5.trace.json"] or \
             not all(os.path.exists(p) for p in out["traces"]):
@@ -3193,7 +3490,8 @@ def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
                     summary.per_step()[:6]],
             "bytes": os.path.getsize(path)})
     return {"phase": "profile_steps", "windows": windows,
-            "launches": launches,
+            "launches": launches, "reinstantiations": redone[0],
+            "reinstantiate_seconds": redone[1],
             "profile_phase_device_ms_per_step":
                 profiled_fused["device_ms_per_step"]}
 
@@ -4478,13 +4776,35 @@ def run_bench(tmp: str, kernels: dict) -> dict:
     canary and PRNG check must read "ok", every number must be finite, and
     the GN kernels (the canary), the head forward (the canary) and the
     reparam+KL forward and backward (every step) must each have launched."""
-    from betavae_tpu_torch import bench
+    import gc
 
+    import torch
+
+    from betavae_tpu_torch import bench
+    from betavae_tpu_torch.train.chunks import DeviceLaunched
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
+    device_launched = DeviceLaunched.launches
     t0 = time.perf_counter()
-    line = bench.main(BENCH_ARGS + ["--work-dir",
-                                    os.path.join(tmp, "bench_e2e")])
+    with timed_prepares() as prepares:
+        line = bench.main(BENCH_ARGS + ["--work-dir",
+                                        os.path.join(tmp, "bench_e2e")])
     seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    device_launched = DeviceLaunched.launches - device_launched
+    # a launch a step or validation batch: steady, a warm-up chunk and 3
+    # passes of one chunk of 192 steps; e2e, 3 epochs of 182 steps and 41
+    # validation batches
+    want_device = 4 * 192 + 3 * (LAUNCH_CHECK_STEPS + 4 * REF_TEST_PER_CLASS
+                                 // 32)
+    if device_launched != want_device:
+        fail(f"bench: {device_launched} graph launches from the device, "
+             f"want {want_device} (4 steady chunks of 192 steps, 3 e2e "
+             f"epochs of {LAUNCH_CHECK_STEPS} steps and their validation "
+             f"passes)")
     launches = read_counts(kernels)
     if line["kernel_canary"] != "ok" or line["prng_check"] != "ok":
         fail(f"bench: kernel_canary {line['kernel_canary']!r}, prng_check "
@@ -4509,9 +4829,12 @@ def run_bench(tmp: str, kernels: dict) -> dict:
     if any(p["generic"] or not p["cluster"] for p in gn_paths.values()):
         fail(f"bench: the canary's GN launches by path {gn_paths}, want all "
              f"on the cluster path")
+    # the steady state's K = 192 graphs and the e2e run's K = 182 ones: the
+    # seconds of each capture (warm-up included), the run's peak memory
     return {"phase": "bench", "args": BENCH_ARGS, "seconds": seconds,
             "launches": launches, "gn_launches_by_path": gn_paths,
-            "line": line}
+            "capture_seconds": prepares, "peak_mem_gib": peak,
+            "device_launched_graphs": device_launched, "line": line}
 
 
 def main() -> None:
@@ -4586,6 +4909,9 @@ def main() -> None:
     ups = [check_upsample(shape, dtype) for shape, dtype in UPSAMPLE_CASES]
     emit({"phase": "kernel", "name": "upsample2x", "card": card,
           "cases": ups})
+    emit({"phase": "kernel", "name": "timed_calls", "card": card,
+          "kernels_per_call": KERNELS_PER_TIMED_CALL,
+          "profiler_misses": PROFILER_MISSES})
     kernels = kernel_wrappers()
     # the path totals count the main paths' launches from here on
     for name in UPSAMPLE_PATH_TOTALS:

@@ -160,6 +160,9 @@ def test_tiny_e2e_gives_a_finite_pooled_rate(tmp_path):
     assert (breakdown["dispatch"], breakdown["rotated_epochs"]) == (
         "eager: cpu", 2)
     assert len(breakdown["rotate_dispatch_seconds"]) == 3
+    assert breakdown["rotated_by_epoch"] == [True, True, False]
+    assert len(breakdown["tail_seconds_by_epoch"]) == 3
+    assert len(breakdown["train_images_per_sec_by_epoch"]) == 3
     assert all(r > 0 for r in breakdown["span_rates_hostjitter"])
     models = tmp_path / "outputs" / "models"
     assert {"bench_e2e_latest_shard0.pt", "bench_e2e_best_shard1.pt"} <= \

@@ -959,3 +959,111 @@ def test_captured_step_replayed_8_times_is_8_eager_steps(cuda_device,
                        for name, n in eager_n.items()}
     assert eager_n["fused_reparam_kl"] == eager_n["head_m"] == 8
     assert graph_n["fused_reparam_kl"] == 8 + CAPTURE_WARMUP
+
+
+@pytest.mark.cuda
+def test_device_launched_graph_runs_before_the_streams_next_work(
+        cuda_device):
+    """``train/chunks.py::CudaGraphs``' graph, launched from the device
+    (``csrc/graph_launch.cu``): 20000 captured in-place adds, a copy queued
+    behind one launch reads all of them (the stream's next work waits for
+    the tail-launched graph), a second launch adds as many again, and the
+    host's launch returns before the graph has run."""
+    import time
+
+    from betavae_tpu_torch.train.chunks import CudaGraphs
+
+    graphs = CudaGraphs(cuda_device)
+    x = torch.zeros(1024, device=cuda_device)
+    graphs.warm_up(lambda: x.add_(1.0))
+    x.zero_()
+    graph = graphs.capture(lambda: [x.add_(1.0) for _ in range(20000)])
+    graphs.synchronize()
+    assert float(x[0]) == 0.0
+    t0 = time.perf_counter()
+    graph.replay()
+    host = time.perf_counter() - t0
+    first = x.clone()
+    graph.replay()
+    second = x.clone()
+    t1 = time.perf_counter()
+    graphs.synchronize()
+    device = time.perf_counter() - t1
+    assert torch.equal(first, torch.full_like(x, 20000.0))
+    assert torch.equal(second, torch.full_like(x, 40000.0))
+    assert host < device, (host, device)
+
+
+@pytest.mark.cuda
+def test_device_launched_graph_is_traced_under_the_profiler(cuda_device):
+    """While ``torch.profiler`` traces, a ``DeviceLaunched`` graph goes
+    from the host, so the trace holds its kernels (captured adds; a window
+    can miss some, not all); launched from the device again after the
+    profiler stops (the graph instantiated anew, as the tracing the
+    profiler attaches fails a device launch of a graph instantiated before
+    it), it computes on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from betavae_tpu_torch.train.chunks import CudaGraphs
+
+    graphs = CudaGraphs(cuda_device)
+    x = torch.zeros(1024, device=cuda_device)
+    graphs.warm_up(lambda: x.add_(1.0))
+    x.zero_()
+    graph = graphs.capture(lambda: [x.add_(1.0) for _ in range(50)])
+    graph.replay()
+    graphs.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            graph.replay()
+        graphs.synchronize()
+    graph.replay()
+    graphs.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    assert 0 < len(kernels) <= 250
+    assert torch.equal(x, torch.full_like(x, 350.0))
+
+
+@pytest.mark.cuda
+def test_device_launched_graph_runs_through_a_scheduled_profiler(
+        cuda_device):
+    """Launches of a ``DeviceLaunched`` graph (captured adds) in every step
+    of a ``torch.profiler`` ``schedule(wait=1, warmup=1, active=1)``, whose
+    warm-up step has the profiler's CUDA tracing attached before it
+    records, then after it; then a profiler window around other work, and
+    launches after it: each launch adds its 50, none fails, and a
+    session makes the graph instantiated anew before its next launch from
+    the device (the tracing, once attached, fails a launch from the device
+    of a graph instantiated before it)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from betavae_tpu_torch.train.chunks import CudaGraphs, DeviceLaunched
+
+    graphs = CudaGraphs(cuda_device)
+    x = torch.zeros(1024, device=cuda_device)
+    graphs.warm_up(lambda: x.add_(1.0))
+    x.zero_()
+    graph = graphs.capture(lambda: [x.add_(1.0) for _ in range(50)])
+    graph.replay()
+    graphs.synchronize()
+    redone = DeviceLaunched.reinstantiations
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(4):
+            for _ in range(3):
+                graph.replay()
+            prof.step()
+        graphs.synchronize()
+    for _ in range(3):
+        graph.replay()
+    graphs.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(8, device=cuda_device).sum().item()
+    for _ in range(3):
+        graph.replay()
+    graphs.synchronize()
+    assert torch.equal(x, torch.full_like(x, 19 * 50.0))
+    assert DeviceLaunched.reinstantiations > redone

@@ -802,6 +802,184 @@ def test_scan_chunks_give_the_eager_lines_bitwise(eager_chunks, tmp_path, k):
                                                              None)
 
 
+def _count_plain_calls(mp) -> None:
+    """Make each train-path kernel wrapper count a call of its plain
+    version on the CPU as a launch (the upsample's on the vector path), as
+    it counts a kernel's launch on the card."""
+    from betavae_tpu_torch.ops import elbo, kernel_wrappers, upsample
+
+    wrappers = kernel_wrappers()
+
+    def counting(module, attr, name):
+        plain = getattr(module, attr)
+        wrapper = wrappers[name]
+
+        def call(*args, **kwargs):
+            wrapper.launches += 1
+            if hasattr(wrapper, "launches_by_path"):
+                wrapper.launches_by_path["vector"] += 1
+            return plain(*args, **kwargs)
+
+        mp.setattr(module, attr, call)
+
+    counting(elbo, "reparam_kl_reference", "fused_reparam_kl")
+    counting(elbo, "reparam_kl_backward_reference", "reparam_kl_backward")
+    counting(upsample, "upsample2x_reference", "upsample_forward")
+    counting(upsample, "upsample2x_backward_reference", "upsample_backward")
+
+
+def _zeroed_counts() -> dict:
+    from betavae_tpu_torch.ops import kernel_wrappers
+
+    for w in kernel_wrappers().values():
+        w.launches = 0
+        for path in getattr(w, "launches_by_path", {}):
+            w.launches_by_path[path] = 0
+    return kernel_wrappers()
+
+
+def _stub_graphs(mp) -> list:
+    """Run the trainers' CUDA-graph path on the CPU: ``dispatch_way`` says
+    ``cuda_graph``, and a stand-in takes the place of
+    ``chunks.CudaGraphs``.  Its capture runs the body once, as a capture
+    runs its Python (the trainer puts back what it changes, as it does
+    after its warm-up); a launch runs it again with the kernel counts put
+    back, as a launch runs no Python.  Returns the list of the chunks and
+    validation parts run, in order, each ``(kind, slots, launches)``."""
+    from betavae_tpu_torch.train import chunks
+
+    runs = []
+
+    class Graph:
+        launches = 0
+
+        def __init__(self, body):
+            self.body = body
+
+        def replay(self):
+            Graph.launches += 1
+            before = chunks._counts()
+            self.body()
+            chunks._set_counts(before)
+
+    class StubGraphs:
+        def __init__(self, device):
+            pass
+
+        def warm_up(self, run):
+            run()
+
+        def capture(self, body):
+            body()
+            return Graph(body)
+
+        def synchronize(self):
+            pass
+
+    run = chunks._Chunked._run
+
+    def recorded(self, images, n):
+        before = Graph.launches
+        run(self, images, n)
+        runs.append((type(self).__name__, n, Graph.launches - before))
+
+    mp.setattr(chunks._Chunked, "_run", recorded)
+    mp.setattr(loop, "dispatch_way", lambda *args, **kwargs: "cuda_graph")
+    mp.setattr(chunks, "CudaGraphs", StubGraphs)
+    return runs
+
+
+@pytest.fixture(scope="module")
+def counted_eager(eager_chunks):
+    """The ``eager_chunks`` runs' ``train()`` again, each kernel wrapper
+    counting its plain version's calls: (lines, state, counts)."""
+    root = eager_chunks[0]
+    path = _config(root / "counted", **_CHUNK_CFG, **{
+        "training.scan_chunk_steps": 1,
+        "paths.processed_dir": str(root / "train" / "processed")})
+    with pytest.MonkeyPatch.context() as mp:
+        _count_plain_calls(mp)
+        wrappers = _zeroed_counts()
+        out = _port_train(path)
+        counts = {name: w.launches for name, w in wrappers.items()}
+    return _numbers(path), _model_state(out), counts
+
+
+@pytest.mark.parametrize("k,profile,train_chunks", [
+    (3, 0, [3, 3, 3, 3]),
+    (4, 0, [4, 1, 1, 4, 1, 1]),
+    (4, 2, [2, 2, 1, 1, 4, 1, 1])],
+    ids=["k3", "k4-remainder", "k4-profiler-cut"])
+def test_graph_chunk_is_n_launches_of_the_captured_step(
+        counted_eager, eager_chunks, tmp_path, monkeypatch, k, profile,
+        train_chunks):
+    """The CUDA-graph path with a stand-in graph on the CPU, ``train()``
+    over 2 epochs of 6 steps and 2 validation batches (rotation on): a
+    chunk of n steps is n launches of the captured step (K, the remainder
+    one step a chunk, a chunk the profiler window cuts at steps 1-2), a
+    validation pass 2 launches of the captured batch; every METRICS number
+    but the wall times and the final weights bitwise the eager run's, and
+    each kernel wrapper's count the eager run's plus the capture's warm-up
+    (CAPTURE_WARMUP train steps and validation batches).  ``train_steps``
+    (10 steps: 6, then 4) launches the same way, its totals the eager
+    ones, a launch's kernel launches one step's."""
+    from betavae_tpu_torch.train.chunks import CAPTURE_WARMUP
+
+    lines, state, eager = counted_eager
+    data = {"paths.processed_dir": str(eager_chunks[0] / "train" /
+                                       "processed")}
+    _count_plain_calls(monkeypatch)
+    runs = _stub_graphs(monkeypatch)
+    path = _config(tmp_path / "train", **_CHUNK_CFG, **data, **{
+        "training.scan_chunk_steps": k, "logging.profile_steps": profile})
+    wrappers = _zeroed_counts()
+    out = _port_train(path)
+    counts = {name: w.launches for name, w in wrappers.items()}
+    assert all(n == launches for _, n, launches in runs), runs
+    train = [n for kind, n, _ in runs if kind == "TrainChunks"]
+    val = [n for kind, n, _ in runs if kind == "EvalChunks"]
+    assert (train, val) == (train_chunks, [2, 2])
+    assert _numbers(path) == lines
+    got = _model_state(out)
+    for name, value in state.items():
+        assert torch.equal(got[name], value), name
+    blocks = eager["upsample_backward"] // 12
+    assert blocks > 0
+    warm = {"fused_reparam_kl": 2 * CAPTURE_WARMUP,
+            "reparam_kl_backward": CAPTURE_WARMUP,
+            "upsample_forward": 2 * CAPTURE_WARMUP * blocks,
+            "upsample_backward": CAPTURE_WARMUP * blocks}
+    assert counts == {name: n + warm.get(name, 0)
+                      for name, n in eager.items()}
+
+    runs.clear()
+    few_path = _config(tmp_path / "steps", **_CHUNK_CFG, **data,
+                       **{"training.scan_chunk_steps": k})
+    few, _ = _steps_lines(few_path, 10)
+    assert few["dispatch"] == "cuda_graph" and few["chunk_k"] == k
+    assert few["totals"] == eager_chunks[3]
+    assert [(n, launches) for _, n, launches in runs] == [
+        (n, n) for n in {3: [3, 3, 3, 1], 4: [4, 1, 1, 4]}[k]]
+    assert few["launches_per_replay"]["fused_reparam_kl"] == 1
+
+
+def test_only_one_of_several_ranks_launches_from_the_host(monkeypatch):
+    """``chunks._several_ranks``, which sends a captured graph's launches
+    to the host (a rank's step holds NCCL's kernels between the ranks,
+    which a graph instantiated for device launch refuses): false with no
+    process group and with a one-rank group, true with four ranks."""
+    import torch.distributed as dist
+
+    from betavae_tpu_torch.train import chunks
+
+    assert not chunks._several_ranks()
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
+    assert not chunks._several_ranks()
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    assert chunks._several_ranks()
+
+
 @pytest.mark.parametrize("n_steps,k_cfg,k,sizes", [
     (6, 192, 6, [6]), (6, 3, 3, [3, 3]), (6, 4, 4, [4, 1, 1]),
     (182, 192, 182, [182]), (182, 16, 16, [16] * 11 + [1] * 6),
