@@ -47,7 +47,8 @@ of the rates it reports: ``dispatch`` for the steady state,
 ``e2e_epoch_breakdown.dispatch`` and ``rotated_epochs`` for the e2e run
 (``train()`` rotates its epochs, as the flagship config does by
 default); the breakdown also holds every epoch's ``rotated`` flag,
-``rotate_dispatch_seconds``, ``tail_seconds`` and train images/s.
+``rotate_dispatch_seconds``, ``val_dispatch_seconds``, ``tail_seconds``
+and train images/s.
 
 ``--device cpu`` runs a derated check on the CPU (at most 64 px, batch 8,
 2 steps, chunks of at most 2, no e2e); the PRNG check and the canary then read
@@ -161,12 +162,16 @@ def _steady_state(model, args, dev: torch.device, mesh=None) -> tuple:
     dt = float("inf")
     # the cuDNN setting of train(), so that the step timed is the one it runs
     with deterministic_cudnn():
-        chunks.prepare(images)
-        run(max(1, args.warmup // k))
-        for _ in range(3):
-            t0 = time.perf_counter()
-            run(n_chunks)
-            dt = min(dt, time.perf_counter() - t0)
+        try:
+            chunks.prepare(images)
+            run(max(1, args.warmup // k))
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(n_chunks)
+                dt = min(dt, time.perf_counter() - t0)
+        finally:
+            # one of several ranks: its dispatcher thread
+            chunks.queue.close()
     return dt / (n_chunks * k), way
 
 
@@ -321,6 +326,8 @@ def _e2e_images_per_sec(epochs: int = 10, per_class_train: int = 1456,
     # every epoch's: a rotated epoch's tail holds its next chunk's dispatch
     breakdown["rotate_dispatch_seconds"] = [t["rotate_dispatch_seconds"]
                                             for t in tails]
+    breakdown["val_dispatch_seconds"] = [t["val_dispatch_seconds"]
+                                         for t in tails]
     breakdown["rotated_by_epoch"] = [t["rotated"] for t in tails]
     breakdown["tail_seconds_by_epoch"] = [t["tail_seconds"] for t in tails]
     breakdown["train_images_per_sec_by_epoch"] = [

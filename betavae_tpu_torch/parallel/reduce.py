@@ -12,7 +12,10 @@ then the division by ``W``) gives exactly the single-process gradient.
 That holds only if every term of the loss reaches it through
 :func:`global_sum`: a purely local term would come out divided by ``W``.
 Every collective here is a device kernel under NCCL, which a CUDA graph
-captures; under gloo it is a host call, which none can.
+captures; under gloo it is a host call, which none can.  Each first
+fences the run's threaded queue of device work on the thread that
+submitted to it (:func:`..device.fence_device_queues`), so that it comes
+after the collectives the queued jobs issue, as NCCL requires.
 
 With ``group=None`` every function is the single-process identity.
 """
@@ -22,12 +25,15 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..device import fence_device_queues
+
 
 class _GlobalSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         ctx.group = group
         out = t.clone(memory_format=torch.contiguous_format)
+        fence_device_queues()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out
 
@@ -49,6 +55,7 @@ def mean_over_ranks_(t: torch.Tensor, group) -> torch.Tensor:
     one all-reduce SUM, then the division by ``W``.  For ``W`` a power of
     two the division is exact, so this is bitwise the mean
     ``DistributedDataParallel`` forms by dividing first."""
+    fence_device_queues()
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t.div_(world_size(group))
 
@@ -66,5 +73,6 @@ def gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
         return t
     t = t.detach().contiguous()
     parts = [torch.empty_like(t) for _ in range(world_size(group))]
+    fence_device_queues()
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts)

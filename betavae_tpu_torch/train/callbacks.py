@@ -155,9 +155,12 @@ class StateSnapshot:
     names.  :meth:`pull` starts their trip to the host, one copy of the
     flat buffer a snapshot (:meth:`CheckpointManager.save_latest` and
     ``save_best`` share it); the next :meth:`take` waits for it on the
-    device, as it would otherwise overwrite what is read."""
+    device, as it would otherwise overwrite what is read.  ``fence`` (the
+    run's ``DeviceQueue.fence``) is called before a :meth:`restore`, so
+    that the copy back is queued behind the steps dispatched since."""
 
-    def __init__(self, model, optimizer, extra=()):
+    def __init__(self, model, optimizer, extra=(), fence=None):
+        self._fence = fence
         optimizer.bind_state()
         live = _live_sections(model, optimizer)
         tensors = {}
@@ -205,7 +208,10 @@ class StateSnapshot:
 
     @torch.no_grad()
     def restore(self) -> None:
-        """Copy the buffer back into the live tensors, in place."""
+        """Copy the buffer back into the live tensors, in place, after the
+        fence."""
+        if self._fence is not None:
+            self._fence()
         torch._foreach_copy_(self._live, self._copies)
 
     def pull(self) -> tuple:

@@ -32,7 +32,37 @@ run most of them: ``chip_smoke.py``'s ``one_launch``), where the one-kernel
 graph that tail-launches it is queued at once.  A process that is one of
 several ranks launches from the host (:func:`_several_ranks`): its step
 holds NCCL's kernels, which a graph instantiated for device launch
-refuses, so its dispatch waits for room in the launch queue.
+refuses.  There the launches wait for room in the launch queue on a
+dispatcher thread, not on the caller's: each dispatch is a job of the
+run's FIFO queue of device work (:class:`..device.DeviceQueue`, made by
+:func:`device_queue`), :meth:`TrainChunks.dispatch` its chunk's host-fed
+staging, upload, draws, launches and copy to the host, the trainer's
+validation pass its staging, launches, all-gather and copy; one thread
+runs the jobs in order, and the dispatch returns at once, as JAX's host
+call queues its program and returns.  Elsewhere a job runs at once on the
+caller's thread, and nothing changes.  PyTorch's ``CUDAGraph.replay``
+drops the GIL while it waits for room (its binding releases it), so the
+caller runs on meanwhile: ``chip_smoke.py``'s ``one_launch`` times a
+dispatch behind a running chunk with the dispatcher still launching, and
+no C entry of ours is needed for the host launch.
+
+The ordering rule.  Device work that the caller enqueues before it
+submits a job stays ahead of that job's (the epoch's
+:meth:`TrainChunks.reset_running`, the panel forward,
+:meth:`StateSnapshot.take <.callbacks.StateSnapshot.take>`).  Device work
+that it enqueues after a submit first waits for the queue to drain
+(:meth:`..device.DeviceQueue.fence`), unless it touches nothing that a
+queued job reads or writes: :meth:`Pending.rows` of an earlier job and
+``StateSnapshot.pull`` (a side stream behind the take's event) do not
+fence; ``StateSnapshot.restore`` (the snapshot's fence), the eager
+collectives of ``parallel/reduce.py`` (:func:`..device.
+fence_device_queues`: NCCL needs every rank to issue its collectives on a
+communicator in one order, and two threads issuing them in turn hang the
+mesh), ``StepProfiler.maybe_start`` and ``stop`` (both synchronise the
+device), :meth:`TrainChunks.prepare` and :meth:`EvalChunks.prepare` (a
+capture), and the trainers' ends (``DeviceQueue.close``, on SIGTERM too)
+do.  A job's failure is raised from the next fence, read or submit, and
+from the trainer; no later job runs.
 
 :class:`EvalChunks` does the same for the validation pass: one captured
 batch, launched once a batch, and one read of every batch's metrics and μ.
@@ -75,7 +105,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..device import raw_stream
+from ..device import DeviceQueue, Job, raw_stream
 from ..ops import kernel_wrappers
 from .callbacks import StateSnapshot
 from .step import draw_step_augment
@@ -344,6 +374,13 @@ def _several_ranks() -> bool:
             and dist.get_world_size() > 1)
 
 
+def device_queue(device: torch.device, graphs: bool) -> DeviceQueue:
+    """A run's queue of device work: run by a dispatcher thread where
+    captured graphs launch from the host (``graphs`` in one of several
+    ranks), else each job at once on the caller's thread."""
+    return DeviceQueue(device, threaded=graphs and _several_ranks())
+
+
 class CudaGraphs:
     """The CUDA graph calls of a chunked run on ``device``: a body run on a
     side stream, a body captured into a graph launched from the device
@@ -402,10 +439,13 @@ class _Chunked:
     slots of (batch indices, mask, schedule row, noise offset) uploaded in
     one copy, a ``[k, width]`` row a slot for the results, the slot
     counter ``j``, and with ``graphs`` the captured body (``captured``,
-    None until :meth:`_capture`)."""
+    None until :meth:`_capture`); ``queue`` the run's queue of device work
+    (:func:`device_queue`'s when None)."""
 
     def __init__(self, k: int, local: int, width: int, device: torch.device,
-                 graphs: bool):
+                 graphs: bool, queue: DeviceQueue | None = None):
+        self.queue = (device_queue(device, graphs) if queue is None
+                      else queue)
         self.cuda = CudaGraphs(device) if graphs else None
         self.k, self.device = int(k), device
         self.slots = _Slots(self.k, (
@@ -506,14 +546,16 @@ class TrainChunks(_Chunked):
 
     ``rows`` is a data-parallel rank's rows of each global batch of
     ``batch`` (None: all); ``seed`` and ``aug_kwargs`` are the step's, from
-    which the augmentation uniforms are drawn ahead."""
+    which the augmentation uniforms are drawn ahead; ``queue`` the run's
+    queue of device work, which runs each dispatch."""
 
     def __init__(self, step, model, optimizer, *, k: int, batch: int,
                  device: torch.device, seed: int, aug_kwargs: dict,
-                 graphs: bool, rows: slice | None = None):
+                 graphs: bool, rows: slice | None = None,
+                 queue: DeviceQueue | None = None):
         local = batch if rows is None else rows.stop - rows.start
         super().__init__(k, local, len(METRIC_KEYS) + len(RUNNING_KEYS),
-                         device, graphs)
+                         device, graphs, queue)
         self.step, self.model, self.optimizer = step, model, optimizer
         self.batch, self.seed, self.aug_kwargs = int(batch), seed, aug_kwargs
         self.draws = torch.zeros((self.k, 3, self.batch), device=device)
@@ -525,10 +567,12 @@ class TrainChunks(_Chunked):
     def snapshot(self) -> StateSnapshot:
         """The training state's snapshot (``callbacks.StateSnapshot``:
         model, optimizer and the running sums), made at first use, once the
-        optimizer's state is the run's (after a resume)."""
+        optimizer's state is the run's (after a resume); its restore
+        fences the queue."""
         if self._snapshot is None:
             self._snapshot = StateSnapshot(self.model, self.optimizer,
-                                           extra=[self.running])
+                                           extra=[self.running],
+                                           fence=self.queue.fence)
         return self._snapshot
 
     def _body(self, images, j) -> None:
@@ -543,7 +587,8 @@ class TrainChunks(_Chunked):
         """Capture the step over ``images`` (the tensor every step gathers
         from) once; a no-op without ``graphs`` or when captured.  Returns
         the seconds of the warm-up and the capture (0.0 when nothing was
-        captured now)."""
+        captured now).  Fences the queue first."""
+        self.queue.fence()
         if not self.graphs or self.captured is not None:
             return 0.0
         snapshot = self.snapshot
@@ -554,23 +599,35 @@ class TrainChunks(_Chunked):
         """Start an epoch's running sums."""
         self.running.zero_()
 
-    def dispatch(self, images, steps: list, meta=None) -> Pending:
+    def dispatch(self, images, steps: list, meta=None, stage=None) -> Job:
         """Run ``steps``, a list of ``(idx, mask, sched, step_index)`` (numpy
-        rows of this rank into ``images``, a dict of ``SCHED_KEYS`` floats,
-        the step's number), at most ``k``.  Returns the pending rows,
-        ``[n, 16]``: ``METRIC_KEYS`` then the running sums after the
-        step."""
+        rows of this rank, a dict of ``SCHED_KEYS`` floats, the step's
+        number), at most ``k``, as one job of the queue: ``stage`` (the
+        split's ``DeviceData.stage``: the rows into ``images`` for the
+        steps' rows, with a host-fed split's upload), the one upload of the
+        slots, the draws, the launches and the copy of the rows to the
+        host.  Returns the job: its ``rows()`` are ``[n, 16]``,
+        ``METRIC_KEYS`` then the running sums after the step, its ``meta``
+        ``meta``."""
         if self.graphs and self.captured is None:
             raise RuntimeError("TrainChunks.prepare() must capture the step "
                                "before a chunk is dispatched")
-        n = self._upload([s[0] for s in steps], [s[1] for s in steps],
-                         [[s[2][k] for k in SCHED_KEYS] for s in steps],
-                         [s[3] for s in steps])
-        for i, s in enumerate(steps):
-            draw_step_augment(self.generator, self.seed, int(s[3]),
-                              self.batch, self.aug_kwargs, out=self.draws[i])
-        self._run(images, n)
-        return Pending(self.out[:n], meta)
+
+        def job() -> Pending:
+            idx = [s[0] for s in steps]
+            if stage is not None:
+                idx = stage(idx)
+            n = self._upload(idx, [s[1] for s in steps],
+                             [[s[2][k] for k in SCHED_KEYS] for s in steps],
+                             [s[3] for s in steps])
+            for i, s in enumerate(steps):
+                draw_step_augment(self.generator, self.seed, int(s[3]),
+                                  self.batch, self.aug_kwargs,
+                                  out=self.draws[i])
+            self._run(images, n)
+            return Pending(self.out[:n])
+
+        return self.queue.submit(job, meta)
 
 
 class EvalChunks(_Chunked):
@@ -581,10 +638,11 @@ class EvalChunks(_Chunked):
     for one read: a whole pass, or, fed from the host, a chunk of it."""
 
     def __init__(self, eval_step, *, v: int, local_batch: int, latent: int,
-                 device: torch.device, graphs: bool):
+                 device: torch.device, graphs: bool,
+                 queue: DeviceQueue | None = None):
         super().__init__(v, local_batch,
                          len(METRIC_KEYS) + local_batch * latent, device,
-                         graphs)
+                         graphs, queue)
         self.eval_step = eval_step
 
     def _body(self, images, j) -> None:
@@ -599,7 +657,8 @@ class EvalChunks(_Chunked):
         """Capture the batch over ``images`` (the tensor every batch
         gathers from) once; a no-op without ``graphs`` or when captured.
         Returns the seconds of the warm-up and the capture (0.0 when
-        nothing was captured now)."""
+        nothing was captured now).  Fences the queue first."""
+        self.queue.fence()
         if not self.graphs or self.captured is not None:
             return 0.0
         return self._capture(images)
@@ -608,7 +667,8 @@ class EvalChunks(_Chunked):
             offsets: list) -> torch.Tensor:
         """``batches`` (``(idx, mask)`` numpy rows of this rank into
         ``images``, at most ``v``), batch j's noise at ``offsets[j]``.  The
-        rows returned are overwritten by the next call."""
+        rows returned are overwritten by the next call.  Device work: run
+        it in a job of the queue (the trainer's validation pass is one)."""
         if self.graphs and self.captured is None:
             raise RuntimeError("EvalChunks.prepare() must capture the batch "
                                "before a pass is run")

@@ -18,8 +18,13 @@ one read of its metrics after them; the validation pass is a launch of a
 captured batch a batch and one read (``train/chunks.py``), both captured
 before the first epoch.  No launch waits for the card, so a chunk's
 dispatch returns at once, as the JAX loop's does, and the epoch keys time
-what the JAX loop's time (in one of several NCCL ranks the graphs launch
-from the host, and a dispatch waits for room in the launch queue).
+what the JAX loop's time.  In one of several NCCL ranks the graphs launch
+from the host, and each dispatch (a chunk; the validation pass) is a job
+of the run's FIFO queue of device work, which a dispatcher thread runs in
+order (``DeviceQueue``, ``device.py``), so that the launches wait for room
+in the launch queue there and the dispatch returns at once too; the
+ordering rule of ``train/chunks.py`` says which later device work fences
+the queue first.
 ``scan_chunk_steps: 1`` steps eagerly, one launch after the other; so do
 the CPU and a gloo mesh, whose collectives are host calls (the CONFIG
 line's ``step_dispatch`` says so).
@@ -60,6 +65,7 @@ resume in either mode.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import signal
@@ -73,7 +79,7 @@ from ..config import get, get_config
 from ..data.augment import augment_config_kwargs
 from ..data.dataset import load_image, load_split
 from ..data.pipeline import BatchPlan, DeviceData, host_feed_chunk_limit
-from ..device import deterministic_cudnn, resolve_device
+from ..device import DeviceQueue, Job, deterministic_cudnn, resolve_device
 from ..eval.probes import NAN_METRICS, compute_probe_metrics
 from ..io.artifacts import ensure_dirs, model_checkpoint_path, save_image_grid
 from ..io.checkpoint import load_sharded_checkpoint
@@ -85,7 +91,7 @@ from ..parallel.reduce import gather_rows
 from ..utils.profiling import StepProfiler
 from .callbacks import CheckpointManager, EarlyStopping, restore_training_state
 from .chunks import (METRIC_KEYS, RUNNING_KEYS, EvalChunks, Pending,
-                     TrainChunks, chunk_plan)
+                     TrainChunks, chunk_plan, device_queue)
 from .optim import build_optimizer
 from .schedules import lr_at, resolve_total_epochs, schedules_from_config
 from .step import make_eval_step, make_train_step
@@ -177,10 +183,10 @@ def dispatch_way(k_cfg: int, device: torch.device, mesh=None) -> str:
     """``"cuda_graph"``, or why the steps run eagerly: ``scan_chunk_steps:
     1`` (the yardstick), a device other than CUDA, or a gloo mesh, whose
     collectives are host calls that a CUDA graph cannot hold (an NCCL
-    mesh's are kernels, captured with the step; over one H100 its replays
-    are bitwise its eager steps; over several cards, whose graphs are
-    launched from the host (``chunks._several_ranks``), its check,
-    ``chip_smoke.py --mesh`` on four, has not run on this code)."""
+    mesh's are kernels, captured with the step, and its replays are
+    bitwise its eager steps; over several cards the graphs launch from the
+    host (``chunks._several_ranks``) on the run's dispatcher thread, so a
+    dispatch returns at once there too)."""
     if k_cfg == 1:
         return "eager: scan_chunk_steps 1"
     if device.type != "cuda":
@@ -258,22 +264,25 @@ class _Run:
                                          True))
         self.base_lr = float(cfg.optimization.lr)
         self.scheduler = str(cfg.optimization.scheduler)
-        # rank 0 alone traces: the ranks would write the same files
-        self.profiler = StepProfiler(
-            get(cfg.logging, "profile_steps", 0) if self.main else 0,
-            os.path.join(cfg.paths.outputs_dir, "profile"), dev)
         self.k_cfg = int(get(cfg.training, "scan_chunk_steps",
                              SCAN_CHUNK_STEPS))
         if self.k_cfg < 1:
             raise ValueError(f"training.scan_chunk_steps must be >= 1, got "
                              f"{self.k_cfg}")
+        self.dispatch = dispatch_way(self.k_cfg, dev, mesh)
+        self.graphs = self.dispatch == "cuda_graph"
+        # the run's device work: chunks, validation passes (train/chunks.py)
+        self.queue = device_queue(dev, self.graphs)
+        # rank 0 alone traces: the ranks would write the same files
+        self.profiler = StepProfiler(
+            get(cfg.logging, "profile_steps", 0) if self.main else 0,
+            os.path.join(cfg.paths.outputs_dir, "profile"), dev,
+            fence=self.queue.fence)
         # the largest chunk: fed from the host, what one upload holds, as
         # the JAX loop lowers K to host_feed_chunk_limit
         self.k_max = (min(self.k_cfg, self.train_dev.depth)
                       if self.train_dev.host_feed else self.k_cfg)
         self.rotate = bool(get(cfg.training, "epoch_rotation", True))
-        self.dispatch = dispatch_way(self.k_cfg, dev, mesh)
-        self.graphs = self.dispatch == "cuda_graph"
         n_steps = len(self.train_batches(1))
         self.local_batch = (self.batch_size if self.rows is None
                             else self.rows.stop - self.rows.start)
@@ -283,7 +292,13 @@ class _Run:
             k=chunk_plan(max(1, n_steps), self.k_max)[0],
             batch=self.batch_size, device=dev, seed=self.seed,
             aug_kwargs=augment_config_kwargs(cfg), graphs=self.graphs,
-            rows=self.rows)
+            rows=self.rows, queue=self.queue)
+
+    def sync(self) -> None:
+        """Wait for every step dispatched so far: the queue's fence, then a
+        device sync."""
+        self.queue.fence()
+        _sync(self.dev)
 
     def epoch_schedule(self, epoch: int):
         beta = self.beta_sched.value(epoch - 1)
@@ -384,12 +399,12 @@ class _Epoch:
         local = self.batches[self.at:self.at + keep]
         if run.rows is not None:
             local = [(idx[run.rows], mask[run.rows]) for idx, mask in local]
-        idx = run.train_dev.stage([i for i, _ in local])
         lrs = [run.lr(self.epoch, first - 1 + t) for t in range(keep)]
-        steps = [(idx[t], local[t][1],
+        steps = [(idx, mask,
                   run.sched(self.beta, self.capacity, self.free_bits, lrs[t]),
-                  first + t) for t in range(keep)]
-        new = run.chunks.dispatch(run.train_source, steps, meta=(lrs, first))
+                  first + t) for t, (idx, mask) in enumerate(local)]
+        new = run.chunks.dispatch(run.train_source, steps, meta=(lrs, first),
+                                  stage=run.train_dev.stage)
         self.at += keep
         for t in range(keep):
             run.profiler.after_step(first + t)
@@ -399,7 +414,7 @@ class _Epoch:
             self.drain(self.pending)
         self.pending = new
 
-    def drain(self, pending: Pending) -> None:
+    def drain(self, pending: Job) -> None:
         run, out = self.run_, self.out
         lrs, first = pending.meta
         for t, row in enumerate(pending.rows()):
@@ -470,7 +485,7 @@ def _train_steps(config_path: str, max_steps: int, device, mesh) -> dict:
     # a captured step pays its warm-up in the capture
     warmup = 0 if run.graphs else min(WARMUP_STEPS, max_steps // 2)
     capture_seconds = run.chunks.prepare(run.train_source)
-    _sync(dev)
+    run.sync()
 
     totals = []
     total_steps = 0
@@ -479,7 +494,7 @@ def _train_steps(config_path: str, max_steps: int, device, mesh) -> dict:
     def on_dispatch(dispatched: int) -> None:
         nonlocal t_warm
         if dispatched == warmup:
-            _sync(dev)
+            run.sync()
             t_warm = time.perf_counter()
 
     try:
@@ -493,9 +508,12 @@ def _train_steps(config_path: str, max_steps: int, device, mesh) -> dict:
             totals += out["totals"]
             total_steps += out["steps"]
             run.profiler.stop()
-        _sync(dev)
+        run.sync()
     finally:
-        run.profiler.stop()
+        try:
+            run.profiler.stop()
+        finally:
+            run.queue.close()
     timed_seconds = time.perf_counter() - t_warm
     return {
         "steps": total_steps,
@@ -618,6 +636,34 @@ class _PanelWriter:
 # the epoch loop
 # ---------------------------------------------------------------------------
 
+def _validate(run: _Run, eval_chunks: EvalChunks, local: list, sched: dict,
+              epoch: int, group) -> Pending:
+    """The device side of ``epoch``'s validation pass, a job of the run's
+    queue: for each upload of at most ``eval_chunks.k`` of this rank's
+    batches ``local`` (``(idx, mask)``), the test split's staging and the
+    launches of the captured batch, then the all-gather of μ (the ranks'
+    rows back in row order) and the copy of every batch's metrics and μ
+    to the host, whose ``meta`` is μ's ``[batches, rows, latent]``."""
+    nm = len(METRIC_KEYS)
+    vsource = run.test_dev.source(len(local[0][0]))
+    kv = eval_chunks.k
+    parts = []
+    for at in range(0, len(local), kv):
+        part = local[at:at + kv]
+        idx = run.test_dev.stage([i for i, _ in part])
+        rows = eval_chunks.run(
+            vsource, [(i, m) for i, (_, m) in zip(idx, part)], sched,
+            [VAL_OFFSET + epoch * 100_000 + j
+             for j in range(at, at + len(part))])
+        # the next upload's replays overwrite these rows
+        parts.append(rows if kv == len(local) else rows.clone())
+    val_rows = torch.cat(parts) if len(parts) > 1 else parts[0]
+    mu = val_rows[:, nm:].reshape(len(local), -1, run.model.latent_dim)
+    mu = gather_rows(mu.transpose(0, 1), group).transpose(0, 1)
+    return Pending(torch.cat([val_rows[:, :nm].reshape(-1), mu.reshape(-1)]),
+                   meta=mu.shape)
+
+
 def _install_sigterm(cfg):
     """With ``training.graceful_shutdown`` (default true) and on the main
     thread, make SIGTERM raise ``KeyboardInterrupt``, so a preempted run
@@ -636,29 +682,28 @@ def _install_sigterm(cfg):
     return signal.signal(signal.SIGTERM, on_sigterm)
 
 
-def _finish(ckpt: CheckpointManager, panels: _PanelWriter, run_error,
-            old_sigterm) -> None:
-    """The trainer's exit, however it ends: the last panel and every queued
-    checkpoint land (a failed write is raised, unless the loop already
-    raised, and a failed panel does not keep the checkpoints from
-    landing), and the SIGTERM handler is put back."""
+def _finish(queue: DeviceQueue, ckpt: CheckpointManager,
+            panels: _PanelWriter, run_error, old_sigterm) -> None:
+    """The trainer's exit, however it ends (a SIGTERM too): the queued
+    device work is launched and the dispatcher stopped, then the last
+    panel and every queued checkpoint land.  The first failure among them
+    is raised unless the loop already raised, the others are printed, and
+    none keeps the rest from landing; the SIGTERM handler is put back."""
     try:
-        try:
+        first = None
+        for label, what, drain in (("DISPATCH", "dispatcher", queue.close),
+                                   ("PANEL", "writer", panels.join),
+                                   ("CKPT", "writer", ckpt.drain)):
             try:
-                panels.join()
-            except Exception as panel_err:
-                if run_error is None:
-                    raise
-                print(f"[PANEL] background writer also failed: "
-                      f"{panel_err!r}")
-        finally:
-            try:
-                ckpt.drain()
-            except Exception as drain_err:
-                if run_error is None:
-                    raise
-                print(f"[CKPT] background writer also failed: "
-                      f"{drain_err!r}")
+                drain()
+            except Exception as err:
+                if run_error is None and first is None:
+                    first = err
+                elif err is not run_error:
+                    print(f"[{label}] background {what} also failed: "
+                          f"{err!r}")
+        if first is not None:
+            raise first
     finally:
         if old_sigterm is not None:
             signal.signal(signal.SIGTERM, old_sigterm)
@@ -764,7 +809,7 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                   if run.test_dev.host_feed else len(vplan))
             eval_chunks = EvalChunks(eval_step, v=kv, local_batch=vrows,
                                      latent=model.latent_dim, device=dev,
-                                     graphs=run.graphs)
+                                     graphs=run.graphs, queue=run.queue)
             eval_chunks.prepare(run.test_dev.source(vrows))
         for epoch in range(start_epoch, run.epochs + 1):
             current, prefetch = prefetch, None
@@ -784,7 +829,7 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                     j = int(np.argmin(finite))
                     run.check_finite(float(totals[j]),
                                      total_steps - denom + j + 1, epoch)
-            _sync(dev)
+            run.sync()
             epoch_seconds = time.perf_counter() - epoch_t0
             train_drain_mono = epoch_t0 + epoch_seconds
             final_train_kl_mean = (float(out["running"].get("kl_mean", 0.0))
@@ -792,10 +837,11 @@ def _train(config_path, resume: str, device, mesh) -> dict:
             final_train_kl_effective = float(out["last"].get("kl_effective",
                                                              0.0))
 
-            # ---- the tail, in stream order: the validation pass, the
-            # panel forward, their copies to the host, the state's snapshot,
-            # the next epoch's first chunk; only then a wait, for the
-            # validation copy (nothing the chunk overwrites is read after)
+            # ---- the tail, in stream order: the validation pass (a job of
+            # the queue), the panel forward, their copies to the host, the
+            # state's snapshot, the next epoch's first chunk; only then a
+            # wait, for the validation copy (nothing the chunk overwrites is
+            # read after)
             tail_t0 = time.perf_counter()
             sched_v = run.sched(beta, capacity, free_bits, lr)
             vbatches = list(test_plan.batches(epoch))[:run.max_val_batches]
@@ -804,26 +850,9 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                 local = [(idx, mask) if run.rows is None
                          else (idx[run.rows], mask[run.rows])
                          for idx, mask in vbatches]
-                vsource = run.test_dev.source(len(local[0][0]))
-                kv = eval_chunks.k
-                parts = []
-                for at in range(0, len(local), kv):
-                    part = local[at:at + kv]
-                    idx = run.test_dev.stage([i for i, _ in part])
-                    rows = eval_chunks.run(
-                        vsource, [(i, m) for i, (_, m) in zip(idx, part)],
-                        sched_v, [VAL_OFFSET + epoch * 100_000 + j
-                                  for j in range(at, at + len(part))])
-                    # the next upload's replays overwrite these rows
-                    parts.append(rows if kv == len(local) else rows.clone())
-                val_rows = torch.cat(parts) if len(parts) > 1 else parts[0]
-                # [batches, rows, latent]: the ranks' rows back in row order
-                mu = val_rows[:, nm:].reshape(len(vbatches), -1,
-                                              model.latent_dim)
-                mu = gather_rows(mu.transpose(0, 1), group).transpose(0, 1)
-                val_pending = Pending(torch.cat([val_rows[:, :nm].reshape(-1),
-                                                 mu.reshape(-1)]),
-                                      meta=mu.shape)
+                val_pending = run.queue.submit(functools.partial(
+                    _validate, run, eval_chunks, local, sched_v, epoch,
+                    group))
             panel = _panel_images(cfg, run, vbatches) if main else None
             recon_pending = None
             if panel is not None:
@@ -854,9 +883,10 @@ def _train(config_path, resume: str, device, mesh) -> dict:
             val_kl_per_dim_mean = 0.0
             val_latents, val_labels = [], []
             if val_pending is not None:
-                host = val_pending.rows()
+                val_rows = val_pending.result()
+                host = val_rows.rows()
                 stacked = host[:val_batches * nm].reshape(val_batches, nm)
-                mu_all = host[val_batches * nm:].reshape(val_pending.meta)
+                mu_all = host[val_batches * nm:].reshape(val_rows.meta)
                 mk = {k: stacked[:, i] for i, k in enumerate(METRIC_KEYS)}
                 if run.detect_anomalies:
                     for k in RUNNING_KEYS:
@@ -964,7 +994,8 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                 if prefetch is not None:
                     # the next epoch's chunk is discarded, never drained
                     # or logged (its launches ran, and stay counted): the
-                    # state goes back to the checkpoints'
+                    # state goes back to the checkpoints' (the restore
+                    # fences the queue, so it lands after that chunk)
                     snapshot.restore()
                     prefetch = None
                 break
@@ -972,8 +1003,10 @@ def _train(config_path, resume: str, device, mesh) -> dict:
         run_error = err
         raise
     finally:
-        run.profiler.stop()
-        _finish(ckpt, panels, run_error, old_sigterm)
+        try:
+            run.profiler.stop()
+        finally:
+            _finish(run.queue, ckpt, panels, run_error, old_sigterm)
     return {"model": model, "optimizer": optimizer, "epoch": epoch,
             "total_steps": total_steps, "traces": run.profiler.paths,
             "checkpoint_writes": ckpt.writes}

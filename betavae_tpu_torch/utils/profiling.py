@@ -22,12 +22,16 @@ from torch.profiler import ProfilerActivity, profile
 class StepProfiler:
     """Trace train steps while ``remaining`` > 0: :meth:`maybe_start`
     before a run of steps, :meth:`after_step` after each, :meth:`stop` at
-    its end (the trainers' epoch ends)."""
+    its end (the trainers' epoch ends).  ``fence`` (the run's
+    ``DeviceQueue.fence``) is called before each device sync, so that the
+    sync waits for the steps dispatched so far."""
 
-    def __init__(self, profile_steps: int, out_dir: str, device: torch.device):
+    def __init__(self, profile_steps: int, out_dir: str, device: torch.device,
+                 fence=None):
         self.remaining = int(profile_steps or 0)
         self.out_dir = out_dir
         self.device = device
+        self._fence = fence
         self.paths: list = []
         self._prof = None
         self._first = self._last = 0
@@ -46,7 +50,7 @@ class StepProfiler:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
-            torch.cuda.synchronize(self.device)
+        self._sync()
         os.makedirs(self.out_dir, exist_ok=True)
         prof = profile(activities=activities)
         try:
@@ -73,12 +77,20 @@ class StepProfiler:
         if not self.active:
             return
         prof, self._prof = self._prof, None
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
+        try:
+            self._sync()
+        finally:
+            prof.stop()
         path = os.path.join(self.out_dir, f"steps_{self._first}-"
                                           f"{self._last}.trace.json")
         prof.export_chrome_trace(path)
         self.paths.append(path)
         print(f"[PROFILE] train steps {self._first}-{self._last} traced: "
               f"{path}")
+
+    def _sync(self) -> None:
+        """The fence, then on the card a device sync."""
+        if self._fence is not None:
+            self._fence()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

@@ -78,7 +78,12 @@ Phases, each printing one line (any failure exits non-zero at once):
    whether 182 launches of the step from the device return at once behind
    a running chunk, against 182 launches of the same graph from the host
    (host seconds of each, of a chunk's draws and of its dispatch; capture
-   seconds, peak memory; the rows bitwise both ways) (the
+   seconds, peak memory; the rows bitwise both ways), and the same two
+   chunks on the path of one of several ranks (``forced_host_path``: the
+   step's graph launched from the host, each dispatch a job of the
+   dispatcher thread): the dispatch behind the running chunk within 0.05
+   s with its job still to run, the rows bitwise the device-launched
+   ones (the
    trainers run K-step chunks of replays wherever the main path below runs
    them, under a one-rank NCCL mesh and fed from the host too: every
    phase's default K is 192, and ``train()`` rotates its epochs);
@@ -101,7 +106,9 @@ Phases, each printing one line (any failure exits non-zero at once):
    bitwise, ``rotated`` on epochs 1–2 only, launches as derived, every
    panel there when ``train()`` returns), then an early stop at epoch 2
    under rotation (the returned model and optimizer bitwise ``latest``,
-   the discarded chunk's launches counted); the
+   the discarded chunk's launches counted), and a fifth run on the path of
+   one of several ranks, every check against the first and its rotated
+   dispatch within 0.05 s; the
    evaluation's sampling forward and latents of a small fp32 checkpoint on
    the card against the CPU (1e-3 relative, probe metrics 0.05);
    ``train()`` on ``configs/beta_vae_se_debug.yaml`` as it is (its
@@ -124,7 +131,9 @@ Phases, each printing one line (any failure exits non-zero at once):
    pooled rate, tail seconds and train images/s an epoch against the
    unrotated runs', each chunk's dispatch seconds, capture seconds, peak
    memory; a rotated epoch's ``rotate_dispatch_seconds`` over 0.05 s
-   fails); the data-parallel path on the fused
+   fails; a fifth run on the path of one of several ranks, its 182 host
+   launches a chunk on the dispatcher thread, under the same limit); the
+   data-parallel path on the fused
    flagship at full width (global batch 32; ``betavae_tpu_torch/
    parallel/``): one NCCL rank in this process (an epoch of 20 steps of
    ``train_steps`` as one chunk of 20 replays, in turns with the single
@@ -197,6 +206,15 @@ Phases, each printing one line (any failure exits non-zero at once):
    default and fused head,
 5. kernels: one JSON line listing each kernel with its checks and numbers,
 6. the last line: ``{"ok": true, "device": {...}}``.
+
+Every phase line carries ``elapsed_s`` (the script's seconds so far) and
+``phase_s`` (the seconds since the phase line before it).
+
+``python3 chip_smoke.py --mesh`` (two or more cards of one host) runs the
+build, then phase ``mesh`` alone: the scaled config over every card (NCCL)
+at K 16 against K 1, rank 0's rotated dispatch within 0.05 s, the dry run,
+the bench's ``--data-parallel`` in turns, and the flagship's rotated
+epochs of one 64-step chunk (``mesh_flagship_rotation``).
 """
 
 from __future__ import annotations
@@ -294,12 +312,17 @@ def fail(msg: str) -> None:
 
 
 _T0 = time.perf_counter()
+# the script's seconds at the last phase line
+_LAST = [_T0]
 
 
 def emit(obj: dict) -> None:
-    """One JSON line; a phase's line gets the script's seconds so far."""
+    """One JSON line; a phase's line gets the script's seconds so far and
+    the seconds since the phase line before it (``phase_s``)."""
     if "phase" in obj:
-        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
+        now = time.perf_counter()
+        obj = {**obj, "elapsed_s": now - _T0, "phase_s": now - _LAST[0]}
+        _LAST[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1848,6 +1871,13 @@ SCAN_KS = (1, 8, 20)
 SCAN_TRAIN_PER_CLASS, SCAN_TEST_PER_CLASS = 160, 16
 # the e2e epoch's one chunk: 4 × 1456 images in batches of 32
 LAUNCH_CHECK_STEPS = 4 * REF_TRAIN_PER_CLASS // 32
+# a rotated epoch's dispatch of the next epoch's first chunk, at most: host
+# calls that queue the snapshot, the chunk's upload, its draws and a launch
+# from the device a step, or, in one of several ranks, the job that does
+# them on the dispatcher thread (1.438–1.457 s, the host blocked, with a
+# host launch a step on the training thread); also a dispatch's behind a
+# running chunk on that path
+ROTATE_DISPATCH_LIMIT_S = 0.05
 
 
 @contextlib.contextmanager
@@ -1859,11 +1889,11 @@ def timed_dispatches():
     seen = []
     dispatch = TrainChunks.dispatch
 
-    def timed(self, images, steps, meta=None):
+    def timed(self, images, steps, meta=None, stage=None):
         t0 = time.perf_counter()
-        pending = dispatch(self, images, steps, meta)
+        job = dispatch(self, images, steps, meta, stage)
         seen.append([len(steps), time.perf_counter() - t0])
-        return pending
+        return job
 
     TrainChunks.dispatch = timed
     try:
@@ -1894,6 +1924,22 @@ def timed_prepares():
         TrainChunks.prepare = prepare
 
 
+@contextlib.contextmanager
+def forced_host_path():
+    """The path of one of several NCCL ranks, on one card and without NCCL:
+    ``train.chunks._several_ranks`` patched true, so that a captured graph
+    launches from the host and each dispatch (a chunk, a validation pass)
+    is a job of the run's queue, run on its dispatcher thread."""
+    from betavae_tpu_torch.train import chunks
+
+    several = chunks._several_ranks
+    chunks._several_ranks = lambda: True
+    try:
+        yield
+    finally:
+        chunks._several_ranks = several
+
+
 def one_launch_check() -> dict:
     """Whether a chunk's dispatch returns at once: the fused train step
     (the bench's steady step) in ``TrainChunks`` at K = LAUNCH_CHECK_STEPS
@@ -1907,7 +1953,14 @@ def one_launch_check() -> dict:
     Fails unless the chunk's rows are finite and the first K − 1 of them,
     dispatched again from the same state through host launches of the
     same graph, are bitwise the ones launched from the device (so the rows
-    read behind a launch from the device are the graph's)."""
+    read behind a launch from the device are the graph's).  Then the path
+    of one of several ranks (``forced_host_path``: a capture launched from
+    the host, each dispatch a job of the dispatcher thread) from the same
+    state: host seconds of the first dispatch and of one behind it, and
+    whether each job was still queued or launching when its dispatch
+    returned; fails unless the dispatch behind the running chunk returned
+    within ROTATE_DISPATCH_LIMIT_S with its job still to run, and both
+    chunks' rows are bitwise the ones launched from the device."""
     import numpy as np
     import torch
 
@@ -1998,9 +2051,61 @@ def one_launch_check() -> dict:
             lambda: launches(launched.graph.replay))
         torch.cuda.synchronize()
         out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        snapshot.restore()
+        out["host_path"] = host_path_dispatch(
+            step, model, optimizer, images, aug, steps, rows)
     snapshot.restore()
     del chunks, snapshot, model, optimizer, images, launched
     torch.cuda.empty_cache()
+    return out
+
+
+def host_path_dispatch(step, model, optimizer, images, aug: dict, steps,
+                       rows: list) -> dict:
+    """``one_launch_check``'s two chunks from the state its device-launched
+    ones started from, on the path of one of several ranks: a capture
+    launched from the host and each dispatch a job of the dispatcher
+    thread (see ``one_launch_check``)."""
+    import numpy as np
+    import torch
+
+    from betavae_tpu_torch.train.chunks import DeviceLaunched, TrainChunks
+
+    k, b = LAUNCH_CHECK_STEPS, 32
+    with forced_host_path():
+        chunks = TrainChunks(step, model, optimizer, k=k, batch=b,
+                             device=images.device, seed=1, aug_kwargs=aug,
+                             graphs=True)
+        try:
+            capture = chunks.prepare(images)
+            torch.cuda.synchronize()
+            jobs, seconds, queued = [], [], []
+            t0 = time.perf_counter()
+            for chunk in (0, 1):
+                t = time.perf_counter()
+                jobs.append(chunks.dispatch(images, steps(chunk)))
+                seconds.append(time.perf_counter() - t)
+                queued.append([not j.done for j in jobs])
+            got = [j.rows().copy() for j in jobs]
+            two_chunks = time.perf_counter() - t0
+        finally:
+            chunks.queue.close()
+    out = {"queue_threaded": chunks.queue.threaded,
+           "launched_from_device": isinstance(chunks.captured.graph,
+                                              DeviceLaunched),
+           "capture_seconds": capture,
+           "first_dispatch_host_seconds": seconds[0],
+           "busy_dispatch_host_seconds": seconds[1],
+           # each job not yet run when a dispatch returned
+           "jobs_queued_at_return": queued,
+           "two_chunks_seconds": two_chunks,
+           "rows_bitwise_device_launched": all(
+               np.array_equal(a, b) for a, b in zip(got, rows))}
+    if (not out["queue_threaded"] or out["launched_from_device"]
+            or seconds[1] > ROTATE_DISPATCH_LIMIT_S or not queued[1][1]
+            or not out["rows_bitwise_device_launched"]):
+        fail(f"one_launch_check (host path through the queue): {out}")
+    del chunks
     return out
 
 
@@ -2385,7 +2490,9 @@ def mesh_scaled(tmp: str, kernels: dict, devices: list, **kw) -> dict:
     the epoch_end lines, bitwise between the two; the latest and best
     checkpoints bitwise; every rank's parameters bitwise alike and alike
     across K; no CONFIG note; each kernel's launches as derived on every
-    rank."""
+    rank; at K 16 (graphs launched from the host, each dispatch on the
+    rank's dispatcher thread) rank 0's ``rotate_dispatch_seconds`` on a
+    rotated epoch at most ROTATE_DISPATCH_LIMIT_S."""
     runs = {k: mesh_scaled_run(tmp, kernels, devices, k, **kw)
             for k in (16, 1)}
     numbers = {k: [{key: v for key, v in m.items()
@@ -2402,6 +2509,12 @@ def mesh_scaled(tmp: str, kernels: dict, devices: list, **kw) -> dict:
     if len(sums) != 1 or notes != [[None], [None]]:
         fail(f"mesh: checksums {[r['checksums'] for r in runs.values()]}, "
              f"CONFIG notes {notes}")
+    tails = {k: [m for m in r["lines"] if m["phase"] == "epoch_end"]
+             for k, r in runs.items()}
+    rotated = [m["rotate_dispatch_seconds"] for m in tails[16] if m["rotated"]]
+    if not rotated or max(rotated) > ROTATE_DISPATCH_LIMIT_S:
+        fail(f"mesh: rank 0's rotated dispatch at K 16 over "
+             f"{ROTATE_DISPATCH_LIMIT_S} s (or none): {tails[16]}")
     lines = runs[16]["lines"]
     return {"ranks": len(devices), "steps": runs[16]["steps"],
             "val_batches_per_epoch": runs[16]["val_batches"],
@@ -2420,9 +2533,53 @@ def mesh_scaled(tmp: str, kernels: dict, devices: list, **kw) -> dict:
                          "epoch_wall_seconds": [
                              m["epoch_wall_seconds"] for m in r["lines"]
                              if m["phase"] == "epoch_end"],
-                         "rotated": [m["rotated"] for m in r["lines"]
-                                     if m["phase"] == "epoch_end"]}
+                         "rotated": [m["rotated"] for m in tails[k]],
+                         "rotate_dispatch_seconds": [
+                             m["rotate_dispatch_seconds"] for m in tails[k]],
+                         "val_dispatch_seconds": [
+                             m["val_dispatch_seconds"] for m in tails[k]]}
                      for k, r in runs.items()}}
+
+
+# --mesh: the flagship over every card, epochs of one chunk of
+# MESH_CHUNK_STEPS steps (4 × 512 train images in global batches of 32)
+MESH_FLAGSHIP_TRAIN_PER_CLASS, MESH_CHUNK_STEPS = 512, 64
+
+
+def mesh_flagship_rotation(tmp: str, kernels: dict, devices: list,
+                           limit: float | None = ROTATE_DISPATCH_LIMIT_S
+                           ) -> dict:
+    """``train()`` of the flagship config (128 px, global batch 32, the
+    default head) over ``devices`` (``mesh_scaled_run``'s checks) for
+    MESH_EPOCHS epochs of one chunk of MESH_CHUNK_STEPS launches of the
+    step (rotated: the next epoch's chunk dispatched from the tail) and 4
+    validation batches, over seeded 128 px demo data: rank 0's
+    ``rotate_dispatch_seconds``, ``val_dispatch_seconds`` and tail seconds
+    an epoch; fails when a rotated epoch's dispatch is over ``limit``
+    (None: reported only)."""
+    from betavae_tpu_torch.data.demo import generate_demo_data
+
+    data = os.path.join(tmp, "mesh_flagship", "processed")
+    generate_demo_data(data, train_per_class=MESH_FLAGSHIP_TRAIN_PER_CLASS,
+                       test_per_class=MESH_TEST_PER_CLASS, size=128)
+    run = mesh_scaled_run(tmp, kernels, devices, MESH_CHUNK_STEPS,
+                          src="configs/beta_vae_se.yaml",
+                          blocks=FLAGSHIP_BLOCKS,
+                          **{"paths.processed_dir": data})
+    tails = [m for m in run["lines"] if m["phase"] == "epoch_end"]
+    rotated = [m["rotate_dispatch_seconds"] for m in tails if m["rotated"]]
+    if limit is not None and (not rotated or max(rotated) > limit):
+        fail(f"mesh (flagship, K {MESH_CHUNK_STEPS}): rank 0's rotated "
+             f"dispatch over {limit} s (or none): {tails}")
+    return {"steps": run["steps"], "chunk_steps": MESH_CHUNK_STEPS,
+            "seconds": run["seconds"], "launches": run["launches"],
+            "replicas_bitwise_equal": len(set(run["checksums"])) == 1,
+            **{key: [m[key] for m in tails] for key in (
+                "rotated", "rotate_dispatch_seconds", "val_dispatch_seconds",
+                "tail_seconds", "epoch_wall_seconds")},
+            "train_images_per_sec": [m["train_images_per_sec"]
+                                     for m in run["lines"]
+                                     if m["phase"] == "val"]}
 
 
 def run_mesh(tmp: str, kernels: dict) -> dict:
@@ -2432,7 +2589,10 @@ def run_mesh(tmp: str, kernels: dict) -> dict:
     of 8 steps at the global batch 256, 64 rows a rank); (b) the dry run
     (one eager step, replicas bitwise, the loss within 2e-3 of one
     process's); (c) the bench's ``--data-parallel`` over every card and
-    over one, in turns (N, 1, 1, N), each replayed over NCCL."""
+    over one, in turns (N, 1, 1, N), each replayed over NCCL; (d)
+    :func:`mesh_flagship_rotation`, rotated epochs of one chunk of
+    MESH_CHUNK_STEPS host launches, each rank's on its dispatcher
+    thread."""
     from betavae_tpu_torch import bench
     from betavae_tpu_torch.data.demo import generate_demo_data
     from betavae_tpu_torch.parallel.dryrun import dryrun
@@ -2457,9 +2617,10 @@ def run_mesh(tmp: str, kernels: dict) -> dict:
                 and math.isfinite(line["value"])):
             fail(f"mesh (c): bench line {line}")
         turns.append([n, line["value"], line["step_ms"]])
+    rotation = mesh_flagship_rotation(tmp, kernels, devices)
     return {"phase": "mesh", "devices": devices,
             "seconds": time.perf_counter() - t0, "scaled": scaled,
-            "dryrun": dry,
+            "flagship_rotation": rotation, "dryrun": dry,
             "bench_in_turns": {"ranks_images_per_sec_step_ms": turns,
                                "scan_chunk": 32, "global_batch": 32}}
 
@@ -2785,8 +2946,11 @@ def run_rotation(tmp: str, kernels: dict) -> dict:
     Then an early stop at epoch 2 of ROTATION_STOP_EPOCHS with rotation
     on: ``latest`` says epoch 2, the returned model and optimizer state
     are bitwise its tensors, and the discarded epoch-3 chunk's launches are
-    counted.  Reports each run's pooled rate over its drain stamps and its
-    tail seconds."""
+    counted.  A fifth run, rotation on, takes the path of one of several
+    ranks (``forced_host_path``): every check above against the first
+    run, and a rotated epoch's ``rotate_dispatch_seconds`` over
+    ROTATE_DISPATCH_LIMIT_S fails.  Reports each run's pooled rate over its
+    drain stamps, its tail seconds and its dispatch seconds."""
     from unittest import mock
 
     import torch
@@ -2795,13 +2959,17 @@ def run_rotation(tmp: str, kernels: dict) -> dict:
     from betavae_tpu_torch.train import loop
 
     runs = []
-    for n, rotate in enumerate((True, False, False, True)):
+    for n, (rotate, host_path) in enumerate((
+            (True, False), (False, False), (False, False), (True, False),
+            (True, True))):
         cfg = epochs_config(tmp, os.path.join(tmp, "rotation", f"run{n}"),
                             "config.yaml", **{
                                 "training.epochs": ROTATION_EPOCHS,
                                 "training.epoch_rotation": rotate})
         zero_counts(kernels)
-        out, lines = _train_lines(cfg)
+        with (forced_host_path() if host_path
+              else contextlib.nullcontext()):
+            out, lines = _train_lines(cfg)
         launches = read_counts(kernels)
         figures = os.path.join(tmp, "rotation", f"run{n}", "outputs",
                                "figures")
@@ -2809,7 +2977,8 @@ def run_rotation(tmp: str, kernels: dict) -> dict:
                         if f.startswith("recon_epoch"))
         tails = [m for m in lines if m["phase"] == "epoch_end"]
         runs.append({
-            "rotate": rotate, "out": out, "launches": launches,
+            "rotate": rotate, "host_path": host_path, "out": out,
+            "launches": launches,
             "panels": panels, "tails": tails,
             "numbers": [{k: v for k, v in m.items()
                          if k not in SCAN_WALL_KEYS + TAIL_TIME_KEYS
@@ -2825,13 +2994,18 @@ def run_rotation(tmp: str, kernels: dict) -> dict:
         want_rotated = ([True] * (ROTATION_EPOCHS - 1) + [False]
                         if r["rotate"] else [False] * ROTATION_EPOCHS)
         same_lines = r["numbers"] == runs[0]["numbers"]
-        if (not same_lines
+        slow = [t["rotate_dispatch_seconds"] for t in r["tails"]
+                if t["rotated"] and r["host_path"]
+                and t["rotate_dispatch_seconds"] > ROTATE_DISPATCH_LIMIT_S]
+        if (not same_lines or slow
                 or [t["rotated"] for t in r["tails"]] != want_rotated
                 or r["launches"] != want or r["panels"] != want_panels
                 or not all(same_checkpoint(r["checkpoints"][tag],
                                            runs[0]["checkpoints"][tag])
                            for tag in ("latest", "best"))):
-            fail(f"rotation (epoch_rotation {r['rotate']}): rotated "
+            fail(f"rotation (epoch_rotation {r['rotate']}, host path "
+                 f"{r['host_path']}): rotated dispatch seconds over "
+                 f"{ROTATE_DISPATCH_LIMIT_S}: {slow}, rotated "
                  f"{[t['rotated'] for t in r['tails']]} (want "
                  f"{want_rotated}), launches {r['launches']} (want {want}), "
                  f"panels {r['panels']}, lines equal {same_lines}, "
@@ -2880,11 +3054,14 @@ def run_rotation(tmp: str, kernels: dict) -> dict:
             "lines_bitwise": True, "checkpoints_bitwise": True,
             "launches": runs[0]["launches"],
             "runs": [{"epoch_rotation": r["rotate"],
+                      "host_path": r["host_path"],
                       "rotated": [t["rotated"] for t in r["tails"]],
                       "pooled_images_per_sec": pooled_rate(r["tails"], images),
                       "tail_seconds": [t["tail_seconds"] for t in r["tails"]],
                       "rotate_dispatch_seconds": [
                           t["rotate_dispatch_seconds"] for t in r["tails"]],
+                      "val_dispatch_seconds": [
+                          t["val_dispatch_seconds"] for t in r["tails"]],
                       "panel_seconds": [t["panel_seconds"]
                                         for t in r["tails"]]}
                      for r in runs],
@@ -2892,13 +3069,6 @@ def run_rotation(tmp: str, kernels: dict) -> dict:
                            "returned_bitwise_latest": True,
                            "launches": launches,
                            "discarded_chunk_steps": per_epoch}}
-
-
-# a rotated epoch's dispatch of the next epoch's first chunk, at most: host
-# calls that queue the snapshot, the chunk's upload, its draws and a launch
-# from the device a step (1.438–1.457 s, the host blocked, with a host
-# launch a step)
-ROTATE_DISPATCH_LIMIT_S = 0.05
 
 
 def rotation_e2e_in_turns(tmp: str) -> dict:
@@ -2910,7 +3080,11 @@ def rotation_e2e_in_turns(tmp: str) -> dict:
     (fails above ROTATE_DISPATCH_LIMIT_S on a rotated epoch), tail seconds
     and train images/s, each chunk's dispatch seconds, the capture's
     seconds and the peak memory; and each rotated run's tails (epochs 1-2)
-    and train images/s (epochs 2-3) over the unrotated runs' mean."""
+    and train images/s (epochs 2-3) over the unrotated runs' mean.  A
+    fifth run, rotation on, takes the path of one of several ranks
+    (``forced_host_path``: each chunk's 182 launches from the host, on the
+    dispatcher thread), under the same limit, with each epoch's
+    ``val_dispatch_seconds``."""
     import gc
 
     import torch
@@ -2918,11 +3092,14 @@ def rotation_e2e_in_turns(tmp: str) -> dict:
     from betavae_tpu_torch import bench
 
     turns = []
-    for rotate in (True, False, False, True):
+    for rotate, host_path in ((True, False), (False, False), (False, False),
+                              (True, False), (True, True)):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with timed_dispatches() as dispatches, timed_prepares() as prepares:
+        with timed_dispatches() as dispatches, timed_prepares() as prepares, \
+                (forced_host_path() if host_path
+                 else contextlib.nullcontext()):
             with contextlib.redirect_stdout(sys.stderr):
                 rate, breakdown = bench._e2e_images_per_sec(
                     epochs=3, work_dir=os.path.join(tmp, "bench_e2e"),
@@ -2932,14 +3109,17 @@ def rotation_e2e_in_turns(tmp: str) -> dict:
         if (not math.isfinite(rate) or breakdown["rotated_epochs"] != (
                 2 if rotate else 0)
                 or any(s > ROTATE_DISPATCH_LIMIT_S for s in rotated)):
-            fail(f"rotation e2e (epoch_rotation {rotate}): rate {rate}, "
+            fail(f"rotation e2e (epoch_rotation {rotate}, host path "
+                 f"{host_path}): rate {rate}, "
                  f"a rotated dispatch over {ROTATE_DISPATCH_LIMIT_S} s, or "
                  f"breakdown {breakdown}")
-        turns.append({"epoch_rotation": rotate, "e2e_images_per_sec": rate,
+        turns.append({"epoch_rotation": rotate, "host_path": host_path,
+                      "e2e_images_per_sec": rate,
                       **{key: breakdown[key] for key in (
                           "val_seconds", "probe_seconds", "ckpt_seconds",
                           "tail_seconds", "epoch_wall_seconds",
-                          "rotate_dispatch_seconds", "tail_seconds_by_epoch",
+                          "rotate_dispatch_seconds", "val_dispatch_seconds",
+                          "tail_seconds_by_epoch",
                           "train_images_per_sec_by_epoch", "dispatch")},
                       "dispatch_host_seconds": dispatches,
                       "capture_seconds": prepares,
@@ -2949,7 +3129,8 @@ def rotation_e2e_in_turns(tmp: str) -> dict:
 
     def over_unrotated(key: str, epochs) -> list:
         return [[t[key][e] / statistics.mean(o[key][e] for o in off)
-                 for e in epochs] for t in turns if t["epoch_rotation"]]
+                 for e in epochs] for t in turns
+                if t["epoch_rotation"] and not t["host_path"]]
 
     return {"phase": "rotation_e2e", "turns": turns,
             "rotated_tail_over_unrotated": over_unrotated(

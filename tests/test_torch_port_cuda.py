@@ -1067,3 +1067,126 @@ def test_device_launched_graph_runs_through_a_scheduled_profiler(
     graphs.synchronize()
     assert torch.equal(x, torch.full_like(x, 19 * 50.0))
     assert DeviceLaunched.reinstantiations > redone
+
+
+def _flagship_chunks(device, k: int):
+    """The bench's fused flagship step (128 px, batch 32, capacity, FFL,
+    augmentation) in ``TrainChunks`` of ``k`` steps over 1024 seeded
+    images: ``(chunks, images, steps)``, ``steps(c)`` chunk ``c``'s."""
+    import numpy as np
+
+    from betavae_tpu_torch.bench import FLAGSHIP_CONFIG, flagship_model
+    from betavae_tpu_torch.config import get_config
+    from betavae_tpu_torch.models.losses import LossSpec
+    from betavae_tpu_torch.train.chunks import TrainChunks
+    from betavae_tpu_torch.train.optim import build_optimizer
+    from betavae_tpu_torch.train.step import make_train_step
+
+    b, n = 32, 1024
+    model = flagship_model(device=device)
+    optimizer = build_optimizer(model.parameters(),
+                                get_config(str(FLAGSHIP_CONFIG)))
+    aug = {"use_flip": True, "degrees": 10.0, "brightness_range": 0.1}
+    step = make_train_step(
+        model, optimizer, LossSpec(recon_loss_type="mse", use_ffl=True,
+                                   ffl_weight=0.5, ffl_alpha=1.0),
+        aug_kwargs=aug, use_capacity=True, seed=1)
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (n, 128, 128, 1), np.uint8)).to(device)
+    sched = dict(beta=1.0, capacity=30.0, capacity_weight=1.0,
+                 free_bits=0.0, lr=5e-4)
+    mask = np.ones(b, np.float32)
+
+    def steps(chunk: int) -> list:
+        return [(np.arange(s * b % (n - b), s * b % (n - b) + b), mask,
+                 sched, s + 1) for s in range(chunk * k, (chunk + 1) * k)]
+
+    def chunks():
+        return TrainChunks(step, model, optimizer, k=k, batch=b,
+                           device=device, seed=1, aug_kwargs=aug, graphs=True)
+
+    return chunks, images, steps
+
+
+@pytest.mark.cuda
+def test_host_launched_dispatch_returns_at_once_behind_a_running_chunk(
+        cuda_device, monkeypatch):
+    """The path of one of several ranks on one card
+    (``chunks._several_ranks`` patched true: the step's graph launched from
+    the host, each dispatch a job of the dispatcher thread): a 182-step
+    chunk's dispatch behind a running one returns in under 0.05 s with its
+    job still to run (``CUDAGraph.replay`` drops the GIL while it waits for
+    room in the launch queue), and both chunks' rows are bitwise those the
+    device-launched chunks give from the same state."""
+    import time
+
+    import numpy as np
+
+    from betavae_tpu_torch.device import deterministic_cudnn
+    from betavae_tpu_torch.train import chunks as chunks_mod
+
+    k = 182
+    make, images, steps = _flagship_chunks(cuda_device, k)
+    with deterministic_cudnn():
+        device = make()
+        device.prepare(images)
+        snapshot = device.snapshot
+        snapshot.take()
+        want = [j.rows().copy()
+                for j in [device.dispatch(images, steps(c)) for c in (0, 1)]]
+        snapshot.restore()
+        monkeypatch.setattr(chunks_mod, "_several_ranks", lambda: True)
+        host = make()
+        try:
+            host.prepare(images)
+            torch.cuda.synchronize()
+            assert host.queue.threaded
+            assert not isinstance(host.captured.graph,
+                                  chunks_mod.DeviceLaunched)
+            first = host.dispatch(images, steps(0))
+            t0 = time.perf_counter()
+            second = host.dispatch(images, steps(1))
+            seconds = time.perf_counter() - t0
+            queued = not second.done
+            got = [first.rows().copy(), second.rows().copy()]
+        finally:
+            host.queue.close()
+    assert seconds < 0.05 and queued, seconds
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [0, 1])
+def test_dispatcher_runs_on_the_callers_device_and_stream(cuda_device, index):
+    """A threaded ``DeviceQueue`` runs its jobs on the caller's device (a
+    new thread starts on device 0) and its current stream: on ``cuda:0``
+    under a side stream, and on ``cuda:1`` where a second card exists; a
+    tensor a job makes on ``"cuda"`` lands there, and its work is ordered
+    on the caller's stream."""
+    from betavae_tpu_torch.device import DeviceQueue
+
+    if index >= torch.cuda.device_count():
+        pytest.skip(f"needs {index + 1} cards")
+    dev = torch.device("cuda", index)
+    stream = torch.cuda.Stream(dev)
+    x = torch.zeros(1 << 20, device=dev)
+
+    def job():
+        y = torch.ones(4, device="cuda")
+        x.add_(1.0)
+        return (torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream, y.device.index)
+
+    with torch.cuda.device(dev):
+        queue = DeviceQueue(torch.device("cuda"), threaded=True)
+    try:
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            got = queue.submit(job).result()
+            # behind the job's add on the same stream
+            total = x.sum()
+    finally:
+        queue.close()
+    stream.synchronize()
+    assert got == (index, stream.cuda_stream, index)
+    assert float(total) == float(1 << 20)

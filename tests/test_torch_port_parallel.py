@@ -171,11 +171,12 @@ def dp_runs(tmp_path_factory):
         "remat_host": _config(root / "remat_host", **shared, **{
             "training.remat": True, "training.max_device_dataset_mb": 0}),
         "resume": _config(root / "resume", **shared, **{"debug.epochs": 1}),
+        "host_launched": _config(root / "host_launched", **shared),
     }
-    trains = ("port", "plain", "remat_host", "resume")
+    trains = ("port", "plain", "remat_host", "resume", "host_launched")
     first = launch(record_and_train, TWO_CPU_RANKS, (list(cases.values()), [
-        (paths[name], "latest" if name == "port" else "none")
-        for name in trains]))
+        (paths[name], "latest" if name == "port" else "none",
+         name == "host_launched") for name in trains]))
     # the resume: the epoch-1 checkpoint the ranks wrote, copied for the
     # single process, then one more epoch on the ranks
     snap = str(root / "resume_snap")
@@ -410,6 +411,36 @@ def test_remat_and_host_feed_on_two_ranks_equal_the_resident_run(dp_runs):
     for key, value in want.items():
         np.testing.assert_allclose(got[key], value, rtol=1e-6, atol=1e-7,
                                    err_msg=key)
+
+
+def test_two_ranks_on_the_dispatcher_thread_train_the_eager_run_bitwise(
+        dp_runs):
+    """The path of one of several NCCL ranks on two gloo CPU ranks
+    (``torch_port_dp_ranks.host_launched``: a stand-in graph whose launch
+    runs the step, its collectives inside; the validation pass's
+    all-gather in its job), every launch on each rank's dispatcher thread
+    and none on the training thread: every METRICS line but the wall
+    times, the final parameters of both ranks and ``latest`` bitwise the
+    eager run's of the same config (``plain``), epoch rotation on."""
+    paths, trains = dp_runs["paths"], dp_runs["trains"]
+    assert [r["launch_threads"] for r in trains["host_launched"]] == \
+        [["betavae-dispatch"]] * 2
+    assert [r["launch_threads"] for r in trains["plain"]] == [[], []]
+    assert {r["checksum"] for r in trains["host_launched"]} == \
+        {r["checksum"] for r in trains["plain"]}
+
+    def numbers(path) -> list:
+        return [{k: v for k, v in m.items()
+                 if not k.endswith(("_seconds", "_mono", "_per_sec"))}
+                for m in _log(path)]
+
+    assert numbers(paths["host_launched"]) == numbers(paths["plain"])
+    assert any(m.get("rotated") for m in _log(paths["host_launched"]))
+    got, want = (_latest_state(paths["host_launched"]),
+                 _latest_state(paths["plain"]))
+    assert sorted(got) == sorted(want)
+    for key, value in want.items():
+        assert np.array_equal(got[key], value), key
 
 
 def test_resume_on_two_ranks_equals_a_single_process_resume(dp_runs):

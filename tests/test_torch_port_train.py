@@ -18,13 +18,20 @@ written, the returned state) and an early stop under it restores the
 epoch-N state; the background panel writer's files land before
 ``train()`` returns and its failures surface as the JAX loop's do; host-fed
 chunks of ``host_feed_chunk_limit`` steps are bitwise the device-fed run;
-and the dispatch table says which paths replay a CUDA graph.
+and the dispatch table says which paths replay a CUDA graph.  On the path
+of one of several ranks (graphs launched from the host, each dispatch a
+job of the run's dispatcher thread; a stand-in graph held at a gate) each
+dispatch returns before its launches and the run is bitwise the eager
+one, a failed job is raised from ``train()``, the snapshot's restore and
+the eager collectives wait for the queued launches, and a job runs under
+its caller's grad mode and autocast.
 """
 
 import gzip
 import json
 import math
 import os
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -838,14 +845,18 @@ def _zeroed_counts() -> dict:
     return kernel_wrappers()
 
 
-def _stub_graphs(mp) -> list:
+def _stub_graphs(mp, gate=None, log=None) -> list:
     """Run the trainers' CUDA-graph path on the CPU: ``dispatch_way`` says
     ``cuda_graph``, and a stand-in takes the place of
     ``chunks.CudaGraphs``.  Its capture runs the body once, as a capture
     runs its Python (the trainer puts back what it changes, as it does
     after its warm-up); a launch runs it again with the kernel counts put
-    back, as a launch runs no Python.  Returns the list of the chunks and
-    validation parts run, in order, each ``(kind, slots, launches)``."""
+    back, as a launch runs no Python.  With ``gate`` (a
+    ``threading.Event``) a launch first waits for it, as a launch into a
+    full launch queue waits for room (60 s at most, then it raises); each
+    launch appends ``"launch"`` to ``log`` when one is given.  Returns the
+    list of the chunks and validation parts run, in order, each ``(kind,
+    slots, launches)``."""
     from betavae_tpu_torch.train import chunks
 
     runs = []
@@ -857,7 +868,11 @@ def _stub_graphs(mp) -> list:
             self.body = body
 
         def replay(self):
+            if gate is not None and not gate.wait(60):
+                raise RuntimeError("a stand-in launch was never let through")
             Graph.launches += 1
+            if log is not None:
+                log.append("launch")
             before = chunks._counts()
             self.body()
             chunks._set_counts(before)
@@ -1316,3 +1331,297 @@ def test_dispatch_way_replays_all_but_gloo_on_the_card(k, device, mesh, way):
     assert got == way
     assert dispatch_note(got, dev) == (
         {"step_dispatch": "eager: gloo"} if way == "eager: gloo" else {})
+
+
+# ---------------------------------------------------------------------------
+# one of several NCCL ranks: graphs launched from the host, each dispatch a
+# job of the run's queue of device work, run on a dispatcher thread
+# ---------------------------------------------------------------------------
+
+def _dispatcher_path(mp, log=None) -> tuple:
+    """The path of one of several NCCL ranks, on the CPU:
+    ``chunks._several_ranks`` patched true, so that the run's queue of
+    device work runs on a dispatcher thread, and the graph stand-in of
+    :func:`_stub_graphs` behind a gate that opens only while the training
+    thread waits for the queue (a fence, a read of a job's rows), as if the
+    device ran nothing meanwhile: whatever the training thread does between
+    two waits runs ahead of every launch queued before it.  Returns
+    ``(runs, jobs)``: ``_stub_graphs``' runs, and each job submitted with
+    whether it had run when its submit returned."""
+    from betavae_tpu_torch.device import DeviceQueue
+    from betavae_tpu_torch.train import chunks
+
+    gate = threading.Event()
+    wait, submit = DeviceQueue._wait, DeviceQueue.submit
+    jobs = []
+
+    def waiting(self, ready):
+        gate.set()
+        try:
+            wait(self, ready)
+        finally:
+            gate.clear()
+
+    def submitted(self, fn, meta=None):
+        job = submit(self, fn, meta)
+        jobs.append((job, job.done))
+        return job
+
+    mp.setattr(DeviceQueue, "_wait", waiting)
+    mp.setattr(DeviceQueue, "submit", submitted)
+    mp.setattr(chunks, "_several_ranks", lambda: True)
+    return _stub_graphs(mp, gate, log), jobs
+
+
+class _StopAfterTwo:
+    """An early stop after the second epoch."""
+
+    def __init__(self, *args, **kwargs):
+        self.calls = 0
+        self.should_stop = False
+
+    def update(self, value):
+        self.calls += 1
+        self.should_stop = self.calls >= 2
+
+
+@pytest.mark.parametrize("case,jobs_run", [
+    ("rotated", 9 + 3), ("early-stop", 6 + 1 + 2), ("host-fed", 9 + 3)])
+def test_host_launched_dispatch_returns_at_once_and_trains_bitwise(
+        unrotated, tmp_path, monkeypatch, case, jobs_run):
+    """One of several ranks on the CPU (:func:`_dispatcher_path`), the
+    :data:`_ROTATION_CFG` run (3 chunks of 2, 2 and 1 steps an epoch, a
+    validation pass of 2 batches): every job, each train chunk's and each
+    validation pass's, has not run when its dispatch returns, its launches
+    still blocked, and the run is bitwise the eager unrotated run's.
+    ``rotated``: rotation on, every METRICS line but the wall times,
+    every checkpoint written and the returned state.  ``early-stop``: the
+    early stop at epoch 2 discards the rotated epoch-3 chunk; ``latest``
+    says epoch 2 and holds the returned state, the lines are epochs 1-2's,
+    and the snapshot's restore ran after every launch queued.
+    ``host-fed``: both splits fed from the host, 2 batches an upload."""
+    from betavae_tpu_torch.train.callbacks import StateSnapshot
+
+    data, lines, saves, state = unrotated
+    log = []
+    runs, jobs = _dispatcher_path(monkeypatch, log)
+    restored = []
+    restore = StateSnapshot.restore
+
+    def recording(self):
+        restore(self)
+        restored.append(len(log))
+
+    monkeypatch.setattr(StateSnapshot, "restore", recording)
+    if case == "early-stop":
+        monkeypatch.setattr(loop, "EarlyStopping", _StopAfterTwo)
+        path = _rotation_config(tmp_path, data, **{"debug.epochs": 6})
+        out = _port_train(path)
+        assert (out["epoch"], out["total_steps"]) == (2, 10)
+        assert _rotated(path) == [True, True]
+        latest = _checkpoint(path, "latest")
+        assert (latest["epoch"], latest["total_steps"]) == (2, 10)
+        got = _state(out)
+        for sec in ("model_state", "optim_state"):
+            assert sorted(got[sec]) == sorted(latest[sec])
+            for k, v in got[sec].items():
+                assert np.array_equal(v.numpy(), latest[sec][k]), f"{sec}/{k}"
+        assert _lines_but_times(path) == [m for m in lines if m["epoch"] <= 2]
+        # the capture's restore, then the early stop's, after every launch
+        assert restored == [0, len(log)] and len(log) == 10 + 2 + 2 * 2
+    else:
+        overrides = {"training.epoch_rotation": True}
+        if case == "host-fed":
+            overrides.update({"training.scan_chunk_steps": 4,
+                              "training.max_device_dataset_mb": 0,
+                              "training.host_feed_chunk_mb": 0.002})
+        path = _rotation_config(tmp_path, data, **overrides)
+        out, got_saves = _train_saving(path)
+        assert _rotated(path) == [True, True, False]
+        assert _lines_but_times(path) == lines
+        _assert_saves_equal(got_saves, saves)
+        got = _state(out)
+        for sec, part in state.items():
+            for key, v in part.items():
+                assert torch.equal(got[sec][key], v), f"{sec}/{key}"
+    assert all(n == launches for _, n, launches in runs), runs
+    assert [done for _, done in jobs] == [False] * jobs_run
+
+
+@pytest.mark.parametrize("kind,runs_before", [("TrainChunks", 1),
+                                              ("EvalChunks", 3 + 1 + 3)])
+def test_a_failed_job_on_the_dispatcher_is_raised_from_train(
+        unrotated, tmp_path, monkeypatch, kind, runs_before):
+    """A launch that fails in a job on the dispatcher thread (the second
+    train chunk's; the second validation pass's) is kept and raised from
+    ``train()``, and no job runs after it: the jobs queued behind it (the
+    next chunk; the rotated chunk) launch nothing."""
+    from betavae_tpu_torch.train import chunks
+
+    runs, _ = _dispatcher_path(monkeypatch)
+    run = chunks._Chunked._run
+    calls = []
+
+    def failing(self, images, n):
+        calls.append(type(self).__name__)
+        if calls.count(kind) == 2 and type(self).__name__ == kind:
+            raise RuntimeError(f"a launch of {kind} failed")
+        run(self, images, n)
+
+    monkeypatch.setattr(chunks._Chunked, "_run", failing)
+    path = _rotation_config(tmp_path, unrotated[0])
+    with pytest.raises(RuntimeError, match=f"a launch of {kind} failed"):
+        _port_train(path)
+    # the failed launch is the last one made
+    assert len(calls) == runs_before + 1 and calls[-1] == kind
+    assert len(runs) == runs_before
+
+
+@pytest.mark.parametrize("collective", ["gather_rows", "global_sum",
+                                        "mean_over_ranks_"])
+def test_an_eager_collective_waits_for_the_queued_launches(monkeypatch,
+                                                           collective):
+    """An eager collective of ``parallel/reduce.py`` (through a stand-in
+    for ``torch.distributed``) called on the thread that submitted a job
+    runs only after the job's launch, blocked until then at the gate: the
+    queue is fenced first, as NCCL needs every rank's collectives in one
+    order.  The same collective inside the job, on the dispatcher thread,
+    does not wait for its own job."""
+    from betavae_tpu_torch.device import DeviceQueue
+    from betavae_tpu_torch.parallel import reduce
+
+    gate, order = threading.Event(), []
+    wait = DeviceQueue._wait
+
+    def waiting(self, ready):
+        gate.set()
+        try:
+            wait(self, ready)
+        finally:
+            gate.clear()
+
+    def all_gather(parts, t, group=None):
+        order.append("collective")
+        for p in parts:
+            p.copy_(t)
+
+    def all_reduce(t, op=None, group=None):
+        order.append("collective")
+
+    def call():
+        t = torch.ones(2)
+        if collective == "gather_rows":
+            return reduce.gather_rows(t, group="mesh")
+        if collective == "global_sum":
+            return reduce.global_sum(t, group="mesh")
+        return reduce.mean_over_ranks_(t, group="mesh")
+
+    def job():
+        if not gate.wait(60):
+            raise RuntimeError("the launch was never let through")
+        order.append("launch")
+        return call()
+
+    monkeypatch.setattr(DeviceQueue, "_wait", waiting)
+    monkeypatch.setattr(reduce.dist, "all_gather", all_gather)
+    monkeypatch.setattr(reduce.dist, "all_reduce", all_reduce)
+    monkeypatch.setattr(reduce.dist, "get_world_size", lambda group=None: 2)
+    queue = DeviceQueue(torch.device("cpu"), threaded=True)
+    try:
+        queued = queue.submit(job)
+        eager = call()
+        assert torch.equal(eager, queued.result())
+    finally:
+        queue.close()
+    assert order == ["launch", "collective", "collective"]
+
+
+@pytest.mark.parametrize("grad,autocast", [(False, False), (True, True)])
+@pytest.mark.parametrize("threaded", [False, True],
+                         ids=["inline", "dispatcher"])
+def test_a_job_runs_under_the_callers_grad_mode_and_autocast(threaded, grad,
+                                                             autocast):
+    """Grad mode and autocast are per thread in PyTorch: a job runs under
+    the caller's, as they were at its submit, on the dispatcher thread
+    (``threaded``) or at once on the caller's."""
+    from betavae_tpu_torch.device import DeviceQueue
+
+    queue = DeviceQueue(torch.device("cpu"), threaded=threaded)
+
+    def state():
+        return (threading.current_thread().name, torch.is_grad_enabled(),
+                torch.is_autocast_enabled("cpu"),
+                torch.get_autocast_dtype("cpu"))
+
+    try:
+        with torch.set_grad_enabled(grad), torch.autocast(
+                "cpu", dtype=torch.bfloat16, enabled=autocast):
+            job = queue.submit(state)
+        got = job.result()
+    finally:
+        queue.close()
+    name = ("betavae-dispatch" if threaded
+            else threading.current_thread().name)
+    assert got == (name, grad, autocast, torch.bfloat16)
+
+
+@pytest.mark.parametrize("graphs,several,threaded", [
+    (True, True, True), (True, False, False), (False, True, False),
+    (False, False, False)])
+def test_the_dispatcher_thread_runs_only_where_graphs_launch_from_the_host(
+        monkeypatch, graphs, several, threaded):
+    """A run's queue of device work is threaded only where its captured
+    graphs launch from the host (one of several ranks); one process, and
+    the eager steps (a gloo mesh, the CPU, ``scan_chunk_steps: 1``), run
+    each job at once on the caller's thread.  No config key or
+    environment variable selects it."""
+    from betavae_tpu_torch.train import chunks
+
+    monkeypatch.setattr(chunks, "_several_ranks", lambda: several)
+    assert chunks.device_queue(torch.device("cpu"), graphs).threaded is \
+        threaded
+
+
+def test_device_queues_keep_their_order_under_thread_switches():
+    """Sixteen threaded queues, each fed by its own thread (more threads
+    than cores), with a switch interval of 1 µs: each queue runs its 300
+    jobs in the order submitted; a job's result, once read, has every
+    earlier job run; ``fence_device_queues`` on a feeding thread has every
+    job its thread submitted run.  Bounded: each feeder joined within 60
+    s."""
+    import sys
+
+    from betavae_tpu_torch.device import DeviceQueue, fence_device_queues
+
+    errors = []
+
+    def feed() -> None:
+        queue = DeviceQueue(torch.device("cpu"), threaded=True)
+        seen = []
+        try:
+            for n in range(300):
+                job = queue.submit(lambda n=n: seen.append(n) or n)
+                if n % 37 == 0 and (job.result() != n
+                                    or seen[:n + 1] != list(range(n + 1))):
+                    errors.append(("result", n, list(seen)))
+                if n % 50 == 49:
+                    fence_device_queues()
+                    if seen != list(range(n + 1)):
+                        errors.append(("fence", n, list(seen)))
+        finally:
+            queue.close()
+        if seen != list(range(300)):
+            errors.append(("order", list(seen)))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        feeders = [threading.Thread(target=feed) for _ in range(16)]
+        for t in feeders:
+            t.start()
+        for t in feeders:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in feeders)
+    assert errors == []

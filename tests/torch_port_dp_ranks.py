@@ -65,9 +65,59 @@ def record_steps(mesh, case) -> dict:
             "checksum": param_checksum(model)}
 
 
+@contextlib.contextmanager
+def host_launched(threads: set):
+    """The path of one of several NCCL ranks, on gloo CPU ranks:
+    ``dispatch_way`` says ``cuda_graph`` and a stand-in takes the place of
+    ``chunks.CudaGraphs``, whose launch runs the captured body's Python
+    (the gloo collectives inside) with the kernel counts put back, so
+    that the run's queue of device work runs on its dispatcher thread (two
+    ranks).  ``threads`` gathers the names of the threads that launch."""
+    import threading
+
+    from betavae_tpu_torch.train import chunks, loop
+
+    class Graph:
+        def __init__(self, body):
+            self.body = body
+
+        def replay(self):
+            threads.add(threading.current_thread().name)
+            before = chunks._counts()
+            self.body()
+            chunks._set_counts(before)
+
+    class StubGraphs:
+        def __init__(self, device):
+            pass
+
+        def warm_up(self, run):
+            run()
+
+        def capture(self, body):
+            body()
+            return Graph(body)
+
+        def synchronize(self):
+            pass
+
+    with mock.patch.object(loop, "dispatch_way",
+                           lambda *args, **kwargs: "cuda_graph"), \
+            mock.patch.object(chunks, "CudaGraphs", StubGraphs):
+        yield
+
+
 def record_and_train(mesh, cases: list, trains: list) -> tuple:
     """One launch's work on a rank: :func:`record_steps` of each of
-    ``cases``, then ``train_rank`` of each ``(config, resume)`` of
-    ``trains`` on the CPU."""
-    return ([record_steps(mesh, case) for case in cases],
-            [train_rank(mesh, path, resume, "cpu") for path, resume in trains])
+    ``cases``, then ``train_rank`` of each ``(config, resume,
+    host_launched)`` of ``trains`` on the CPU, on the path of
+    :func:`host_launched` where that is true (with the names of the
+    threads that launched, ``launch_threads``)."""
+    outs = []
+    for path, resume, launched in trains:
+        threads = set()
+        with (host_launched(threads) if launched
+              else contextlib.nullcontext()):
+            out = train_rank(mesh, path, resume, "cpu")
+        outs.append({**out, "launch_threads": sorted(threads)})
+    return [record_steps(mesh, case) for case in cases], outs
