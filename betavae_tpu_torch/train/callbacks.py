@@ -38,6 +38,7 @@ from ..io.checkpoint import read_checkpoint_meta, save_sharded_checkpoint
 from ..io.weights import (adam_state_from_optax, adam_state_from_reference,
                           is_jax_state, optim_state_from_flat,
                           optim_state_tensors, params_from_jax)
+from ..utils.profiling import span
 from .optim import OptimizerChain
 
 NUM_SHARDS = 2
@@ -197,14 +198,15 @@ class StateSnapshot:
     def take(self) -> None:
         """Copy the live state into the buffer, behind the work queued on
         the current stream and behind the last pull."""
-        if self._pulled is not None and self._pulled[1] is not None:
-            torch.cuda.current_stream(self._flat.device).wait_event(
-                self._pulled[1])
-        self._pulled = None
-        torch._foreach_copy_(self._copies, self._live)
-        if self._flat.is_cuda:
-            self.ready = torch.cuda.Event()
-            self.ready.record()
+        with span("trainer.snapshot", device=self._flat.device):
+            if self._pulled is not None and self._pulled[1] is not None:
+                torch.cuda.current_stream(self._flat.device).wait_event(
+                    self._pulled[1])
+            self._pulled = None
+            torch._foreach_copy_(self._copies, self._live)
+            if self._flat.is_cuda:
+                self.ready = torch.cuda.Event()
+                self.ready.record()
 
     @torch.no_grad()
     def restore(self) -> None:
@@ -228,15 +230,17 @@ class StateSnapshot:
                 stream = torch.cuda.Stream(device=self._flat.device)
                 with torch.cuda.stream(stream):
                     stream.wait_event(self.ready)
-                    host = torch.empty(self._flat.shape, dtype=torch.uint8,
-                                       pin_memory=True)
-                    host.copy_(self._flat, non_blocking=True)
-                    # the buffer may be freed before the copy has run
-                    self._flat.record_stream(stream)
-                    done = torch.cuda.Event()
-                    done.record(stream)
+                    with span("ckpt.pull", stream):
+                        host = torch.empty(self._flat.shape,
+                                           dtype=torch.uint8, pin_memory=True)
+                        host.copy_(self._flat, non_blocking=True)
+                        # the buffer may be freed before the copy has run
+                        self._flat.record_stream(stream)
+                        done = torch.cuda.Event()
+                        done.record(stream)
             else:
-                host = self._flat.clone()
+                with span("ckpt.pull"):
+                    host = self._flat.clone()
             self._pulled = (self._sections(self._views(host)), done)
         return self._pulled
 

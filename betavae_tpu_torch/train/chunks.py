@@ -67,6 +67,12 @@ from the trainer; no later job runs.
 :class:`EvalChunks` does the same for the validation pass: one captured
 batch, launched once a batch, and one read of every batch's metrics and μ.
 
+A chunk's dispatch is the span ``dispatch.chunk`` of
+:data:`..utils.profiling.SPANS`, with a pair of CUDA events on its stream,
+and its parts the host spans ``dispatch.stage``, ``dispatch.upload``,
+``dispatch.draws`` and ``dispatch.launch``; every launch of a captured
+graph is counted (``graphs.device_launches``, ``graphs.host_launches``).
+
 The captured step is the eager step (``make_train_step`` with its slot's
 values as device tensors), so a chunk computes bitwise what the steps one by
 one do.  It gathers its images from one tensor, the resident split or, fed
@@ -107,6 +113,7 @@ import torch
 from .. import _build
 from ..device import DeviceQueue, Job, raw_stream
 from ..ops import kernel_wrappers
+from ..utils.profiling import _Tracing, count, span
 from .callbacks import StateSnapshot
 from .step import draw_step_augment
 
@@ -248,74 +255,30 @@ def _destroy(device: torch.device, target, launcher) -> None:
                            f"with code {rc}")
 
 
-class _Tracing:
-    """``torch.profiler``'s sessions in this process, as
-    :class:`DeviceLaunched` follows them (:func:`_watch_profiler`):
-    ``generation`` counts each session's preparation and its end, ``open``
-    holds from the one to the other."""
-
-    watched = False
-    generation = 0
-    open = False
-
-
-def _watch_profiler() -> None:
-    """Follow every ``torch.profiler`` session in :class:`_Tracing`, once a
-    process: wrap ``torch.autograd.profiler``'s calls that prepare a
-    session (its CUDA tracing attaches to the process there, before the
-    session records anything: a ``schedule``'s warm-up steps) and end it.
-    Every profiler of PyTorch that traces the card goes through them."""
-    if _Tracing.watched:
-        return
-    from torch.autograd import profiler as autograd_profiler
-
-    prepare = autograd_profiler._prepare_profiler
-    disable = autograd_profiler._disable_profiler
-
-    def prepared(*args, **kwargs):
-        _Tracing.generation += 1
-        _Tracing.open = True
-        return prepare(*args, **kwargs)
-
-    def ended(*args, **kwargs):
-        try:
-            return disable(*args, **kwargs)
-        finally:
-            _Tracing.generation += 1
-            _Tracing.open = False
-
-    autograd_profiler._prepare_profiler = prepared
-    autograd_profiler._disable_profiler = ended
-    _Tracing.watched = True
-
-
 class DeviceLaunched:
     """A captured graph launched from the device (``csrc/graph_launch.cu``):
     :meth:`replay` is one host launch of a one-kernel graph that
     tail-launches ``graph``, so it returns at once however full the launch
     queue is, and the stream's next work waits for ``graph`` to run.
     ``graph`` (``keep_graph=True``, captured) keeps the memory pool its
-    nodes use.  ``DeviceLaunched.launches`` counts the launches from the
-    device, as the kernel wrappers count theirs.
+    nodes use.  The counter ``graphs.device_launches`` of
+    :data:`..utils.profiling.SPANS` counts the launches from the device,
+    ``graphs.host_launches`` every launch of a captured graph from the
+    host.
 
     ``torch.profiler`` records no kernel of a graph launched from the
     device, and its CUDA tracing, once attached, fails a launch from the
     device of a graph instantiated before it (the context's next
     synchronising call reports an unspecified launch failure).  So while a
-    session is open, from its preparation to its end (:class:`_Tracing`),
+    session is open, from its preparation to its end
+    (:class:`..utils.profiling._Tracing`),
     :meth:`replay` launches ``graph`` from the host (PyTorch's ``replay``,
     instantiated at its first call): the same kernels in the same order;
     and after a session, each graph is instantiated for device launch
-    again before its next launch from the device
-    (``DeviceLaunched.reinstantiations`` and ``reinstantiate_seconds``
-    count them)."""
-
-    launches = 0
-    reinstantiations = 0
-    reinstantiate_seconds = 0.0
+    again before its next launch from the device (the counter
+    ``graphs.reinstantiations`` and the span ``graphs.reinstantiate``)."""
 
     def __init__(self, graph, device: torch.device):
-        _watch_profiler()
         self.graph, self.device = graph, device
         self._finalizer = None
         self._instantiate()
@@ -339,18 +302,18 @@ class DeviceLaunched:
     def replay(self) -> None:
         if _Tracing.open or torch._C._autograd._profiler_enabled():
             self.graph.replay()
+            count("graphs.host_launches")
             return
         if self._generation != _Tracing.generation:
-            t0 = time.perf_counter()
-            self._instantiate()
-            DeviceLaunched.reinstantiations += 1
-            DeviceLaunched.reinstantiate_seconds += time.perf_counter() - t0
+            with span("graphs.reinstantiate"):
+                self._instantiate()
+            count("graphs.reinstantiations")
         rc = _graph_library().betavae_graph_launch(
             self._launcher, ctypes.c_void_p(raw_stream(self.device)))
         if rc != 0:
             raise RuntimeError(f"launching a device-launched graph failed "
                                f"with code {rc}")
-        DeviceLaunched.launches += 1
+        count("graphs.device_launches")
 
 
 @functools.cache
@@ -427,6 +390,8 @@ class _Captured:
     def replay(self, times: int) -> None:
         for _ in range(times):
             self.graph.replay()
+        if not isinstance(self.graph, DeviceLaunched):
+            count("graphs.host_launches", times)
         _add_counts(self.per_replay, times)
 
     def launches(self) -> dict:
@@ -614,18 +579,25 @@ class TrainChunks(_Chunked):
                                "before a chunk is dispatched")
 
         def job() -> Pending:
-            idx = [s[0] for s in steps]
-            if stage is not None:
-                idx = stage(idx)
-            n = self._upload(idx, [s[1] for s in steps],
-                             [[s[2][k] for k in SCHED_KEYS] for s in steps],
-                             [s[3] for s in steps])
-            for i, s in enumerate(steps):
-                draw_step_augment(self.generator, self.seed, int(s[3]),
-                                  self.batch, self.aug_kwargs,
-                                  out=self.draws[i])
-            self._run(images, n)
-            return Pending(self.out[:n])
+            with span("dispatch.chunk", device=self.device) as rec:
+                rec.steps = len(steps)
+                with span("dispatch.stage"):
+                    idx = [s[0] for s in steps]
+                    if stage is not None:
+                        idx = stage(idx)
+                with span("dispatch.upload"):
+                    n = self._upload(
+                        idx, [s[1] for s in steps],
+                        [[s[2][k] for k in SCHED_KEYS] for s in steps],
+                        [s[3] for s in steps])
+                with span("dispatch.draws"):
+                    for i, s in enumerate(steps):
+                        draw_step_augment(self.generator, self.seed,
+                                          int(s[3]), self.batch,
+                                          self.aug_kwargs, out=self.draws[i])
+                with span("dispatch.launch"):
+                    self._run(images, n)
+                return Pending(self.out[:n])
 
         return self.queue.submit(job, meta)
 

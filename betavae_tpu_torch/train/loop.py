@@ -88,7 +88,7 @@ from ..models.beta_vae import model_from_config
 from ..models.losses import loss_spec_from_config
 from ..ops.lpips import build_lpips_fn, resolve_weight_source
 from ..parallel.reduce import gather_rows
-from ..utils.profiling import StepProfiler
+from ..utils.profiling import SPANS, StepProfiler, span
 from .callbacks import CheckpointManager, EarlyStopping, restore_training_state
 from .chunks import (METRIC_KEYS, RUNNING_KEYS, EvalChunks, Pending,
                      TrainChunks, chunk_plan, device_queue)
@@ -417,7 +417,11 @@ class _Epoch:
     def drain(self, pending: Job) -> None:
         run, out = self.run_, self.out
         lrs, first = pending.meta
-        for t, row in enumerate(pending.rows()):
+        with span("trainer.drain"):
+            rows = pending.rows()
+        # the wait is over: read the device times that have landed
+        SPANS.poll()
+        for t, row in enumerate(rows):
             step = first + t
             out["last"] = dict(zip(METRIC_KEYS, row))
             out["running"] = dict(zip(RUNNING_KEYS, row[len(METRIC_KEYS):]))
@@ -644,24 +648,25 @@ def _validate(run: _Run, eval_chunks: EvalChunks, local: list, sched: dict,
     launches of the captured batch, then the all-gather of μ (the ranks'
     rows back in row order) and the copy of every batch's metrics and μ
     to the host, whose ``meta`` is μ's ``[batches, rows, latent]``."""
-    nm = len(METRIC_KEYS)
-    vsource = run.test_dev.source(len(local[0][0]))
-    kv = eval_chunks.k
-    parts = []
-    for at in range(0, len(local), kv):
-        part = local[at:at + kv]
-        idx = run.test_dev.stage([i for i, _ in part])
-        rows = eval_chunks.run(
-            vsource, [(i, m) for i, (_, m) in zip(idx, part)], sched,
-            [VAL_OFFSET + epoch * 100_000 + j
-             for j in range(at, at + len(part))])
-        # the next upload's replays overwrite these rows
-        parts.append(rows if kv == len(local) else rows.clone())
-    val_rows = torch.cat(parts) if len(parts) > 1 else parts[0]
-    mu = val_rows[:, nm:].reshape(len(local), -1, run.model.latent_dim)
-    mu = gather_rows(mu.transpose(0, 1), group).transpose(0, 1)
-    return Pending(torch.cat([val_rows[:, :nm].reshape(-1), mu.reshape(-1)]),
-                   meta=mu.shape)
+    with span("eval.pass", device=run.dev):
+        nm = len(METRIC_KEYS)
+        vsource = run.test_dev.source(len(local[0][0]))
+        kv = eval_chunks.k
+        parts = []
+        for at in range(0, len(local), kv):
+            part = local[at:at + kv]
+            idx = run.test_dev.stage([i for i, _ in part])
+            rows = eval_chunks.run(
+                vsource, [(i, m) for i, (_, m) in zip(idx, part)], sched,
+                [VAL_OFFSET + epoch * 100_000 + j
+                 for j in range(at, at + len(part))])
+            # the next upload's replays overwrite these rows
+            parts.append(rows if kv == len(local) else rows.clone())
+        val_rows = torch.cat(parts) if len(parts) > 1 else parts[0]
+        mu = val_rows[:, nm:].reshape(len(local), -1, run.model.latent_dim)
+        mu = gather_rows(mu.transpose(0, 1), group).transpose(0, 1)
+        return Pending(torch.cat([val_rows[:, :nm].reshape(-1),
+                                  mu.reshape(-1)]), meta=mu.shape)
 
 
 def _install_sigterm(cfg):
@@ -733,7 +738,15 @@ def train(config_path: str | None = None, resume: str = "none",
     ``rotate_dispatch_seconds`` is the host time of the snapshot and that
     dispatch, and ``val_dispatch_seconds`` the host time to enqueue the
     validation batches, the panel forward and their copies to the host
-    before the one read of the validation results.
+    before the one read of the validation results.  Those keys, the val
+    line's ``epoch_seconds`` and the stamps ``t_mono`` and ``t_drain_mono``
+    are read from the spans of :data:`..utils.profiling.SPANS`.
+
+    After the JAX package's lines the port logs a ``spans`` line an epoch
+    (:meth:`..utils.profiling.Spans.account`: the cycle from one
+    ``epoch_end`` stamp to the next, its host seconds by span and, on the
+    card, its device busy and idle seconds, read from CUDA events with no
+    profiler), each at the next epoch's sync, the last at the run's end.
 
     cuDNN runs its deterministic algorithms meanwhile
     (:func:`..device.deterministic_cudnn`), so the run replays in fp32 too.
@@ -811,6 +824,7 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                                      latent=model.latent_dim, device=dev,
                                      graphs=run.graphs, queue=run.queue)
             eval_chunks.prepare(run.test_dev.source(vrows))
+        SPANS.start_epochs(dev)
         for epoch in range(start_epoch, run.epochs + 1):
             current, prefetch = prefetch, None
             if current is None:
@@ -818,7 +832,7 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                                  total_steps)
             beta, capacity, free_bits = (current.beta, current.capacity,
                                          current.free_bits)
-            epoch_t0 = time.perf_counter()
+            epoch_t0 = SPANS.begin_epoch()
             out = current.run()
             run.profiler.stop()
             totals, denom, lr = out["totals"], out["steps"], out["lr"]
@@ -830,8 +844,12 @@ def _train(config_path, resume: str, device, mesh) -> dict:
                     run.check_finite(float(totals[j]),
                                      total_steps - denom + j + 1, epoch)
             run.sync()
-            epoch_seconds = time.perf_counter() - epoch_t0
-            train_drain_mono = epoch_t0 + epoch_seconds
+            # the device has drained: the epoch's anchor, and the cycles
+            # whose device times have all landed logged
+            train_drain_mono = SPANS.anchor(dev)
+            epoch_seconds = train_drain_mono - epoch_t0
+            for step, line in SPANS.lines():
+                run.log(line, step=step, phase="spans")
             final_train_kl_mean = (float(out["running"].get("kl_mean", 0.0))
                                    / max(1, denom))
             final_train_kl_effective = float(out["last"].get("kl_effective",
@@ -842,144 +860,158 @@ def _train(config_path, resume: str, device, mesh) -> dict:
             # state's snapshot, the next epoch's first chunk; only then a
             # wait, for the validation copy (nothing the chunk overwrites is
             # read after)
-            tail_t0 = time.perf_counter()
-            sched_v = run.sched(beta, capacity, free_bits, lr)
-            vbatches = list(test_plan.batches(epoch))[:run.max_val_batches]
-            val_pending = None
-            if vbatches:
-                local = [(idx, mask) if run.rows is None
-                         else (idx[run.rows], mask[run.rows])
-                         for idx, mask in vbatches]
-                val_pending = run.queue.submit(functools.partial(
-                    _validate, run, eval_chunks, local, sched_v, epoch,
-                    group))
-            panel = _panel_images(cfg, run, vbatches) if main else None
-            recon_pending = None
-            if panel is not None:
-                model.eval()
-                with torch.no_grad():
-                    x_panel = torch.from_numpy(np.ascontiguousarray(
-                        panel[0].transpose(0, 3, 1, 2))).to(dev)
-                    recon_pending = Pending(
-                        model(x_panel, deterministic=True)[0].float())
-            val_dispatch_seconds = time.perf_counter() - tail_t0
+            with span("trainer.tail") as tail:
+                with span("trainer.val_dispatch") as val_dispatch:
+                    sched_v = run.sched(beta, capacity, free_bits, lr)
+                    vbatches = list(test_plan.batches(epoch))[
+                        :run.max_val_batches]
+                    val_pending = None
+                    if vbatches:
+                        local = [(idx, mask) if run.rows is None
+                                 else (idx[run.rows], mask[run.rows])
+                                 for idx, mask in vbatches]
+                        val_pending = run.queue.submit(functools.partial(
+                            _validate, run, eval_chunks, local, sched_v,
+                            epoch, group))
+                    panel = _panel_images(cfg, run, vbatches) if main else None
+                    recon_pending = None
+                    if panel is not None:
+                        with span("trainer.panel_forward", device=dev):
+                            model.eval()
+                            with torch.no_grad():
+                                x_panel = torch.from_numpy(
+                                    np.ascontiguousarray(panel[0].transpose(
+                                        0, 3, 1, 2))).to(dev)
+                                recon_pending = Pending(model(
+                                    x_panel, deterministic=True)[0].float())
 
-            # epoch rotation: the checkpoints and an early stop read the
-            # snapshot, taken before the next epoch's chunk is dispatched
-            snapshot = run.chunks.snapshot
-            snapshot.take()
-            next_batches = run.train_batches(epoch + 1)
-            # JAX's condition: its "n_steps >= K" holds for any epoch that
-            # has a step, K being at most n_steps
-            rotated = run.rotate and epoch < run.epochs and bool(next_batches)
-            if rotated:
-                prefetch = _Epoch(run, epoch + 1, next_batches, total_steps)
-                prefetch.dispatch()
-            rotate_dispatch_seconds = (time.perf_counter() - tail_t0
-                                       - val_dispatch_seconds)
+                # epoch rotation: the checkpoints and an early stop read the
+                # snapshot, taken before the next epoch's chunk is dispatched
+                with span("trainer.rotate") as rotate:
+                    snapshot = run.chunks.snapshot
+                    snapshot.take()
+                    next_batches = run.train_batches(epoch + 1)
+                    # JAX's condition: its "n_steps >= K" holds for any epoch
+                    # that has a step, K being at most n_steps
+                    rotated = (run.rotate and epoch < run.epochs
+                               and bool(next_batches))
+                    if rotated:
+                        prefetch = _Epoch(run, epoch + 1, next_batches,
+                                          total_steps)
+                        prefetch.dispatch()
 
-            val_batches = len(vbatches)
-            val_sums = {k: 0.0 for k in RUNNING_KEYS}
-            val_kl_per_dim_mean = 0.0
-            val_latents, val_labels = [], []
-            if val_pending is not None:
-                val_rows = val_pending.result()
-                host = val_rows.rows()
-                stacked = host[:val_batches * nm].reshape(val_batches, nm)
-                mu_all = host[val_batches * nm:].reshape(val_rows.meta)
-                mk = {k: stacked[:, i] for i, k in enumerate(METRIC_KEYS)}
-                if run.detect_anomalies:
-                    for k in RUNNING_KEYS:
-                        finite = np.isfinite(mk[k])
-                        if not finite.all():
-                            j = int(np.argmin(finite))
-                            raise FloatingPointError(
-                                f"non-finite validation loss at epoch "
-                                f"{epoch}, val batch {j}: "
-                                f"{k}={float(mk[k][j])} — check LR/grad_clip; "
-                                "resume from the last checkpoint with "
-                                "--resume latest")
-                for k in RUNNING_KEYS:
-                    val_sums[k] = float(mk[k].sum())
-                val_kl_per_dim_mean = float(mk["kl_per_dim_mean"][-1])
-                for j, (idx_np, mask_np) in enumerate(vbatches):
-                    real = int(mask_np.sum())
-                    val_latents.append(mu_all[j][:real])
-                    val_labels.extend(
-                        run.test_ds.labels[idx_np[:real]].tolist())
-            val_seconds = time.perf_counter() - tail_t0
+                with span("trainer.val_read") as val_read:
+                    val_batches = len(vbatches)
+                    val_sums = {k: 0.0 for k in RUNNING_KEYS}
+                    val_kl_per_dim_mean = 0.0
+                    val_latents, val_labels = [], []
+                    if val_pending is not None:
+                        val_rows = val_pending.result()
+                        host = val_rows.rows()
+                        stacked = host[:val_batches * nm].reshape(val_batches,
+                                                                  nm)
+                        mu_all = host[val_batches * nm:].reshape(val_rows.meta)
+                        mk = {k: stacked[:, i]
+                              for i, k in enumerate(METRIC_KEYS)}
+                        if run.detect_anomalies:
+                            for k in RUNNING_KEYS:
+                                finite = np.isfinite(mk[k])
+                                if not finite.all():
+                                    j = int(np.argmin(finite))
+                                    raise FloatingPointError(
+                                        f"non-finite validation loss at "
+                                        f"epoch {epoch}, val batch {j}: "
+                                        f"{k}={float(mk[k][j])} — check "
+                                        "LR/grad_clip; resume from the last "
+                                        "checkpoint with --resume latest")
+                        for k in RUNNING_KEYS:
+                            val_sums[k] = float(mk[k].sum())
+                        val_kl_per_dim_mean = float(mk["kl_per_dim_mean"][-1])
+                        for j, (idx_np, mask_np) in enumerate(vbatches):
+                            real = int(mask_np.sum())
+                            val_latents.append(mu_all[j][:real])
+                            val_labels.extend(
+                                run.test_ds.labels[idx_np[:real]].tolist())
 
-            vb = max(1, val_batches)
-            val_total = val_sums["total"] / vb
-            probe_metrics = {name: float("nan") for name in NAN_METRICS}
-            if main and val_latents and len(val_labels) >= 2:
-                probe_metrics = compute_probe_metrics(
-                    np.concatenate(val_latents, axis=0), val_labels)
-            probe_seconds = time.perf_counter() - tail_t0 - val_seconds
+                vb = max(1, val_batches)
+                val_total = val_sums["total"] / vb
+                with span("trainer.probes") as probes:
+                    probe_metrics = {name: float("nan")
+                                     for name in NAN_METRICS}
+                    if main and val_latents and len(val_labels) >= 2:
+                        probe_metrics = compute_probe_metrics(
+                            np.concatenate(val_latents, axis=0), val_labels)
+                run.log({
+                    "epoch": epoch,
+                    "beta": float(beta),
+                    "capacity": (float(capacity) if capacity is not None
+                                 else 0.0),
+                    "val_total_loss": val_total,
+                    "val_recon_loss": val_sums["recon"] / vb,
+                    "val_recon_base": val_sums["recon_base"] / vb,
+                    "val_recon_lpips": val_sums["recon_lpips"] / vb,
+                    "val_recon_ffl": val_sums["recon_ffl"] / vb,
+                    "val_kl": val_sums["kl_mean"] / vb,
+                    "val_kl_per_dim_mean": val_kl_per_dim_mean,
+                    "loss_mode": "capacity" if run.use_capacity else "beta",
+                    "train_kl_mean": final_train_kl_mean,
+                    "train_kl_effective_last": final_train_kl_effective,
+                    **probe_metrics,
+                    "epoch_seconds": round(epoch_seconds, 3),
+                    "train_steps_per_sec": round(
+                        denom / max(epoch_seconds, 1e-9), 3),
+                    "train_images_per_sec": round(
+                        denom * run.batch_size / max(epoch_seconds, 1e-9), 1),
+                }, step=total_steps, phase="val")
+
+                with span("trainer.checkpoint") as checkpoint:
+                    extra = {"val_total": val_total}
+                    saved_latest = (epoch % ckpt_every == 0
+                                    or epoch == run.epochs)
+                    # without validation batches val_total is a meaningless
+                    # 0.0: it must not become the best checkpoint or feed
+                    # early stopping
+                    have_val = val_batches > 0
+                    if main:
+                        if saved_latest:
+                            ckpt.save_latest(model, optimizer, epoch,
+                                             total_steps, extra,
+                                             snapshot=snapshot)
+                        if have_val:
+                            ckpt.save_best(model, optimizer, epoch,
+                                           total_steps, extra,
+                                           monitor_value=val_total,
+                                           snapshot=snapshot)
+                        elif not no_val_warned:
+                            no_val_warned = True
+                            print("[VAL] no validation batches this run — "
+                                  "best-checkpoint tracking and early "
+                                  "stopping are disabled")
+
+                # the panel: to the background writer, once the last one
+                # landed
+                with span("trainer.panel") as panel_span:
+                    panels.join()
+                    if recon_pending is not None:
+                        panels.start(panel[0], recon_pending, figures_dir,
+                                     epoch, panel[1])
+
+            def seconds(rec) -> float:
+                return round(rec.t1 - rec.t0, 3)
+
+            tail_seconds = tail.t1 - tail.t0
             run.log({
                 "epoch": epoch,
-                "beta": float(beta),
-                "capacity": float(capacity) if capacity is not None else 0.0,
-                "val_total_loss": val_total,
-                "val_recon_loss": val_sums["recon"] / vb,
-                "val_recon_base": val_sums["recon_base"] / vb,
-                "val_recon_lpips": val_sums["recon_lpips"] / vb,
-                "val_recon_ffl": val_sums["recon_ffl"] / vb,
-                "val_kl": val_sums["kl_mean"] / vb,
-                "val_kl_per_dim_mean": val_kl_per_dim_mean,
-                "loss_mode": "capacity" if run.use_capacity else "beta",
-                "train_kl_mean": final_train_kl_mean,
-                "train_kl_effective_last": final_train_kl_effective,
-                **probe_metrics,
-                "epoch_seconds": round(epoch_seconds, 3),
-                "train_steps_per_sec": round(
-                    denom / max(epoch_seconds, 1e-9), 3),
-                "train_images_per_sec": round(
-                    denom * run.batch_size / max(epoch_seconds, 1e-9), 1),
-            }, step=total_steps, phase="val")
-
-            t_ckpt = time.perf_counter()
-            extra = {"val_total": val_total}
-            saved_latest = epoch % ckpt_every == 0 or epoch == run.epochs
-            # without validation batches val_total is a meaningless 0.0: it
-            # must not become the best checkpoint or feed early stopping
-            have_val = val_batches > 0
-            if main:
-                if saved_latest:
-                    ckpt.save_latest(model, optimizer, epoch, total_steps,
-                                     extra, snapshot=snapshot)
-                if have_val:
-                    ckpt.save_best(model, optimizer, epoch, total_steps,
-                                   extra, monitor_value=val_total,
-                                   snapshot=snapshot)
-                elif not no_val_warned:
-                    no_val_warned = True
-                    print("[VAL] no validation batches this run — "
-                          "best-checkpoint tracking and early stopping are "
-                          "disabled")
-            ckpt_seconds = time.perf_counter() - t_ckpt
-
-            # the panel: to the background writer, once the last one landed
-            t_panel = time.perf_counter()
-            panels.join()
-            if recon_pending is not None:
-                panels.start(panel[0], recon_pending, figures_dir, epoch,
-                             panel[1])
-            panel_seconds = time.perf_counter() - t_panel
-
-            tail_seconds = time.perf_counter() - tail_t0
-            run.log({
-                "epoch": epoch,
-                "val_seconds": round(val_seconds, 3),
-                "val_dispatch_seconds": round(val_dispatch_seconds, 3),
-                "rotate_dispatch_seconds": round(rotate_dispatch_seconds, 3),
+                "val_seconds": round(val_read.t1 - tail.t0, 3),
+                "val_dispatch_seconds": seconds(val_dispatch),
+                "rotate_dispatch_seconds": seconds(rotate),
                 "rotated": rotated,
-                "probe_seconds": round(probe_seconds, 3),
-                "ckpt_seconds": round(ckpt_seconds, 3),
-                "panel_seconds": round(panel_seconds, 3),
+                "probe_seconds": seconds(probes),
+                "ckpt_seconds": seconds(checkpoint),
+                "panel_seconds": seconds(panel_span),
                 "tail_seconds": round(tail_seconds, 3),
                 "epoch_wall_seconds": round(epoch_seconds + tail_seconds, 3),
-                "t_mono": round(time.perf_counter(), 6),
+                "t_mono": round(SPANS.end_epoch(epoch, total_steps), 6),
                 "t_drain_mono": round(train_drain_mono, 6),
             }, step=total_steps, phase="epoch_end")
 
@@ -1006,7 +1038,13 @@ def _train(config_path, resume: str, device, mesh) -> dict:
         try:
             run.profiler.stop()
         finally:
-            _finish(run.queue, ckpt, panels, run_error, old_sigterm)
+            try:
+                _finish(run.queue, ckpt, panels, run_error, old_sigterm)
+            finally:
+                SPANS.end_epochs()
+    # the run's end: every span's device times, and the last cycles' lines
+    for step, line in SPANS.settle(dev):
+        run.log(line, step=step, phase="spans")
     return {"model": model, "optimizer": optimizer, "epoch": epoch,
             "total_steps": total_steps, "traces": run.profiler.paths,
             "checkpoint_writes": ckpt.writes}

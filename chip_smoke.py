@@ -2143,19 +2143,20 @@ def scan_run(tmp: str, kernels: dict, fused_head: bool, k: int,
     import torch
 
     from betavae_tpu_torch.logging_utils import reset_logger
-    from betavae_tpu_torch.train.chunks import DeviceLaunched
     from betavae_tpu_torch.train.loop import train_steps
+    from betavae_tpu_torch.utils.profiling import SPANS
 
     cfg = scan_config(tmp, fused_head, k, **overrides)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
-    device_launched = DeviceLaunched.launches
+    device_launched = SPANS.counter("graphs.device_launches")
     with timed_dispatches() as dispatches:
         out = train_steps(cfg, FLAGSHIP_STEPS)
     launches = read_counts(kernels)
-    device_launched = DeviceLaunched.launches - device_launched
+    device_launched = (SPANS.counter("graphs.device_launches")
+                       - device_launched)
     paths = head_paths(kernels)
     reset_logger()
     totals = out["totals"]
@@ -2772,9 +2773,13 @@ def upsample_in_turns(tmp: str) -> dict:
 
 
 def metrics_lines(log_path: str) -> list:
+    """The log's METRICS lines but the ``spans`` lines, which hold the
+    host's and the device's times and which the JAX package does not
+    log."""
     with open(log_path) as f:
-        return [json.loads(line.split("| METRICS ", 1)[1])
-                for line in f if "| METRICS " in line]
+        lines = [json.loads(line.split("| METRICS ", 1)[1])
+                 for line in f if "| METRICS " in line]
+    return [m for m in lines if m["phase"] != "spans"]
 
 
 def run_epochs(tmp: str, kernels: dict) -> dict:
@@ -3631,19 +3636,19 @@ def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
     seconds."""
     import re
 
-    from betavae_tpu_torch.train.chunks import DeviceLaunched
+    from betavae_tpu_torch.utils.profiling import SPANS
     from betavae_tpu_torch.utils.trace import parse_trace
 
     cfg = epochs_config(tmp, os.path.join(tmp, "profile_steps"),
                         "profile.yaml", **{"training.epochs": EPOCHS_FIRST,
                                            "logging.profile_steps": 5})
     zero_counts(kernels)
-    redone = (DeviceLaunched.reinstantiations,
-              DeviceLaunched.reinstantiate_seconds)
+    redone = (SPANS.counter("graphs.reinstantiations"),
+              SPANS.host_total("graphs.reinstantiate"))
     out, _ = _train_lines(cfg)
     launches = read_counts(kernels)
-    redone = (DeviceLaunched.reinstantiations - redone[0],
-              DeviceLaunched.reinstantiate_seconds - redone[1])
+    redone = (SPANS.counter("graphs.reinstantiations") - redone[0],
+              SPANS.host_total("graphs.reinstantiate") - redone[1])
     if redone[0] < 1:
         fail("profile_steps: no graph was instantiated anew after a "
              "profiler window")
@@ -4962,20 +4967,21 @@ def run_bench(tmp: str, kernels: dict) -> dict:
     import torch
 
     from betavae_tpu_torch import bench
-    from betavae_tpu_torch.train.chunks import DeviceLaunched
+    from betavae_tpu_torch.utils.profiling import SPANS
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
-    device_launched = DeviceLaunched.launches
+    device_launched = SPANS.counter("graphs.device_launches")
     t0 = time.perf_counter()
     with timed_prepares() as prepares:
         line = bench.main(BENCH_ARGS + ["--work-dir",
                                         os.path.join(tmp, "bench_e2e")])
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    device_launched = DeviceLaunched.launches - device_launched
+    device_launched = (SPANS.counter("graphs.device_launches")
+                       - device_launched)
     # a launch a step or validation batch: steady, a warm-up chunk and 3
     # passes of one chunk of 192 steps; e2e, 3 epochs of 182 steps and 41
     # validation batches

@@ -52,7 +52,7 @@ _FAST_MODULES = {
     "test_torch_port_infer", "test_torch_port_eval",
     "test_torch_port_parallel",
     "test_torch_port_scripts", "test_torch_port_logs",
-    "test_torch_port_notebook",
+    "test_torch_port_notebook", "test_torch_port_spans",
 }
 
 

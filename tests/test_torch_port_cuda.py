@@ -1040,7 +1040,8 @@ def test_device_launched_graph_runs_through_a_scheduled_profiler(
     of a graph instantiated before it)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    from betavae_tpu_torch.train.chunks import CudaGraphs, DeviceLaunched
+    from betavae_tpu_torch.train.chunks import CudaGraphs
+    from betavae_tpu_torch.utils.profiling import SPANS
 
     graphs = CudaGraphs(cuda_device)
     x = torch.zeros(1024, device=cuda_device)
@@ -1049,7 +1050,7 @@ def test_device_launched_graph_runs_through_a_scheduled_profiler(
     graph = graphs.capture(lambda: [x.add_(1.0) for _ in range(50)])
     graph.replay()
     graphs.synchronize()
-    redone = DeviceLaunched.reinstantiations
+    redone = SPANS.counter("graphs.reinstantiations")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=1)) as prof:
         for _ in range(4):
@@ -1066,7 +1067,7 @@ def test_device_launched_graph_runs_through_a_scheduled_profiler(
         graph.replay()
     graphs.synchronize()
     assert torch.equal(x, torch.full_like(x, 19 * 50.0))
-    assert DeviceLaunched.reinstantiations > redone
+    assert SPANS.counter("graphs.reinstantiations") > redone
 
 
 def _flagship_chunks(device, k: int):
@@ -1190,3 +1191,104 @@ def test_dispatcher_runs_on_the_callers_device_and_stream(cuda_device, index):
     stream.synchronize()
     assert got == (index, stream.cuda_stream, index)
     assert float(total) == float(1 << 20)
+
+
+@pytest.mark.cuda
+def test_dispatch_chunk_span_agrees_with_events_around_the_dispatch(
+        cuda_device):
+    """A dispatched flagship chunk of 32 steps: its ``dispatch.chunk``
+    span's device interval, read from the registry's events and anchor,
+    is within 1 % of CUDA events the test records on the stream around the
+    same dispatch, and lies on the host clock between the host's reads
+    before the dispatch and after its rows (the anchor's skew aside)."""
+    import time
+
+    from betavae_tpu_torch.device import deterministic_cudnn
+    from betavae_tpu_torch.utils.profiling import CHUNK, SPANS
+
+    make, images, steps = _flagship_chunks(cuda_device, 32)
+    with deterministic_cudnn():
+        chunks = make()
+        chunks.prepare(images)
+        chunks.dispatch(images, steps(0)).rows()
+        torch.cuda.synchronize()
+        SPANS.settle(cuda_device)
+        before, after = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        before.record()
+        job = chunks.dispatch(images, steps(1))
+        after.record()
+        job.rows()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        chunks.queue.close()
+    SPANS.settle(cuda_device)
+    rec = SPANS.chunks[-1]
+    assert rec.name == CHUNK and rec.steps == 32 and not rec.traced
+    span_ms = 1e3 * (rec.d1 - rec.d0)
+    events_ms = before.elapsed_time(after)
+    assert abs(span_ms - events_ms) <= 0.01 * events_ms, (span_ms,
+                                                          events_ms)
+    assert t0 - 1e-3 <= rec.d0 < rec.d1 <= t1 + 2e-3, (t0, rec.d0, rec.d1,
+                                                       t1)
+
+
+@pytest.mark.cuda
+def test_spans_never_synchronise_and_graphs_launch_from_the_device(
+        cuda_device, monkeypatch):
+    """With no profiler open: two dispatched chunks of 8 steps launch
+    every graph from the device (``graphs.host_launches`` stays 0,
+    ``graphs.device_launches`` counts 16), no span calls a synchronising
+    entry of ``torch.cuda`` (counted through wrappers while a span opens
+    or closes), and spans of device work allocate no device memory."""
+    from betavae_tpu_torch.device import deterministic_cudnn
+    from betavae_tpu_torch.utils import profiling
+    from betavae_tpu_torch.utils.profiling import SPANS
+
+    inside, calls = [False], []
+
+    def counting(owner, name):
+        real = getattr(owner, name)
+
+        def wrapper(*args, **kwargs):
+            if inside[0]:
+                calls.append(name)
+            return real(*args, **kwargs)
+        monkeypatch.setattr(owner, name, wrapper)
+
+    def flagged(name):
+        real = getattr(profiling.Spans, name)
+
+        def wrapper(*args, **kwargs):
+            inside[0] = True
+            try:
+                return real(*args, **kwargs)
+            finally:
+                inside[0] = False
+        monkeypatch.setattr(profiling.Spans, name, wrapper)
+
+    make, images, steps = _flagship_chunks(cuda_device, 8)
+    with deterministic_cudnn():
+        chunks = make()
+        chunks.prepare(images)
+        torch.cuda.synchronize()
+        counting(torch.cuda, "synchronize")
+        counting(torch.cuda.Event, "synchronize")
+        counting(torch.cuda.Stream, "synchronize")
+        flagged("_open")
+        flagged("_close")
+        host = SPANS.counter("graphs.host_launches")
+        device = SPANS.counter("graphs.device_launches")
+        jobs = [chunks.dispatch(images, steps(c)) for c in (0, 1)]
+        for job in jobs:
+            job.rows()
+        allocated = torch.cuda.memory_allocated(cuda_device)
+        for _ in range(100):
+            with SPANS.span("probe", device=cuda_device):
+                pass
+        assert torch.cuda.memory_allocated(cuda_device) == allocated
+        chunks.queue.close()
+    assert calls == []
+    assert SPANS.counter("graphs.host_launches") == host
+    assert SPANS.counter("graphs.device_launches") - device == 16
