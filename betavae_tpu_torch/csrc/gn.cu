@@ -5,20 +5,35 @@
 //
 //   _fwd_kernel (launched by _run_fwd, pallas_call at pallas_gn.py:123;
 //                _run_fwd at :113), per sample b over all C*H*W values:
-//       m = sum(x)/n,  v = sum(x*x)/n - m*m,  rstd = rsqrt(max(v, 0) + eps)
-//       xhat = (x - m)*rstd,  z = xhat*gamma[c] + beta[c],  y = max(z, 0)
-//       pooled[b,c] = mean_hw(y)   (of the fp32 y, before y is rounded)
+//       m, v = the sample's mean and variance,  rstd = rsqrt(v + eps)
+//       a = rstd*gamma[c],  z = a*x + (beta[c] - a*m),  y = max(z, 0)
+//       pooled[b,c] = mean_hw(rd(y))
 //   _bwd_kernel (launched by _run_bwd, pallas_call at pallas_gn.py:149;
 //                _run_bwd at :139), given gy = dL/dy and gp = dL/dpooled:
-//       gz = (gy + gp[b,c]/HW) * 1[z > 0]
-//       dbeta[b,c] = sum_hw gz,  dgamma[b,c] = sum_hw gz*xhat
+//       gz = rd(gy + rd(gp[b,c]/HW)) * 1[z > 0]
+//       xhat = (x - m)*rstd,  dbeta[b,c] = sum_hw gz,  dgamma[b,c] = sum_hw gz*xhat
 //       dxhat = gz*gamma[c]
 //       dx = rstd*(dxhat - mean(dxhat) - xhat*mean(dxhat*xhat))
 //
 // x, y, gy and dx are NCHW in bf16 or fp32; gamma, beta [C], gp, pooled,
 // dgamma and dbeta [B, C] and m, rstd [B] are fp32, and every sum and
-// product is fp32.  The per-sample partials dgamma and dbeta are summed
-// over B by the caller, as the JAX package's _gn_bwd does.
+// product is fp32.  rd rounds to x's dtype (a no-op in fp32): the squeeze
+// is the mean of y as it is stored, and dL/dy is its two parts (through y,
+// and through pooled: the mean's backward in y's dtype) summed in y's
+// dtype, as a bf16 model's autograd gives them: the JAX model's flax blocks
+// (GroupNorm, then the SE block's mean of the bf16 activations) and
+// PyTorch's GroupNorm under autocast; the Pallas kernel pools the fp32 y.
+// The per-sample partials dgamma and dbeta are summed over B by the
+// caller, as the JAX package's _gn_bwd does.
+//
+// m, v and z are PyTorch's GroupNorm's on the card, bit for bit (the JAX
+// kernel takes v = sum(x*x)/n - m*m and z = xhat*gamma + beta): Welford's
+// update over kChains interleaved chains of each sample, the chains merged
+// in PyTorch's block-reduce order, and z rounded as its GroupNorm rounds it
+// (see "the statistics" below).  A bf16 model's forward then gives the
+// bits of nn.GroupNorm under autocast, which the benchmark's reference
+// runs, where any other rounding of m, rstd or z moves a few y values by
+// one bf16 step and the first loss of the scaled configuration by ~1e-4.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM; 67 TFLOP/s fp32 outside the tensor
 // cores), counting each input read once and each output written once:
@@ -29,35 +44,40 @@
 // byte of bf16: far below the ~20 per byte where the arithmetic would
 // limit.  Both are bound by bytes.
 //
-// Two paths.  The caller names the path (ops/gn.py::gn_path states the
-// rule, betavae_gn_path below states the same rule in C) and the entry
-// points launch exactly that path or return an error: there is no fallback.
+// The forward, at every shape: two launches, no atomics.
+//     gn_stats (below): each sample's Welford slots.
+//     gn_apply: grid (ceil(C/cpb), B); each block merges its sample's
+//       slots in one fixed order (every block of the sample gets the same
+//       bits) into m and rstd, and walks its channels' H*W planes
+//       (contiguous in NCHW), writing y and the channel's pooled mean; the
+//       sample's first block writes m and rstd.  HBM traffic 3|x| (the
+//       stats pass reads x once).  The forward needs no exchange within a
+//       sample once the statistics are made, so it takes no cluster: a
+//       cluster kernel that held each slice in shared memory read each value
+//       once, as this one does.
 //
-// The cluster path: one launch per direction, x read once.
+// The backward takes one of two paths.  The caller names the path
+// (ops/gn.py::gn_path states the rule, betavae_gn_path below states the
+// same rule in C) and the entry point launches exactly that path or
+// returns an error: there is no fallback.
+//
+// The cluster path, one launch (gn_bwd_cluster_kernel).
 //   The TPU kernel keeps one whole sample in VMEM and makes a single HBM
 //   read of it and a single write (pallas_gn.py:1-26).  On Hopper the
 //   counterpart of "one sample on chip" is one thread-block cluster per
 //   sample: a grid of B clusters of k CTAs, each CTA owning a contiguous run
 //   of whole channels of its sample (contiguous in NCHW, so each channel's
-//   pooled mean, dbeta and dgamma never leave its CTA), held in shared
-//   memory.  The per-sample sums cross the cluster through distributed
-//   shared memory (DSMEM):
-//     forward (gn_fwd_cluster_kernel): each warp bulk-copies its share of
-//       the slice into shared memory (cp.async.bulk onto an mbarrier; plain
-//       loads where the slice is not 16-byte aligned), sums x and x*x over
-//       it in a fixed order; the k pairs are exchanged after a cluster
-//       barrier and every CTA sums them in rank order, so all hold the same
-//       m and rstd bits; then y and pooled are written from shared memory.
-//       HBM traffic 2|x|, the bound.
-//     backward (gn_bwd_cluster_kernel): x is held in shared memory; gy is
-//       read from HBM in the first pass (per-channel dbeta, dgamma) and read
-//       again in the second (dx), by then from L2.  gy is not held in
-//       shared memory: that would double a CTA's shared memory, and the
-//       rule's budget (three CTAs an SM, below) is set for x alone.
-//       sum_c gamma_c*dbeta and sum_c gamma_c*dgamma (sum dxhat and sum
-//       dxhat*xhat) are exchanged over DSMEM in rank order.  HBM traffic
-//       3|x| while L2 (50 MB) holds the resident CTAs' gy: at most three
-//       slices of 72 KiB on each of 132 SMs, 28.5 MB.
+//   dbeta and dgamma never leave its CTA), held in shared memory: each warp
+//   bulk-copies its share of the slice (cp.async.bulk onto an mbarrier;
+//   plain loads where the slice is not 16-byte aligned).  gy is read from
+//   HBM in the first pass (per-channel dbeta, dgamma) and read again in the
+//   second (dx), by then from L2.  gy is not held in shared memory: that
+//   would double a CTA's shared memory, and the rule's budget (three CTAs
+//   an SM, below) is set for x alone.  The per-sample sums sum_c
+//   gamma_c*dbeta and sum_c gamma_c*dgamma (sum dxhat and sum dxhat*xhat)
+//   cross the cluster through distributed shared memory (DSMEM), exchanged
+//   in rank order.  HBM traffic 3|x| while L2 (50 MB) holds the resident
+//   CTAs' gy: at most three slices of 72 KiB on each of 132 SMs, 28.5 MB.
 //   Inside a CTA, 256 threads walk the slice as 16-byte units (one value
 //   where the rows do not allow 16 bytes), whatever the plane size: warp w
 //   takes a contiguous range of units, 32 consecutive units a chunk.  A
@@ -81,28 +101,20 @@
 //
 // The generic path: every shape whose sample does not fit a cluster (the
 // flagship's largest block, [32, 64, 128, 128], is 2 MiB a sample in bf16),
-// two launches per direction, no atomics:
-//     gn_stats: grid (splits, B); each block sums x and x*x over one
-//       contiguous chunk of its sample and writes the fp32 pair.
-//     gn_apply: grid (ceil(C/cpb), B); each block sums its sample's pairs
-//       in one fixed order (every block of the sample gets the same bits),
-//       forms m and rstd, and walks its channels' H*W planes (contiguous in
-//       NCHW), writing y and the channel's pooled mean; the sample's first
-//       block writes m and rstd.
-//     gn_bwd_sums: the same grid; per channel, sum_hw gz and gz*xhat give
-//       dbeta and dgamma.
-//     gn_bwd_dx: the same grid; the per-sample means need no third
-//       reduction over the sample: sum dxhat = sum_c gamma_c*dbeta[b,c] and
-//       sum dxhat*xhat = sum_c gamma_c*dgamma[b,c].  Each block sums those
-//       over C in one fixed order, then writes dx.
-//   Channels per block (cpb): a plane of at least kWholeBlockHW values gets
-//   the whole block of 256 threads; smaller planes get one warp each.  The
-//   two passes over x move 3|x| forward and 5|x| backward unless L2 still
-//   holds x from the first pass.
+// two launches, no atomics, on the forward's grid:
+//     gn_bwd_sums: per channel, sum_hw gz and gz*xhat give dbeta and dgamma.
+//     gn_bwd_dx: the per-sample means need no third reduction over the
+//       sample: sum dxhat = sum_c gamma_c*dbeta[b,c] and sum dxhat*xhat =
+//       sum_c gamma_c*dgamma[b,c].  Each block sums those over C in one
+//       fixed order, then writes dx.
+//   The two passes move 5|x| unless L2 still holds x and gy from the first.
 //
-// Both paths form z with separately rounded operations, (x - m)*rstd*gamma
-// + beta, as torch's elementwise ops form it, so that the ReLU mask of the
-// plain version given the same m and rstd is the kernel's, bit for bit.
+// Channels per block (cpb) of gn_apply and the generic backward: a plane of
+// at least kWholeBlockHW values gets the whole block of 256 threads;
+// smaller planes get one warp each.
+//
+// Every kernel forms z as pre_relu does, so that the ReLU mask of the plain
+// version given the same m and rstd is the kernel's, bit for bit.
 // Values are read and written 16 bytes a thread where the rows allow it
 // (the tensors 16-byte aligned and H*W a multiple of 8 bf16 or 4 fp32),
 // else one value a thread; offsets into the tensors are 64-bit.
@@ -125,7 +137,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;                 // 16-byte loads in flight a thread
 constexpr int64_t kWholeBlockHW = 4096;    // planes this large: cpb = 1
 constexpr int kMaxGridY = 65535;
-constexpr int64_t kStatsChunk = 8192;      // values a stats block sums
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -142,6 +153,12 @@ __device__ __forceinline__ float from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// rd: v as a T holds it (rounded to nearest even in bf16; v in fp32)
+template <typename T>
+__device__ __forceinline__ float rd(float v) {
+  return to_float(from_float<T>(v));
 }
 
 // kPer values of T in one 16-byte load or store, as fp32.
@@ -221,10 +238,132 @@ __device__ __forceinline__ float2 block_sum2(float a, float b,
 
 // z = (x - m)*rstd*gamma + beta, each operation rounded on its own (no fma),
 // as the plain version's elementwise torch ops round it.
+// z, rounded as PyTorch's GroupNorm rounds it (a = rstd*gamma and
+// b = -a*m + beta each rounded, then one fused multiply-add), and, for the
+// backward's sums, xhat = (x - m)*rstd.
 __device__ __forceinline__ float pre_relu(float x, float m, float rstd,
                                           float g, float bt, float* xhat) {
   *xhat = __fmul_rn(__fsub_rn(x, m), rstd);
-  return __fadd_rn(__fmul_rn(*xhat, g), bt);
+  const float a = __fmul_rn(rstd, g);
+  return __fmaf_rn(a, x, __fadd_rn(__fmul_rn(-a, m), bt));
+}
+
+// ---------------------------------------------------------------------------
+// the statistics: PyTorch's GroupNorm's, bit for bit
+// ---------------------------------------------------------------------------
+//
+// PyTorch's GroupNorm on the card (RowwiseMomentsCUDAKernel, over the fp32
+// values autocast gives it) runs a block of kChains threads a sample, or a
+// warp where the sample has fewer values: thread t folds values t,
+// t + kChains, ... into a Welford (mean, m2, n) in that order; the block
+// then merges them by warp shuffles (lane l with lane l + 16, 8, 4, 2, 1),
+// and the warps' results likewise in warp order, and takes var = m2/n,
+// rstd = rsqrt(var + eps).  gn_stats_kernel runs the same chains and the
+// warp merges, and writes each warp's result to the sample's slot; the
+// kernels that apply the statistics merge a sample's slots as the block's
+// last warp does.  Every operation is rounded as there.
+
+constexpr int kChains = 512;
+constexpr int kSlots = kChains / 32;    // a sample's warp results
+
+struct Welford {
+  float mean, m2, n;
+};
+
+__device__ __forceinline__ int chains_for(int64_t n) {
+  return n < kChains ? 32 : kChains;
+}
+
+__device__ __forceinline__ Welford welford_add(Welford a, float x) {
+  const float n = __fadd_rn(a.n, 1.0f);
+  const float delta = __fsub_rn(x, a.mean);
+  const float mean = __fadd_rn(a.mean, __fdiv_rn(delta, n));
+  return {mean, __fmaf_rn(delta, __fsub_rn(x, mean), a.m2), n};
+}
+
+__device__ __forceinline__ Welford welford_merge(Welford a, Welford b) {
+  if (a.n == 0.0f) return b;
+  if (b.n == 0.0f) return a;
+  const float delta = __fsub_rn(b.mean, a.mean);
+  const float n = __fadd_rn(a.n, b.n);
+  const float nb = __fdiv_rn(b.n, n);
+  const float t = __fmul_rn(__fmul_rn(delta, delta), a.n);
+  return {__fmaf_rn(delta, nb, a.mean),
+          __fmaf_rn(t, nb, __fadd_rn(a.m2, b.m2)), n};
+}
+
+__device__ __forceinline__ Welford warp_merge(Welford w) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Welford o = {__shfl_down_sync(kFull, w.mean, off),
+                       __shfl_down_sync(kFull, w.m2, off),
+                       __shfl_down_sync(kFull, w.n, off)};
+    w = welford_merge(w, o);
+  }
+  return w;
+}
+
+constexpr int kAhead = 16;    // a chain's values loaded ahead of the folds
+
+// grid (kChains / kThreads, B): thread t of sample b runs chain t over the
+// sample's n values (value i at t + i*chains), and each warp writes its
+// chains, merged, to slot t / 32 of the sample (a warp past the chains
+// writes an empty one).  A chain is one dependent sequence of divisions:
+// the next kAhead values load while these are folded in, and only the
+// last, short run is folded under a bound check (a check a value doubled
+// the chain's time on an H100).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    gn_stats_kernel(const T* __restrict__ x, int64_t n,
+                    Welford* __restrict__ slots) {
+  const int b = blockIdx.y;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  const int chains = chains_for(n);
+  const T* __restrict__ xs = x + static_cast<int64_t>(b) * n + t;
+  Welford w = {0.0f, 0.0f, 0.0f};
+  if (t < chains) {
+    const int64_t len = (n - t + chains - 1) / chains;
+    const int64_t full = len / kAhead * kAhead;
+    float cur[kAhead], next[kAhead];
+    if (full > 0) {
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        cur[u] = to_float(xs[static_cast<int64_t>(u) * chains]);
+      }
+    }
+    for (int64_t i0 = 0; i0 < full; i0 += kAhead) {
+      const bool more = i0 + kAhead < full;
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        next[u] = more ? to_float(xs[(i0 + kAhead + u) * chains]) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) w = welford_add(w, cur[u]);
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) cur[u] = next[u];
+    }
+    for (int64_t i = full; i < len; ++i) {
+      w = welford_add(w, to_float(xs[i * chains]));
+    }
+  }
+  w = warp_merge(w);
+  if (threadIdx.x % 32 == 0) {
+    slots[static_cast<int64_t>(b) * kSlots + t / 32] = w;
+  }
+}
+
+// (m, rstd) of sample b from its slots, merged in slot order; every lane of
+// the calling warp (all 32 call it) gets them.
+__device__ __forceinline__ float2 sample_stats(
+    const Welford* __restrict__ slots, int b, float eps) {
+  const int lane = threadIdx.x % 32;
+  Welford w = {0.0f, 0.0f, 0.0f};
+  if (lane < kSlots) w = slots[static_cast<int64_t>(b) * kSlots + lane];
+  w = warp_merge(w);
+  const float m = __shfl_sync(kFull, w.mean, 0);
+  const float m2 = __shfl_sync(kFull, w.m2, 0);
+  const float n = __shfl_sync(kFull, w.n, 0);
+  return make_float2(m, rsqrtf(__fadd_rn(__fdiv_rn(m2, n), eps)));
 }
 
 // ---------------------------------------------------------------------------
@@ -292,58 +431,18 @@ __device__ __forceinline__ void for_plane(const T* __restrict__ plane,
   }
 }
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ partial,
-                    int64_t n, int64_t chunk) {
-  __shared__ float2 scratch[kWarps];
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
-  const int64_t lo = min(static_cast<int64_t>(s) * chunk, n);
-  const int64_t hi = min(lo + chunk, n);
-  float sum = 0.0f, sq = 0.0f;
-  for_plane<T, kVec>(x + static_cast<int64_t>(b) * n + lo, hi - lo,
-                     threadIdx.x, kThreads,
-                     [&](const float* v, int64_t, int cnt) {
-                       for (int j = 0; j < cnt; ++j) {
-                         sum += v[j];
-                         sq = fmaf(v[j], v[j], sq);
-                       }
-                     });
-  const float2 total = block_sum2<kWarps>(sum, sq, scratch);
-  if (threadIdx.x == 0) partial[static_cast<int64_t>(b) * gridDim.x + s] = total;
-}
-
-// m and rstd of sample b from its `splits` stats pairs, in one fixed order.
-__device__ __forceinline__ float2 sample_stats(const float2* __restrict__ partial,
-                                               int b, int splits, float nf,
-                                               float eps, float2* scratch) {
-  float s = 0.0f, q = 0.0f;
-  for (int i = threadIdx.x; i < splits; i += kThreads) {
-    const float2 p = partial[static_cast<int64_t>(b) * splits + i];
-    s += p.x;
-    q += p.y;
-  }
-  const float2 tot = block_sum2<kWarps>(s, q, scratch);
-  const float m = tot.x / nf;
-  const float v = tot.y / nf - m * m;
-  return make_float2(m, rsqrtf(fmaxf(v, 0.0f) + eps));
-}
-
 template <typename T, bool kVec, int kCpb>
 __global__ void __launch_bounds__(kThreads)
     gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                     const float* __restrict__ beta,
-                    const float2* __restrict__ partial, int splits,
+                    const Welford* __restrict__ slots,
                     T* __restrict__ y, float* __restrict__ pooled,
                     float* __restrict__ mean_out, float* __restrict__ rstd_out,
                     int C, int64_t HW, float eps) {
   constexpr int kGroup = kThreads / kCpb;
-  __shared__ float2 stats_scratch[kWarps];
   __shared__ float pool_scratch[kWarps];
   const int b = blockIdx.y;
-  const float nf = static_cast<float>(static_cast<int64_t>(C) * HW);
-  const float2 mr = sample_stats(partial, b, splits, nf, eps, stats_scratch);
+  const float2 mr = sample_stats(slots, b, eps);
   const float m = mr.x, rstd = mr.y;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     mean_out[b] = m;
@@ -362,7 +461,7 @@ __global__ void __launch_bounds__(kThreads)
                            float xhat;
                            const float z = pre_relu(v[j], m, rstd, g, bt, &xhat);
                            out[j] = fmaxf(z, 0.0f);
-                           acc += out[j];
+                           acc += rd<T>(out[j]);
                          }
                          if (cnt == 1) {
                            yp[i] = from_float<T>(out[0]);
@@ -397,7 +496,8 @@ __device__ __forceinline__ void for_gz(const T* __restrict__ x,
                        for (int j = 0; j < cnt; ++j) {
                          float xhat;
                          const float z = pre_relu(v[j], m, rstd, g, bt, &xhat);
-                         const float gz = z > 0.0f ? gyv[j] + gp_hw : 0.0f;
+                         const float gz =
+                             z > 0.0f ? rd<T>(gyv[j] + gp_hw) : 0.0f;
                          f(xhat, gz, i + j, j);
                        }
                      });
@@ -420,7 +520,7 @@ __global__ void __launch_bounds__(kThreads)
   float sg = 0.0f, sgx = 0.0f;
   if (c < C) {
     const int64_t bc = static_cast<int64_t>(b) * C + c;
-    const float gp_hw = gp[bc] * (1.0f / static_cast<float>(HW));
+    const float gp_hw = rd<T>(gp[bc] * (1.0f / static_cast<float>(HW)));
     for_gz<T, kVec, kGroup>(x, gy, bc * HW, HW, mean[b], rstd[b], gamma[c],
                             beta[c], gp_hw,
                             [&](float xhat, float gz, int64_t, int) {
@@ -465,7 +565,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t bc = static_cast<int64_t>(b) * C + c;
   const float r = rstd[b];
   const float g = gamma[c];
-  const float gp_hw = gp[bc] * (1.0f / static_cast<float>(HW));
+  const float gp_hw = rd<T>(gp[bc] * (1.0f / static_cast<float>(HW)));
   T* __restrict__ dxp = dx + bc * HW;
   float out[Vec<T>::kPer];
   for_gz<T, kVec, kGroup>(
@@ -936,103 +1036,6 @@ struct Slice {
 
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, 3)
-    gn_fwd_cluster_kernel(const T* __restrict__ x,
-                          const float* __restrict__ gamma,
-                          const float* __restrict__ beta, T* __restrict__ y,
-                          float* __restrict__ pooled,
-                          float* __restrict__ mean_out,
-                          float* __restrict__ rstd_out, int C, int HW, int k,
-                          FastDiv by_v, float eps) {
-  using U = Unit<T, kVec>;
-  using Raw = typename U::Raw;
-  constexpr int P = U::P;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Slice sl(C, k);
-  const Layout L = layout(sl.cn_max, HW, sizeof(T));
-  T* sx = reinterpret_cast<T*>(smem);
-  float* sgam = reinterpret_cast<float*>(smem + L.gam);
-  float* sbet = reinterpret_cast<float*>(smem + L.bet);
-  float* slot = reinterpret_cast<float*>(smem + L.slot_a);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
-  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.xbar);
-  float2* pairs = reinterpret_cast<float2*>(smem + L.pairs);
-  float2* scratch = reinterpret_cast<float2*>(smem + L.scratch);
-  const Walk w(sl.cn, HW, P, by_v);
-  const int64_t off = (static_cast<int64_t>(sl.b) * C + sl.c_lo) * HW;
-
-  start_load<T, kVec>(sx, x + off, w, bars + w.warp);
-  exchange_start(xbar, k);
-  for (int i = threadIdx.x; i < sl.cn; i += kThreads) {
-    sgam[i] = gamma[sl.c_lo + i];
-    sbet[i] = beta[sl.c_lo + i];
-  }
-  finish_load<T, kVec>(w, bars + w.warp);
-
-  // x and x*x over this CTA's slice, each thread's units in order
-  float sum = 0.0f, sq = 0.0f;
-#pragma unroll 4
-  for (int v = w.lo + w.lane; v < w.hi; v += 32) {
-    float f[P];
-    U::unpack(U::load(sx + static_cast<int64_t>(v) * P), f);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      sum += f[j];
-      sq = fmaf(f[j], f[j], sq);
-    }
-  }
-  const float2 tot = exchange(block_sum2<kWarps>(sum, sq, scratch), pairs,
-                              xbar, k, sl.rank, w);
-  const float nf = static_cast<float>(static_cast<int64_t>(C) * HW);
-  const float m = tot.x / nf;
-  const float var = tot.y / nf - m * m;
-  const float rstd = rsqrtf(fmaxf(var, 0.0f) + eps);
-  if (sl.rank == 0 && threadIdx.x == 0) {
-    mean_out[sl.b] = m;
-    rstd_out[sl.b] = rstd;
-  }
-
-  // y, and each channel's sum of the fp32 y; kUnroll chunks read from
-  // shared memory before any is used
-  T* __restrict__ ys = y + off;
-  Segments<1> seg;
-  float* const slots[1] = {slot};
-  for (int b0 = w.lo; b0 < w.hi; b0 += 32 * kUnroll) {
-    Raw raw[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int v = b0 + 32 * u + w.lane;
-      raw[u] = v < w.hi ? U::load(sx + static_cast<int64_t>(v) * P) : Raw{};
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (b0 + 32 * u >= w.hi) continue;
-      const Chunk ck(b0 + 32 * u, w);
-      float acc[1] = {0.0f};
-      if (ck.valid(w)) {
-        float f[P], out[P];
-        U::unpack(raw[u], f);
-        const float g = sgam[ck.ch], bt = sbet[ck.ch];
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-          float xhat;
-          out[j] = fmaxf(pre_relu(f[j], m, rstd, g, bt, &xhat), 0.0f);
-          acc[0] += out[j];
-        }
-        U::store(ys + static_cast<int64_t>(ck.v) * P, out);
-      }
-      seg.add(acc, ck, w, slots);
-    }
-  }
-  seg.finish(w, slots);
-  __syncthreads();
-  for (int c = threadIdx.x; c < sl.cn; c += kThreads) {
-    pooled[static_cast<int64_t>(sl.b) * C + sl.c_lo + c] =
-        channel_total(slot, c, w) * (1.0f / static_cast<float>(HW));
-  }
-}
-
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads, 3)
     gn_bwd_cluster_kernel(const T* __restrict__ x,
                           const float* __restrict__ gamma,
                           const float* __restrict__ beta,
@@ -1070,7 +1073,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     const int c = sl.c_lo + i;
     sgam[i] = gamma[c];
     sbet[i] = beta[c];
-    sgph[i] = gp[static_cast<int64_t>(sl.b) * C + c] * inv_hw;
+    sgph[i] = rd<T>(gp[static_cast<int64_t>(sl.b) * C + c] * inv_hw);
   }
   __syncthreads();
   const float m = mean[sl.b], r = rstd[sl.b];
@@ -1087,7 +1090,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     for (int j = 0; j < P; ++j) {
       float xhat;
       const float z = pre_relu(xv[j], m, r, g, bt, &xhat);
-      f(j, xhat, z > 0.0f ? gv[j] + gph : 0.0f);
+      f(j, xhat, z > 0.0f ? rd<T>(gv[j] + gph) : 0.0f);
     }
   };
   // the warp's chunks, chunk(ck, x raw, gy raw) for each: kUnroll of gy's
@@ -1174,52 +1177,47 @@ bool aligned16(const void* p, int64_t len) {
          len % Vec<T>::kPer == 0;
 }
 
+// The forward's statistics pass: each sample's Welford slots.
+template <typename T>
+cudaError_t launch_stats(const void* x, Welford* slots, int B, int64_t n,
+                         cudaStream_t st) {
+  gn_stats_kernel<T><<<dim3(kChains / kThreads, B), kThreads, 0, st>>>(
+      static_cast<const T*>(x), n, slots);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kVec, int kCpb>
 void launch_apply(const void* x, const float* gamma, const float* beta,
-                  const float2* partial, int splits, void* y, float* pooled,
-                  float* mean, float* rstd, int B, int C, int64_t HW,
-                  float eps, cudaStream_t st) {
+                  const Welford* slots, void* y, float* pooled, float* mean,
+                  float* rstd, int B, int C, int64_t HW, float eps,
+                  cudaStream_t st) {
   const dim3 grid((C + kCpb - 1) / kCpb, B);
   gn_apply_kernel<T, kVec, kCpb><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), gamma, beta, partial, splits,
-      static_cast<T*>(y), pooled, mean, rstd, C, HW, eps);
+      static_cast<const T*>(x), gamma, beta, slots, static_cast<T*>(y),
+      pooled, mean, rstd, C, HW, eps);
 }
 
 template <typename T>
 cudaError_t forward(const void* x, const float* gamma, const float* beta,
                     void* y, float* pooled, float* mean, float* rstd,
-                    float2* partial, int splits, int B, int C, int64_t HW,
-                    float eps, cudaStream_t st) {
-  constexpr int P = Vec<T>::kPer;
-  const int64_t n = static_cast<int64_t>(C) * HW;
-  // chunks of a multiple of P values, so every chunk of an aligned sample
-  // starts on a 16-byte boundary
-  int64_t chunk = (n + splits - 1) / splits;
-  chunk = (chunk + P - 1) / P * P;
-  const dim3 sgrid(splits, B);
-  if (aligned16<T>(x, n)) {
-    gn_stats_kernel<T, true><<<sgrid, kThreads, 0, st>>>(
-        static_cast<const T*>(x), partial, n, chunk);
-  } else {
-    gn_stats_kernel<T, false><<<sgrid, kThreads, 0, st>>>(
-        static_cast<const T*>(x), partial, n, chunk);
-  }
-  cudaError_t err = cudaGetLastError();
+                    Welford* slots, int B, int C, int64_t HW, float eps,
+                    cudaStream_t st) {
+  cudaError_t err = launch_stats<T>(x, slots, B, C * HW, st);
   if (err != cudaSuccess) return err;
   const bool vec = aligned16<T>(x, HW) && aligned16<T>(y, HW);
   const bool whole = HW >= kWholeBlockHW;
   if (vec && whole) {
-    launch_apply<T, true, 1>(x, gamma, beta, partial, splits, y, pooled, mean,
-                             rstd, B, C, HW, eps, st);
+    launch_apply<T, true, 1>(x, gamma, beta, slots, y, pooled, mean, rstd, B,
+                             C, HW, eps, st);
   } else if (vec) {
-    launch_apply<T, true, kWarps>(x, gamma, beta, partial, splits, y, pooled,
-                                  mean, rstd, B, C, HW, eps, st);
+    launch_apply<T, true, kWarps>(x, gamma, beta, slots, y, pooled, mean,
+                                  rstd, B, C, HW, eps, st);
   } else if (whole) {
-    launch_apply<T, false, 1>(x, gamma, beta, partial, splits, y, pooled,
-                              mean, rstd, B, C, HW, eps, st);
+    launch_apply<T, false, 1>(x, gamma, beta, slots, y, pooled, mean, rstd,
+                              B, C, HW, eps, st);
   } else {
-    launch_apply<T, false, kWarps>(x, gamma, beta, partial, splits, y, pooled,
-                                   mean, rstd, B, C, HW, eps, st);
+    launch_apply<T, false, kWarps>(x, gamma, beta, slots, y, pooled, mean,
+                                   rstd, B, C, HW, eps, st);
   }
   return cudaGetLastError();
 }
@@ -1333,33 +1331,6 @@ cudaError_t launch_cluster(Kernel kernel, int B, int C, int64_t HW, int es,
 }
 
 template <typename T>
-cudaError_t forward_cluster(const void* x, const float* gamma,
-                            const float* beta, void* y, float* pooled,
-                            float* mean, float* rstd, int B, int C, int HW,
-                            int k, float eps, cudaStream_t st, int device) {
-  const bool vec = aligned16<T>(x, HW) && aligned16<T>(y, HW);
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  // units a channel: 16-byte vectors or single values
-  const cl::FastDiv by_v = cl::make_div(vec ? HW / Vec<T>::kPer : HW);
-  if (vec) {
-    return launch_cluster(cl::gn_fwd_cluster_kernel<T, true>, B, C, HW,
-                          sizeof(T), k, st, device, xt, gamma, beta, yt,
-                          pooled, mean, rstd, C, HW, k, by_v, eps);
-  }
-  return launch_cluster(cl::gn_fwd_cluster_kernel<T, false>, B, C, HW,
-                        sizeof(T), k, st, device, xt, gamma, beta, yt, pooled,
-                        mean, rstd, C, HW, k, by_v, eps);
-}
-
-template <typename T>
-const void* cluster_kernel(bool backward) {
-  return backward
-             ? reinterpret_cast<const void*>(cl::gn_bwd_cluster_kernel<T, true>)
-             : reinterpret_cast<const void*>(cl::gn_fwd_cluster_kernel<T, true>);
-}
-
-template <typename T>
 cudaError_t backward_cluster(const void* x, const float* gamma,
                              const float* beta, const float* mean,
                              const float* rstd, const void* gy,
@@ -1387,12 +1358,7 @@ bool shape_ok(int B, int C, int H, int W) {
   return B > 0 && C > 0 && H > 0 && W > 0;
 }
 
-int stats_splits(int64_t n) {
-  const int64_t s = (n + kStatsChunk - 1) / kStatsChunk;
-  return static_cast<int>(s < 1 ? 1 : (s > 65535 ? 65535 : s));
-}
-
-// where the forward's stats scratch (generic path) starts in its buffer
+// where the forward's Welford slots start in its buffer
 int64_t partial_offset(int B, int C) {
   return (static_cast<int64_t>(B) * C + 2 * static_cast<int64_t>(B) + 3) / 4 *
          4;
@@ -1401,54 +1367,35 @@ int64_t partial_offset(int B, int C) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  `stats` is one fp32 buffer:
-// pooled [B, C], then m [B] and rstd [B]; on the generic path (k = 0) the
-// stats scratch of B*splits float2 follows from partial_offset(B, C).
-// k > 0 takes the cluster path with clusters of k CTAs (above 8 a
-// non-portable size); k = 0 the generic path with `splits` stats blocks a
-// sample, splits in [1, 65535].
+// pooled [B, C], then m [B] and rstd [B], then from partial_offset(B, C)
+// the statistics pass's B*kSlots Welford slots (3 floats each).  Every
+// shape takes the statistics pass and the apply pass.
 extern "C" int betavae_gn_fwd(const void* x, const float* gamma,
                               const float* beta, void* y, float* stats,
                               int B, int C, int H, int W, float eps,
-                              int dtype, int k, int splits, void* stream,
-                              int device) {
+                              int dtype, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if ((dtype != 0 && dtype != 1) || !shape_ok(B, C, H, W)) {
+  if ((dtype != 0 && dtype != 1) || !shape_ok(B, C, H, W) || B > kMaxGridY) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t HW = static_cast<int64_t>(H) * W;
-  const int es = dtype == 1 ? 2 : 4;
   float* pooled = stats;
   float* mean = stats + static_cast<int64_t>(B) * C;
   float* rstd = mean + B;
-  if (k > 0) {
-    if (!cluster_ok(B, C, HW, es, k)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const int hw = static_cast<int>(HW);
-    err = dtype == 1
-              ? forward_cluster<__nv_bfloat16>(x, gamma, beta, y, pooled, mean,
-                                               rstd, B, C, hw, k, eps, st,
-                                               device)
-              : forward_cluster<float>(x, gamma, beta, y, pooled, mean, rstd,
-                                       B, C, hw, k, eps, st, device);
-    return static_cast<int>(err);
-  }
-  if (k < 0 || splits < 1 || splits > 65535 || B > kMaxGridY) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  float2* part = reinterpret_cast<float2*>(stats + partial_offset(B, C));
+  Welford* slots = reinterpret_cast<Welford*>(stats + partial_offset(B, C));
   err = dtype == 1
             ? forward<__nv_bfloat16>(x, gamma, beta, y, pooled, mean, rstd,
-                                     part, splits, B, C, HW, eps, st)
-            : forward<float>(x, gamma, beta, y, pooled, mean, rstd, part,
-                             splits, B, C, HW, eps, st);
+                                     slots, B, C, HW, eps, st)
+            : forward<float>(x, gamma, beta, y, pooled, mean, rstd, slots, B,
+                             C, HW, eps, st);
   return static_cast<int>(err);
 }
 
-// `dparams` is one fp32 buffer: dgamma [B, C] then dbeta [B, C]; k as for
-// the forward (the generic path needs no splits).
+// `dparams` is one fp32 buffer: dgamma [B, C] then dbeta [B, C].  k > 0
+// takes the cluster path with clusters of k CTAs (above 8 a non-portable
+// size); k = 0 the generic path.
 extern "C" int betavae_gn_bwd(const void* x, const float* gamma,
                               const float* beta, const float* mean,
                               const float* rstd, const void* gy,
@@ -1489,21 +1436,20 @@ extern "C" int betavae_gn_bwd(const void* x, const float* gamma,
 }
 
 // The path rule (ops/gn.py::gn_path states the same): k > 0 for clusters
-// of k CTAs, or -splits for the generic path; 0 for a shape or dtype the
-// kernels do not take.
+// of k CTAs, or -1 for the generic path; 0 for a shape or dtype the kernels
+// do not take.
 extern "C" int betavae_gn_path(int B, int C, int H, int W, int dtype) {
   if ((dtype != 0 && dtype != 1) || !shape_ok(B, C, H, W)) return 0;
   const int64_t HW = static_cast<int64_t>(H) * W;
   const int k = cl::cluster_k(B, C, HW, dtype == 1 ? 2 : 4);
-  return k > 0 ? k : -stats_splits(static_cast<int64_t>(C) * HW);
+  return k > 0 ? k : -1;
 }
 
-// How many clusters of k CTAs of the forward (backward = 0) or backward
-// kernel the device holds at once for this shape (16-byte path), from
-// cudaOccupancyMaxActiveClusters; a negative cudaError_t on failure.
+// How many clusters of k CTAs of the backward kernel the device holds at
+// once for this shape (16-byte path), from cudaOccupancyMaxActiveClusters;
+// a negative cudaError_t on failure.
 extern "C" int betavae_gn_active_clusters(int B, int C, int H, int W,
-                                          int dtype, int k, int backward,
-                                          int device) {
+                                          int dtype, int k, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const int64_t HW = static_cast<int64_t>(H) * W;
@@ -1512,8 +1458,11 @@ extern "C" int betavae_gn_active_clusters(int B, int C, int H, int W,
       !cluster_ok(B, C, HW, es, k)) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* kernel = dtype == 1 ? cluster_kernel<__nv_bfloat16>(backward)
-                                  : cluster_kernel<float>(backward);
+  const void* kernel =
+      dtype == 1
+          ? reinterpret_cast<const void*>(
+                cl::gn_bwd_cluster_kernel<__nv_bfloat16, true>)
+          : reinterpret_cast<const void*>(cl::gn_bwd_cluster_kernel<float, true>);
   err = configure(kernel, device);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr;

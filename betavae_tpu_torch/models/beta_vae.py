@@ -21,7 +21,15 @@ Counterpart of ``betavae_tpu/models/beta_vae.py`` (``BetaVAEModule``,
   gates)`` pair leaves its checkpoint for the fused head,
 - norms: ``layer`` → GroupNorm(1) with flax's eps 1e-6, ``batch`` →
   BatchNorm with flax's update rule (momentum 0.99 is torch 0.01, running
-  variance from the biased batch variance), ``none``,
+  variance from the biased batch variance), ``none``; a block whose norm is
+  ``layer`` and whose activation is ``relu`` runs GroupNorm → ReLU → the SE
+  squeeze as one call of the port's GN kernels
+  (``ops/gn.py::fused_gn_relu_pool``: the plain version for CPU tensors)
+  on the conv output in its own dtype, its ``nn.GroupNorm`` only holding
+  ``norm.weight`` and ``norm.bias``, where the JAX block runs flax
+  ``GroupNorm``: the kernels' forward gives ``nn.GroupNorm``'s bits under
+  autocast, and the squeeze is the mean of the activations as they leave
+  the block, as the JAX SE block takes it,
 - sampling for evaluation and inference (:func:`sample_forward`,
   :meth:`BetaVAEModule.sample_prior`, :meth:`BetaVAEModule.traverse`),
   which draw ε through the reparam+KL kernel (``ops/elbo.py``) on the card
@@ -53,6 +61,7 @@ from ..config import get, get_config
 from ..data.dataset import images_to_tensor
 from ..device import resolve_device
 from ..ops.elbo import reparam_kl_forward
+from ..ops.gn import fused_gn_relu_pool
 from ..ops.head import fused_se_conv_head
 from ..ops.reparam import reparameterize_and_kl
 from ..ops.upsample import Upsample2x
@@ -143,6 +152,18 @@ def _normed(norm: nn.Module, y: torch.Tensor) -> torch.Tensor:
     return norm(y).to(y.dtype)
 
 
+def _norm_act(block: nn.Module, h: torch.Tensor):
+    """``(activations, pooled)`` of ``block``'s norm and activation over
+    its conv output ``h``: GroupNorm(1) → ReLU through the GN kernels, with
+    their fp32 per-channel mean as ``pooled``, where the block is built of
+    those two; else its modules, and ``pooled`` None."""
+    if isinstance(block.norm, nn.GroupNorm) and \
+            isinstance(block.act, nn.ReLU):
+        return fused_gn_relu_pool(h, block.norm.weight, block.norm.bias,
+                                  block.norm.eps)
+    return block.act(_normed(block.norm, h)), None
+
+
 class ConvBlock(nn.Module):
     """3×3 stride-2 conv → norm → act → SE (encoder block)."""
 
@@ -155,7 +176,8 @@ class ConvBlock(nn.Module):
         self.se = SEBlock(out_ch, se_reduction)
 
     def forward(self, x):
-        return self.se(self.act(_normed(self.norm, self.conv(x))))
+        h, pooled = _norm_act(self, self.conv(x))
+        return self.se(h, pooled=pooled)
 
 
 class DeconvBlock(nn.Module):
@@ -173,12 +195,10 @@ class DeconvBlock(nn.Module):
     def forward(self, x, return_gate: bool = False):
         """With ``return_gate``: ``(ungated activations, SE gates)``, the
         gates ``None`` when the block has no SE."""
-        h = self.act(_normed(self.norm, self.up(x)))
-        if not return_gate:
-            return self.se(h)
+        h, pooled = _norm_act(self, self.up(x))
         if isinstance(self.se, SEBlock):
-            return self.se(h, return_gate=True)
-        return h, None
+            return self.se(h, return_gate, pooled)
+        return (h, None) if return_gate else h
 
 
 @contextlib.contextmanager

@@ -6,7 +6,9 @@ scale.  Parameters sit at ``block.fc.0`` and ``block.fc.2``, the reference
 torch model's names, so its state dicts load unchanged.  With
 ``return_gate`` the block returns the ungated activations and the gates
 ``[B, C]``, for a caller that folds the gate into its next op
-(``ops/head.py``).
+(``ops/head.py``).  A block whose GN kernels already computed the squeeze
+(``ops/gn.py::fused_gn_relu_pool``: the mean of ``x``, summed in fp32)
+passes it as ``pooled``, and the mean is not taken again.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ class _Excite(nn.Module):
         self.fc = nn.Sequential(nn.Linear(channels, r), nn.ReLU(),
                                 nn.Linear(r, channels), nn.Sigmoid())
 
-    def forward(self, x: torch.Tensor, return_gate: bool = False):
-        gate = self.fc(x.mean(dim=(2, 3)))
+    def forward(self, x: torch.Tensor, return_gate: bool = False,
+                pooled: torch.Tensor | None = None):
+        gate = self.fc(x.mean(dim=(2, 3)) if pooled is None else pooled)
         if return_gate:
             return x, gate
         return x * gate[:, :, None, None]
@@ -34,5 +37,6 @@ class SEBlock(nn.Module):
         super().__init__()
         self.block = _Excite(channels, reduction)
 
-    def forward(self, x: torch.Tensor, return_gate: bool = False):
-        return self.block(x, return_gate)
+    def forward(self, x: torch.Tensor, return_gate: bool = False,
+                pooled: torch.Tensor | None = None):
+        return self.block(x, return_gate, pooled)

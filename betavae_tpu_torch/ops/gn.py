@@ -4,49 +4,66 @@ kernels and their plain PyTorch versions.
 Counterpart of ``betavae_tpu/ops/pallas_gn.py::fused_gn_relu_pool``: every
 block of the flagship ends GroupNorm(1) → ReLU → SE, and the SE squeeze is
 the per-channel mean of the ReLU output.  Per sample, over all C·H·W
-values, in fp32 (the JAX kernel's statistics, not ``nn.GroupNorm``'s
-variance)::
+values, in fp32::
 
-    m = Σx/n ;  v = Σx²/n − m² ;  rstd = rsqrt(max(v, 0) + eps)
-    x̂ = (x − m)·rstd ;  z = x̂·γ + β ;  y = max(z, 0)
-    pooled[b, c] = mean_hw(y)            (of the fp32 y)
+    m, v = the sample's mean and variance ;  rstd = rsqrt(v + eps)
+    a = rstd·γ ;  z = a·x + (β − a·m) ;  y = max(z, 0)
+    pooled[b, c] = mean_hw(rd(y))
 
 and backward, given ``gy`` and ``gp`` (the gradients of ``y`` and
 ``pooled``)::
 
-    gz = (gy + gp/HW)·1[z > 0] ;  dβ[b,c] = Σ_hw gz ;  dγ[b,c] = Σ_hw gz·x̂
+    gz = rd(gy + rd(gp/HW))·1[z > 0] ;  x̂ = (x − m)·rstd
+    dβ[b,c] = Σ_hw gz ;  dγ[b,c] = Σ_hw gz·x̂
     dx̂ = gz·γ ;  dx = rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂·x̂))
 
 with the per-sample ``dγ``/``dβ`` summed over B outside the kernel, as
-``pallas_gn.py:192-197`` does.  Layout is the port's: ``x`` NCHW ``[B, C,
-H, W]`` in bf16 or fp32, ``γ``/``β`` fp32 ``[C]``; ``y`` comes back in x's
+``pallas_gn.py:192-197`` does.  ``rd`` rounds to x's dtype (a no-op in
+fp32): the squeeze is the mean of ``y`` as the block passes it on, and the
+gradient of ``y`` is its two parts (the second the mean's backward in
+``y``'s dtype) summed in ``y``'s dtype, as autograd gives them in a bf16
+model.  So a bf16 block gives what the JAX model's flax blocks (GroupNorm,
+then the SE block's mean of the bf16 activations) and PyTorch's GroupNorm
+under autocast give, to their statistics' rounding; the Pallas kernel
+pools the fp32 ``y``.  The kernels' m, v and z are PyTorch's GroupNorm's
+on the card, bit for bit (its Welford chains and their merge order, and
+its rounding of z; ``csrc/gn.cu``), where the JAX kernel takes v = Σx²/n
+− m² and z = x̂·γ + β: so a block's forward gives ``nn.GroupNorm``'s bits
+under autocast, which the benchmark's reference runs.  The plain versions
+take m and v in float64.  Layout is the port's: ``x`` NCHW ``[B, C, H,
+W]`` in bf16 or fp32, ``γ``/``β`` fp32 ``[C]``; ``y`` comes back in x's
 dtype, ``pooled`` fp32 ``[B, C]``.
 
 Two kernel launchers (``csrc/gn.cu``, whose header gives their bound on an
-H100 and their design): :func:`gn_forward` and :func:`gn_backward`.  Each
-takes one of two paths, by :func:`gn_path` (shape and dtype alone):
-``"cluster"``, one launch per direction with one thread-block cluster of
-``k`` CTAs per sample holding the sample in shared memory (every sample
-within the budget: the flagship's block shapes but its largest, and the
-bench canary's), or ``"generic"``, two launches per direction (a stats
-pass and an apply pass; a sums pass and a dx pass).  Each launches its
-kernels for CUDA tensors and takes the plain version only for CPU tensors;
-``gn_forward.launches`` and ``gn_backward.launches`` count kernel launches
-and ``.launches_by_path`` counts them by path.  The plain versions form
-``z`` with the same separately rounded operations as the kernels, so that
-given the same ``m`` and ``rstd`` the two agree on every ReLU mask bit.
+H100 and their design): :func:`gn_forward`, at every shape the statistics
+pass and an apply pass (the ``"generic"`` path), and :func:`gn_backward`,
+on one of two paths by :func:`gn_path` (shape and dtype alone):
+``"cluster"``, one launch with one thread-block cluster of ``k`` CTAs per
+sample holding the sample in shared memory (every sample within the
+budget: the flagship's block shapes but its largest, and the bench
+canary's), or ``"generic"``, a sums pass and a dx pass.  Each launches
+its kernels for CUDA tensors and takes the plain version only for CPU
+tensors; ``.launches`` counts the calls that launch kernels,
+``.launches_by_path`` counts them by path, and ``.kernels_by_path`` is the
+kernels a call launches on each path, which a captured graph's replays
+count as ``gn.<path>_launches`` (``train/chunks.py``).  The plain versions
+round ``z`` as the kernels do, so that given the same ``m`` and ``rstd``
+the two agree on every ReLU mask bit.
 
-Not wired into the model: the JAX model runs flax GroupNorm and keeps this
-kernel for its bench canary (``bench.py:229``); the port's blocks keep
-``nn.GroupNorm``, and its bench canary (``betavae_tpu_torch/bench.py``) is
-this kernel's path.
+Every block of the model whose norm is ``layer`` and whose activation is
+``relu`` runs :func:`fused_gn_relu_pool` on its conv output
+(``models/beta_vae.py::_norm_act``), and its SE block takes ``pooled`` as
+its squeeze: every encoder and decoder block of the shipped configs, in
+training, validation, evaluation and inference, under remat's recompute
+too.  The JAX model runs flax GroupNorm there and keeps its kernel for its
+bench canary (``bench.py:229``); the port's bench canary
+(``betavae_tpu_torch/bench.py``) runs this kernel too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
@@ -54,8 +71,9 @@ from .. import _build
 from ..device import raw_stream
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# values summed by one block of the generic path's stats pass
-_STATS_CHUNK = 8192
+# the statistics pass's Welford slots a sample, 3 floats each (kSlots in
+# csrc/gn.cu)
+_SLOTS = 16
 # the cluster path's rule, as csrc/gn.cu states it (cl::cluster_k): two
 # CTAs on each SM of the H100 SXM's 132, portable clusters of at most 8
 # CTAs, and a CTA's channels within 72 KiB of shared memory (three CTAs to
@@ -71,35 +89,41 @@ _PER_CHANNEL = 24
 # ---------------------------------------------------------------------------
 
 def _stats(x32: torch.Tensor, eps: float):
-    """``(m, rstd)`` ``[B]`` of fp32 ``x32`` over each sample."""
-    n = x32[0].numel()
-    flat = x32.reshape(x32.shape[0], -1)
-    m = flat.sum(dim=1) / n
-    v = (flat * flat).sum(dim=1) / n - m * m
-    return m, torch.rsqrt(torch.clamp_min(v, 0.0) + eps)
+    """``(m, rstd)`` ``[B]`` of fp32 ``x32`` over each sample: the mean and
+    variance in float64, rounded to fp32 (the kernels' Welford chains give
+    them to fp32's last bits)."""
+    var, m = torch.var_mean(x32.reshape(x32.shape[0], -1).double(), dim=1,
+                            correction=0)
+    return m.float(), torch.rsqrt(var.float() + eps)
 
 
 def _pre_relu(x32, gamma, beta, m, rstd):
-    """``(x̂, z)``, each operation rounded on its own as the kernels do."""
+    """``(x̂, z)`` as the kernels round them: ``x̂ = (x − m)·rstd``; ``a =
+    rstd·γ`` and ``b = −a·m + β`` each rounded, then ``z = a·x + b`` with
+    one rounding (float64 holds the product exactly)."""
     xhat = (x32 - m[:, None, None, None]) * rstd[:, None, None, None]
-    z = xhat * gamma.float()[None, :, None, None] \
-        + beta.float()[None, :, None, None]
+    a = rstd[:, None] * gamma.float()[None, :]
+    b = -a * m[:, None] + beta.float()[None, :]
+    z = (a.double()[:, :, None, None] * x32.double()
+         + b.double()[:, :, None, None]).float()
     return xhat, z
 
 
 def gn_forward_reference(x, gamma, beta, eps: float = 1e-6):
-    """``(y fp32, pooled, m, rstd)``, differentiable in every input."""
+    """``(y fp32, pooled, m, rstd)``, differentiable in every input;
+    ``pooled`` the mean of ``y`` rounded to x's dtype."""
     with torch.autocast(x.device.type, enabled=False):
         x32 = x.float()
         m, rstd = _stats(x32, eps)
         _, z = _pre_relu(x32, gamma, beta, m, rstd)
         y = torch.clamp_min(z, 0.0)
-        return y, y.mean(dim=(2, 3)), m, rstd
+        return y, y.to(x.dtype).float().mean(dim=(2, 3)), m, rstd
 
 
 def gn_relu_pool_reference(x, gamma, beta, eps: float = 1e-6):
     """``(y, pooled)`` in fp32: ``reference_gn_relu_pool`` of the JAX
-    package."""
+    package for fp32 x (for bf16 x, ``pooled`` is the mean of the bf16
+    ``y``)."""
     y, pooled, _, _ = gn_forward_reference(x, gamma, beta, eps)
     return y, pooled
 
@@ -116,7 +140,8 @@ def gn_backward_reference(x, gamma, beta, m, rstd, gy, gp):
         x32 = x.float()
         hw = x.shape[2] * x.shape[3]
         xhat, z = _pre_relu(x32, gamma, beta, m, rstd)
-        g = gy.float() + (gp.float() * (1.0 / hw))[:, :, None, None]
+        gp_hw = (gp.float() * (1.0 / hw)).to(x.dtype).float()
+        g = (gy.float() + gp_hw[:, :, None, None]).to(x.dtype).float()
         gz = torch.where(z > 0, g, torch.zeros_like(g))
         dbeta = gz.sum(dim=(2, 3))
         dgamma = (gz * xhat).sum(dim=(2, 3))
@@ -139,15 +164,15 @@ def _library():
     lib = _build.load("gn")
     # without argtypes ctypes would pass each pointer as a 32-bit int
     lib.betavae_gn_fwd.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p, ctypes.c_int]
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                             ctypes.c_void_p, ctypes.c_int]
     lib.betavae_gn_fwd.restype = ctypes.c_int
     lib.betavae_gn_bwd.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int]
     lib.betavae_gn_bwd.restype = ctypes.c_int
     lib.betavae_gn_path.argtypes = [ctypes.c_int] * 5
     lib.betavae_gn_path.restype = ctypes.c_int
-    lib.betavae_gn_active_clusters.argtypes = [ctypes.c_int] * 8
+    lib.betavae_gn_active_clusters.argtypes = [ctypes.c_int] * 7
     lib.betavae_gn_active_clusters.restype = ctypes.c_int
     return lib
 
@@ -177,19 +202,14 @@ def _check(x, gamma, beta) -> int:
     return _DTYPE_CODES[x.dtype]
 
 
-def stats_splits(sample_values: int) -> int:
-    """Blocks per sample of the generic path's stats pass."""
-    return max(1, min(65535, math.ceil(sample_values / _STATS_CHUNK)))
-
-
 def gn_path(shape, dtype: torch.dtype) -> tuple[str, int]:
-    """The path the kernels take for x of ``shape`` ``[B, C, H, W]`` and
-    ``dtype``: ``("cluster", k)``, one launch per direction with clusters of
-    ``k`` CTAs, or ``("generic", splits)``, two launches per direction with
-    ``splits`` stats blocks a sample.  ``k`` starts at ``min(8, 264 // B,
-    C)``, so that B·k CTAs put two on each of the card's SMs where B
-    allows, and is the least from there to ``min(8, C)`` whose largest
-    slice, ``ceil(C/k)`` channels, fits the shared-memory budget.
+    """The path the backward kernels take for x of ``shape`` ``[B, C, H,
+    W]`` and ``dtype`` (the forward's is always generic): ``("cluster",
+    k)``, one launch with clusters of ``k`` CTAs, or ``("generic", 0)``, two
+    launches.  ``k`` starts at ``min(8, 264 // B, C)``, so that B·k CTAs
+    put two on each of the card's SMs where B allows, and is the least
+    from there to ``min(8, C)`` whose largest slice, ``ceil(C/k)``
+    channels, fits the shared-memory budget.
     ``betavae_gn_path`` in ``csrc/gn.cu`` states the same rule."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"GN kernel takes float32 or bfloat16, got {dtype}")
@@ -199,7 +219,7 @@ def gn_path(shape, dtype: torch.dtype) -> tuple[str, int]:
     for k in range(min(k_max, max(1, _CLUSTER_CTAS // b)), k_max + 1):
         if -(-c // k) * (plane_bytes + _PER_CHANNEL) <= _SLICE_BUDGET:
             return ("cluster", k)
-    return ("generic", stats_splits(c * h * w))
+    return ("generic", 0)
 
 
 # one dictionary lookup per call; shapes are few
@@ -207,15 +227,16 @@ _path_of = functools.lru_cache(maxsize=1024)(gn_path)
 
 
 def _partial_offset(b: int, c: int) -> int:
-    """Where the generic path's stats scratch starts in the forward's fp32
-    buffer, after pooled, m and rstd (``partial_offset`` in ``gn.cu``)."""
+    """Where the statistics pass's Welford slots start in the forward's
+    fp32 buffer, after pooled, m and rstd (``partial_offset`` in
+    ``gn.cu``)."""
     return (b * c + 2 * b + 3) // 4 * 4
 
 
 def _stats_views(buf: torch.Tensor, b: int, c: int):
     """``(pooled [B, C], m [B], rstd [B])``: views of the forward's fp32
-    buffer, in the order ``betavae_gn_fwd`` writes them (the generic
-    path's stats scratch, if any, after them)."""
+    buffer, in the order ``betavae_gn_fwd`` writes them (the statistics
+    pass's slots, if any, after them)."""
     pooled, m, rstd, _ = buf.split_with_sizes(
         (b * c, b, b, buf.numel() - b * c - 2 * b))
     return pooled.view(b, c), m, rstd
@@ -233,24 +254,21 @@ def _count(wrapper, kind: str) -> None:
     wrapper.launches_by_path[kind] += 1
 
 
-def _forward_launch(x, gamma, beta, eps: float, code: int, path):
-    """The forward kernels on ``path`` (:func:`gn_path`'s form; a cluster
-    size above 8 is a non-portable one), for checked CUDA inputs."""
-    kind, n = path
-    k, splits = (n, 0) if kind == "cluster" else (0, n)
+def _forward_launch(x, gamma, beta, eps: float, code: int):
+    """The forward kernels, for checked CUDA inputs."""
     b, c, h, w = x.shape
     x, gamma, beta = x.contiguous(), gamma.contiguous(), beta.contiguous()
     y = torch.empty_like(x)
-    size = b * c + 2 * b if k else _partial_offset(b, c) + 2 * b * splits
-    stats = torch.empty(size, dtype=torch.float32, device=x.device)
+    stats = torch.empty(_partial_offset(b, c) + 3 * _SLOTS * b,
+                        dtype=torch.float32, device=x.device)
     rc = _library().betavae_gn_fwd(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-        stats.data_ptr(), b, c, h, w, eps, code, k, splits,
-        raw_stream(x.device), x.device.index)
+        stats.data_ptr(), b, c, h, w, eps, code, raw_stream(x.device),
+        x.device.index)
     if rc != 0:
-        raise RuntimeError(f"GN forward kernel launch ({kind}, {n}) failed "
-                           f"with CUDA error {rc}")
-    _count(gn_forward, kind)
+        raise RuntimeError(f"GN forward kernel launch failed with CUDA "
+                           f"error {rc}")
+    _count(gn_forward, "generic")
     return (y, *_stats_views(stats, b, c))
 
 
@@ -262,12 +280,12 @@ def gn_forward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         y, pooled, m, rstd = gn_forward_reference(x, gamma, beta, eps)
         return y.to(x.dtype), pooled, m, rstd
     code = _check(x, gamma, beta)
-    return _forward_launch(x, gamma, beta, float(eps), code,
-                           _path_of(x.shape, x.dtype))
+    return _forward_launch(x, gamma, beta, float(eps), code)
 
 
 gn_forward.launches = 0
-gn_forward.launches_by_path = {"cluster": 0, "generic": 0}
+gn_forward.launches_by_path = {"generic": 0}
+gn_forward.kernels_by_path = {"generic": 2}
 
 
 def _backward_launch(x, gamma, beta, m, rstd, gy, gp, code: int, path):
@@ -313,16 +331,17 @@ def gn_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 gn_backward.launches = 0
 gn_backward.launches_by_path = {"cluster": 0, "generic": 0}
+gn_backward.kernels_by_path = {"cluster": 1, "generic": 2}
 
 
-def _active_clusters(shape, dtype: torch.dtype, k: int, backward: bool,
+def _active_clusters(shape, dtype: torch.dtype, k: int,
                      device: torch.device) -> int:
-    """Clusters of ``k`` CTAs of the forward or backward cluster kernel the
-    card holds at once for ``shape`` (``cudaOccupancyMaxActiveClusters``);
+    """Clusters of ``k`` CTAs of the backward's cluster kernel the card
+    holds at once for ``shape`` (``cudaOccupancyMaxActiveClusters``);
     raises where the query fails."""
     b, c, h, w = shape
     n = _library().betavae_gn_active_clusters(
-        b, c, h, w, _DTYPE_CODES[dtype], k, int(backward), device.index or 0)
+        b, c, h, w, _DTYPE_CODES[dtype], k, device.index or 0)
     if n < 0:
         raise RuntimeError(f"GN cluster occupancy query failed with CUDA "
                            f"error {-n}")

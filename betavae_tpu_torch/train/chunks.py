@@ -71,7 +71,12 @@ A chunk's dispatch is the span ``dispatch.chunk`` of
 :data:`..utils.profiling.SPANS`, with a pair of CUDA events on its stream,
 and its parts the host spans ``dispatch.stage``, ``dispatch.upload``,
 ``dispatch.draws`` and ``dispatch.launch``; every launch of a captured
-graph is counted (``graphs.device_launches``, ``graphs.host_launches``).
+graph is counted (``graphs.device_launches``, ``graphs.host_launches``),
+and so are the kernel launches it holds by path, of each wrapper that
+gives its kernels a call on each path (``kernels_by_path``), as
+``<module>.<path>_launches``: ``gn.cluster_launches`` and
+``gn.generic_launches``, the GN kernels of ``ops/gn.py`` that the capture
+recorded, each launch of the graph adding them.
 
 The captured step is the eager step (``make_train_step`` with its slot's
 values as device tensors), so a chunk computes bitwise what the steps one by
@@ -386,12 +391,23 @@ class _Captured:
 
     def __init__(self, graph, per_replay: dict, seconds: float):
         self.graph, self.per_replay, self.seconds = graph, per_replay, seconds
+        # the kernel launches a replay holds by path, of the wrappers that
+        # say how many kernels a call launches on each path
+        self.kernel_launches = {}
+        for name, w in kernel_wrappers().items():
+            for path, k in getattr(w, "kernels_by_path", {}).items():
+                key = f"{w.__module__.rsplit('.', 1)[-1]}.{path}_launches"
+                self.kernel_launches[key] = self.kernel_launches.get(
+                    key, 0) + k * per_replay[name][1][path]
 
     def replay(self, times: int) -> None:
         for _ in range(times):
             self.graph.replay()
         if not isinstance(self.graph, DeviceLaunched):
             count("graphs.host_launches", times)
+        for key, n in self.kernel_launches.items():
+            if n:
+                count(key, n * times)
         _add_counts(self.per_replay, times)
 
     def launches(self) -> dict:

@@ -38,14 +38,18 @@ Phases, each printing one line (any failure exits non-zero at once):
    (each with the path it took, TMA or generic, its device time, and two
    launches held bitwise equal), the GroupNorm(1)+ReLU+pool
    forward and backward kernels at the flagship's eight block
-   shapes in bf16, its largest in fp32, a ragged shape and the bench
-   canary's (each with its path, cluster or generic, one launch a call,
+   shapes in bf16, its largest in fp32, a ragged shape, the bench
+   canary's and the scaled config's ten blocks at batch 256 in bf16 (each
+   with its backward's path, cluster or generic, one call a launch (the
+   forward's path always generic), pooled against
+   the mean of the y it returns,
    its device time back to back and after clean and dirty L2 flushes, the
    host's microseconds a call, and two launches held bitwise
    equal; every block but dec3, and the canary, must take the cluster
-   path), each beside ``F.group_norm`` and the unfused sequence the port's
+   path backward), each beside ``F.group_norm`` and the unfused sequence the port's
    blocks run; where a GN call's host time goes at the canary; dec3's
-   bf16 sample on a non-portable cluster of 16 against the generic path;
+   bf16 sample's backward on a non-portable cluster of 16 against the
+   generic path;
    and the bilinear ×2 upsample's forward and gather-backward kernels at
    the flagship decoder's four shapes in bf16 and fp32, a ragged shape,
    the scaled config's five shapes (B = 256, bf16) and the demo
@@ -198,7 +202,10 @@ Phases, each printing one line (any failure exits non-zero at once):
    ``profile`` phase's; every kernel's launch count is set to 0
    just before each of these runs and read just after, every head kernel
    launch there must have taken the TMA path, every upsample launch the
-   vector path, and every GN launch of the canary the cluster path (in
+   vector path, and the GN kernels launch once an encoder or decoder
+   block each way a step (by path, in the bench: every forward generic,
+   the canary's backward on the cluster path, then 7 cluster backward
+   launches to each generic one) (in
    the evaluation, the reparam+KL forward once
    per test batch, panel and prior draw, the head forward once per decode,
    nothing else); then a
@@ -270,6 +277,15 @@ GN_BLOCKS = (("enc0", (32, 64, 64, 64)), ("enc1", (32, 128, 32, 32)),
              ("enc2", (32, 256, 16, 16)), ("enc3", (32, 512, 8, 8)),
              ("dec0", (32, 256, 16, 16)), ("dec1", (32, 128, 32, 32)),
              ("dec2", (32, 64, 64, 64)), ("dec3", (32, 64, 128, 128)))
+# the scaled config's blocks (configs/beta_vae_se_tpu_scaled.yaml: 256 px,
+# base 64, 5 blocks) at its batch of 256, bf16
+GN_SCALED_BLOCKS = (("enc0", (256, 64, 128, 128)),
+                    ("enc1", (256, 128, 64, 64)),
+                    ("enc2", (256, 256, 32, 32)), ("enc3", (256, 512, 16, 16)),
+                    ("enc4", (256, 1024, 8, 8)), ("dec0", (256, 512, 16, 16)),
+                    ("dec1", (256, 256, 32, 32)), ("dec2", (256, 128, 64, 64)),
+                    ("dec3", (256, 64, 128, 128)),
+                    ("dec4", (256, 64, 256, 256)))
 GN_EXTRA_CASES = (((32, 64, 128, 128), "float32"), ((3, 5, 37, 53), "float32"))
 GN_CANARY_CASE = ((2, 64, 32, 32), "float32")
 # blocks whose sample is over a portable cluster's shared memory (2 MiB in
@@ -1329,8 +1345,9 @@ def gn_inputs(shape, dtype_name: str, seed: int = 0):
 
 def check_gn(shape, dtype_name: str) -> dict:
     """The GN forward and backward kernels on the card against their plain
-    versions, two launches against each other, the path each took (and,
-    on the cluster path, how many clusters the card holds at once), and
+    versions, two launches against each other, the path each took (the
+    forward's is always generic; on the backward's cluster path, how many
+    clusters the card holds at once), and
     times: a call (host included), the device time back to back and after
     a clean and a dirty L2 flush, the host's microseconds a call, beside
     the bound, the plain version, one ``F.group_norm`` call and the unfused
@@ -1353,8 +1370,9 @@ def check_gn(shape, dtype_name: str) -> dict:
     launches_by_path = {
         name: {p: f.launches_by_path[p] - before[f][p] for p in before[f]}
         for name, f in (("forward", gn_forward), ("backward", gn_backward))}
-    want = {p: int(p == kind) for p in before[gn_forward]}
-    if any(got != want for got in launches_by_path.values()):
+    want = {"forward": {"generic": 1},
+            "backward": {p: int(p == kind) for p in before[gn_backward]}}
+    if launches_by_path != want:
         fail(f"{case}: launches by path {launches_by_path}, want {want} "
              f"(gn_path {kind, n})")
     # fp32 results: sums of the same values in another order, 1e-5
@@ -1365,9 +1383,13 @@ def check_gn(shape, dtype_name: str) -> dict:
     y_ref, pooled_ref, m_ref, rstd_ref = gn_forward_reference(x, gamma, beta)
     dx_ref, dgamma_ref, dbeta_ref = gn_backward_reference(
         x, gamma, beta, m, rstd, gy, gp)
+    # pooled is the mean of the y the kernel returns (1e-5 against that
+    # mean); against the plain version's it carries y's rounding
     checks = {}
     for name, got, want_, tol in (
-            ("y", y, y_ref, io_tol), ("pooled", pooled, pooled_ref, 1e-5),
+            ("y", y, y_ref, io_tol),
+            ("pooled_vs_y", pooled, y.float().mean(dim=(2, 3)), 1e-5),
+            ("pooled", pooled, pooled_ref, io_tol),
             ("m", m, m_ref, 1e-5), ("rstd", rstd, rstd_ref, 1e-5),
             ("dx", dx, dx_ref, io_tol), ("dgamma", dgamma, dgamma_ref, 1e-5),
             ("dbeta", dbeta, dbeta_ref, 1e-5)):
@@ -1454,45 +1476,46 @@ def check_gn(shape, dtype_name: str) -> dict:
         row["bound_ms"] = max(bytes_ms, ops_ms)
         row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         row["bound_fraction"] = row["bound_ms"] / row["device_ms"]
-        row["path"] = kind
-    out = {"shape": list(shape), "dtype": dtype_name, "path": kind,
-           "k" if kind == "cluster" else "splits": n,
+    fwd["path"], bwd["path"] = "generic", kind
+    out = {"shape": list(shape), "dtype": dtype_name, "path": kind, "k": n,
            "launches_by_path": launches_by_path, "checks": checks,
            "forward": fwd, "backward": bwd}
     if kind == "cluster":
-        out["active_clusters"] = {
-            part: _active_clusters(shape, x.dtype, n, part == "backward",
-                                   x.device)
-            for part in ("forward", "backward")}
+        out["active_clusters"] = _active_clusters(shape, x.dtype, n,
+                                                  x.device)
     return out
 
 
 def check_gn_cases() -> dict:
     """``check_gn`` once per distinct (shape, dtype) of the flagship's
-    blocks, the extra cases and the canary's; returns them by case and the
-    blocks' map onto them.  Every flagship block but dec3 (2 MiB a sample
-    in bf16) and the canary must take the cluster path."""
+    blocks, the extra cases, the canary's and the scaled config's blocks;
+    returns them by case and the blocks' maps onto them.  Every flagship
+    block but dec3 (2 MiB a sample in bf16) and the canary must take the
+    cluster path backward."""
     cases = {}
     wanted = ([(shape, "bfloat16") for _, shape in GN_BLOCKS]
-              + list(GN_EXTRA_CASES) + [GN_CANARY_CASE])
+              + list(GN_EXTRA_CASES) + [GN_CANARY_CASE]
+              + [(shape, "bfloat16") for _, shape in GN_SCALED_BLOCKS])
     for shape, dtype in wanted:
         key = f"{'x'.join(map(str, shape))}_{dtype}"
         if key not in cases:
             cases[key] = check_gn(shape, dtype)
     blocks = {name: f"{'x'.join(map(str, shape))}_bfloat16"
               for name, shape in GN_BLOCKS}
+    scaled = {name: f"{'x'.join(map(str, shape))}_bfloat16"
+              for name, shape in GN_SCALED_BLOCKS}
     must = [key for name, key in blocks.items()
             if name not in GN_GENERIC_BLOCKS]
     must.append(f"{'x'.join(map(str, GN_CANARY_CASE[0]))}_{GN_CANARY_CASE[1]}")
     generic = [key for key in must if cases[key]["path"] != "cluster"]
     if generic:
         fail(f"gn: {generic} took the generic path")
-    return {"cases": cases, "blocks": blocks}
+    return {"cases": cases, "blocks": blocks, "scaled_blocks": scaled}
 
 
 def gn_host_split() -> dict:
     """Where a GN call's host time goes, at the canary's fp32 [2, 64, 32,
-    32] (cluster path): host microseconds a call of each piece of the
+    32] (cluster path backward): host microseconds a call of each piece of the
     wrapper, alone, over calls with no synchronise, beside the whole call
     and one ``F.group_norm`` call."""
     import torch
@@ -1507,13 +1530,14 @@ def gn_host_split() -> dict:
     k = gn.gn_path(shape, x.dtype)[1]
     lib = gn._library()
     y, pooled, m, rstd = gn.gn_forward(x, gamma, beta)
-    stats = torch.empty(b * c + 2 * b, dtype=torch.float32, device="cuda")
+    stats = torch.empty(gn._partial_offset(b, c) + 3 * gn._SLOTS * b,
+                        dtype=torch.float32, device="cuda")
     dx = torch.empty_like(x)
     dparams = torch.empty((2, b, c), dtype=torch.float32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     fwd_args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                y.data_ptr(), stats.data_ptr(), b, c, h, w, 1e-6, 0, k, 0,
-                stream, 0)
+                y.data_ptr(), stats.data_ptr(), b, c, h, w, 1e-6, 0, stream,
+                0)
     bwd_args = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                 m.data_ptr(), rstd.data_ptr(), gy.data_ptr(), gp.data_ptr(),
                 dx.data_ptr(), dparams.data_ptr(), b, c, h, w, 0, k, stream,
@@ -1530,7 +1554,7 @@ def gn_host_split() -> dict:
                                   beta.contiguous()),
         "allocations_forward": lambda: (
             torch.empty_like(x),
-            torch.empty(b * c + 2 * b, dtype=torch.float32,
+            torch.empty(stats.numel(), dtype=torch.float32,
                         device=x.device)),
         "current_stream": lambda: torch.cuda.current_stream(
             x.device).cuda_stream,
@@ -1547,65 +1571,50 @@ def gn_host_split() -> dict:
 
 
 def gn_cluster16_trial() -> dict:
-    """dec3's bf16 sample (2 MiB) on a non-portable cluster of 16 CTAs (128
-    KB each), which the path rule does not take: whether the card schedules
-    it (``cudaOccupancyMaxActiveClusters``), whether it matches the plain
-    versions, and its device time against the generic path's, in turns
-    (generic, cluster, cluster, generic) in this call."""
+    """dec3's bf16 sample (2 MiB) backward on a non-portable cluster of 16
+    CTAs (128 KB each), which the path rule does not take: whether the card
+    schedules it (``cudaOccupancyMaxActiveClusters``), whether it matches
+    the plain version, and its device time against the generic path's, in
+    turns (generic, cluster, cluster, generic) in this call."""
     import torch
 
     from betavae_tpu_torch.ops import gn
 
     shape = dict(GN_BLOCKS)["dec3"]
     x, gamma, beta, gy, gp = gn_inputs(shape, "bfloat16")
-    active = {part: gn._active_clusters(shape, x.dtype, 16,
-                                        part == "backward", x.device)
-              for part in ("forward", "backward")}
+    active = gn._active_clusters(shape, x.dtype, 16, x.device)
     out = {"shape": list(shape), "dtype": "bfloat16", "k": 16,
            "active_clusters": active}
-    if min(active.values()) < 1:
+    if active < 1:
         return out
     code = gn._DTYPE_CODES[x.dtype]
     paths = {"generic": gn.gn_path(shape, x.dtype),
              "cluster16": ("cluster", 16)}
+    _, _, m, rstd = gn.gn_forward(x, gamma, beta)
 
-    def fwd(path):
-        return gn._forward_launch(x, gamma, beta, 1e-6, code, path)
-
-    def bwd(path, m, rstd):
+    def bwd(path):
         return gn._backward_launch(x, gamma, beta, m, rstd, gy, gp, code, path)
 
-    y, pooled, m, rstd = fwd(paths["cluster16"])
-    dx, dgamma, dbeta = bwd(paths["cluster16"], m, rstd)
-    y_ref, pooled_ref, m_ref, rstd_ref = gn.gn_forward_reference(x, gamma,
-                                                                 beta)
+    dx, dgamma, dbeta = bwd(paths["cluster16"])
     dx_ref, dgamma_ref, dbeta_ref = gn.gn_backward_reference(
         x, gamma, beta, m, rstd, gy, gp)
     err = {}
     for name, got, want, tol in (
-            ("y", y, y_ref, 2**-8), ("pooled", pooled, pooled_ref, 1e-5),
-            ("m", m, m_ref, 1e-5), ("rstd", rstd, rstd_ref, 1e-5),
             ("dx", dx, dx_ref, 2**-8), ("dgamma", dgamma, dgamma_ref, 1e-5),
             ("dbeta", dbeta, dbeta_ref, 1e-5)):
         scale = float(want.float().abs().max())
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol * scale)
         err[name] = float((got.float() - want.float()).abs().max())
-    del y_ref, dx_ref, y, dx
-    times = {f"{part}_{name}": [] for part in ("forward", "backward")
-             for name in paths}
+    del dx_ref, dx
+    times = {name: [] for name in paths}
     for name in ("generic", "cluster16", "cluster16", "generic"):
         path = paths[name]
-        times[f"forward_{name}"].append(device_ms_per_call(
-            lambda: fwd(path), f"dec3 cluster trial forward {name}",
-            only="gn_", kernel="gn_forward"))
-        times[f"backward_{name}"].append(device_ms_per_call(
-            lambda: bwd(path, m, rstd), f"dec3 cluster trial backward {name}",
+        times[name].append(device_ms_per_call(
+            lambda: bwd(path), f"dec3 cluster trial backward {name}",
             only="gn_", kernel="gn_backward"))
-    out.update(max_abs_err=err, device_ms=times,
-               faster={part: max(times[f"{part}_cluster16"])
-                       < min(times[f"{part}_generic"])
-                       for part in ("forward", "backward")})
+    out.update(max_abs_err=err, backward_device_ms=times,
+               faster=max(times["cluster16"]) < min(times["generic"]))
     return out
 
 
@@ -1681,36 +1690,42 @@ def read_counts(kernels: dict) -> dict:
 
 def launches_per_step(kernels: dict, fused_head: bool, steps: int,
                       blocks: int = FLAGSHIP_BLOCKS,
-                      recompute: bool = False) -> dict:
+                      remat: str = "none") -> dict:
     """Launches of ``steps`` train steps: the reparam+KL forward and
     backward every step, the head kernels with the fused head, the
-    upsample forward and backward once a decoder block (the forward twice
-    where ``training.remat`` recomputes the decoder blocks in the
-    backward), the GN kernels never (the model keeps ``nn.GroupNorm``)."""
+    upsample forward and backward once a decoder block, the GN forward and
+    backward once an encoder or decoder block (``blocks`` of each); where
+    ``training.remat`` (``models/beta_vae.py::resolve_remat``'s mode)
+    recomputes blocks in the backward, their forwards run twice: the
+    decoder's under ``decoder``, every block's under ``all``."""
+    recomputed = {"none": 0, "decoder": blocks, "all": 2 * blocks}[remat]
     per_step = {"fused_reparam_kl": 1, "reparam_kl_backward": 1,
                 "head_forward": int(fused_head), "head_m": int(fused_head),
-                "upsample_forward": blocks * (1 + int(recompute)),
-                "upsample_backward": blocks}
+                "upsample_forward": blocks * (1 + int(remat != "none")),
+                "upsample_backward": blocks,
+                "gn_forward": 2 * blocks + recomputed,
+                "gn_backward": 2 * blocks}
     return {name: steps * per_step.get(name, 0) for name in kernels}
 
 
 def capture_warmup(kernels: dict, fused_head: bool, train: int = 1,
                    val: int = 0, blocks: int = FLAGSHIP_BLOCKS,
-                   recompute: bool = False) -> dict:
+                   remat: str = "none") -> dict:
     """Launches of the runs before each capture (``train/chunks.py``),
     which ran on the card and count: CAPTURE_WARMUP train steps for each of
     ``train`` captured train steps, CAPTURE_WARMUP validation batches for
     each of ``val`` captured validation batches (a batch: the reparam+KL
     forward, the head forward with the fused head, the upsample forward a
-    decoder block)."""
+    decoder block, the GN forward an encoder or decoder block)."""
     from betavae_tpu_torch.train.chunks import CAPTURE_WARMUP
 
     out = launches_per_step(kernels, fused_head, CAPTURE_WARMUP * train,
-                            blocks=blocks, recompute=recompute)
+                            blocks=blocks, remat=remat)
     batches = CAPTURE_WARMUP * val
     out["fused_reparam_kl"] += batches
     out["head_forward"] += batches * int(fused_head)
     out["upsample_forward"] += batches * blocks
+    out["gn_forward"] += batches * 2 * blocks
     return out
 
 
@@ -1719,12 +1734,46 @@ def plus(a: dict, b: dict) -> dict:
     return {k: v + b.get(k, 0) for k, v in a.items()}
 
 
-def upsample_launches(decodes: int, backward_steps: int = 0,
-                      blocks: int = FLAGSHIP_BLOCKS) -> dict:
-    """The upsample kernels' launches of ``decodes`` decoder forwards, of
-    which ``backward_steps`` train steps ran the backward."""
+def block_launches(decodes: int, backward_steps: int = 0,
+                   blocks: int = FLAGSHIP_BLOCKS,
+                   encodes: int | None = None) -> dict:
+    """The upsample and GN kernels' launches of ``decodes`` decoder
+    forwards and ``encodes`` encoder forwards (as many as the decodes
+    where None: a train step, a validation batch and a panel run both), of
+    which ``backward_steps`` train steps ran the backward: the upsample
+    once a decoder block, the GN kernels once an encoder or decoder block
+    (``blocks`` of each)."""
+    encodes = decodes if encodes is None else encodes
     return {"upsample_forward": blocks * decodes,
-            "upsample_backward": blocks * backward_steps}
+            "upsample_backward": blocks * backward_steps,
+            "gn_forward": blocks * (encodes + decodes),
+            "gn_backward": 2 * blocks * backward_steps}
+
+
+@contextlib.contextmanager
+def counted_forwards():
+    """``{"encode": n, "decode": n}``: the calls of ``BetaVAEModule.encode``
+    and ``decode`` while open, for the eager paths (the evaluation and
+    inference CLIs, the scripts), where each call runs the GN kernels once
+    a block; a launch of a captured graph runs no Python."""
+    from betavae_tpu_torch.models.beta_vae import BetaVAEModule
+
+    counts = {"encode": 0, "decode": 0}
+    real = {name: getattr(BetaVAEModule, name) for name in counts}
+
+    def counting(name):
+        def call(self, *args, **kwargs):
+            counts[name] += 1
+            return real[name](self, *args, **kwargs)
+        return call
+
+    for name in counts:
+        setattr(BetaVAEModule, name, counting(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(BetaVAEModule, name, fn)
 
 
 def check_small_slice(tmp: str, kernels: dict, fused_head: bool) -> dict:
@@ -1804,6 +1853,7 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool,
     import torch
 
     from betavae_tpu_torch.logging_utils import reset_logger
+    from betavae_tpu_torch.models.beta_vae import resolve_remat
     from betavae_tpu_torch.train.loop import train_steps
 
     cfg = flagship_config(tmp, fused_head, **overrides)
@@ -1818,11 +1868,11 @@ def run_flagship(tmp: str, kernels: dict, fused_head: bool,
     totals = out["totals"]
     if len(totals) != FLAGSHIP_STEPS or not all(map(math.isfinite, totals)):
         fail(f"flagship: expected {FLAGSHIP_STEPS} finite losses, got {totals}")
-    recompute = overrides.get("training.remat", False) is not False
+    remat = resolve_remat(overrides.get("training.remat", False))
     # resident or fed from the host, the trainer captures its step
     want = plus(launches_per_step(kernels, fused_head, FLAGSHIP_STEPS,
-                                  recompute=recompute),
-                capture_warmup(kernels, fused_head, recompute=recompute))
+                                  remat=remat),
+                capture_warmup(kernels, fused_head, remat=remat))
     if out["dispatch"] != "cuda_graph" or launches != want:
         fail(f"flagship (fused_head {fused_head}, {overrides}): dispatch "
              f"{out['dispatch']}, kernel launches {launches} in "
@@ -2375,7 +2425,7 @@ def run_scaled(tmp: str, kernels: dict) -> dict:
     want = {name: 0 for name in kernels}
     want.update(fused_reparam_kl=steps + SCALED_EPOCHS * val_batches,
                 reparam_kl_backward=steps,
-                **upsample_launches(decodes, steps, blocks=SCALED_BLOCKS))
+                **block_launches(decodes, steps, blocks=SCALED_BLOCKS))
     want16 = plus(want, capture_warmup(kernels, False, train=1, val=1,
                                        blocks=SCALED_BLOCKS))
     if (runs[1]["launches"], runs[16]["launches"]) != (want, want16) or \
@@ -2467,7 +2517,7 @@ def mesh_scaled_run(tmp: str, kernels: dict, devices: list, k: int,
         w = {name: 0 for name in kernels}
         w.update(fused_reparam_kl=steps + MESH_EPOCHS * val_batches,
                  reparam_kl_backward=steps,
-                 **upsample_launches(decodes, steps, blocks=blocks))
+                 **block_launches(decodes, steps, blocks=blocks))
         if k > 1:
             w = plus(w, capture_warmup(kernels, False, train=1, val=1,
                                        blocks=blocks))
@@ -2854,8 +2904,7 @@ def run_epochs(tmp: str, kernels: dict) -> dict:
     want = {"head_forward": decodes, "head_m": train_steps,
             "fused_reparam_kl": train_steps + EPOCHS_TOTAL * val_batches,
             "reparam_kl_backward": train_steps,
-            "gn_forward": 0, "gn_backward": 0,
-            **upsample_launches(decodes, train_steps)}
+            **block_launches(decodes, train_steps)}
     # the two train() calls each capture a train step and a validation
     # batch
     want = plus(want, capture_warmup(kernels, True, train=2, val=2))
@@ -2933,8 +2982,7 @@ def epochs_launches(kernels: dict, train_steps: int, epochs: int) -> dict:
     return plus({"head_forward": decodes, "head_m": train_steps,
                  "fused_reparam_kl": train_steps + epochs,
                  "reparam_kl_backward": train_steps,
-                 "gn_forward": 0, "gn_backward": 0,
-                 **upsample_launches(decodes, train_steps)},
+                 **block_launches(decodes, train_steps)},
                 capture_warmup(kernels, True, train=1, val=1))
 
 
@@ -3284,8 +3332,7 @@ def run_reference_ckpt(tmp: str, kernels: dict) -> dict:
         "step"] + 1
     want = plus({"head_forward": steps + 1 + 1, "head_m": steps,
                  "fused_reparam_kl": steps + 1, "reparam_kl_backward": steps,
-                 "gn_forward": 0, "gn_backward": 0,
-                 **upsample_launches(steps + 1 + 1, steps)},
+                 **block_launches(steps + 1 + 1, steps)},
                 capture_warmup(kernels, True, train=1, val=1))
     total_rel = _rel(first["reference"]["train_total_loss"],
                      first["native"]["train_total_loss"])
@@ -3620,7 +3667,11 @@ PROFILED_KERNELS = {"fused_reparam_kl": (r"reparam_kl_kernel", 1),
                     "head_m": (r"head_m_", 1),
                     "upsample_forward": (r"upsample2x_fwd", FLAGSHIP_BLOCKS),
                     "upsample_backward": (r"upsample2x_bwd",
-                                          FLAGSHIP_BLOCKS)}
+                                          FLAGSHIP_BLOCKS),
+                    # a call's statistics pass, on either path
+                    "gn_forward": (r"gn_stats_kernel", 2 * FLAGSHIP_BLOCKS),
+                    "gn_backward": (r"gn_bwd_cluster_kernel|gn_bwd_sums_kernel",
+                                    2 * FLAGSHIP_BLOCKS)}
 
 
 def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
@@ -3628,8 +3679,9 @@ def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
     ``logging.profile_steps: 5``: one trace a window (steps 1-3 and 4-5,
     the window closing at an epoch's end), each read with the port's
     ``utils/trace.py``, whose rows must hold the reparam+KL forward and
-    backward and the head forward and M kernels at 1 a step, and the
-    upsample kernels at one a decoder block a step; its device kernels'
+    backward and the head forward and M kernels at 1 a step, the
+    upsample kernels at one a decoder block a step, and the GN kernels at
+    one an encoder or decoder block a step each way; its device kernels'
     total per step beside the ``profile`` phase's fused step; and the
     captured graphs instantiated anew for launch from the device after a
     window (``chunks.DeviceLaunched``: at least once), with their
@@ -3756,10 +3808,11 @@ def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
                  for m in ("matplotlib", "pandas", "sklearn", "umap", "PIL")}
     argv = ["--config", cfg_path]
     zero_counts(kernels)
-    seconds = {"latent_analysis": _cli(latent_analysis.main, argv),
-               "run_evaluation": _cli(run_evaluation.main, argv),
-               "encode": _cli(encode.main, argv),
-               "generate": _cli(generate.main, argv + ["--seed", "3"])}
+    with counted_forwards() as forwards:
+        seconds = {"latent_analysis": _cli(latent_analysis.main, argv),
+                   "run_evaluation": _cli(run_evaluation.main, argv),
+                   "encode": _cli(encode.main, argv),
+                   "generate": _cli(generate.main, argv + ["--seed", "3"])}
     launches = read_counts(kernels)
     paths = head_paths(kernels)
 
@@ -3806,8 +3859,9 @@ def run_eval_toolchain(tmp: str, kernels: dict) -> dict:
                + len(dims) + len(tumor)            # traversals
                + 3)                    # prior samples, edit, interpolation
     want = {name: 0 for name in kernels}
+    # the GN kernels once a block of each encoder forward the CLIs ran
     want.update(fused_reparam_kl=test_batches + 1 + 1, head_forward=decodes,
-                **upsample_launches(decodes))
+                **block_launches(decodes, encodes=forwards["encode"]))
     if launches != want:
         fail(f"eval_toolchain: kernel launches {launches}, want {want}")
 
@@ -4058,10 +4112,14 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
     total = {name: 0 for name in kernels}
     none = {name: 0 for name in kernels}
 
+    encodes = {}
+
     def run(name, main, argv):
         zero_counts(kernels)
-        seconds[name], result = _cli_run(main, argv)
+        with counted_forwards() as forwards:
+            seconds[name], result = _cli_run(main, argv)
         launches[name] = read_counts(kernels)
+        encodes[name] = forwards["encode"]
         for k, v in launches[name].items():
             total[k] += v
         return result
@@ -4165,7 +4223,8 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
                     | {f"traversal_tumor_{c}.png" for c in classes
                        if c != "notumor"})
     want = dict(none, head_forward=len(want_figures),
-                **upsample_launches(len(want_figures)))
+                **block_launches(len(want_figures),
+                                 encodes=encodes["traverse_image"]))
     if set(os.listdir(figures)) != want_figures or \
             launches["traverse_image"] != want:
         fail(f"scripts: traverse_image wrote {sorted(os.listdir(figures))}, "
@@ -4182,7 +4241,7 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
     batches = (-(-flagship["debug"]["train_samples"] // bs)
                + -(-flagship["debug"]["test_samples"] // bs) + 1)
     want = dict(none, fused_reparam_kl=batches, head_forward=batches,
-                **upsample_launches(batches))
+                **block_launches(batches, encodes=encodes["diag_overfit"]))
     if not all_finite(stats) or launches["diag_overfit"] != want:
         fail(f"scripts: diag_overfit {stats}, launched "
              f"{launches['diag_overfit']}, want {want}")
@@ -4208,7 +4267,8 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
     reset_config_cache()
     over_stats = run("diag_overfit_capacity", diag_overfit.main,
                      ["--config", over_cfg])
-    want = dict(none, **upsample_launches(3))
+    want = dict(none, **block_launches(
+        3, encodes=encodes["diag_overfit_capacity"]))
     if not all_finite(over_stats) or \
             launches["diag_overfit_capacity"] != want:
         fail(f"scripts: diag_overfit on overfit_capacity.yaml {over_stats}, "
@@ -4236,9 +4296,12 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
         grid_size = list(im.size)
     cell = generate_umap_and_grid.CELL
     want_grid = [180 + 7 * cell, 36 + 24 + len(traversals) * cell]
+    # the GIF's encode: the GN kernels once an encoder block a batch
+    want = dict(none, **block_launches(
+        0, encodes=encodes["generate_umap_and_grid"]))
     if (umap_gif != {"frames": 60, "size": [600, 500]}
             or grid_size != want_grid or not traversals
-            or launches["generate_umap_and_grid"] != none):
+            or launches["generate_umap_and_grid"] != want):
         fail(f"scripts: generate_umap_and_grid GIF {umap_gif}, grid "
              f"{grid_size} (want {want_grid} for {len(traversals)} "
              f"figures), launched {launches['generate_umap_and_grid']}")
@@ -4293,7 +4356,8 @@ def run_scripts(tmp: str, kernels: dict) -> dict:
     test_batches = -(-4 * REF_TEST_PER_CLASS // bs)
     want = dict(none, fused_reparam_kl=test_batches + 1,
                 head_forward=test_batches + 2 + 7 + 3,
-                **upsample_launches(test_batches + 2 + 7 + 3))
+                **block_launches(test_batches + 2 + 7 + 3,
+                                 encodes=encodes["parity_check"]))
     if code != 0 or launches["parity_check"] != want:
         fail(f"scripts: parity_check exit {code} ({report[-1]}), launched "
              f"{launches['parity_check']}, want {want}; rows not OK: "
@@ -4385,8 +4449,10 @@ def run_eval_vs_cpu(tmp: str, kernels: dict) -> dict:
     probe_abs = max(abs(gpu["probe"][k] - cpu["probe"][k])
                     for k in ("probe_macro_f1", "probe_macro_auc"))
     batches = -(-len(test_ds) // 8)
+    # the reconstruction metrics' forwards, then extract_latents' encodes
     want = {"fused_reparam_kl": batches, "head_forward": batches,
-            **upsample_launches(batches, blocks=SMALL_BLOCKS)}
+            **block_launches(batches, blocks=SMALL_BLOCKS,
+                             encodes=2 * batches)}
     got = {k: gpu["launches"][k] for k in want}
     if not (recon_rel <= 1e-3 and latent_rel <= 1e-3 and probe_abs <= 0.05
             and got == want and not any(cpu["launches"].values())):
@@ -4449,7 +4515,7 @@ def run_debug_config(tmp: str, kernels: dict) -> dict:
     want = {"fused_reparam_kl": steps + out["epoch"] * val_batches,
             "reparam_kl_backward": steps,
             # the train steps, validation batches and an epoch's panel
-            **upsample_launches(steps + out["epoch"] * (val_batches + 1),
+            **block_launches(steps + out["epoch"] * (val_batches + 1),
                                 steps)}
     # one captured train step and validation batch
     want = plus(want, capture_warmup(kernels, False, train=1, val=1))
@@ -4494,7 +4560,9 @@ def run_demo_notebook(tmp: str, kernels: dict) -> dict:
     upsample DEMO_BLOCKS times a decode (train steps, validation batches,
     an epoch's panel; the test batches, the panel and its two traversal
     endpoints; the figure's one) and a backward, all on the vector path;
-    the head and GN kernels never.  Then the same ``best`` checkpoint is
+    the GN kernels DEMO_BLOCKS times an encode or decode and twice that a
+    backward (``train()``'s encodes are its decodes; the other cells'
+    are counted); the head kernels never.  Then the same ``best`` checkpoint is
     evaluated by ``evaluate_full`` on the CPU (into another output tree):
     the reconstruction metrics and latents within 1e-3 relative, every
     other number of the report (probe, traversal, silhouette) within 0.05,
@@ -4527,9 +4595,11 @@ def run_demo_notebook(tmp: str, kernels: dict) -> dict:
     debug, batch = raw["debug"], int(raw["training"]["batch_size"])
 
     after = []                  # each kernel's launches after each cell
+    encodes = []                # the model's encode calls after each cell
 
     def after_cell(i):
         after.append(dict(read_counts(kernels)))
+        encodes.append(forwards["encode"])
 
     reset_config_cache()
     reset_logger()
@@ -4537,7 +4607,9 @@ def run_demo_notebook(tmp: str, kernels: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
     try:
-        run = run_notebook(os.path.join(root, NOTEBOOK), after_cell=after_cell)
+        with counted_forwards() as forwards:
+            run = run_notebook(os.path.join(root, NOTEBOOK),
+                               after_cell=after_cell)
         launches = read_counts(kernels)
         peak = torch.cuda.max_memory_allocated() / 2**30
     finally:
@@ -4550,24 +4622,32 @@ def run_demo_notebook(tmp: str, kernels: dict) -> dict:
                       -(-int(debug["test_samples"]) // batch))
     test_batches = -(-len(ns["test_ds"]) // batch)
 
-    def cell(fwd=0, bwd=0, decodes=0):
+    def cell(fwd=0, bwd=0, decodes=0, encodes=None):
         return {**{name: 0 for name in kernels},
                 "fused_reparam_kl": fwd, "reparam_kl_backward": bwd,
-                **upsample_launches(decodes, bwd, blocks=DEMO_BLOCKS)}
+                **block_launches(decodes, bwd, blocks=DEMO_BLOCKS,
+                                 encodes=encodes)}
 
+    cell_encodes = {name: n - m for name, n, m in
+                    zip(NOTEBOOK_CELLS, encodes, [0] + encodes)}
     # train() captures one train step and one validation batch
     want = {"train": plus(cell(steps + epochs * val_batches, steps,
                                steps + epochs * (val_batches + 1)),
                           capture_warmup(kernels, False, train=1, val=1,
                                          blocks=DEMO_BLOCKS)),
-            "evaluate_full": cell(test_batches + 1, 0, test_batches + 2),
-            "reconstructions": cell(0, 0, 1)}
+            "evaluate_full": cell(test_batches + 1, 0, test_batches + 2,
+                                  cell_encodes["evaluate_full"]),
+            "reconstructions": cell(0, 0, 1,
+                                    cell_encodes["reconstructions"])}
     got, prev = {}, {name: 0 for name in kernels}
     for name, counts in zip(NOTEBOOK_CELLS, after):
         got[name] = {k: counts[k] - prev[k] for k in kernels}
         prev = counts
-    bad = {name: (got[name], want.get(name, cell()))
-           for name in NOTEBOOK_CELLS if got[name] != want.get(name, cell())}
+    # every other cell: the GN kernels of the encodes it runs, if any
+    for name in NOTEBOOK_CELLS:
+        want.setdefault(name, cell(encodes=cell_encodes[name]))
+    bad = {name: (got[name], want[name])
+           for name in NOTEBOOK_CELLS if got[name] != want[name]}
     if (epochs, steps) != (int(debug["epochs"]), int(debug["epochs"])
                            * int(debug["max_train_batches"])) or bad:
         fail(f"notebook: {epochs} epochs, {steps} steps; launches by cell "
@@ -4960,8 +5040,9 @@ def all_finite(value) -> bool:
 def run_bench(tmp: str, kernels: dict) -> dict:
     """The port's bench in-process, its e2e work under ``tmp``: the kernel
     canary and PRNG check must read "ok", every number must be finite, and
-    the GN kernels (the canary), the head forward (the canary) and the
-    reparam+KL forward and backward (every step) must each have launched."""
+    the GN kernels (the canary and every step), the head forward (the
+    canary) and the reparam+KL forward and backward (every step) must each
+    have launched."""
     import gc
 
     import torch
@@ -5010,12 +5091,20 @@ def run_bench(tmp: str, kernels: dict) -> dict:
                if launches[name] < 1]
     if missing:
         fail(f"bench: kernels {missing} never launched ({launches})")
-    # the canary's GN launches: every one on the cluster path
+    # the GN launches by path: every forward on the generic path (the
+    # canary's 2 calls, each train step's and validation batch's 8 blocks,
+    # the batch-1 encodes' 4); backward, the canary's on the cluster path,
+    # then each train step's 7 blocks on the cluster path and dec3 on the
+    # generic one
     gn_paths = {name: dict(kernels[name].launches_by_path)
                 for name in ("gn_forward", "gn_backward")}
-    if any(p["generic"] or not p["cluster"] for p in gn_paths.values()):
-        fail(f"bench: the canary's GN launches by path {gn_paths}, want all "
-             f"on the cluster path")
+    fwd, bwd = gn_paths["gn_forward"], gn_paths["gn_backward"]
+    if not (bwd["generic"] and bwd["cluster"] - 1 == 7 * bwd["generic"]
+            and list(fwd) == ["generic"]
+            and fwd["generic"] - 2 >= 8 * bwd["generic"]):
+        fail(f"bench: GN launches by path {gn_paths}, want every forward "
+             f"generic, the canary's backward on the cluster path and 7 "
+             f"cluster backward launches to each generic one a step")
     # the steady state's K = 192 graphs and the e2e run's K = 182 ones: the
     # seconds of each capture (warm-up included), the run's peak memory
     return {"phase": "bench", "args": BENCH_ARGS, "seconds": seconds,
@@ -5339,8 +5428,7 @@ def main() -> None:
         "card": card,
         "blocks": gn["blocks"],
         "shapes": [{"shape": c["shape"], "dtype": c["dtype"],
-                    "k" if c["path"] == "cluster" else "splits":
-                    c.get("k", c.get("splits")), **c[part]}
+                    "k": c["k"], **c[part]}
                    for c in gn["cases"].values()],
     } for name, part, replaces, keys in (
         ("gn_forward", "forward", "betavae_tpu/ops/pallas_gn.py:113",

@@ -18,7 +18,7 @@ from betavae_tpu_torch.ops.elbo import (fused_reparam_kl, philox_normal,
                                         reparam_kl_forward,
                                         reparam_kl_reference)
 from betavae_tpu_torch.ops.gn import _DTYPE_CODES as _GN_CODES
-from betavae_tpu_torch.ops.gn import _forward_launch as _gn_forward_launch
+from betavae_tpu_torch.ops.gn import _backward_launch as _gn_backward_launch
 from betavae_tpu_torch.ops.gn import _library as _gn_library
 from betavae_tpu_torch.ops.gn import (fused_gn_relu_pool, gn_backward,
                                       gn_backward_reference, gn_forward,
@@ -417,8 +417,32 @@ def test_gn_kernels_match_plain_versions(cuda_device, shape, dtype,
     both paths: flagship block shapes, the canary's, ragged planes, a
     contiguous x that does not start on a 16-byte boundary, channels split
     unevenly over a cluster, B = 1 and B = 33.  Each call launches once,
-    on the path :func:`gn_path` names, and two launches give the same
-    bits."""
+    the backward on the path :func:`gn_path` names and the forward on the
+    generic one, and two launches give the same bits."""
+    _check_gn_against_plain(cuda_device, shape, dtype, misaligned, path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,path", [
+    ((256, 64, 128, 128), ("generic", 0)),       # enc0, dec3
+    ((256, 128, 64, 64), ("generic", 0)),        # enc1, dec2
+    ((256, 256, 32, 32), ("cluster", 8)),        # enc2, dec1
+    ((256, 512, 16, 16), ("cluster", 4)),        # enc3, dec0
+    ((256, 1024, 8, 8), ("cluster", 3)),         # enc4
+    ((256, 64, 256, 256), ("generic", 0))],      # dec4
+    ids=["enc0-dec3", "enc1-dec2", "enc2-dec1", "enc3-dec0", "enc4", "dec4"])
+def test_gn_kernels_match_plain_versions_at_the_scaled_blocks(cuda_device,
+                                                              shape, path):
+    """The scaled configuration's 10 blocks (256 px, base 64, 5 blocks) at
+    its batch of 256 in bf16, 6 shapes: each block's conv output takes the
+    path named, and the kernels hold the plain versions both ways, as at
+    the flagship's shapes."""
+    assert gn_path(shape, torch.bfloat16) == path
+    _check_gn_against_plain(cuda_device, shape, torch.bfloat16, False,
+                            path[0])
+
+
+def _check_gn_against_plain(cuda_device, shape, dtype, misaligned, path):
     x, gamma, beta, gy, gp = _gn_inputs(shape, dtype, cuda_device)
     if misaligned:
         flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)
@@ -432,13 +456,18 @@ def test_gn_kernels_match_plain_versions(cuda_device, shape, dtype,
     torch.cuda.synchronize()
     assert (gn_forward.launches, gn_backward.launches) == (n_fwd + 1,
                                                            n_bwd + 1)
-    for wrapper, before in ((gn_forward, fwd), (gn_backward, bwd)):
-        assert wrapper.launches_by_path == dict(
-            before, **{path: before[path] + 1})
+    assert gn_forward.launches_by_path == {"generic": fwd["generic"] + 1}
+    assert gn_backward.launches_by_path == dict(bwd,
+                                                **{path: bwd[path] + 1})
     assert (y.dtype, dx.dtype, pooled.dtype) == (dtype, dtype, torch.float32)
     y_ref, pooled_ref, m_ref, rstd_ref = gn_forward_reference(x, gamma, beta)
     _close_in(y, y_ref, dtype)
-    for got, want in ((pooled, pooled_ref), (m, m_ref), (rstd, rstd_ref)):
+    # pooled is the mean of the y it comes back with: against the plain
+    # version's it carries y's rounding (a bf16 y may differ by one
+    # rounding where the two sets of statistics differ in their last bit)
+    _close_in(pooled, y.float().mean(dim=(2, 3)), torch.float32)
+    _close_in(pooled, pooled_ref, dtype)
+    for got, want in ((m, m_ref), (rstd, rstd_ref)):
         _close_in(got, want, torch.float32)
     dx_ref, dgamma_ref, dbeta_ref = gn_backward_reference(
         x, gamma, beta, m, rstd, gy, gp)
@@ -453,6 +482,28 @@ def test_gn_kernels_match_plain_versions(cuda_device, shape, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
+    ((32, 64, 64, 64), torch.bfloat16), ((32, 512, 8, 8), torch.bfloat16),
+    ((32, 64, 128, 128), torch.bfloat16), ((256, 1024, 8, 8), torch.bfloat16),
+    ((256, 64, 256, 256), torch.bfloat16), ((3, 5, 37, 53), torch.float32),
+    ((2, 64, 32, 32), torch.float32), ((3, 4, 8, 8), torch.float32)])
+def test_gn_forward_is_pytorchs_groupnorm_bit_for_bit(cuda_device, shape,
+                                                      dtype):
+    """The kernels' m and rstd are PyTorch's GroupNorm's on the card
+    (``native_group_norm`` over the fp32 values, as autocast runs it), and
+    y is the ReLU of its output rounded to x's dtype, bit for bit: both
+    paths, the flagship's and the scaled config's blocks, a ragged plane,
+    and a sample of under 512 values (a warp of chains)."""
+    x, gamma, beta, _, _ = _gn_inputs(shape, dtype, cuda_device)
+    y, _, m, rstd = gn_forward(x, gamma, beta)
+    b, c, h, w = shape
+    out, m_t, r_t = torch.ops.aten.native_group_norm(
+        x.float(), gamma, beta, b, c, h * w, 1, 1e-6)
+    assert torch.equal(m, m_t.view(-1)) and torch.equal(rstd, r_t.view(-1))
+    assert torch.equal(y, torch.relu(out.to(dtype)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
     ((32, 64, 64, 64), torch.bfloat16), ((32, 128, 32, 32), torch.bfloat16),
     ((32, 256, 16, 16), torch.bfloat16), ((32, 512, 8, 8), torch.bfloat16),
     ((32, 64, 128, 128), torch.bfloat16), ((32, 64, 128, 128), torch.float32),
@@ -463,25 +514,27 @@ def test_gn_kernels_match_plain_versions(cuda_device, shape, dtype,
     ((33, 128, 32, 32), torch.bfloat16), ((2, 13, 16, 16), torch.bfloat16)])
 def test_gn_path_rule_is_the_librarys(cuda_device, shape, dtype):
     """``gn_path`` and ``betavae_gn_path`` state one rule: k for a cluster
-    path, minus the stats splits for the generic one."""
+    path, -1 for the generic one."""
     kind, n = gn_path(shape, dtype)
-    want = n if kind == "cluster" else -n
+    want = n if kind == "cluster" else -1
     assert _gn_library().betavae_gn_path(*shape, _GN_CODES[dtype]) == want
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 17, 65])
 def test_gn_refused_cluster_launch_raises(cuda_device, k):
-    """A cluster launch the library does not take raises and never falls
-    back to the generic path: at [2, 64, 32, 32] fp32, one CTA would hold
-    the whole 256 KiB sample (over budget), 17 CTAs pass the launch's 16,
-    65 pass the 64 channels."""
-    x, gamma, beta, _, _ = _gn_inputs((2, 64, 32, 32), torch.float32,
-                                      cuda_device)
-    before = dict(gn_forward.launches_by_path)
-    with pytest.raises(RuntimeError, match="GN forward kernel launch"):
-        _gn_forward_launch(x, gamma, beta, 1e-6, 0, ("cluster", k))
-    assert gn_forward.launches_by_path == before
+    """A backward cluster launch the library does not take raises and
+    never falls back to the generic path: at [2, 64, 32, 32] fp32, one CTA
+    would hold the whole 256 KiB sample (over budget), 17 CTAs pass the
+    launch's 16, 65 pass the 64 channels."""
+    x, gamma, beta, gy, gp = _gn_inputs((2, 64, 32, 32), torch.float32,
+                                        cuda_device)
+    _, _, m, rstd = gn_forward(x, gamma, beta)
+    before = dict(gn_backward.launches_by_path)
+    with pytest.raises(RuntimeError, match="GN backward kernel launch"):
+        _gn_backward_launch(x, gamma, beta, m, rstd, gy, gp, 0,
+                            ("cluster", k))
+    assert gn_backward.launches_by_path == before
 
 
 @pytest.mark.cuda
@@ -489,9 +542,15 @@ def test_gn_refused_cluster_launch_raises(cuda_device, k):
 def test_gn_gradients_match_plain_autograd(cuda_device, dtype):
     """Gradients of x, γ and β through both outputs of the autograd
     Function (the backward kernels) against autograd through the plain
-    version; dx is rounded once to x's dtype."""
+    version, y passed on in x's dtype and pooled its mean, as the blocks
+    use them (so autograd sums y's two gradients in x's dtype, as the
+    kernels do); dx is rounded once to x's dtype."""
     x, gamma, beta, gy, gp = _gn_inputs((4, 16, 33, 47), dtype, cuda_device,
                                         seed=3)
+
+    def plain(xg, gg, bg):
+        y = gn_relu_pool_reference(xg, gg, bg)[0].to(xg.dtype)
+        return y, y.float().mean(dim=(2, 3))
 
     def grads(fn):
         xg, gg, bg = (t.clone().requires_grad_() for t in (x, gamma, beta))
@@ -502,7 +561,7 @@ def test_gn_gradients_match_plain_autograd(cuda_device, dtype):
     before = gn_backward.launches
     got = grads(fused_gn_relu_pool)
     assert gn_backward.launches == before + 1
-    want = grads(gn_relu_pool_reference)
+    want = grads(plain)
     assert got[0].dtype == dtype
     _close_in(got[0], want[0], dtype)
     _close_in(got[1], want[1], torch.float32)
@@ -1107,6 +1166,61 @@ def _flagship_chunks(device, k: int):
                            device=device, seed=1, aug_kwargs=aug, graphs=True)
 
     return chunks, images, steps
+
+
+# the flagship's 8 blocks' conv outputs at batch 32, bf16: enc0 … enc3,
+# dec0 … dec3
+FLAGSHIP_BLOCK_SHAPES = [(32, 64, 64, 64), (32, 128, 32, 32),
+                         (32, 256, 16, 16), (32, 512, 8, 8),
+                         (32, 256, 16, 16), (32, 128, 32, 32),
+                         (32, 64, 64, 64), (32, 64, 128, 128)]
+
+
+@pytest.mark.cuda
+def test_flagship_captured_step_runs_the_gn_kernels_and_replays_bitwise(
+        cuda_device):
+    """The flagship train step (bf16, batch 32) captured in a graph: its
+    GN backward calls by path are ``gn_path``'s choice at each of its 8
+    block shapes (7 cluster, dec3 generic), its forward calls all generic;
+    two launches from the same state give bitwise the same metrics row and
+    parameters; each launch adds its GN kernel launches to the counters
+    ``gn.cluster_launches`` (a backward cluster call's one kernel) and
+    ``gn.generic_launches`` (two kernels a forward call and a backward
+    generic call)."""
+    from collections import Counter
+
+    import numpy as np
+
+    from betavae_tpu_torch.device import deterministic_cudnn
+    from betavae_tpu_torch.utils.profiling import SPANS
+
+    paths = Counter(gn_path(s, torch.bfloat16)[0]
+                    for s in FLAGSHIP_BLOCK_SHAPES)
+    want = {"cluster": paths["cluster"], "generic": paths["generic"]}
+    assert want == {"cluster": 7, "generic": 1}
+    make, images, steps = _flagship_chunks(cuda_device, 1)
+    with deterministic_cudnn():
+        run = make()
+        run.prepare(images)
+        per = run.captured.per_replay
+        assert per["gn_forward"] == (8, {"generic": 8})
+        assert per["gn_backward"] == (8, want)
+        snapshot = run.snapshot
+        snapshot.take()
+        before = {p: SPANS.counter(f"gn.{p}_launches") for p in want}
+        got = []
+        for _ in range(2):
+            snapshot.restore()
+            rows = run.dispatch(images, steps(0)).rows().copy()
+            got.append((rows, [p.detach().clone()
+                               for p in run.model.parameters()]))
+        run.queue.fence()
+    assert {p: SPANS.counter(f"gn.{p}_launches") - before[p]
+            for p in want} == {"cluster": 2 * 7, "generic": 2 * (16 + 2)}
+    assert np.isfinite(got[0][0]).all()
+    assert np.array_equal(got[0][0], got[1][0])
+    for a, b in zip(got[0][1], got[1][1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

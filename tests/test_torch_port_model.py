@@ -51,18 +51,24 @@ def _random_flat(template: dict, seed: int) -> dict:
 
 def _pair(*, pooling="flatten", norm="layer", activation="relu", img=16,
           blocks=2, latent_clamp=None, logvar_clamp=(-10.0, 5.0), seed=0,
-          remat=False, latent=LATENT, base=BASE):
+          remat=False, latent=LATENT, base=BASE, bf16=False,
+          fused_head=False):
+    """``(JAX model, its variables, the flat leaves, the port's module)``
+    from one seed; ``bf16`` builds the JAX module in bf16 and the port's
+    under bf16 autocast, ``fused_head`` the port's fused head (the JAX
+    module keeps its XLA head: the same convolution of the gated y)."""
     kw = dict(image_size=img, in_channels=1, latent_dim=latent,
               base_channels=base, num_blocks=blocks, activation=activation,
               norm_type=norm, se_reduction=RED, encoder_pooling=pooling,
               logvar_clamp=logvar_clamp, latent_clamp=latent_clamp,
               remat=remat)
-    jax_model = BetaVAE(module=JaxBetaVAEModule(**kw))
+    jax_model = BetaVAE(module=JaxBetaVAEModule(
+        **kw, dtype=jnp.bfloat16 if bf16 else jnp.float32))
     template = jax_model.variables_template()   # shapes only, no compile
     flat = _random_flat(flatten_pytree(jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, np.float32), template)), seed)
     variables = unflatten_like(template, flat)
-    port = BetaVAEModule(**kw)
+    port = BetaVAEModule(**kw, mixed_precision=bf16, fused_head=fused_head)
     port.load_state_dict(params_from_jax(flat), strict=True)
     port.eval()
     return jax_model, variables, flat, port
@@ -342,6 +348,136 @@ def test_remat_matches_the_jax_module_with_the_same_remat(mode):
         np.testing.assert_allclose(g.numpy(), want[name].numpy(), RTOL,
                                    ATOL * max(1.0, float(want[name].abs().max())),
                                    err_msg=name)
+
+
+def _jax_loss_and_grads(jax_model, variables, x):
+    """The loss of :func:`_train_step_grads` through the JAX module, its
+    outputs ``(recon NCHW, μ, logσ²)`` in fp32, and its gradients by the
+    port's parameter names."""
+    def loss_fn(v):
+        recon, mu, logvar, _ = jax_model.module.apply(
+            v, jnp.asarray(x), deterministic=True)
+        recon, mu, logvar = (a.astype(jnp.float32)
+                             for a in (recon, mu, logvar))
+        return (jnp.sum((recon - x) ** 2) + jnp.sum(mu ** 2)
+                + jnp.sum(logvar ** 2)), (recon, mu, logvar)
+
+    (loss, (recon, mu, logvar)), grads = jax.value_and_grad(
+        loss_fn, has_aux=True)(variables)
+    outs = (np.transpose(np.asarray(recon), (0, 3, 1, 2)), np.asarray(mu),
+            np.asarray(logvar))
+    return float(loss), outs, params_from_jax(flatten_pytree(grads))
+
+
+@pytest.mark.parametrize("remat,fused_head", [(False, False),
+                                              ("decoder", True),
+                                              (True, True)],
+                         ids=["plain", "decoder-fused", "all-fused"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_whole_model_with_the_gn_kernels_matches_jax(bf16, remat,
+                                                     fused_head):
+    """Every layer-norm ReLU block through ``fused_gn_relu_pool`` (the
+    plain version on the CPU), the fused head's ``return_gate`` path and
+    remat ``decoder``/``all`` included: the outputs (recon, μ, logσ²) and
+    the parameters' gradients of one train-mode backward against the JAX
+    module.  fp32: the forward tolerance, 1e-4 relative with 1e-5 absolute
+    scaled by the tensor's largest value, each output and each leaf.  bf16,
+    the GN kernels' bf16 tolerance (``test_torch_port_gn.py``), 5e-2: each
+    output against the JAX module's bf16 one, within 5e-2 of its largest
+    value; the whole gradient (every leaf, one vector) against the JAX
+    module's fp32 gradient, within 5e-2 of its norm.  A single small leaf
+    (an SE bias of 2 values) moves by up to ~12 % of its norm between the
+    JAX module's own bf16 and fp32 gradients, the port's by as much; the
+    whole gradient 1–2.8 % (JAX bf16) and 0.4–1.4 % (the port) over seeds
+    4, 7, 11, 13."""
+    seed, x = 4, _x(5, n=2)
+    jax_model, variables, _, port = _pair(remat=remat, seed=seed, bf16=bf16,
+                                          fused_head=fused_head)
+    _, outs, want = _jax_loss_and_grads(jax_model, variables, x)
+    if bf16:
+        jax32, variables32, _, _ = _pair(remat=remat, seed=seed)
+        _, _, want = _jax_loss_and_grads(jax32, variables32, x)
+    port.train()
+    mu, logvar = port.encode(_nchw(x))
+    recon = port.decode(mu)
+    (((recon - _nchw(x)) ** 2).sum() + mu.square().sum()
+     + logvar.square().sum()).backward()
+    rtol, atol = (0.0, 5e-2) if bf16 else (RTOL, ATOL)
+    for name, got, ref in zip(("recon", "mu", "logvar"),
+                              (recon, mu, logvar), outs):
+        np.testing.assert_allclose(
+            got.detach().float().numpy(), ref, rtol,
+            atol * max(1.0, float(np.abs(ref).max())), err_msg=name)
+    if bf16:
+        got = torch.cat([p.grad.flatten() for p in port.parameters()])
+        ref = torch.cat([want[n].flatten() for n, _ in
+                         port.named_parameters()])
+        assert float((got - ref).norm() / ref.norm()) <= 5e-2
+        return
+    for name, p in port.named_parameters():
+        ref = want[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), ref, rtol,
+                                   atol * max(1.0, float(np.abs(ref).max())),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("activation", ["relu", "leakyrelu", "elu"])
+@pytest.mark.parametrize("norm", ["layer", "batch", "none"])
+def test_only_layer_norm_relu_blocks_take_the_gn_kernels(monkeypatch, norm,
+                                                         activation):
+    """A block whose norm is ``layer`` and whose activation is ``relu``
+    runs ``fused_gn_relu_pool`` (its ``nn.GroupNorm`` only holds γ and β)
+    and hands its pooled mean to the SE block; every other block runs its
+    norm and activation modules as before, and its SE block takes the mean
+    itself.  Forward and backward, remat ``all`` included."""
+    from betavae_tpu_torch.models import beta_vae, se
+
+    calls = {"fused": 0, "modules": 0, "pooled": 0, "squeezed": 0}
+    fused, normed = beta_vae.fused_gn_relu_pool, beta_vae._normed
+
+    def counted_fused(*args):
+        calls["fused"] += 1
+        return fused(*args)
+
+    def counted_normed(*args):
+        calls["modules"] += 1
+        return normed(*args)
+
+    excite = se._Excite.forward
+
+    def counted_excite(self, x, return_gate=False, pooled=None):
+        calls["squeezed" if pooled is None else "pooled"] += 1
+        return excite(self, x, return_gate, pooled)
+
+    monkeypatch.setattr(beta_vae, "fused_gn_relu_pool", counted_fused)
+    monkeypatch.setattr(beta_vae, "_normed", counted_normed)
+    monkeypatch.setattr(se._Excite, "forward", counted_excite)
+    port = BetaVAEModule(16, 1, LATENT, BASE, 2, activation=activation,
+                         norm_type=norm, se_reduction=RED, remat=True)
+    port.train()
+    x = torch.rand(2, 1, 16, 16, generator=torch.Generator().manual_seed(0))
+    recon, mu, logvar, _ = port(x, deterministic=True)
+    (recon.sum() + mu.sum() + logvar.sum()).backward()
+    # 4 blocks, each run again by remat's recompute in the backward
+    fuses = norm == "layer" and activation == "relu"
+    assert calls == {"fused": 8 * fuses, "modules": 8 * (not fuses),
+                     "pooled": 8 * fuses, "squeezed": 8 * (not fuses)}
+    assert all(p.grad is not None for p in port.parameters())
+
+
+def test_state_dict_keys_are_the_reference_models():
+    """The GN kernels leave the parameter names as they were: each block's
+    ``norm.weight`` and ``norm.bias`` still sit in its GroupNorm, under the
+    reference torch model's names."""
+    port = BetaVAEModule(16, 1, LATENT, BASE, 2, se_reduction=RED)
+    blocks = [f"encoder.{i}." for i in range(2)] + \
+        [f"decoder_blocks.{i}." for i in range(2)]
+    want = {"fc_mu", "fc_logvar", "fc_dec", "final_conv"}
+    for b in blocks:
+        conv = f"{b}conv" if b.startswith("encoder") else f"{b}up.1"
+        want |= {conv, f"{b}norm", f"{b}se.block.fc.0", f"{b}se.block.fc.2"}
+    assert set(port.state_dict()) == {f"{m}.{p}" for m in want
+                                      for p in ("weight", "bias")}
 
 
 def test_remat_values_and_the_config_key(tmp_path):

@@ -19,7 +19,8 @@ from betavae_tpu_torch.eval.logs import iter_metrics
 from betavae_tpu_torch.utils import profiling
 from betavae_tpu_torch.utils.profiling import CHUNK, SpanRecord, Spans
 
-from test_torch_port_train import _port_train, _rotation_config
+from test_torch_port_train import (_count_plain_calls, _port_train,
+                                   _rotation_config, _stub_graphs)
 
 TRAINER_SPANS = ("trainer.drain", "trainer.val_dispatch", "trainer.rotate",
                  "trainer.val_read", "trainer.probes", "trainer.checkpoint",
@@ -281,3 +282,45 @@ def test_spans_are_profiler_annotations_in_a_session_alone(tmp_path,
         pass
     assert after.traced is False and len(opened) == 2
     assert profiling._Tracing.open is False
+
+
+def test_spans_lines_count_the_captured_graphs_gn_calls_by_path(tmp_path,
+                                                                monkeypatch):
+    """The trainers' CUDA-graph path with a stand-in graph on the CPU (the
+    rotation config: 3 epochs of 5 steps in chunks of 2, 2 validation
+    batches an epoch), the GN plain versions counted as kernel calls on
+    their paths: the ``spans`` lines' ``gn.cluster_launches`` and
+    ``gn.generic_launches`` add up to the kernel launches of the captured
+    step's GN calls (a forward, two kernels on the generic path, in each
+    of the 2 encoder and 2 decoder blocks, and a backward on ``gn_path``'s
+    path: one kernel on the cluster path, two on the generic) times its
+    launches, plus the captured validation batch's forwards times its
+    launches."""
+    from betavae_tpu_torch.ops.gn import gn_path
+
+    monkeypatch.setattr(profiling.SPANS, "counters",
+                        profiling.collections.Counter())
+    _count_plain_calls(monkeypatch)
+    runs = _stub_graphs(monkeypatch)
+    path = _rotation_config(tmp_path)
+    _port_train(path)
+    cfg = yaml.safe_load(open(path))
+    lines = [m for m in iter_metrics(os.path.join(
+        cfg["paths"]["outputs_dir"], "logs", "run.log"))
+        if m["phase"] == "spans"]
+    # 16 px, base 4, 2 blocks, batch 4, fp32: each block's conv output
+    shapes = [(4, 4, 8, 8), (4, 8, 4, 4), (4, 4, 8, 8), (4, 4, 16, 16)]
+    backward = {p: sum(gn_path(s, torch.float32)[0] == p for s in shapes)
+                for p in ("cluster", "generic")}
+    launches = {kind: sum(n for k, _, n in runs if k == kind)
+                for kind in ("TrainChunks", "EvalChunks")}
+    assert launches == {"TrainChunks": 15, "EvalChunks": 6}
+    train, val = launches["TrainChunks"], launches["EvalChunks"]
+    want = {"cluster": train * backward["cluster"],
+            "generic": (train + val) * 2 * len(shapes)
+            + train * 2 * backward["generic"]}
+    for p, n in want.items():
+        got = sum(m["counters"].get(f"gn.{p}_launches", 0) for m in lines)
+        assert got == n, (p, [m["counters"] for m in lines])
+    assert backward["cluster"] > 0 and [m["epoch"] for m in lines] == \
+        [1, 2, 3]

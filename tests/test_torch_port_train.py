@@ -816,9 +816,10 @@ def test_scan_chunks_give_the_eager_lines_bitwise(eager_chunks, tmp_path, k):
 
 def _count_plain_calls(mp) -> None:
     """Make each train-path kernel wrapper count a call of its plain
-    version on the CPU as a launch (the upsample's on the vector path), as
-    it counts a kernel's launch on the card."""
-    from betavae_tpu_torch.ops import elbo, kernel_wrappers, upsample
+    version on the CPU as a launch (the upsample's on the vector path, the
+    GN forward's on the generic path and the GN backward's on the path
+    ``gn_path`` names for x), as it counts a kernel's launch on the card."""
+    from betavae_tpu_torch.ops import elbo, gn, kernel_wrappers, upsample
 
     wrappers = kernel_wrappers()
 
@@ -828,7 +829,12 @@ def _count_plain_calls(mp) -> None:
 
         def call(*args, **kwargs):
             wrapper.launches += 1
-            if hasattr(wrapper, "launches_by_path"):
+            if name == "gn_forward":
+                wrapper.launches_by_path["generic"] += 1
+            elif name == "gn_backward":
+                x = args[0]
+                wrapper.launches_by_path[gn.gn_path(x.shape, x.dtype)[0]] += 1
+            elif hasattr(wrapper, "launches_by_path"):
                 wrapper.launches_by_path["vector"] += 1
             return plain(*args, **kwargs)
 
@@ -838,6 +844,8 @@ def _count_plain_calls(mp) -> None:
     counting(elbo, "reparam_kl_backward_reference", "reparam_kl_backward")
     counting(upsample, "upsample2x_reference", "upsample_forward")
     counting(upsample, "upsample2x_backward_reference", "upsample_backward")
+    counting(gn, "gn_forward_reference", "gn_forward")
+    counting(gn, "gn_backward_reference", "gn_backward")
 
 
 def _zeroed_counts() -> dict:
@@ -965,10 +973,14 @@ def test_graph_chunk_is_n_launches_of_the_captured_step(
         assert torch.equal(got[name], value), name
     blocks = eager["upsample_backward"] // 12
     assert blocks > 0
+    # a forward runs the GN kernels in each encoder and decoder block
+    assert eager["gn_backward"] == 12 * 2 * blocks
     warm = {"fused_reparam_kl": 2 * CAPTURE_WARMUP,
             "reparam_kl_backward": CAPTURE_WARMUP,
             "upsample_forward": 2 * CAPTURE_WARMUP * blocks,
-            "upsample_backward": CAPTURE_WARMUP * blocks}
+            "upsample_backward": CAPTURE_WARMUP * blocks,
+            "gn_forward": 2 * CAPTURE_WARMUP * 2 * blocks,
+            "gn_backward": CAPTURE_WARMUP * 2 * blocks}
     assert counts == {name: n + warm.get(name, 0)
                       for name, n in eager.items()}
 
