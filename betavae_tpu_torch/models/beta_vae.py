@@ -66,6 +66,7 @@ from ..ops.head import fused_se_conv_head
 from ..ops.reparam import reparameterize_and_kl
 from ..ops.upsample import Upsample2x
 from ..parallel.reduce import global_sum, world_size
+from ..utils.profiling import library_call
 from .se import SEBlock
 
 
@@ -156,12 +157,15 @@ def _norm_act(block: nn.Module, h: torch.Tensor):
     """``(activations, pooled)`` of ``block``'s norm and activation over
     its conv output ``h``: GroupNorm(1) → ReLU through the GN kernels, with
     their fp32 per-channel mean as ``pooled``, where the block is built of
-    those two; else its modules, and ``pooled`` None."""
-    if isinstance(block.norm, nn.GroupNorm) and \
-            isinstance(block.act, nn.ReLU):
-        return fused_gn_relu_pool(h, block.norm.weight, block.norm.bias,
-                                  block.norm.eps)
-    return block.act(_normed(block.norm, h)), None
+    those two; else its modules (a GroupNorm among them counted as the
+    library's, ``utils/profiling.py::library_call``), and ``pooled``
+    None."""
+    norm = block.norm
+    if isinstance(norm, nn.GroupNorm):
+        if norm.num_groups == 1 and isinstance(block.act, nn.ReLU):
+            return fused_gn_relu_pool(h, norm.weight, norm.bias, norm.eps)
+        library_call("gn.library")
+    return block.act(_normed(norm, h)), None
 
 
 class ConvBlock(nn.Module):
@@ -478,15 +482,27 @@ def resolve_fused_head(value) -> bool:
 
 
 def model_from_config(cfg=None, mixed_precision: bool | None = None,
-                      device: str | torch.device = "cuda") -> BetaVAEModule:
-    """The flagship model from the config, initialised from ``data.seed``
-    (on the CPU, so a seed gives the same weights on every device) and
-    moved to ``device``."""
+                      device: str | torch.device = "cuda") -> nn.Module:
+    """The config's model, initialised from ``data.seed`` (on the CPU, so
+    a seed gives the same weights on every device) and moved to
+    ``device``: by ``model.architecture``, the flagship β-VAE
+    (``beta_vae``, the default) or Stable Diffusion's autoencoder
+    (``autoencoder_kl``, :mod:`.autoencoder_kl`)."""
     dev = resolve_device(device)
     cfg = cfg or get_config()
     mcfg, dcfg = cfg.model, cfg.data
     if mixed_precision is None:
         mixed_precision = bool(get(cfg.training, "mixed_precision", False))
+    arch = str(get(mcfg, "architecture", "beta_vae"))
+    if arch == "autoencoder_kl":
+        from .autoencoder_kl import autoencoder_kl_from_config
+
+        return autoencoder_kl_from_config(
+            cfg, mixed_precision=mixed_precision,
+            seed=int(dcfg.seed)).to(dev)
+    if arch != "beta_vae":
+        raise ValueError(f"model.architecture must be beta_vae or "
+                         f"autoencoder_kl, got {arch!r}")
     logvar_clamp = get(mcfg, "logvar_clamp", None)
     model = BetaVAEModule(
         image_size=int(dcfg.image_size),

@@ -1,7 +1,9 @@
 """The β-VAE training objective — one function returning the 16-key dict.
 
 Counterpart of ``betavae_tpu/models/losses.py``: per-sample summed
-mse/bce/l1 reconstruction averaged over the batch ``mask``, the optional
+mse/bce/l1 reconstruction averaged over the batch ``mask`` (images and
+reconstructions compared in [0, 1], or in the range the model computes in,
+``LossSpec.image_range``: [−1, 1] for ``autoencoder_kl``), the optional
 FFL extra, elementwise KL with ``kl_per_dim`` and ``kl_mean``, β mode with
 per-dim free bits, capacity mode ``rec + γ·|kl_mean − C|``, the optional
 ``λ·mean(mu²)`` latent regulariser, the optional LPIPS extra (through the
@@ -41,6 +43,9 @@ class LossSpec:
     use_lpips: bool = False
     lpips_weight: float = 0.0
     free_bits_enabled: bool = False
+    # the range images and reconstructions (in [0, 1]) are mapped to before
+    # the reconstruction term compares them
+    image_range: tuple = (0.0, 1.0)
 
 
 def loss_spec_from_config(cfg=None) -> LossSpec:
@@ -48,6 +53,9 @@ def loss_spec_from_config(cfg=None) -> LossSpec:
     lcfg = get(cfg, "loss", None)
     mcfg = cfg.model
     free_bits = float(get(lcfg, "free_bits", 0.0) or 0.0)
+    image_range = (0.0, 1.0)
+    if get(mcfg, "architecture", "beta_vae") == "autoencoder_kl":
+        from .autoencoder_kl import IMAGE_RANGE as image_range
     return LossSpec(
         recon_loss_type=str(mcfg.reconstruction_loss),
         deterministic=bool(get(mcfg, "deterministic_overfit", False)),
@@ -58,13 +66,23 @@ def loss_spec_from_config(cfg=None) -> LossSpec:
         use_lpips=bool(get(lcfg, "use_lpips", False)),
         lpips_weight=float(get(lcfg, "lpips_weight", 0.0) or 0.0),
         free_bits_enabled=free_bits > 0.0,
+        image_range=tuple(image_range),
     )
 
 
-def _per_sample_recon(recon, x, kind: str) -> torch.Tensor:
-    """Sum over pixels per sample (fp32)."""
+def _per_sample_recon(recon, x, kind: str,
+                      image_range: tuple = (0.0, 1.0)) -> torch.Tensor:
+    """Sum over pixels per sample (fp32), ``recon`` and ``x`` mapped from
+    [0, 1] to ``image_range`` first."""
     r = recon.float()
     t = x.float()
+    lo, hi = image_range
+    if (lo, hi) != (0.0, 1.0):
+        if kind == "bce":
+            raise ValueError(f"bce compares images in [0, 1], not in "
+                             f"{image_range}")
+        r = r * (hi - lo) + lo
+        t = t * (hi - lo) + lo
     dims = tuple(range(1, x.ndim))
     if kind == "mse":
         return ((r - t) ** 2).sum(dim=dims)
@@ -105,7 +123,8 @@ def compute_loss(outputs, x: torch.Tensor, *, spec: LossSpec, beta,
     msum = torch.clamp_min(global_sum(mask.sum(), group), 1.0)
     zero = torch.zeros((), device=dev)
 
-    base_recon = global_sum((_per_sample_recon(recon, x, spec.recon_loss_type)
+    base_recon = global_sum((_per_sample_recon(recon, x, spec.recon_loss_type,
+                                               spec.image_range)
                              * mask).sum(), group) / msum
     lp = zero
     ff = zero

@@ -76,7 +76,11 @@ and so are the kernel launches it holds by path, of each wrapper that
 gives its kernels a call on each path (``kernels_by_path``), as
 ``<module>.<path>_launches``: ``gn.cluster_launches`` and
 ``gn.generic_launches``, the GN kernels of ``ops/gn.py`` that the capture
-recorded, each launch of the graph adding them.
+recorded, each launch of the graph adding them; and the calls of a
+library's kernels that the model counts (``utils/profiling.py::
+library_call``), as ``<key>_launches``: ``gn.library_launches``, the
+GroupNorms that the port's GN kernels do not run, and
+``attn.<backend>_launches``, the attention calls by the backend that ran.
 
 The captured step is the eager step (``make_train_step`` with its slot's
 values as device tensors), so a chunk computes bitwise what the steps one by
@@ -118,7 +122,7 @@ import torch
 from .. import _build
 from ..device import DeviceQueue, Job, raw_stream
 from ..ops import kernel_wrappers
-from ..utils.profiling import _Tracing, count, span
+from ..utils.profiling import LIBRARY_CALLS, _Tracing, count, span
 from .callbacks import StateSnapshot
 from .step import draw_step_augment
 
@@ -389,11 +393,14 @@ class _Captured:
     """A captured graph, each wrapper's launches a replay of it, and the
     seconds its capture took."""
 
-    def __init__(self, graph, per_replay: dict, seconds: float):
+    def __init__(self, graph, per_replay: dict, seconds: float,
+                 library: dict | None = None):
         self.graph, self.per_replay, self.seconds = graph, per_replay, seconds
         # the kernel launches a replay holds by path, of the wrappers that
-        # say how many kernels a call launches on each path
-        self.kernel_launches = {}
+        # say how many kernels a call launches on each path, and the
+        # library calls it holds
+        self.kernel_launches = {f"{key}_launches": n
+                                for key, n in (library or {}).items()}
         for name, w in kernel_wrappers().items():
             for path, k in getattr(w, "kernels_by_path", {}).items():
                 key = f"{w.__module__.rsplit('.', 1)[-1]}.{path}_launches"
@@ -457,16 +464,19 @@ class _Chunked:
                 body()
 
         self.cuda.warm_up(warm_up)
-        before = _counts()
+        before, calls = _counts(), dict(LIBRARY_CALLS)
         self.j.zero_()
         graph = self.cuda.capture(body)
         per_replay = _count_delta(before, _counts())
+        library = {k: n - calls.get(k, 0) for k, n in LIBRARY_CALLS.items()
+                   if n > calls.get(k, 0)}
         _set_counts(before)
         if restore is not None:
             restore()
         self.j.zero_()
         self.cuda.synchronize()
-        self.captured = _Captured(graph, per_replay, time.perf_counter() - t0)
+        self.captured = _Captured(graph, per_replay, time.perf_counter() - t0,
+                                  library)
         return self.captured.seconds
 
     def _take(self, j, *more):

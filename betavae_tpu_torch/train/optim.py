@@ -13,7 +13,8 @@ written with ``torch._foreach_*`` ops on the parameters' device:
     adamw  the same without the L2 term, then p ← p − lr · (update + wd·p)
     sgd    g ← g + wd·p;  t ← g + 0.9·t;  p ← p − lr·t
 
-with the learning rate, the step count t and the bias corrections
+with ``b1``, ``b2`` from ``optimization.betas`` (default (0.9, 0.999),
+optax's), the learning rate, the step count t and the bias corrections
 ``1 − bᵗ`` device tensors (fp32, as optax computes them), so a step reads
 no host scalar and a CUDA graph of it replays the update of whatever
 learning rate its step wrote (``train/chunks.py``).  The moments and the
@@ -48,11 +49,12 @@ class OptimizerChain:
     float or a 0-d fp32 tensor on the parameters' device."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, grad_clip: float,
-                 name: str, weight_decay: float):
+                 name: str, weight_decay: float, betas: tuple = (B1, B2)):
         self.optimizer = optimizer
         self.grad_clip = grad_clip
         self.name = name
         self.weight_decay = weight_decay
+        self.betas = tuple(float(b) for b in betas)
         self.params = [p for group in optimizer.param_groups
                        for p in group["params"]]
         self._bound_to = None
@@ -161,14 +163,15 @@ class OptimizerChain:
             torch._foreach_sub_(params, torch._foreach_mul(trace, lr))
             return
         m, v = self._moments
+        b1, b2 = self.betas
         count = self._count
         count.add_(1.0)
-        torch._foreach_mul_(m, B1)
-        torch._foreach_add_(m, grads, alpha=1.0 - B1)
-        torch._foreach_mul_(v, B2)
-        torch._foreach_addcmul_(v, grads, grads, value=1.0 - B2)
-        bc1 = 1.0 - torch.pow(B1, count)
-        bc2 = 1.0 - torch.pow(B2, count)
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+        bc1 = 1.0 - torch.pow(b1, count)
+        bc2 = 1.0 - torch.pow(b2, count)
         denom = torch._foreach_sqrt(torch._foreach_div(v, bc2))
         torch._foreach_add_(denom, EPS)
         update = torch._foreach_div(torch._foreach_div(m, bc1), denom)
@@ -185,17 +188,21 @@ def build_optimizer(params, cfg=None) -> OptimizerChain:
     lr = float(opt_cfg.lr)
     wd = float(get(opt_cfg, "weight_decay", 0.0) or 0.0)
     clip = float(get(cfg.training, "grad_clip", 0.0) or 0.0)
+    betas = tuple(float(b) for b in get(opt_cfg, "betas", None) or (B1, B2))
+    if len(betas) != 2:
+        raise ValueError(f"optimization.betas must be two numbers, got "
+                         f"{betas}")
     params = list(params)
     # the state's container, whose step() is never called
     if name == "adam":
-        opt = torch.optim.Adam(params, lr=lr, betas=(B1, B2), eps=EPS,
+        opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=EPS,
                                weight_decay=wd)
     elif name == "adamw":
-        opt = torch.optim.AdamW(params, lr=lr, betas=(B1, B2), eps=EPS,
+        opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=EPS,
                                 weight_decay=wd)
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=lr, momentum=MOMENTUM,
                               weight_decay=wd)
     else:
         raise ValueError("unsupported optimizer")
-    return OptimizerChain(opt, clip, name, wd)
+    return OptimizerChain(opt, clip, name, wd, betas)

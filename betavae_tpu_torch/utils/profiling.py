@@ -560,6 +560,17 @@ class Spans:
         return out
 
 
+# the calls the model makes of a library's kernels where the port has none
+# of its own, by key (``gn.library``: GroupNorm; ``attn.<backend>``: the
+# attention of the backend it ran on), counted in Python at each call, so
+# that a capture can count them in each replay (``train/chunks.py``)
+LIBRARY_CALLS = collections.Counter()
+
+
+def library_call(key: str) -> None:
+    LIBRARY_CALLS[key] += 1
+
+
 # a session opened before the first span or graph is followed too
 _watch_profiler()
 # the process's registry: the program's spans and counters, which the

@@ -1406,3 +1406,103 @@ def test_spans_never_synchronise_and_graphs_launch_from_the_device(
     assert calls == []
     assert SPANS.counter("graphs.host_launches") == host
     assert SPANS.counter("graphs.device_launches") - device == 16
+
+
+def _klf8_chunks(device, k: int):
+    """Stable Diffusion's autoencoder at its published widths
+    (``configs/sd_vae_kl_f8.yaml``: 256 px RGB, batch 12, bf16, Adam (0.5,
+    0.9)) in ``TrainChunks`` of ``k`` steps over 48 seeded images:
+    ``(chunks, images, steps)``."""
+    import numpy as np
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.models.beta_vae import model_from_config
+    from betavae_tpu_torch.models.losses import loss_spec_from_config
+    from betavae_tpu_torch.train.chunks import TrainChunks
+    from betavae_tpu_torch.train.optim import build_optimizer
+    from betavae_tpu_torch.train.step import make_train_step
+
+    reset_config_cache()
+    cfg = get_config(str(Path(__file__).resolve().parent.parent / "configs"
+                         / "sd_vae_kl_f8.yaml"))
+    b, n = 12, 48
+    model = model_from_config(cfg, device=device)
+    optimizer = build_optimizer(model.parameters(), cfg)
+    step = make_train_step(model, optimizer, loss_spec_from_config(cfg),
+                           aug_kwargs={"use_flip": False}, use_capacity=False,
+                           seed=1)
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (n, 256, 256, 3), np.uint8)).to(device)
+    sched = dict(beta=1e-6, capacity=0.0, capacity_weight=1.0, free_bits=0.0,
+                 lr=1.08e-4)
+    mask = np.ones(b, np.float32)
+
+    def steps(chunk: int) -> list:
+        return [(np.arange(s * b % n, s * b % n + b), mask, sched, s + 1)
+                for s in range(chunk * k, (chunk + 1) * k)]
+
+    def chunks():
+        return TrainChunks(step, model, optimizer, k=k, batch=b,
+                           device=device, seed=1,
+                           aug_kwargs={"use_flip": False}, graphs=True)
+
+    reset_config_cache()
+    return chunks, images, steps
+
+
+@pytest.mark.cuda
+def test_klf8_captured_step_replays_and_counts_its_library_calls(
+        cuda_device):
+    """The kl-f8 train step at its published widths and batch 12, captured
+    and launched from the device: a replay counts the library's GroupNorm
+    52 times (the model's 52 norms: ``benchmark/flops_klf8.py``'s count)
+    and its attention twice (the mid blocks), on one backend, and launches
+    none of the port's GN kernels.  Two launches of a 4-step chunk from
+    one state give bitwise the same first step, but not the same later
+    ones: at width 512 the attention runs PyTorch's memory-efficient
+    kernels, whose backward sums dq over blocks of keys with atomics
+    (three repeats on an H100 parted by up to 9.8e-4 in dq, bitwise in dk,
+    dv and the output).  So the later steps' losses are held within 1e-3
+    relative (gaps seen: up to 5.6e-5 over three repeats) and the median
+    leaf's change of its parameters within 1e-2 relative (1.5e-3 seen); a
+    leaf whose gradient is nought but for rounding (the attention's k
+    bias) moves by Adam's near-sign steps either way, so the worst leaf
+    is not held."""
+    import numpy as np
+
+    from betavae_tpu_torch.device import deterministic_cudnn
+    from betavae_tpu_torch.utils.profiling import SPANS
+
+    make, images, steps = _klf8_chunks(cuda_device, 4)
+    with deterministic_cudnn():
+        run = make()
+        run.prepare(images)
+        launches = run.captured.kernel_launches
+        attn = {k: n for k, n in launches.items() if k.startswith("attn.")}
+        assert launches["gn.library_launches"] == 52
+        assert sum(attn.values()) == 2 and len(attn) == 1
+        assert not launches.get("gn.generic_launches")
+        assert not launches.get("gn.cluster_launches")
+        assert run.captured.per_replay["gn_forward"][0] == 0
+        assert run.captured.per_replay["gn_backward"][0] == 0
+        snapshot = run.snapshot
+        snapshot.take()
+        start = [p.detach().clone() for p in run.model.parameters()]
+        before = SPANS.counter("gn.library_launches")
+        got = []
+        for _ in range(2):
+            snapshot.restore()
+            rows = run.dispatch(images, steps(0)).rows().copy()
+            got.append((rows, [p.detach().clone()
+                               for p in run.model.parameters()]))
+        run.queue.fence()
+    assert SPANS.counter("gn.library_launches") - before == 2 * 4 * 52
+    (rows_a, pa), (rows_b, pb) = got
+    assert np.isfinite(rows_a).all()
+    assert np.array_equal(rows_a[0], rows_b[0])
+    gap = np.abs(rows_a[:, 0] - rows_b[:, 0]) / np.abs(rows_b[:, 0])
+    assert gap.max() <= 1e-3, gap
+    change = sorted(float(torch.linalg.vector_norm(a - b)
+                          / torch.linalg.vector_norm(b - p0).clamp_min(1e-30))
+                    for a, b, p0 in zip(pa, pb, start))
+    assert change[len(change) // 2] <= 1e-2, change[len(change) // 2]

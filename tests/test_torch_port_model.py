@@ -465,6 +465,44 @@ def test_only_layer_norm_relu_blocks_take_the_gn_kernels(monkeypatch, norm,
     assert all(p.grad is not None for p in port.parameters())
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_a_groupnorm_of_two_groups_takes_nn_groupnorm(monkeypatch, bf16):
+    """Only GroupNorm(1) goes to the GN kernels: a block whose
+    ``nn.GroupNorm`` has two groups, followed by ReLU, gives
+    ``relu(nn.GroupNorm(h))`` (bitwise: the same modules run), launches no
+    GN kernel, counts itself as a library GroupNorm, and its SE block takes
+    the mean itself."""
+    from betavae_tpu_torch.models import beta_vae
+    from betavae_tpu_torch.utils.profiling import LIBRARY_CALLS
+
+    calls = {"fused": 0}
+    fused = beta_vae.fused_gn_relu_pool
+
+    def counted_fused(*args):
+        calls["fused"] += 1
+        return fused(*args)
+
+    monkeypatch.setattr(beta_vae, "fused_gn_relu_pool", counted_fused)
+    block = beta_vae.ConvBlock(1, 8, "layer", "relu", RED)
+    block.norm = torch.nn.GroupNorm(2, 8, eps=1e-6)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        block.norm.weight.copy_(torch.rand(8, generator=g) + 0.5)
+        block.norm.bias.copy_(torch.randn(8, generator=g))
+    h = torch.randn(2, 8, 8, 8, generator=g)
+    if bf16:
+        h = h.bfloat16()
+    before = LIBRARY_CALLS["gn.library"]
+    got, pooled = beta_vae._norm_act(block, h)
+    want = torch.relu(block.norm(h).to(h.dtype))
+    assert pooled is None and calls["fused"] == 0
+    assert LIBRARY_CALLS["gn.library"] == before + 1
+    assert got.dtype == h.dtype and torch.equal(got, want)
+    block.norm = torch.nn.GroupNorm(1, 8, eps=1e-6)
+    beta_vae._norm_act(block, h.float())
+    assert calls["fused"] == 1
+
+
 def test_state_dict_keys_are_the_reference_models():
     """The GN kernels leave the parameter names as they were: each block's
     ``norm.weight`` and ``norm.bias`` still sit in its GroupNorm, under the
