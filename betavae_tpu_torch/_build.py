@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
 ``build/kernels/lib<name>-<digest>.so`` at the repository root, then loaded
-with ``ctypes``.  The digest covers the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``build`` starts
+with ``ctypes``.  The digest covers the source, the ``csrc/*.cuh`` headers
+the sources share and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  ``build`` starts
 one ``nvcc`` per source, all at once, and waits for them together.
 
 ``csrc/<name>.cpp`` is host code (the packed-dataset decoder), compiled by
@@ -43,8 +44,11 @@ def sources() -> list[str]:
 
 
 def _digest_path(src: Path, flags) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()
+    data = src.read_bytes() + " ".join(flags).encode()
+    if src.suffix == ".cu":
+        data += b"".join(h.read_bytes()
+                         for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(data).hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 

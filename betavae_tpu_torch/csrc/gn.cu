@@ -130,6 +130,8 @@
 
 #include <mutex>
 
+#include "gn_welford.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -249,104 +251,29 @@ __device__ __forceinline__ float pre_relu(float x, float m, float rstd,
 }
 
 // ---------------------------------------------------------------------------
-// the statistics: PyTorch's GroupNorm's, bit for bit
+// the statistics: PyTorch's GroupNorm's, bit for bit (gn_welford.cuh)
 // ---------------------------------------------------------------------------
 //
-// PyTorch's GroupNorm on the card (RowwiseMomentsCUDAKernel, over the fp32
-// values autocast gives it) runs a block of kChains threads a sample, or a
-// warp where the sample has fewer values: thread t folds values t,
-// t + kChains, ... into a Welford (mean, m2, n) in that order; the block
-// then merges them by warp shuffles (lane l with lane l + 16, 8, 4, 2, 1),
-// and the warps' results likewise in warp order, and takes var = m2/n,
-// rstd = rsqrt(var + eps).  gn_stats_kernel runs the same chains and the
-// warp merges, and writes each warp's result to the sample's slot; the
-// kernels that apply the statistics merge a sample's slots as the block's
-// last warp does.  Every operation is rounded as there.
+// gn_stats_kernel runs PyTorch's chains over each sample and the warp
+// merges, and writes each warp's result to the sample's slot; the kernels
+// that apply the statistics merge a sample's slots as the block's last
+// warp does.
 
-constexpr int kChains = 512;
-constexpr int kSlots = kChains / 32;    // a sample's warp results
-
-struct Welford {
-  float mean, m2, n;
-};
-
-__device__ __forceinline__ int chains_for(int64_t n) {
-  return n < kChains ? 32 : kChains;
-}
-
-__device__ __forceinline__ Welford welford_add(Welford a, float x) {
-  const float n = __fadd_rn(a.n, 1.0f);
-  const float delta = __fsub_rn(x, a.mean);
-  const float mean = __fadd_rn(a.mean, __fdiv_rn(delta, n));
-  return {mean, __fmaf_rn(delta, __fsub_rn(x, mean), a.m2), n};
-}
-
-__device__ __forceinline__ Welford welford_merge(Welford a, Welford b) {
-  if (a.n == 0.0f) return b;
-  if (b.n == 0.0f) return a;
-  const float delta = __fsub_rn(b.mean, a.mean);
-  const float n = __fadd_rn(a.n, b.n);
-  const float nb = __fdiv_rn(b.n, n);
-  const float t = __fmul_rn(__fmul_rn(delta, delta), a.n);
-  return {__fmaf_rn(delta, nb, a.mean),
-          __fmaf_rn(t, nb, __fadd_rn(a.m2, b.m2)), n};
-}
-
-__device__ __forceinline__ Welford warp_merge(Welford w) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const Welford o = {__shfl_down_sync(kFull, w.mean, off),
-                       __shfl_down_sync(kFull, w.m2, off),
-                       __shfl_down_sync(kFull, w.n, off)};
-    w = welford_merge(w, o);
-  }
-  return w;
-}
-
-constexpr int kAhead = 16;    // a chain's values loaded ahead of the folds
+using gn_welford::kChains;
+using gn_welford::kSlots;
+using gn_welford::Welford;
 
 // grid (kChains / kThreads, B): thread t of sample b runs chain t over the
-// sample's n values (value i at t + i*chains), and each warp writes its
-// chains, merged, to slot t / 32 of the sample (a warp past the chains
-// writes an empty one).  A chain is one dependent sequence of divisions:
-// the next kAhead values load while these are folded in, and only the
-// last, short run is folded under a bound check (a check a value doubled
-// the chain's time on an H100).
+// sample's n values, and each warp writes its chains, merged, to slot
+// t / 32 of the sample (a warp past the chains writes an empty one).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     gn_stats_kernel(const T* __restrict__ x, int64_t n,
                     Welford* __restrict__ slots) {
   const int b = blockIdx.y;
   const int t = blockIdx.x * kThreads + threadIdx.x;
-  const int chains = chains_for(n);
-  const T* __restrict__ xs = x + static_cast<int64_t>(b) * n + t;
-  Welford w = {0.0f, 0.0f, 0.0f};
-  if (t < chains) {
-    const int64_t len = (n - t + chains - 1) / chains;
-    const int64_t full = len / kAhead * kAhead;
-    float cur[kAhead], next[kAhead];
-    if (full > 0) {
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        cur[u] = to_float(xs[static_cast<int64_t>(u) * chains]);
-      }
-    }
-    for (int64_t i0 = 0; i0 < full; i0 += kAhead) {
-      const bool more = i0 + kAhead < full;
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        next[u] = more ? to_float(xs[(i0 + kAhead + u) * chains]) : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) w = welford_add(w, cur[u]);
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) cur[u] = next[u];
-    }
-    for (int64_t i = full; i < len; ++i) {
-      w = welford_add(w, to_float(xs[i * chains]));
-    }
-  }
-  w = warp_merge(w);
+  const Welford w = gn_welford::warp_merge(
+      gn_welford::chain(x + static_cast<int64_t>(b) * n, n, t));
   if (threadIdx.x % 32 == 0) {
     slots[static_cast<int64_t>(b) * kSlots + t / 32] = w;
   }
@@ -356,14 +283,12 @@ __global__ void __launch_bounds__(kThreads)
 // the calling warp (all 32 call it) gets them.
 __device__ __forceinline__ float2 sample_stats(
     const Welford* __restrict__ slots, int b, float eps) {
-  const int lane = threadIdx.x % 32;
-  Welford w = {0.0f, 0.0f, 0.0f};
-  if (lane < kSlots) w = slots[static_cast<int64_t>(b) * kSlots + lane];
-  w = warp_merge(w);
+  const Welford w =
+      gn_welford::merge_slots(slots + static_cast<int64_t>(b) * kSlots);
   const float m = __shfl_sync(kFull, w.mean, 0);
   const float m2 = __shfl_sync(kFull, w.m2, 0);
   const float n = __shfl_sync(kFull, w.n, 0);
-  return make_float2(m, rsqrtf(__fadd_rn(__fdiv_rn(m2, n), eps)));
+  return make_float2(m, gn_welford::rstd_of({m, m2, n}, eps));
 }
 
 // ---------------------------------------------------------------------------

@@ -43,12 +43,14 @@ step, the reparam+KL kernel and the loss take the model as they take the
 β-VAE.
 
 Mixed precision is ``torch.autocast`` to bf16 over the encoder's and the
-decoder's bodies (GroupNorm computed in fp32 there and returned in its
-input's dtype, swish in bf16), with fp32 params and ``quant_conv`` in fp32.
-Each GroupNorm call and each attention call counts itself
-(:func:`..utils.profiling.library_call`: ``gn.library`` and
+decoder's bodies, with fp32 params and ``quant_conv`` in fp32.  Every norm
+and the swish after it run as one op in its input's dtype (bf16 there),
+with fp32 statistics: :func:`..ops.gn_silu.gn_silu`, the port's kernels on
+the card (``csrc/gn_silu.cu``), their plain version on the CPU.  Each
+attention call counts itself (:func:`..utils.profiling.library_call`:
 ``attn.<backend>``, the backend ``F.scaled_dot_product_attention`` picks),
-so a captured step's replays count them (``train/chunks.py``).
+so a captured step's replays count it (``train/chunks.py``), beside the
+norm kernels' launches (``gn_silu.<path>_launches``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.gn_silu import gn_silu
 from ..ops.reparam import reparameterize_and_kl
 from ..utils.profiling import library_call
 
@@ -76,14 +79,14 @@ def sdpa_backend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """``norm(x)`` in ``x``'s dtype (autocast computes GroupNorm in fp32),
-    counted as a call of the library's GroupNorm."""
-    library_call("gn.library")
-    return norm(x).to(x.dtype)
+    """``norm(x)`` in ``x``'s dtype."""
+    return gn_silu(x, norm.weight, norm.bias, norm.num_groups, norm.eps,
+                   swish=False)
 
 
 def _norm_swish(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    return F.silu(_group_norm(norm, x))
+    """``swish(norm(x))`` in ``x``'s dtype."""
+    return gn_silu(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
 
 
 def _norm(channels: int, groups: int) -> nn.GroupNorm:

@@ -14,6 +14,7 @@ def kernel_wrappers() -> dict:
     into the modules later (a wrapper around a wrapper counts nothing)."""
     from .elbo import fused_reparam_kl, reparam_kl_backward
     from .gn import gn_backward, gn_forward
+    from .gn_silu import gn_silu_backward, gn_silu_forward
     from .head import head_forward, head_m
     from .upsample import upsample2x_backward, upsample2x_forward
 
@@ -21,5 +22,7 @@ def kernel_wrappers() -> dict:
             "reparam_kl_backward": reparam_kl_backward,
             "head_forward": head_forward, "head_m": head_m,
             "gn_forward": gn_forward, "gn_backward": gn_backward,
+            "gn_silu_forward": gn_silu_forward,
+            "gn_silu_backward": gn_silu_backward,
             "upsample_forward": upsample2x_forward,
             "upsample_backward": upsample2x_backward}

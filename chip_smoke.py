@@ -49,7 +49,13 @@ Phases, each printing one line (any failure exits non-zero at once):
    path backward), each beside ``F.group_norm`` and the unfused sequence the port's
    blocks run; where a GN call's host time goes at the canary; dec3's
    bf16 sample's backward on a non-portable cluster of 16 against the
-   generic path;
+   generic path; the GroupNorm(32) → swish kernels (``csrc/gn_silu.cu``)
+   at kl-f8's 8 norm shapes at batch 12 in bf16, swish on and off (the
+   forward bitwise the library composition the model ran before them,
+   y, dx, dγ and dβ against the plain versions, two launches bitwise,
+   every backward on the cluster path; with the swish, each direction's
+   device time beside its bound and the library composition's, and their
+   sum over one kl-f8 step's 52 norms);
    and the bilinear ×2 upsample's forward and gather-backward kernels at
    the flagship decoder's four shapes in bf16 and fp32, a ragged shape,
    the scaled config's five shapes (B = 256, bf16) and the demo
@@ -63,7 +69,13 @@ Phases, each printing one line (any failure exits non-zero at once):
    ``timed_calls`` line counts them), a call that launches no kernel of
    its wrapper fails, and ``torch.profiler`` only confirms the kernels (a
    window that misses them is retried, then reported there),
-4. slice: 3 fp32 steps of a small config on the card against the same steps
+4. klf8_step: kl-f8 (``configs/sd_vae_kl_f8.yaml``, batch 12, bf16) in
+   captured chunks of 4 steps, every launch count zeroed just before its
+   warm-up and capture: a replay's ``gn_silu.generic_launches`` 104 and
+   ``gn_silu.cluster_launches`` 104 (its 52 norms each way), no GroupNorm(1)
+   kernel and no library GroupNorm, a chunk's counters and wrapper counts
+   4 replays' worth, finite losses, step ms and peak memory;
+   slice: 3 fp32 steps of a small config on the card against the same steps
    on the CPU (the kernels' plain versions), with the default head and with
    ``training.fused_head: true``; 20 training steps of the flagship config
    (``configs/beta_vae_se.yaml`` at full width, demo data), with the
@@ -294,6 +306,12 @@ GN_GENERIC_BLOCKS = ("dec3",)
 # fp32 operations per value, counted from the kernels' arithmetic: forward
 # 3 (x, x² sums) + 6 (x̂, z, ReLU, pool sum); backward 7 + 9
 GN_FWD_OPS, GN_BWD_OPS = 9, 16
+# kl-f8 (configs/sd_vae_kl_f8.yaml): its batch a card and the steps of a
+# captured chunk in phase klf8_step; the GroupNorm(32) -> swish kernels'
+# fp32 operations a value (csrc/gn_silu.cu's header)
+KLF8_CONFIG = "configs/sd_vae_kl_f8.yaml"
+KLF8_BATCH, KLF8_CHUNK = 12, 4
+GN_SILU_FWD_OPS, GN_SILU_BWD_OPS = 25, 70
 FLAGSHIP_STEPS = 20
 # the ×2 upsample's inputs [B, C, H, W]: the flagship decoder's four (bf16
 # under autocast, and fp32), a ragged shape, the scaled config's five
@@ -1618,6 +1636,277 @@ def gn_cluster16_trial() -> dict:
     return out
 
 
+def klf8_norms() -> dict:
+    """``{(C, side): norms of that shape in one kl-f8 forward}`` at the
+    config's published widths (52 in all)."""
+    import collections
+
+    import yaml
+
+    from benchmark.flops_klf8 import norm_shapes
+
+    with open(KLF8_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    return dict(collections.Counter(norm_shapes(cfg)))
+
+
+def check_gn_silu(shape, swish: bool, timed: bool) -> dict:
+    """The GroupNorm(32) -> swish kernels (``ops/gn_silu.py``) in bf16 at
+    one of kl-f8's norm shapes: the forward bit for bit the library
+    composition the model ran before them (``F.silu(F.group_norm(
+    x.float()).to(bf16))``, ``nn.GroupNorm``'s mean and rstd), y against
+    the plain version given the kernels' statistics, dx, dgamma and dbeta
+    against the plain backward given the same statistics and dy (y and dx
+    within one bf16 step of the largest value, dgamma and dbeta 1e-4
+    relative: fp32 sums over B*H*W in another order), two launches bitwise,
+    the path each direction took; where ``timed``, each direction's device
+    time beside its bound, the plain version's and the library
+    composition's (its backward through autograd)."""
+    import torch
+    import torch.nn.functional as F
+
+    from betavae_tpu_torch.ops.gn_silu import (gn_silu_backward,
+                                               gn_silu_backward_reference,
+                                               gn_silu_forward, gn_silu_path,
+                                               gn_silu_reference)
+
+    b, c, h, w = shape
+    case = f"gn_silu {shape} bfloat16 swish={swish}"
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (2.0 * torch.randn(shape, generator=g, device="cuda")
+         + 0.5).to(torch.bfloat16)
+    gamma = 1.0 + 0.5 * torch.randn(c, generator=g, device="cuda")
+    beta = 0.5 * torch.randn(c, generator=g, device="cuda")
+    dy = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    kind, k = gn_silu_path(shape, 32, x.dtype)
+    before = {f: dict(f.launches_by_path)
+              for f in (gn_silu_forward, gn_silu_backward)}
+    y, m, rstd = gn_silu_forward(x, gamma, beta, 32, 1e-6, swish)
+    dx, dgamma, dbeta = gn_silu_backward(x, gamma, beta, m, rstd, dy, 32,
+                                         swish)
+    torch.cuda.synchronize()
+    launches_by_path = {
+        name: {p: f.launches_by_path[p] - before[f][p] for p in before[f]}
+        for name, f in (("forward", gn_silu_forward),
+                        ("backward", gn_silu_backward))}
+    if launches_by_path != {"forward": {"generic": 1},
+                            "backward": {"cluster": int(kind == "cluster"),
+                                         "generic": int(kind == "generic")}}:
+        fail(f"{case}: launches by path {launches_by_path}, path {kind}")
+    out_t, m_t, rstd_t = torch.native_group_norm(x.float(), gamma, beta, b,
+                                                 c, h * w, 32, 1e-6)
+    z = out_t.to(x.dtype)
+    library = F.silu(z) if swish else z
+    if not (torch.equal(m, m_t) and torch.equal(rstd, rstd_t)):
+        fail(f"{case}: mean or rstd not nn.GroupNorm's")
+    if not torch.equal(y, library):
+        fail(f"{case}: y not the library composition's in "
+             f"{float((y != library).float().mean())} of its values")
+    del out_t, z, library
+    y_ref, _, _ = gn_silu_reference(x, gamma, beta, 32, 1e-6, swish,
+                                    stats=(m, rstd))
+    dx_ref, dgamma_ref, dbeta_ref = gn_silu_backward_reference(
+        x, gamma, beta, m, rstd, dy, 32, swish)
+    checks = {}
+    for name, got, want, tol in (("y", y, y_ref, 2**-8),
+                                 ("dx", dx, dx_ref, 2**-8),
+                                 ("dgamma", dgamma, dgamma_ref, 1e-4),
+                                 ("dbeta", dbeta, dbeta_ref, 1e-4)):
+        scale = float(want.float().abs().max())
+        gap = float((got.float() - want.float()).abs().max())
+        if not gap <= tol * scale:
+            fail(f"{case}: {name} {gap} from the plain version's (largest "
+                 f"{scale}, allowed {tol * scale})")
+        checks[name] = {"max_abs_err": gap, "max_abs_ref": scale}
+    del y_ref, dx_ref
+    again = (*gn_silu_forward(x, gamma, beta, 32, 1e-6, swish),
+             *gn_silu_backward(x, gamma, beta, m, rstd, dy, 32, swish))
+    for first, second in zip((y, m, rstd, dx, dgamma, dbeta), again):
+        if not torch.equal(first, second):
+            fail(f"{case}: two launches differ")
+    del again
+    out = {"shape": list(shape), "dtype": "bfloat16", "swish": swish,
+           "path": kind, "k": k, "launches_by_path": launches_by_path,
+           "checks": checks}
+    if not timed:
+        return out
+
+    def call_fwd():
+        return gn_silu_forward(x, gamma, beta, 32, 1e-6, swish)
+
+    def call_bwd():
+        return gn_silu_backward(x, gamma, beta, m, rstd, dy, 32, swish)
+
+    fwd = {"device_ms": device_ms_per_call(
+               call_fwd, f"{case} forward", only="gn_silu_",
+               per_call=2, kernel="gn_silu_forward"),
+           "plain_ms": cuda_ms(lambda: gn_silu_reference(
+               x, gamma, beta, 32, 1e-6, swish), 3, warmup=1)}
+    bwd = {"device_ms": device_ms_per_call(
+               call_bwd, f"{case} backward", only="gn_silu_",
+               per_call=gn_silu_backward.kernels_by_path[kind],
+               kernel="gn_silu_backward"),
+           "plain_ms": cuda_ms(lambda: gn_silu_backward_reference(
+               x, gamma, beta, m, rstd, dy, 32, swish), 3, warmup=1)}
+    # what the model ran before the kernels, under bf16 autocast
+    xl, gl, bl = (t.clone().requires_grad_() for t in (x, gamma, beta))
+
+    def composition():
+        zl = F.group_norm(xl.float(), 32, gl, bl, 1e-6).to(x.dtype)
+        return F.silu(zl) if swish else zl
+
+    fwd["library_ms"] = cuda_ms(composition, 20)
+    yl = composition()
+    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        yl, (xl, gl, bl), dy, retain_graph=True), 20)
+    del xl, yl
+    x_bytes = x.numel() * x.element_size()
+    for row, nbytes, ops in ((fwd, 2 * x_bytes, GN_SILU_FWD_OPS),
+                             (bwd, 3 * x_bytes, GN_SILU_BWD_OPS)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops * x.numel() / FP32_OPS_PER_S * 1e3
+        row["bound_ms"] = max(bytes_ms, ops_ms)
+        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["bound_fraction"] = row["bound_ms"] / row["device_ms"]
+    out.update(forward=fwd, backward=bwd)
+    return out
+
+
+def check_gn_silu_cases() -> dict:
+    """``check_gn_silu`` at each of kl-f8's 8 norm shapes at batch 12,
+    swish on (timed) and off; every one takes the cluster path backward.
+    The kernels' device ms of one kl-f8 step (each shape's times by its
+    norms a forward, all with the swish) beside their bound."""
+    norms = klf8_norms()
+    if sum(norms.values()) != 52:
+        fail(f"gn_silu: kl-f8 has {sum(norms.values())} norms, not 52")
+    cases = []
+    for (c, side), n in norms.items():
+        for swish in (True, False):
+            case = check_gn_silu((KLF8_BATCH, c, side, side), swish,
+                                 timed=swish)
+            case["norms_a_forward"] = n
+            cases.append(case)
+    generic = [c["shape"] for c in cases if c["path"] != "cluster"]
+    if generic:
+        fail(f"gn_silu: {generic} took the generic path backward")
+    step = {part: {key: sum(c["norms_a_forward"] * c[part][key]
+                            for c in cases if c["swish"])
+                   for key in ("device_ms", "bound_ms", "library_ms")}
+            for part in ("forward", "backward")}
+    for row in step.values():
+        row["bound_fraction"] = row["bound_ms"] / row["device_ms"]
+    return {"cases": cases, "klf8_step": step}
+
+
+def run_klf8_step(kernels: dict) -> dict:
+    """kl-f8 at its published widths (``configs/sd_vae_kl_f8.yaml``: 256 px,
+    bf16, batch 12) in ``TrainChunks`` of KLF8_CHUNK captured steps over 48
+    seeded images: every wrapper's launches zeroed just before the warm-up
+    and capture and read after them and after one chunk.  A replay holds
+    the GroupNorm -> swish kernels of the model's 52 norms forward and
+    backward (``gn_silu.generic_launches`` 104, ``gn_silu.cluster_launches``
+    104: every forward two generic kernels, every backward on the cluster
+    path), no GroupNorm(1) kernel and no library GroupNorm; the chunk moves
+    the ``gn_silu.*`` counters by KLF8_CHUNK replays' worth and each
+    wrapper's count by KLF8_CHUNK x 52; finite losses; step ms of a second
+    chunk and peak memory."""
+    import numpy as np
+    import torch
+
+    from betavae_tpu_torch.config import get_config, reset_config_cache
+    from betavae_tpu_torch.models.beta_vae import model_from_config
+    from betavae_tpu_torch.models.losses import loss_spec_from_config
+    from betavae_tpu_torch.ops.gn_silu import gn_silu_path
+    from betavae_tpu_torch.train.chunks import TrainChunks
+    from betavae_tpu_torch.train.optim import build_optimizer
+    from betavae_tpu_torch.train.step import make_train_step
+    from betavae_tpu_torch.utils.profiling import SPANS
+
+    device = torch.device("cuda")
+    reset_config_cache()
+    cfg = get_config(KLF8_CONFIG)
+    b, n, k = KLF8_BATCH, 48, KLF8_CHUNK
+    norms = klf8_norms()
+    want = {}
+    for (c, side), count in norms.items():
+        kind = gn_silu_path((b, c, side, side), 32, torch.bfloat16)[0]
+        want[kind] = want.get(kind, 0) + count * kernels[
+            "gn_silu_backward"].kernels_by_path[kind]
+        want["generic"] = want.get("generic", 0) + count * kernels[
+            "gn_silu_forward"].kernels_by_path["generic"]
+    if want != {"generic": 104, "cluster": 104}:
+        fail(f"klf8_step: the rule gives {want} launches a replay, not 104 "
+             f"generic and 104 cluster")
+    model = model_from_config(cfg, device=device)
+    optimizer = build_optimizer(model.parameters(), cfg)
+    step = make_train_step(model, optimizer, loss_spec_from_config(cfg),
+                           aug_kwargs={"use_flip": False}, use_capacity=False,
+                           seed=1)
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (n, 256, 256, 3), np.uint8)).to(device)
+    sched = dict(beta=1e-6, capacity=0.0, capacity_weight=1.0, free_bits=0.0,
+                 lr=1.08e-4)
+    mask = np.ones(b, np.float32)
+
+    def steps(chunk: int) -> list:
+        return [(np.arange(s * b % n, s * b % n + b), mask, sched, s + 1)
+                for s in range(chunk * k, (chunk + 1) * k)]
+
+    run = TrainChunks(step, model, optimizer, k=k, batch=b, device=device,
+                      seed=1, aug_kwargs={"use_flip": False}, graphs=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    run.prepare(images)
+    prepared = read_counts(kernels)
+    per_replay = {key: n for key, n in run.captured.kernel_launches.items()
+                  if key.startswith(("gn", "attn.")) and n}
+    if {key: n for key, n in per_replay.items()
+            if key.startswith("gn")} != {
+            f"gn_silu.{kind}_launches": n for kind, n in want.items()}:
+        fail(f"klf8_step: a replay's launches {per_replay}, want {want}")
+    replay_calls = run.captured.launches()
+    if (replay_calls["gn_silu_forward"], replay_calls["gn_silu_backward"],
+            replay_calls["gn_forward"], replay_calls["gn_backward"]) != (
+            52, 52, 0, 0):
+        fail(f"klf8_step: wrapper calls a replay {replay_calls}")
+    counters = {kind: SPANS.counter(f"gn_silu.{kind}_launches")
+                for kind in want}
+    library = SPANS.counter("gn.library_launches")
+    rows = run.dispatch(images, steps(0)).rows().copy()
+    run.queue.fence()
+    chunk = {name: n - prepared[name]
+             for name, n in read_counts(kernels).items()}
+    moved = {kind: SPANS.counter(f"gn_silu.{kind}_launches") - counters[kind]
+             for kind in want}
+    if moved != {kind: k * n for kind, n in want.items()} or \
+            SPANS.counter("gn.library_launches") != library:
+        fail(f"klf8_step: a chunk moved the counters by {moved}")
+    if {name: n for name, n in chunk.items() if n} != {
+            name: k * n for name, n in replay_calls.items() if n}:
+        fail(f"klf8_step: a chunk's wrapper launches {chunk}, a replay's "
+             f"{replay_calls}")
+    if not np.isfinite(rows).all():
+        fail(f"klf8_step: non-finite rows {rows}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.dispatch(images, steps(1)).rows()
+    run.queue.fence()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / k * 1e3
+    out = {"phase": "klf8_step", "batch": b, "chunk_steps": k,
+           "per_replay": per_replay, "wrapper_calls_a_replay": {
+               name: n for name, n in replay_calls.items() if n},
+           "launches_prepare": prepared, "launches_chunk": chunk,
+           "first_losses": rows[:, 0].tolist(), "step_ms": step_ms,
+           "images_per_sec": b / step_ms * 1e3,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del run, step, model, optimizer, images
+    torch.cuda.empty_cache()
+    reset_config_cache()
+    return out
+
+
 def write_config(src: str, root: str, name: str, **overrides) -> str:
     """A copy of ``src`` with every path under ``root``; ``overrides`` are
     ``section.key`` → value."""
@@ -1730,8 +2019,8 @@ def capture_warmup(kernels: dict, fused_head: bool, train: int = 1,
 
 
 def plus(a: dict, b: dict) -> dict:
-    """``a`` + ``b``, key by key (``a``'s keys)."""
-    return {k: v + b.get(k, 0) for k, v in a.items()}
+    """``a`` + ``b``, key by key (either's keys, a missing one 0)."""
+    return {k: a.get(k, 0) + b.get(k, 0) for k in {**a, **b}}
 
 
 def block_launches(decodes: int, backward_steps: int = 0,
@@ -3671,7 +3960,10 @@ PROFILED_KERNELS = {"fused_reparam_kl": (r"reparam_kl_kernel", 1),
                     # a call's statistics pass, on either path
                     "gn_forward": (r"gn_stats_kernel", 2 * FLAGSHIP_BLOCKS),
                     "gn_backward": (r"gn_bwd_cluster_kernel|gn_bwd_sums_kernel",
-                                    2 * FLAGSHIP_BLOCKS)}
+                                    2 * FLAGSHIP_BLOCKS),
+                    # kl-f8's GroupNorm(32) -> swish: none in a β-VAE step
+                    "gn_silu_forward": (r"gn_silu_stats_kernel", 0),
+                    "gn_silu_backward": (r"gn_silu_params_kernel", 0)}
 
 
 def run_profile_steps(tmp: str, kernels: dict, profiled_fused: dict) -> dict:
@@ -5182,6 +5474,8 @@ def main() -> None:
           "host_us": gn_host_split()})
     emit({"phase": "kernel", "name": "gn_cluster16_trial", "card": card,
           **gn_cluster16_trial()})
+    gn_silu = check_gn_silu_cases()
+    emit({"phase": "kernel", "name": "gn_silu", "card": card, **gn_silu})
     ups = [check_upsample(shape, dtype) for shape, dtype in UPSAMPLE_CASES]
     emit({"phase": "kernel", "name": "upsample2x", "card": card,
           "cases": ups})
@@ -5192,6 +5486,9 @@ def main() -> None:
     # the path totals count the main paths' launches from here on
     for name in UPSAMPLE_PATH_TOTALS:
         kernels[name].launches_by_path.update(vector=0, generic=0)
+    klf8 = run_klf8_step(kernels)
+    klf8["card"] = card
+    emit(klf8)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         emit(check_small_slice(tmp, kernels, fused_head=False))
         emit(check_small_slice(tmp, kernels, fused_head=True))
@@ -5325,7 +5622,8 @@ def main() -> None:
                 "scaled_k1": scaled["launches_k1"][name],
                 "rotation": rotation["launches"][name],
                 "rotation_early_stop": rotation["early_stop"]["launches"][
-                    name]}
+                    name],
+                "klf8_step": klf8["launches_chunk"][name]}
 
     emit({"kernels": [{
         "name": "fused_reparam_kl",
@@ -5435,6 +5733,32 @@ def main() -> None:
          ("y", "pooled", "m", "rstd")),
         ("gn_backward", "backward", "betavae_tpu/ops/pallas_gn.py:139",
          ("dx", "dgamma", "dbeta")))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "betavae_tpu_torch/csrc/gn_silu.cu",
+        # no TPU kernel: the JAX package has no kl-f8
+        "replaces": None,
+        # its main path is kl-f8's captured step: one chunk's launches
+        "launches": klf8["launches_chunk"][name],
+        "launches_by_path": by_path(name),
+        "max_abs_err": max(c["checks"][k]["max_abs_err"]
+                           for c in gn_silu["cases"] for k in keys),
+        # one kl-f8 step's 52 norms (bf16, batch 12), summed
+        "device_ms": gn_silu["klf8_step"][part]["device_ms"],
+        "bound_ms": gn_silu["klf8_step"][part]["bound_ms"],
+        "bound_by": "bytes",
+        "bound_fraction": gn_silu["klf8_step"][part]["bound_fraction"],
+        # F.silu(F.group_norm(x.float()).to(bf16)), what the model ran
+        "library_ms": gn_silu["klf8_step"][part]["library_ms"],
+        "check": "ok",
+        "card": card,
+        "shapes": [{"shape": c["shape"], "swish": c["swish"],
+                    "path": c["path"], "k": c["k"],
+                    "norms_a_forward": c["norms_a_forward"],
+                    **c.get(part, {})} for c in gn_silu["cases"]],
+    } for name, part, keys in (
+        ("gn_silu_forward", "forward", ("y",)),
+        ("gn_silu_backward", "backward", ("dx", "dgamma", "dbeta")))] + [{
         "name": name,
         "route": "cuda",
         "source": "betavae_tpu_torch/csrc/upsample.cu",

@@ -53,7 +53,7 @@ _FAST_MODULES = {
     "test_torch_port_parallel",
     "test_torch_port_scripts", "test_torch_port_logs",
     "test_torch_port_notebook", "test_torch_port_spans",
-    "test_torch_port_autoencoder_kl",
+    "test_torch_port_autoencoder_kl", "test_torch_port_gn_silu",
 }
 
 

@@ -1408,6 +1408,152 @@ def test_spans_never_synchronise_and_graphs_launch_from_the_device(
     assert SPANS.counter("graphs.device_launches") - device == 16
 
 
+# the kl-f8 autoencoder's norms at batch 12 (C, side), and one row that does
+# not fit the 16-byte units (odd H·W)
+_GN_SILU_SHAPES = [(12, c, s, s) for c, s in (
+    (512, 32), (128, 256), (512, 64), (256, 128), (128, 128), (256, 64),
+    (512, 128), (256, 256))] + [(3, 64, 33, 35)]
+
+
+def _gn_silu_inputs(shape, dtype, device, seed: int = 0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    gamma = torch.randn(c, generator=g, device=device) * 0.5 + 1
+    beta = torch.randn(c, generator=g, device=device) * 0.3
+    dy = torch.randn(shape, generator=g, device=device).to(dtype)
+    return x, gamma, beta, dy
+
+
+def _within(got, want, rel: float, what: str) -> None:
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    gap = float((got - want).abs().max())
+    assert gap <= rel * scale, f"{what}: {gap} of {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swish", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _GN_SILU_SHAPES)
+def test_gn_silu_matches_plain_version(cuda_device, shape, dtype, swish):
+    """The GroupNorm(32) → swish kernels against their plain version, the
+    backward on the path ``gn_silu_path`` names.  The kernels' statistics
+    within 1e-5 of the plain version's float64 ones; given the kernels'
+    statistics, y within one step of x's dtype at the largest value (2⁻⁸ of
+    it in bf16, 1e-5 in fp32: the plain version rounds b as the CPU does),
+    and given the same statistics and dy, dx likewise and dγ, dβ (fp32 sums
+    over B·H·W in another order) within 1e-4."""
+    from betavae_tpu_torch.ops.gn_silu import (gn_silu_backward,
+                                               gn_silu_backward_reference,
+                                               gn_silu_forward,
+                                               gn_silu_path,
+                                               gn_silu_reference,
+                                               gn_silu_stats_reference)
+
+    x, gamma, beta, dy = _gn_silu_inputs(shape, dtype, cuda_device)
+    kind = gn_silu_path(shape, 32, dtype)[0]
+    before = (dict(gn_silu_forward.launches_by_path),
+              dict(gn_silu_backward.launches_by_path))
+    y, m, rstd = gn_silu_forward(x, gamma, beta, 32, 1e-6, swish)
+    dx, dgamma, dbeta = gn_silu_backward(x, gamma, beta, m, rstd, dy, 32,
+                                         swish)
+    torch.cuda.synchronize()
+    assert gn_silu_forward.launches_by_path["generic"] == (
+        before[0]["generic"] + 1)
+    assert gn_silu_backward.launches_by_path[kind] == before[1][kind] + 1
+    m_ref, rstd_ref = gn_silu_stats_reference(x, 32)
+    _within(m, m_ref, 1e-5, "mean")
+    _within(rstd, rstd_ref, 1e-5, "rstd")
+    act = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    y_ref, _, _ = gn_silu_reference(x, gamma, beta, 32, 1e-6, swish,
+                                    stats=(m, rstd))
+    assert y.dtype == dtype and dx.dtype == dtype
+    _within(y, y_ref, act, "y")
+    dx_ref, dgamma_ref, dbeta_ref = gn_silu_backward_reference(
+        x, gamma, beta, m, rstd, dy, 32, swish)
+    _within(dx, dx_ref, act, "dx")
+    _within(dgamma, dgamma_ref, 1e-4, "dgamma")
+    _within(dbeta, dbeta_ref, 1e-4, "dbeta")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swish", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _GN_SILU_SHAPES)
+def test_gn_silu_forward_is_the_library_composition(cuda_device, shape,
+                                                    dtype, swish):
+    """The forward kernels give what the model ran before them, bit for
+    bit: ``F.silu(F.group_norm(x.float(), 32, γ, β, 1e-6).to(x.dtype))``
+    (without the swish, the norm alone), and ``nn.GroupNorm``'s mean and
+    rstd.  The kl-f8 cell's first loss is held against that composition
+    (``benchmark/reference/autoencoder_kl.py``); a torch upgrade must pass
+    this test again."""
+    from betavae_tpu_torch.ops.gn_silu import gn_silu_forward
+
+    x, gamma, beta, _ = _gn_silu_inputs(shape, dtype, cuda_device)
+    b, c, h, w = shape
+    out, m_t, rstd_t = torch.native_group_norm(x.float(), gamma, beta, b, c,
+                                               h * w, 32, 1e-6)
+    z = out.to(dtype)
+    want = torch.nn.functional.silu(z) if swish else z
+    y, m, rstd = gn_silu_forward(x, gamma, beta, 32, 1e-6, swish)
+    assert torch.equal(m, m_t) and torch.equal(rstd, rstd_t)
+    assert torch.equal(y, want), float((y != want).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((12, 128, 256, 256), torch.bfloat16), ((12, 512, 32, 32), torch.bfloat16),
+    ((12, 256, 256, 256), torch.float32), ((3, 64, 33, 35), torch.bfloat16)])
+def test_gn_silu_two_launches_are_bitwise(cuda_device, shape, dtype):
+    """No float atomics and no order that scheduling sets: two launches
+    give the same y, statistics, dx, dγ and dβ, bit for bit, on either
+    path (the first two cases cluster, the last two generic)."""
+    from betavae_tpu_torch.ops.gn_silu import gn_silu_backward, gn_silu_forward
+
+    x, gamma, beta, dy = _gn_silu_inputs(shape, dtype, cuda_device, seed=1)
+    runs = []
+    for _ in range(2):
+        y, m, rstd = gn_silu_forward(x, gamma, beta, 32)
+        runs.append((y, m, rstd,
+                     *gn_silu_backward(x, gamma, beta, m, rstd, dy, 32)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _GN_SILU_SHAPES + [
+    (1, 512, 32, 32), (2, 128, 64, 64), (12, 128, 8, 8), (4, 64, 16, 16)])
+def test_gn_silu_library_runs_the_rules_plans(cuda_device, shape, dtype):
+    """The path rule is stated once, in ``ops/gn_silu.py::_plan``; the
+    library runs the plan it is given (a call on that path launches and
+    is counted on it) and refuses one its kernels cannot run: a cluster
+    span past one CTA's shared memory, k CTAs short of the row, a cluster
+    on rows of single values."""
+    from betavae_tpu_torch.ops.gn_silu import (_DTYPE_CODES, _library,
+                                               _plan, gn_silu_backward,
+                                               gn_silu_forward, gn_silu_path)
+
+    b, c, h, w = shape
+    code = _DTYPE_CODES[dtype]
+    k, span = _plan(shape, 32, dtype)
+    assert _library().betavae_gn_silu_work(b, c, h * w, 32, code, k,
+                                           span) > 0
+    kind = gn_silu_path(shape, 32, dtype)[0]
+    x, gamma, beta, dy = _gn_silu_inputs(shape, dtype, cuda_device)
+    _, m, rstd = gn_silu_forward(x, gamma, beta, 32)
+    before = gn_silu_backward.launches_by_path[kind]
+    gn_silu_backward(x, gamma, beta, m, rstd, dy, 32)
+    torch.cuda.synchronize()
+    assert gn_silu_backward.launches_by_path[kind] == before + 1
+    work = _library().betavae_gn_silu_work
+    assert work(b, c, h * w, 32, code, 1, 208 * 1024 // 16 + 32) == -1
+    assert work(b, c, h * w, 32, code, 1, 32) == -1
+    assert work(b, c, 33 * 33, 32, code, 8, 64) == -1
+
+
 def _klf8_chunks(device, k: int):
     """Stable Diffusion's autoencoder at its published widths
     (``configs/sd_vae_kl_f8.yaml``: 256 px RGB, batch 12, bf16, Adam (0.5,
@@ -1454,10 +1600,12 @@ def _klf8_chunks(device, k: int):
 def test_klf8_captured_step_replays_and_counts_its_library_calls(
         cuda_device):
     """The kl-f8 train step at its published widths and batch 12, captured
-    and launched from the device: a replay counts the library's GroupNorm
-    52 times (the model's 52 norms: ``benchmark/flops_klf8.py``'s count)
-    and its attention twice (the mid blocks), on one backend, and launches
-    none of the port's GN kernels.  Two launches of a 4-step chunk from
+    and launched from the device: a replay runs the GroupNorm → swish
+    kernels for each of the model's 52 norms (``benchmark/flops_klf8.py``'s
+    count) forward and backward, the backward on the paths ``gn_silu_path``
+    names, and
+    the library's GroupNorm none, its attention twice (the mid blocks), on
+    one backend, and none of the GroupNorm(1) kernels.  Two launches of a 4-step chunk from
     one state give bitwise the same first step, but not the same later
     ones: at width 512 the attention runs PyTorch's memory-efficient
     kernels, whose backward sums dq over blocks of keys with atomics
@@ -1473,13 +1621,31 @@ def test_klf8_captured_step_replays_and_counts_its_library_calls(
     from betavae_tpu_torch.device import deterministic_cudnn
     from betavae_tpu_torch.utils.profiling import SPANS
 
+    from benchmark.flops_klf8 import norm_shapes
+    from betavae_tpu_torch.ops.gn_silu import (gn_silu_backward,
+                                               gn_silu_forward, gn_silu_path)
+
     make, images, steps = _klf8_chunks(cuda_device, 4)
+    cfg = yaml.safe_load((Path(__file__).resolve().parent.parent / "configs"
+                          / "sd_vae_kl_f8.yaml").read_text())
+    want = {}
+    for c, side in norm_shapes(cfg):
+        kind = gn_silu_path((12, c, side, side), 32, torch.bfloat16)[0]
+        want[kind] = want.get(kind, 0) + gn_silu_backward.kernels_by_path[kind]
+        want["generic"] = (want.get("generic", 0)
+                           + gn_silu_forward.kernels_by_path["generic"])
+    assert len(norm_shapes(cfg)) == 52
     with deterministic_cudnn():
         run = make()
         run.prepare(images)
         launches = run.captured.kernel_launches
         attn = {k: n for k, n in launches.items() if k.startswith("attn.")}
-        assert launches["gn.library_launches"] == 52
+        assert launches.get("gn.library_launches", 0) == 0
+        assert {k: n for k, n in launches.items()
+                if k.startswith("gn_silu.") and n} == {
+            f"gn_silu.{kind}_launches": n for kind, n in want.items()}
+        assert run.captured.per_replay["gn_silu_forward"][0] == 52
+        assert run.captured.per_replay["gn_silu_backward"][0] == 52
         assert sum(attn.values()) == 2 and len(attn) == 1
         assert not launches.get("gn.generic_launches")
         assert not launches.get("gn.cluster_launches")
@@ -1488,7 +1654,9 @@ def test_klf8_captured_step_replays_and_counts_its_library_calls(
         snapshot = run.snapshot
         snapshot.take()
         start = [p.detach().clone() for p in run.model.parameters()]
-        before = SPANS.counter("gn.library_launches")
+        before = {kind: SPANS.counter(f"gn_silu.{kind}_launches")
+                  for kind in want}
+        library = SPANS.counter("gn.library_launches")
         got = []
         for _ in range(2):
             snapshot.restore()
@@ -1496,7 +1664,10 @@ def test_klf8_captured_step_replays_and_counts_its_library_calls(
             got.append((rows, [p.detach().clone()
                                for p in run.model.parameters()]))
         run.queue.fence()
-    assert SPANS.counter("gn.library_launches") - before == 2 * 4 * 52
+    for kind, n in want.items():
+        assert (SPANS.counter(f"gn_silu.{kind}_launches") - before[kind]
+                == 2 * 4 * n)
+    assert SPANS.counter("gn.library_launches") == library
     (rows_a, pa), (rows_b, pb) = got
     assert np.isfinite(rows_a).all()
     assert np.array_equal(rows_a[0], rows_b[0])
